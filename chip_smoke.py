@@ -4,14 +4,15 @@
     python3 chip_smoke.py          # from the repo root, on a host with a GPU
 
 Builds the CUDA kernels from pyrope_tpu_torch/csrc at first use, then runs
-six phases, one line each; any failed check exits non-zero:
+eight phases, one line each (phase 8 two); any failed check exits non-zero:
 
   1. device    torch/CUDA versions, the card's name and power limit
   2. build     nvcc build time, registers and spills per kernel
   3. kernels   each kernel against its plain PyTorch version on the card at
-               the main path's shapes: equal hit sets, scores within
+               the main paths' shapes: equal hit sets, scores within
                |a-b| <= 1e-4 + 1e-5|b| (fp32 both sides, other summation
-               order), kernel and plain times (CUDA events, median)
+               order; the SQ8 scan 1e-4 + 1e-4|b|, the JAX package's SQ8
+               tolerance), kernel and plain times (CUDA events, median)
   4. slice     create_index(IVF_FLAT, nlist 1000, nprobe 3, dense) on 1M x
                128 clustered rows through the registry's Delta(Flat,
                IVF_FLAT): add_batch, build (compaction -> k-means -> slab),
@@ -22,9 +23,22 @@ six phases, one line each; any failed check exits non-zero:
                b4096: route dense-pallas, recall@10 within 0.005 of 0.9972
   6. flat      FlatIndex(selection="pallas") on 1M uniform rows, b1024:
                exact, recall@10 1.0
+  7. pq        create_index(IVF_PQ, nlist 1000, pq_m 16, ksub 256,
+               refine_storage sq8res) on the same 1M clustered rows through
+               Delta(Flat, IVF_PQ): add_batch, build; route
+               dense-sq8-pallas-win at b256 (the SQ8 kernel), recall@10 >=
+               0.9736 from search_batch and device_search on 1024 queries;
+               build_s, QPS and p50/p99 at b256 and b1024, device bytes
+  8. pq narrow IvfPqIndex nlist 100, pq_m 16, sq8res on 100k clustered rows,
+               b1024: route dense-sq8-pallas, recall@10 >= 0.9783; the same
+               index in probe mode (probe-adc+rerank-sq8, the ADC path);
+               the registry default fp32 rerank slab (dense-exact-pallas,
+               the IVF kernel); and a second build from the same seed with
+               bit-equal centroids, codebooks, PQ codes and SQ8 codes
 
-The kernels' launch counters are zeroed before phase 4 and read after phase
-6: every kernel must have run on that path. The last three lines are the
+The kernels' launch counters are zeroed before each serving path (phases
+4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path) and read after it:
+every kernel of a path must have run on it. The last three lines are the
 kernels' JSON record, the card as nvidia-smi names it, and
 {"ok": true, "device": {...}}.
 """
@@ -53,11 +67,14 @@ from pyrope_tpu.utils.datasets import (
 from pyrope_tpu.utils.stats import LatencySummary
 from pyrope_tpu_torch.index.flat import FlatIndex
 from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex, rank_probes
+from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
 from pyrope_tpu_torch.kernels import build as kbuild
 from pyrope_tpu_torch.ops import fused_scan as fs
+from pyrope_tpu_torch.ops.slab import sq8res_encode
 from pyrope_tpu_torch.registry import create_index
 
 RTOL, ATOL = 1e-5, 1e-4
+SQ8_RTOL = 1e-4   # the JAX package's SQ8 kernel tolerance
 K = 10
 SOURCE = "pyrope_tpu_torch/csrc/fused_scan.cu"
 PALLAS = "pyrope_tpu/ops/pallas_scan.py"
@@ -88,7 +105,7 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def compare(kernel_out, plain_out, what: str) -> tuple[float, int]:
+def compare(kernel_out, plain_out, what: str, rtol: float = RTOL) -> tuple[float, int]:
     """Hit sets equal, scores within tolerance. A hit may differ only as a
     tie at the k-th place: both scores within tolerance of the k-th score.
     Returns (max |score difference| at equal rank, tie swaps)."""
@@ -97,14 +114,14 @@ def compare(kernel_out, plain_out, what: str) -> tuple[float, int]:
     require(kv.shape == pv.shape, f"{what}: shapes {kv.shape} vs {pv.shape}")
     fin = np.isfinite(pv)
     require((np.isfinite(kv) == fin).all(), f"{what}: missing-hit slots differ")
-    require(np.allclose(kv[fin], pv[fin], rtol=RTOL, atol=ATOL),
+    require(np.allclose(kv[fin], pv[fin], rtol=rtol, atol=ATOL),
             f"{what}: scores differ beyond tolerance")
     swaps = 0
     for b in np.nonzero((np.sort(ki, 1) != np.sort(pi, 1)).any(1))[0]:
         kth = pv[b][fin[b]][-1]
         only = set(ki[b]) ^ set(pi[b])
         score = {**dict(zip(pi[b], pv[b])), **dict(zip(ki[b], kv[b]))}
-        require(all(np.isclose(score[r], kth, rtol=RTOL, atol=ATOL) for r in only),
+        require(all(np.isclose(score[r], kth, rtol=rtol, atol=ATOL) for r in only),
                 f"{what}: query {b} hit sets differ outside a k-th place tie")
         swaps += len(only) // 2
     err = float(np.abs(kv[fin] - pv[fin]).max()) if fin.any() else 0.0
@@ -188,11 +205,11 @@ def phase_kernels(dev) -> dict:
     sq = (x * x).sum(1)
     alive = torch.rand(n, generator=g, device=dev) > 0.01
     q = torch.rand((b, d), generator=g, device=dev)
-    rec = {"flat": {"err": 0.0}, "ivf": {"err": 0.0}, "merge": {"err": 0.0}}
+    rec = {kind: {"err": 0.0} for kind in ("flat", "ivf", "sq8", "merge")}
     cells = []
 
     def case(kind, name, kern, plain, reps=10, plain_reps=3, main=False):
-        err, swaps = compare(kern(), plain(), name)
+        err, swaps = compare(kern(), plain(), name, SQ8_RTOL if kind == "sq8" else RTOL)
         rec[kind]["err"] = max(rec[kind]["err"], err)
         ms, pms = cuda_ms(kern, reps), cuda_ms(plain, plain_reps)
         if main:
@@ -223,6 +240,23 @@ def phase_kernels(dev) -> dict:
          lambda: fs.fused_ivf_topk(q2, x2, sq2, alive2, crow2, probe2, kp2, K),
          lambda: fs.fused_ivf_topk_plain(q2, x2, sq2, alive2, crow2, probe2, kp2, K,
                                          chunk_rows=16384))
+    # the SQ8 scan: x stored as residual SQ8 against one centroid per cluster
+    for n_s, kp_s in ((n, 1000), (100_000, 100)):
+        xs = x[:n_s]
+        crow_s = torch.sort(torch.randint(0, kp_s, (n_s,), generator=g,
+                                          device=dev)).values.int()
+        cents = xs[torch.randint(0, n_s, (kp_s,), generator=g, device=dev)]
+        codes, mins, scales, sq8 = sq8res_encode(xs, cents, crow_s)
+        alive_s = alive[:n_s].contiguous()
+        probe_s = torch.rand((b, kp_s), generator=g, device=dev).argsort(1)[:, :3]
+        qc = q @ cents.T
+        for metric in (Metric.L2, Metric.INNER_PRODUCT):
+            args = (q, codes, mins, scales, sq8, alive_s, crow_s, probe_s, qc, kp_s, K, metric)
+            case("sq8", f"sq8_{n_s // 1000}k_nlist{kp_s}_np3_b1024_{metric.value}",
+                 lambda: fs.fused_ivf_sq8_topk(*args),
+                 lambda: fs.fused_ivf_sq8_topk_plain(*args, chunk_rows=65536),
+                 main=(n_s == n and metric == Metric.L2))
+        del codes, mins, scales, sq8
     # the merge alone, on partials of the main path's shape (1M rows, b1024)
     _, splits = fs.scan_splits(b, n, dev)
     pv = torch.rand((splits, b, K), generator=g, device=dev).sort(2, descending=True).values
@@ -236,11 +270,17 @@ def phase_kernels(dev) -> dict:
     return rec
 
 
-def phase_slice(dev, counts_before) -> tuple[dict, np.ndarray]:
-    n, d = 1_000_000, 128
-    base = synthetic_clustered(n, d, n_clusters=1000)
-    queries = synthetic_clustered_queries(8 * 1024, d, n_clusters=1000)
-    truth = ground_truth(base, queries[:1024], K, block=16384)
+def clustered_1m() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The 1M x 128 clustered corpus of phases 4 and 7 (1000 centers), 8192
+    queries, and the ground truth of the first 1024."""
+    base = synthetic_clustered(1_000_000, 128, n_clusters=1000)
+    queries = synthetic_clustered_queries(8 * 1024, 128, n_clusters=1000)
+    return base, queries, ground_truth(base, queries[:1024], K, block=16384)
+
+
+def phase_slice(dev, counts_before, data) -> dict:
+    base, queries, truth = data
+    n, d = base.shape
     ix = create_index(IndexConfig(dim=d, metric=Metric.L2, algorithm="IVF_FLAT",
                                   params=IndexParams(nlist=1000, nprobe=3,
                                                      scan_mode="dense")),
@@ -288,7 +328,7 @@ def phase_slice(dev, counts_before) -> tuple[dict, np.ndarray]:
         rank_probes_ms=round(rank_ms, 3), scan_plus_merge_ms=round(scan_ms, 3),
         resolve_rows_ms=round(resolve_ms, 2),
         ivf_launches=fs.LAUNCHES["ivf_scan"] - counts_before["ivf_scan"])
-    return srv, base
+    return srv
 
 
 def phase_narrow(dev) -> None:
@@ -329,6 +369,123 @@ def phase_flat(dev) -> None:
         misses_beyond_fp32_ties=not_ties, **srv)
 
 
+def phase_pq(dev, data) -> None:
+    """The IVF-PQ path at SIFT1M scale: Delta(Flat, IVF_PQ sq8res)."""
+    base, queries, truth = data
+    n, d = base.shape
+    ix = create_index(IndexConfig(dim=d, metric=Metric.L2, algorithm="IVF_PQ",
+                                  params=IndexParams(nlist=1000, pq_m=16, k=256,
+                                                     refine_storage="sq8res")),
+                      device=dev)
+    ix.add_batch([str(i) for i in range(n)], base)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ix.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    tail = ix.tail
+    require(all(key not in tail._dev for key in ("xraw", "xsqnorm")),
+            "an sq8res index holds an fp32 rerank slab")
+    route = tail.describe_scan(256)
+    require(route == "dense-sq8-pallas-win", f"1M nlist 1000 sq8res route is {route}")
+    launches = fs.LAUNCHES["sq8_scan"]
+    r_search = recall(ix.search_batch(queries[:1024], K), truth)
+    q1024 = [torch.from_numpy(queries[i * 1024:(i + 1) * 1024]).to(dev) for i in range(8)]
+    _, rows = ix.device_search(q1024[0], K)
+    r_device = recall_at_k(id_lists_to_rows(ix.resolve_rows(rows.cpu().numpy()), K),
+                           truth, K)
+    require(fs.LAUNCHES["sq8_scan"] > launches, "SQ8 kernel never launched")
+    require(r_search >= 0.9736 and r_device >= 0.9736,
+            f"recall@10 {r_search}/{r_device} < 0.9736")
+    q256 = [torch.from_numpy(queries[i * 256:(i + 1) * 256]).to(dev) for i in range(32)]
+    s256, s1024 = serve(ix, q256, iters=400), serve(ix, q1024, iters=100)
+    # per-layer times of one batch (CUDA events, median)
+    tdev = tail._sync()
+    layers = {}
+    for qb in (q256[0], q1024[0]):
+        def rank():
+            return rank_probes(qb, tdev["cents"], tdev["cvalid"], tdev["offsets"],
+                               tdev["lens"], 3, n, Metric.L2)[0]
+        probe, qc = rank(), qb @ tdev["cents"].T
+        layers[f"b{len(qb)}_rank_probes_ms"] = round(cuda_ms(rank, 10), 3)
+        layers[f"b{len(qb)}_qc_ms"] = round(cuda_ms(lambda: qb @ tdev["cents"].T, 10), 3)
+        layers[f"b{len(qb)}_sq8_scan_plus_merge_ms"] = round(cuda_ms(
+            lambda: fs.fused_ivf_sq8_topk(
+                qb, tdev["codes8"], tdev["mins"], tdev["scales"], tdev["sq8norm"],
+                tdev["alive"], tdev["crow"], probe, qc, tdev["cents"].shape[0], K), 10), 3)
+    say("7 pq", route=route, n=n, build_s=round(build_s, 2),
+        recall_search_batch=r_search, recall_device_search=r_device,
+        **{f"b256_{k}": v for k, v in s256.items()},
+        **{f"b1024_{k}": v for k, v in s1024.items()}, **layers,
+        memory_bytes=repr(tail.memory_bytes()),
+        cuda_memory_allocated=torch.cuda.memory_allocated(dev),
+        build_peak_cuda_memory=build_peak)
+
+
+def _pq_narrow_index(dev, base, **kw) -> tuple[IvfPqIndex, float]:
+    ix = IvfPqIndex(base.shape[1], "L2", device=dev, nlist=100, pq_m=16, ksub=256, **kw)
+    ix.add_batch([str(i) for i in range(len(base))], base)
+    t0 = time.perf_counter()
+    ix.build()
+    torch.cuda.synchronize()
+    return ix, time.perf_counter() - t0
+
+
+def phase_pq_narrow(dev) -> None:
+    n, d, b = 100_000, 128, 1024
+    base = synthetic_clustered(n, d, n_clusters=100)
+    queries = synthetic_clustered_queries(b, d, n_clusters=100)
+    truth = ground_truth(base, queries, K, block=16384)
+    q_dev = [torch.from_numpy(queries).to(dev)]
+
+    def device_recall(ix) -> float:
+        _, rows = ix.device_search(q_dev[0], K)
+        return recall_at_k(id_lists_to_rows(ix.resolve_rows(rows.cpu().numpy()), K),
+                           truth, K)
+
+    ix, build_s = _pq_narrow_index(dev, base, refine_storage="sq8res")
+    route = ix.describe_scan(b)
+    require(route == "dense-sq8-pallas", f"100k nlist 100 sq8res route is {route}")
+    launches = fs.LAUNCHES["sq8_scan"]
+    r = device_recall(ix)
+    require(fs.LAUNCHES["sq8_scan"] > launches, "SQ8 kernel never launched")
+    require(r >= 0.9783, f"recall@10 {r} < 0.9783")
+    srv = serve(ix, q_dev, iters=50)
+    ix.scan_mode = "probe"        # the ADC shortlist, reranked off the SQ8 slab
+    probe_route = ix.describe_scan(b)
+    require(probe_route == "probe-adc+rerank-sq8", f"probe route is {probe_route}")
+    r_probe = device_recall(ix)
+    s_probe = serve(ix, q_dev, iters=10)
+    say("8 pq narrow", route=route, n=n, batch=b, build_s=round(build_s, 2),
+        recall=r, **srv, probe_route=probe_route, probe_recall=r_probe,
+        probe_qps=s_probe["qps"], probe_p50_ms=s_probe["p50_ms"])
+
+    twin, _ = _pq_narrow_index(dev, base, refine_storage="sq8res")
+    same = {
+        "centroids": np.array_equal(ix.get_centroids(), twin.get_centroids()),
+        "codebooks": np.array_equal(ix.pq.codebooks, twin.pq.codebooks),
+        "pq_codes": np.array_equal(ix._codes, twin._codes),
+        "sq8_codes": all(torch.equal(ix._dev[key], twin._dev[key])
+                         for key in ("codes8", "mins", "scales", "sq8norm")),
+    }
+    require(all(same.values()), f"two builds from one seed differ: {same}")
+    del ix, twin
+
+    reg = create_index(IndexConfig(dim=d, metric=Metric.L2, algorithm="IVF_PQ",
+                                   params=IndexParams(nlist=100, pq_m=16, k=256)),
+                       device=dev)                 # refine_storage: fp32
+    reg.add_batch([str(i) for i in range(len(base))], base)
+    reg.build()
+    fp32_route = reg.tail.describe_scan(b)
+    require(fp32_route == "dense-exact-pallas", f"fp32 rerank slab route is {fp32_route}")
+    launches = fs.LAUNCHES["ivf_scan"]
+    r_fp32 = device_recall(reg)
+    require(fs.LAUNCHES["ivf_scan"] > launches, "IVF kernel never launched")
+    say("8 pq narrow", deterministic_rebuild=repr(same), fp32_route=fp32_route,
+        fp32_recall=r_fp32, fp32_qps=serve(reg, q_dev, iters=20)["qps"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU",
@@ -342,14 +499,24 @@ def main() -> int:
     phase_build()
     rec = phase_kernels(dev)
 
-    fs.reset_launches()  # the main path's run: phases 4-6
-    phase_slice(dev, dict(fs.LAUNCHES))
+    data = clustered_1m()
+    fs.reset_launches()  # the IVF-Flat path's run: phases 4-6
+    phase_slice(dev, dict(fs.LAUNCHES), data)
     phase_narrow(dev)
     phase_flat(dev)
     torch.cuda.synchronize()
-    launches = dict(fs.LAUNCHES)
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} was not launched on the main path")
+    ivf_flat_path = dict(fs.LAUNCHES)
+    for name in ("flat_scan", "ivf_scan", "merge"):
+        require(ivf_flat_path[name] > 0, f"kernel {name} was not launched on the IVF-Flat path")
+    fs.reset_launches()  # the IVF-PQ path's run: phases 7-8
+    phase_pq(dev, data)
+    phase_pq_narrow(dev)
+    torch.cuda.synchronize()
+    ivf_pq_path = dict(fs.LAUNCHES)
+    for name in ("sq8_scan", "ivf_scan", "merge"):
+        require(ivf_pq_path[name] > 0, f"kernel {name} was not launched on the IVF-PQ path")
+    say("launches", ivf_flat_path=repr(ivf_flat_path), ivf_pq_path=repr(ivf_pq_path))
+    launches = {name: ivf_flat_path[name] + ivf_pq_path[name] for name in fs.LAUNCHES}
 
     kernels = [
         {"name": "fused_scan_kernel<FLAT>", "route": "cuda", "source": SOURCE,
@@ -360,6 +527,10 @@ def main() -> int:
          "replaces": f"{PALLAS}:1035", "launches": launches["ivf_scan"],
          "max_abs_err": rec["ivf"]["err"], "ms": rec["ivf"]["ms"],
          "plain_ms": rec["ivf"]["plain_ms"]},
+        {"name": "fused_scan_kernel<SQ8>", "route": "cuda", "source": SOURCE,
+         "replaces": f"{PALLAS}:1204, {PALLAS}:1341", "launches": launches["sq8_scan"],
+         "max_abs_err": rec["sq8"]["err"], "ms": rec["sq8"]["ms"],
+         "plain_ms": rec["sq8"]["plain_ms"]},
         {"name": "merge_partials_kernel", "route": "cuda", "source": SOURCE,
          "replaces": f"{PALLAS}:401", "launches": launches["merge"],
          "max_abs_err": rec["merge"]["err"], "ms": rec["merge"]["ms"],

@@ -3,14 +3,16 @@
 A second package beside the JAX one, held against it as its reference. It
 imports the JAX package's framework-free modules (``pyrope_tpu.types``,
 ``pyrope_tpu.index.base``, ``pyrope_tpu.index.delta``, ``pyrope_tpu.utils``)
-and never jax. Ported so far, the IVF-Flat serving path:
+and never jax. Ported so far, the IVF-Flat and IVF-PQ serving paths:
 
 - ``FlatIndex``     — exact scan; ``selection="pallas"`` runs the fused CUDA
   scan kernel (ops/fused_scan.py, csrc/fused_scan.cu)
 - ``IvfFlatIndex``  — k-means + cluster-major slab; dense routes run the same
   kernel with a probe bitmap
+- ``IvfPqIndex``    — coarse k-means + PQ codes + a rerank slab, fp32 or
+  residual-SQ8 (``refine_storage="sq8res"``, the same kernel in SQ8 mode)
 - ``DeltaIndex``    — the JAX package's Head+Tail composite, reused as is
-- ``create_index`` / ``VectorIndexRegistry`` — Delta(Flat, Flat|IVF_FLAT)
+- ``create_index`` / ``VectorIndexRegistry`` — Delta(Flat, Flat|IVF_FLAT|IVF_PQ)
 
 Every index and op takes an explicit ``device``. Importing this package
 loads no CUDA state and builds no kernel: the kernels build at first launch.
@@ -34,6 +36,7 @@ __all__ = [
     "IndexParams",
     "FlatIndex",
     "IvfFlatIndex",
+    "IvfPqIndex",
     "DeltaIndex",
     "VectorIndexRegistry",
     "create_index",
@@ -42,6 +45,7 @@ __all__ = [
 _LAZY = {
     "FlatIndex": "pyrope_tpu_torch.index.flat",
     "IvfFlatIndex": "pyrope_tpu_torch.index.ivf_flat",
+    "IvfPqIndex": "pyrope_tpu_torch.index.ivf_pq",
     "DeltaIndex": "pyrope_tpu.index.delta",
     "VectorIndexRegistry": "pyrope_tpu_torch.registry",
     "create_index": "pyrope_tpu_torch.registry",

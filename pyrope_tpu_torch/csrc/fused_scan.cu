@@ -6,6 +6,10 @@
 //   K3 pallas_ivf_topk_windowed  (:992)  folded into IVF mode: probe membership
 //      is a bitmap lookup in shared memory, which covers any cluster-table
 //      width, so the TPU's per-tile cluster window is not needed.
+//   K4 pallas_ivf_sq8_topk       (:1204, body _ivf_sq8_scan_kernel :1112,
+//      _tile_scores_sq8 :1093) -> SQ8 mode
+//   K5 pallas_ivf_sq8_topk_windowed (:1341) folded into SQ8 mode, as K3 into
+//      IVF mode.
 // and the merge in their bodies (_merge_tile :401, _finish_topk :642) with
 // merge_partials_kernel below.
 //
@@ -13,9 +17,22 @@
 //   score = -max(|q|^2 - 2 q.x + sqnorm[t], 0)   (L2)   or   q.x   (IP)
 //   FLAT: row survives iff alive[t] && t < max_scans
 //   IVF:  row survives iff alive[t] && bit crow[t] of the query's probe bitmap
+//   SQ8:  as IVF, over a residual-SQ8 slab: x is the reconstruction
+//         x^ = cent[crow[t]] + mins[t] + scales[t] * code[t] (uint8 codes), so
+//         q.x^ = qc[b, crow[t]] + scales[t] * (q.code) + mins[t] * sum(q),
+//         with qc = q . cents^T computed outside (a plain fp32 product) and
+//         read only for rows that pass the bitmap; sqnorm[t] = |x^|^2.
 // and returns the top k survivors in the total order (score desc, row asc),
 // with (-inf, -1) in slots no survivor filled. Products and sums are IEEE
-// fp32 FMAs on the CUDA cores: no TF32, no bf16 demotion.
+// fp32 FMAs on the CUDA cores: no TF32, no bf16 demotion. SQ8 codes become
+// fp32 (exact for 0..255) as they are staged in shared memory.
+//
+// The TPU's SQ8 kernel stages a [queries, clusters] table of qc with a -1e30
+// sentinel where a cluster is not probed, and selects qc[b, crow] by a
+// one-hot matmul. Here that table would not fit a block's shared memory (64
+// queries x 1000 clusters x 4 B = 256 KB); the bitmap carries membership and
+// the few surviving rows (nprobe 3 of 1000: ~0.3%) read qc from global
+// memory, where it stays in L2. No sentinel enters a sum.
 //
 // Shape of the work. Grid = (query tiles of BT queries) x (corpus splits).
 // A block stages its BT queries in shared memory once, then walks the row
@@ -31,7 +48,8 @@
 // What bounds it on an H100. The score is a [B, N] x D fp32 product on the
 // CUDA cores (67 TFLOP/s fp32 peak at 700 W, no tensor cores for exact
 // fp32); at B = 1024, N = 1M, D = 128 that is 268 GFLOP a batch, so the
-// kernel is compute-bound, and the slab is re-read once per query tile
+// kernel is compute-bound (SQ8 mode reads a quarter of the bytes and runs
+// the same FMAs), and the slab is re-read once per query tile
 // (B/BT = 16 times; the query tiles of one split are adjacent in the grid,
 // so they run side by side and can share those reads through L2). The
 // threshold-gated top-k update is the per-row cost on
@@ -39,12 +57,13 @@
 // enters the list (about k ln(N/k) per query and split).
 //
 // Where the work should go next (not done here):
-//   - IVF tile skipping: a row tile whose clusters no query of the block
+//   - IVF/SQ8 tile skipping: a row tile whose clusters no query of the block
 //     probes can be skipped whole (at nlist 1000, nprobe 3, b1024 most
 //     tiles); today the product runs for every row and the mask drops it.
 //   - wgmma/TMA: exact fp32 has no tensor-core path, but a bf16 slab with
-//     promote_fp32 (IVF-PQ's rerank slab) and a 3xbf16 split product could
-//     use them; cp.async/TMA double buffering of the x tiles.
+//     promote_fp32 (IVF-PQ's rerank slab), SQ8 codes against a split bf16
+//     query, and a 3xbf16 split product could use them; cp.async/TMA double
+//     buffering of the x tiles.
 //   - batched insertion while the lists fill (the first tiles of a split
 //     insert nearly every score).
 
@@ -126,33 +145,47 @@ __device__ __forceinline__ void warp_offer(float* lv, int* li, int k, float v,
   }
 }
 
-size_t scan_smem_bytes(int d, int k, int words) {
+enum Mode { MODE_FLAT = 0, MODE_IVF = 1, MODE_SQ8 = 2 };
+
+size_t scan_smem_bytes(int d, int k, int words, bool sq8) {
   return sizeof(float) * ((size_t)d * QS_LD   // qs [D][QS_LD]
                           + (size_t)DC * XS_LD  // xs [DC][XS_LD]
                           + 3 * RT              // row sqnorm, ok, cluster
                           + BT                  // |q|^2
+                          + (sq8 ? 2 * RT + BT : 0)  // row min, scale; sum(q)
                           + 2 * (size_t)BT * k  // lists: values, rows
-                          + (size_t)BT * words);  // probe bitmap (IVF)
+                          + (size_t)BT * words);  // probe bitmap (IVF, SQ8)
 }
 
-template <bool IVF>
+// The slab is x, float [N, D] (FLAT, IVF), or codes, uint8 [N, D] (SQ8);
+// mins, scales and qc [B, kp] are read in SQ8 mode only, crow and bitmap in
+// IVF and SQ8 mode.
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                  const uint8_t* __restrict__ codes,
                   const float* __restrict__ sqnorm,
                   const uint8_t* __restrict__ alive,
                   const int32_t* __restrict__ crow,
-                  const uint32_t* __restrict__ bitmap, int words, int B,
-                  int N, int D, int k, int metric_ip, int max_scans,
-                  int rows_per_split, float* __restrict__ part_v,
-                  int32_t* __restrict__ part_i) {
+                  const uint32_t* __restrict__ bitmap, int words,
+                  const float* __restrict__ mins,
+                  const float* __restrict__ scales,
+                  const float* __restrict__ qc, int kp, int B, int N, int D,
+                  int k, int metric_ip, int max_scans, int rows_per_split,
+                  float* __restrict__ part_v, int32_t* __restrict__ part_i) {
+  constexpr bool SQ8 = MODE == MODE_SQ8;
+  constexpr bool PROBED = MODE != MODE_FLAT;  // bitmap membership
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                          // [D][QS_LD], query-major columns
   float* xs = qs + (size_t)D * QS_LD;        // [DC][XS_LD]
   float* rsq = xs + DC * XS_LD;              // [RT]
   int* rok = (int*)(rsq + RT);               // [RT] row survives the row mask
-  int* rc = rok + RT;                        // [RT] cluster of row (IVF)
+  int* rc = rok + RT;                        // [RT] cluster of row (IVF, SQ8)
   float* qq = (float*)(rc + RT);             // [BT]
-  float* lv = qq + BT;                       // [BT][k]
+  float* rmn = qq + BT;                      // [RT] row min (SQ8)
+  float* rsc = rmn + (SQ8 ? RT : 0);         // [RT] row scale (SQ8)
+  float* qsum = rsc + (SQ8 ? RT : 0);        // [BT] sum(q) (SQ8)
+  float* lv = qsum + (SQ8 ? BT : 0);         // [BT][k]
   int* li = (int*)(lv + (size_t)BT * k);     // [BT][k]
   uint32_t* bm = (uint32_t*)(li + (size_t)BT * k);  // [BT][words]
 
@@ -162,13 +195,13 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const int q0 = blockIdx.x * BT;
   const int r_begin = blockIdx.y * rows_per_split;
   const int r_end = min(r_begin + rows_per_split, N);
-  const int limit = IVF ? r_end : min(r_end, max_scans);
+  const int limit = PROBED ? r_end : min(r_end, max_scans);
 
   for (int e = tid; e < BT * k; e += THREADS) {
     lv[e] = -INFINITY;
     li[e] = -1;
   }
-  if (IVF) {
+  if (PROBED) {
     for (int e = tid; e < BT * words; e += THREADS) {
       const int b = e / words;
       bm[e] = (q0 + b < B) ? bitmap[(size_t)(q0 + b) * words + e % words] : 0u;
@@ -188,6 +221,15 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
 #pragma unroll
     for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
     if (lane == 0) qq[b] = s;
+  }
+  if constexpr (SQ8) {
+    for (int b = warp; b < BT; b += THREADS / 32) {
+      float s = 0.f;
+      for (int d = lane; d < D; d += 32) s += qs[(size_t)d * QS_LD + b];
+#pragma unroll
+      for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+      if (lane == 0) qsum[b] = s;
+    }
   }
 
   // per-query threshold = last list entry, warp-uniform, kept in registers
@@ -214,14 +256,24 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
           const bool ok = row < limit && alive[row];
           rok[r] = ok;
           rsq[r] = ok ? sqnorm[row] : 0.f;
-          if (IVF) rc[r] = ok ? crow[row] : 0;
+          if (PROBED) rc[r] = ok ? crow[row] : 0;
+          if (SQ8) {
+            rmn[r] = ok ? mins[row] : 0.f;
+            rsc[r] = ok ? scales[row] : 0.f;
+          }
         }
       }
+      // rows are D elements: byte loads in SQ8 mode take any D
       for (int e = tid; e < RT * DC; e += THREADS) {
         const int r = e / DC, d = e % DC;
         const int row = row0 + r;
-        xs[d * XS_LD + r] =
-            (row < limit && d0 + d < D) ? x[(size_t)row * D + d0 + d] : 0.f;
+        if constexpr (SQ8) {
+          xs[d * XS_LD + r] = (row < limit && d0 + d < D)
+                                  ? (float)codes[(size_t)row * D + d0 + d] : 0.f;
+        } else {
+          xs[d * XS_LD + r] = (row < limit && d0 + d < D)
+                                  ? x[(size_t)row * D + d0 + d] : 0.f;
+        }
       }
       __syncthreads();
       const int dn = min(DC, D - d0);
@@ -251,12 +303,17 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
       for (int j = 0; j < RPL; ++j) {
         const int r = lane + 32 * j;
         bool ok = rok[r] && (q0 + b < B);
-        if (IVF && ok) {
+        if (PROBED && ok) {
           const int c = rc[r];
           ok = (bm[(size_t)b * words + (c >> 5)] >> (c & 31)) & 1u;
         }
-        const float s = metric_ip ? acc[i][j]
-                                  : -fmaxf(qq[b] - 2.f * acc[i][j] + rsq[r], 0.f);
+        float dot = acc[i][j];
+        if constexpr (SQ8) {  // q.x^ from q.code; qc only where the row lives
+          const float qcv = ok ? qc[(size_t)(q0 + b) * kp + rc[r]] : 0.f;
+          dot = qcv + acc[i][j] * rsc[r] + qsum[b] * rmn[r];
+        }
+        const float s = metric_ip ? dot
+                                  : -fmaxf(qq[b] - 2.f * dot + rsq[r], 0.f);
         warp_offer(l_v, l_i, k, ok ? s : -INFINITY, row0 + r, tv[i], ti[i],
                    lane);
       }
@@ -272,6 +329,32 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
       part_i[o] = li[e];
     }
   }
+}
+
+template <int MODE>
+int launch_scan(const void* q, const void* x, const void* sqnorm,
+                const void* alive, const void* crow, const void* bitmap,
+                int words, const void* mins, const void* scales,
+                const void* qc, int kp, int B, int N, int D, int k,
+                int metric_ip, int max_scans, int rows_per_split,
+                int n_splits, void* part_v, void* part_i, void* stream) {
+  if (k < 1 || k > MAXK) return (int)cudaErrorInvalidValue;
+  const size_t smem = scan_smem_bytes(D, k, words, MODE == MODE_SQ8);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_scan_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((B + BT - 1) / BT, n_splits);
+  const bool sq8 = MODE == MODE_SQ8;
+  fused_scan_kernel<MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)q, sq8 ? nullptr : (const float*)x,
+      sq8 ? (const uint8_t*)x : nullptr, (const float*)sqnorm,
+      (const uint8_t*)alive,
+      (const int32_t*)crow, (const uint32_t*)bitmap, words,
+      (const float*)mins, (const float*)scales, (const float*)qc, kp, B, N,
+      D, k, metric_ip, max_scans, rows_per_split, (float*)part_v,
+      (int32_t*)part_i);
+  return (int)cudaGetLastError();
 }
 
 // One warp per query: reduce the [splits, B, k] partial lists to [B, k].
@@ -312,8 +395,8 @@ merge_partials_kernel(const float* __restrict__ part_v,
 
 extern "C" {
 
-long long pyrope_scan_smem_bytes(int d, int k, int words) {
-  return (long long)scan_smem_bytes(d, k, words);
+long long pyrope_scan_smem_bytes(int d, int k, int words, int sq8) {
+  return (long long)scan_smem_bytes(d, k, words, sq8 != 0);
 }
 
 const char* pyrope_error_string(int code) {
@@ -327,33 +410,29 @@ int pyrope_fused_scan(const void* q, const void* x, const void* sqnorm,
                       int words, int B, int N, int D, int k, int metric_ip,
                       int max_scans, int rows_per_split, int n_splits,
                       void* part_v, void* part_i, void* stream) {
-  if (k < 1 || k > MAXK) return (int)cudaErrorInvalidValue;
-  const bool ivf = crow != nullptr;
-  const size_t smem = scan_smem_bytes(D, k, ivf ? words : 0);
-  const dim3 grid((B + BT - 1) / BT, n_splits);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (ivf) {
-    err = cudaFuncSetAttribute(fused_scan_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_scan_kernel<true><<<grid, THREADS, smem, st>>>(
-        (const float*)q, (const float*)x, (const float*)sqnorm,
-        (const uint8_t*)alive, (const int32_t*)crow, (const uint32_t*)bitmap,
-        words, B, N, D, k, metric_ip, max_scans, rows_per_split,
-        (float*)part_v, (int32_t*)part_i);
-  } else {
-    err = cudaFuncSetAttribute(fused_scan_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    fused_scan_kernel<false><<<grid, THREADS, smem, st>>>(
-        (const float*)q, (const float*)x, (const float*)sqnorm,
-        (const uint8_t*)alive, nullptr, nullptr, 0, B, N, D, k, metric_ip,
-        max_scans, rows_per_split, (float*)part_v, (int32_t*)part_i);
-  }
-  return (int)cudaGetLastError();
+  if (crow == nullptr)
+    return launch_scan<MODE_FLAT>(q, x, sqnorm, alive, nullptr, nullptr, 0,
+                                  nullptr, nullptr, nullptr, 0, B, N, D, k,
+                                  metric_ip, max_scans, rows_per_split,
+                                  n_splits, part_v, part_i, stream);
+  return launch_scan<MODE_IVF>(q, x, sqnorm, alive, crow, bitmap, words,
+                               nullptr, nullptr, nullptr, 0, B, N, D, k,
+                               metric_ip, N, rows_per_split, n_splits, part_v,
+                               part_i, stream);
+}
+
+// SQ8 mode: codes [N, D] uint8; mins, scales, sqnorm [N] f32; qc [B, kp] f32.
+int pyrope_fused_scan_sq8(const void* q, const void* codes, const void* mins,
+                          const void* scales, const void* sqnorm,
+                          const void* alive, const void* crow,
+                          const void* bitmap, int words, const void* qc,
+                          int kp, int B, int N, int D, int k, int metric_ip,
+                          int rows_per_split, int n_splits, void* part_v,
+                          void* part_i, void* stream) {
+  return launch_scan<MODE_SQ8>(q, codes, sqnorm, alive, crow, bitmap, words,
+                               mins, scales, qc, kp, B, N, D, k, metric_ip, N,
+                               rows_per_split, n_splits, part_v, part_i,
+                               stream);
 }
 
 int pyrope_merge_partials(const void* part_v, const void* part_i, int S,

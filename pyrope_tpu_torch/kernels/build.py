@@ -36,13 +36,20 @@ _build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "pyrope_scan_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    # d, k, words, sq8
+    "pyrope_scan_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
     "pyrope_error_string": (ctypes.c_char_p, [_I]),
     # q, x, sqnorm, alive, crow, bitmap, words, B, N, D, k, metric_ip,
     # max_scans, rows_per_split, n_splits, part_v, part_i, stream
     "pyrope_fused_scan": (
         _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
              _P, _P, _P],
+    ),
+    # q, codes, mins, scales, sqnorm, alive, crow, bitmap, words, qc, kp, B,
+    # N, D, k, metric_ip, rows_per_split, n_splits, part_v, part_i, stream
+    "pyrope_fused_scan_sq8": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+             _I, _I, _P, _P, _P],
     ),
     # part_v, part_i, S, B, k, out_v, out_i, stream
     "pyrope_merge_partials": (_I, [_P, _P, _I, _I, _I, _P, _P, _P]),

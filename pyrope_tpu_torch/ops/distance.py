@@ -75,13 +75,18 @@ def rerank_exact(
     (pre-normalized for cosine), cand_rows: [B, R] slab rows, -1 = missing.
     Returns ([B, k] scores, [B, k] int32 rows), -inf/-1 for missing; ties
     order by candidate position, as ``lax.top_k`` does."""
+    safe = torch.clamp(cand_rows.long(), min=0)
+    return _rerank(x[safe].float(), sqnorm, q, cand_rows, k, metric)
+
+
+def _rerank(vecs, sqnorm, q, cand_rows, k, metric):
+    """Score the gathered candidates vecs [B, R, D] fp32 exactly; top-k."""
     from pyrope_tpu_torch.ops.topk import masked_topk
 
     metric = Metric.parse(metric)
     check_fp32_exact(q)
     cand = cand_rows.long()
     safe = torch.clamp(cand, min=0)
-    vecs = x[safe].float()                                  # [B, R, D]
     qf = q.float()
     dots = torch.einsum("brd,bd->br", vecs, qf)
     qq = (qf * qf).sum(dim=-1)
@@ -95,6 +100,32 @@ def rerank_exact(
     vals, sel = masked_topk(scores, cand >= 0, k)
     rows = torch.gather(cand, 1, sel.long().clamp(min=0))
     return vals, torch.where(sel >= 0, rows, -1).int()
+
+
+def rerank_exact_sq8res(
+    codes: torch.Tensor,
+    mins: torch.Tensor,
+    scales: torch.Tensor,
+    crow: torch.Tensor,
+    cents: torch.Tensor,
+    sqnorm: torch.Tensor,
+    q: torch.Tensor,
+    cand_rows: torch.Tensor,
+    k: int,
+    metric: Metric,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rerank_exact`` off a residual-SQ8 slab: each candidate is
+    reconstructed as x̂ = c[crow] + min + scale·code and scored in fp32;
+    ``sqnorm`` is ||x̂||² of the same reconstruction.
+
+    codes [N_pad, D] uint8, mins/scales/sqnorm [N_pad] fp32, crow [N_pad]
+    int32 cluster of each row, cents [Kp, D] fp32; the rest as
+    ``rerank_exact``."""
+    safe = torch.clamp(cand_rows.long(), min=0)
+    c8 = codes[safe].float()                                 # [B, R, D]
+    cc = cents[crow[safe].long()]                            # [B, R, D]
+    vecs = cc + mins[safe][..., None] + scales[safe][..., None] * c8
+    return _rerank(vecs, sqnorm, q, cand_rows, k, metric)
 
 
 def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

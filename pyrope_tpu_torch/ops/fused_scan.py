@@ -7,9 +7,15 @@ Replaces ``pyrope_tpu/ops/pallas_scan.py``:
     ``pallas_ivf_topk_windowed`` (K3, :992): the CUDA kernel resolves probe
     membership with a bitmap lookup in shared memory, which takes any
     cluster-table width, so K3's per-tile cluster window has no counterpart.
-Both run the same scan kernel (FLAT or IVF mode) and then the merge kernel
-that reduces the per-split partial lists, the work of the Pallas bodies'
-``_merge_tile`` (:401) and ``_finish_topk`` (:642).
+  - ``fused_ivf_sq8_topk`` <- ``pallas_ivf_sq8_topk`` (K4, :1204) and
+    ``pallas_ivf_sq8_topk_windowed`` (K5, :1341), folded the same way: the
+    IVF scan over a residual-SQ8 slab (uint8 codes + per-row min/scale).
+    The TPU kernels' masked [B, Kp] centroid-dot table (``MASK_SENT``
+    where a cluster is not probed) becomes the probe bitmap plus the plain
+    qc = q·centsᵀ the kernel reads for live rows only.
+All run the same scan kernel (FLAT, IVF or SQ8 mode) and then the merge
+kernel that reduces the per-split partial lists, the work of the Pallas
+bodies' ``_merge_tile`` (:401) and ``_finish_topk`` (:642).
 
 What bounds the kernel on an H100, and what the design does about it, is
 in the header of the CUDA source: at B = 1024 the slab is re-read once per
@@ -19,8 +25,9 @@ fp32 has no tensor-core path), and the threshold-gated top-k update is the
 per-row cost.
 
 Semantics, shared with the JAX kernels: L2 scores -max(‖q‖²−2q·x+‖x‖², 0),
-IP scores q·x; cosine raises (callers pre-normalize and use IP). Hits are
-ordered by (score desc, row asc); missing hits are -inf/-1.
+IP scores q·x (x the reconstruction x̂ in SQ8 mode); cosine raises
+(callers pre-normalize and use IP). Hits are ordered by (score desc, row
+asc); missing hits are -inf/-1.
 
 Dispatch is by where the tensors lie: on the CPU the wrapper runs the plain
 version; on a CUDA device it launches the kernel or raises. There is no
@@ -44,7 +51,7 @@ IVF_MAX_KPAD = 8192      # widest probe bitmap a route sends the kernel
 _BLOCKS_PER_SM = 4       # grid target: blocks in flight per SM
 
 # launches of each kernel since the last reset_launches()
-LAUNCHES = {"flat_scan": 0, "ivf_scan": 0, "merge": 0}
+LAUNCHES = {"flat_scan": 0, "ivf_scan": 0, "sq8_scan": 0, "merge": 0}
 
 
 def reset_launches() -> None:
@@ -55,28 +62,26 @@ def reset_launches() -> None:
 # ---- plain PyTorch versions -------------------------------------------------
 
 
-def _tile_scores(q, x, sq, metric_ip: bool):
-    dots = q @ x.T
+def _l2_or_ip(q, dots, sq, metric_ip: bool):
     if metric_ip:
         return dots
     qq = (q * q).sum(dim=-1, keepdim=True)
     return -torch.clamp(qq - 2.0 * dots + sq[None, :], min=0.0)
 
 
-def _plain_scan(q, x, sqnorm, row_mask, k, metric_ip, chunk_rows):
-    """Running top-k over row chunks. ``row_mask(s, e)`` -> [B|1, e-s]
-    bool. Candidates are concatenated in row order after the running best
-    (whose rows are all lower), so a stable sort on the float values keeps
-    (score desc, row asc) with the kernels' float comparison (-0 == +0)."""
+def _plain_scan(q, n, tile_scores, row_mask, k, chunk_rows):
+    """Running top-k over row chunks. ``tile_scores(s, e)`` -> [B, e-s]
+    scores, ``row_mask(s, e)`` -> [B|1, e-s] bool. Candidates are
+    concatenated in row order after the running best (whose rows are all
+    lower), so a stable sort on the float values keeps (score desc, row
+    asc) with the kernels' float comparison (-0 == +0)."""
     check_fp32_exact(q)
     b = q.shape[0]
-    n = x.shape[0]
     best_v = torch.full((b, k), float("-inf"), device=q.device)
     best_i = torch.full((b, k), -1, dtype=torch.int64, device=q.device)
     for s in range(0, n, chunk_rows):
         e = min(s + chunk_rows, n)
-        sc = _tile_scores(q, x[s:e], sqnorm[s:e], metric_ip)
-        sc = torch.where(row_mask(s, e), sc, float("-inf"))
+        sc = torch.where(row_mask(s, e), tile_scores(s, e), float("-inf"))
         rows = torch.arange(s, e, device=q.device).expand(b, -1)
         cand_v = torch.cat([best_v, sc], dim=1)
         cand_i = torch.cat([best_i, rows], dim=1)
@@ -85,6 +90,10 @@ def _plain_scan(q, x, sqnorm, row_mask, k, metric_ip, chunk_rows):
         best_i = torch.gather(cand_i, 1, pos)
     best_i = torch.where(torch.isfinite(best_v), best_i, -1)
     return best_v, best_i.int()
+
+
+def _fp32_scores(q, x, sqnorm, metric_ip):
+    return lambda s, e: _l2_or_ip(q, q @ x[s:e].T, sqnorm[s:e], metric_ip)
 
 
 def fused_flat_topk_plain(q, x, sqnorm, alive, max_scans: int, k: int,
@@ -97,7 +106,8 @@ def fused_flat_topk_plain(q, x, sqnorm, alive, max_scans: int, k: int,
         rows = torch.arange(s, e, device=q.device)
         return (alive[s:e] & (rows < ms))[None, :]
 
-    return _plain_scan(q, x, sqnorm, row_mask, k, metric_ip, chunk_rows)
+    return _plain_scan(q, x.shape[0], _fp32_scores(q, x, sqnorm, metric_ip),
+                       row_mask, k, chunk_rows)
 
 
 def probe_table(probe: torch.Tensor, kp: int) -> torch.Tensor:
@@ -110,13 +120,39 @@ def fused_ivf_topk_plain(q, x, sqnorm, alive, crow, probe, kp: int, k: int,
                          metric=Metric.L2, *, chunk_rows: int = 8192):
     """Plain version of ``fused_ivf_topk``: same inputs, same outputs."""
     metric_ip = _metric_ip(metric)
+    return _plain_scan(q, x.shape[0], _fp32_scores(q, x, sqnorm, metric_ip),
+                       _probed_rows(probe, kp, crow, alive), k, chunk_rows)
+
+
+def _probed_rows(probe, kp, crow, alive):
+    """row_mask of the IVF scans: alive and in a probed cluster."""
     table = probe_table(probe, kp)
     crow_l = crow.long()
+    return lambda s, e: table[:, crow_l[s:e]] & alive[None, s:e]
 
-    def row_mask(s, e):
-        return table[:, crow_l[s:e]] & alive[None, s:e]
 
-    return _plain_scan(q, x, sqnorm, row_mask, k, metric_ip, chunk_rows)
+def sq8_scores(q, qc, codes, mins, scales, sqnorm, crow, metric_ip: bool):
+    """[B, n] scores off residual-SQ8 rows, as the JAX package's
+    ``_tile_scores_sq8`` and its XLA twin compute them: q·x̂ = qc[b, crow]
+    + (q·code)·scale + (Σq)·min, with qc = q·centsᵀ."""
+    dots8 = q @ codes.float().T
+    qx = (qc[:, crow.long()] + dots8 * scales[None, :]
+          + q.sum(dim=1, keepdim=True) * mins[None, :])
+    return _l2_or_ip(q, qx, sqnorm, metric_ip)
+
+
+def fused_ivf_sq8_topk_plain(q, codes, mins, scales, sqnorm, alive, crow, probe,
+                             qc, kp: int, k: int, metric=Metric.L2, *,
+                             chunk_rows: int = 8192):
+    """Plain version of ``fused_ivf_sq8_topk``: same inputs, same outputs."""
+    metric_ip = _metric_ip(metric)
+
+    def tile_scores(s, e):
+        return sq8_scores(q, qc, codes[s:e], mins[s:e], scales[s:e], sqnorm[s:e],
+                          crow[s:e], metric_ip)
+
+    return _plain_scan(q, codes.shape[0], tile_scores,
+                       _probed_rows(probe, kp, crow, alive), k, chunk_rows)
 
 
 # ---- kernel wrappers ---------------------------------------------------------
@@ -129,7 +165,7 @@ def _metric_ip(metric) -> bool:
     return metric == Metric.INNER_PRODUCT
 
 
-def _check_inputs(q, x, sqnorm, alive, k, extra=()):
+def _check_inputs(q, x, sqnorm, alive, k, extra=(), slab_dtype=torch.float32):
     """Shapes, dtypes and devices the kernel takes; raises on the rest.
     Returns True when the tensors lie on a CUDA device."""
     if not 1 <= k <= MAX_K:
@@ -137,9 +173,9 @@ def _check_inputs(q, x, sqnorm, alive, k, extra=()):
     if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1]:
         raise ValueError(f"q [B, D] and x [N, D] expected, got {tuple(q.shape)}, "
                          f"{tuple(x.shape)}")
-    if x.dtype != torch.float32:
+    if x.dtype != slab_dtype:
         raise NotImplementedError(
-            f"slab dtype {x.dtype} not yet ported: the scan takes float32 slabs")
+            f"slab dtype {x.dtype} not yet ported: this scan takes {slab_dtype} slabs")
     if q.dtype != torch.float32 or sqnorm.dtype != torch.float32:
         raise ValueError("q and sqnorm must be float32")
     if alive.dtype != torch.bool:
@@ -158,6 +194,13 @@ def _check_inputs(q, x, sqnorm, alive, k, extra=()):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous tensors")
     return True
+
+
+def _check_probe(q, x, crow, probe):
+    if crow.dtype != torch.int32 or crow.shape != (x.shape[0],):
+        raise ValueError("crow must be int32 [N]")
+    if probe.dim() != 2 or probe.shape[0] != q.shape[0] or probe.device != q.device:
+        raise ValueError("probe must be [B, nprobe] on the queries' device")
 
 
 def scan_splits(b: int, n_rows: int, dev: torch.device) -> tuple[int, int]:
@@ -210,13 +253,16 @@ def merge_partials(part_v, part_i):
 
 
 def _launch(q, x, sqnorm, alive, k, metric_ip, n_rows, *, max_scans=0,
-            crow=None, bitmap=None, words=0):
-    """The scan kernel into [splits, B, k] partials, then the merge."""
+            crow=None, bitmap=None, sq8=None):
+    """The scan kernel into [splits, B, k] partials, then the merge. FLAT
+    mode without ``crow``; IVF mode with ``crow`` and ``bitmap``; SQ8 mode
+    when ``sq8`` = (mins, scales, qc) comes too."""
     from pyrope_tpu_torch.kernels.build import check, load
 
     lib = load()
     b, d = q.shape
-    smem = lib.pyrope_scan_smem_bytes(d, k, words)
+    words = 0 if bitmap is None else bitmap.shape[1]
+    smem = lib.pyrope_scan_smem_bytes(d, k, words, int(sq8 is not None))
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"scan needs {smem} B of shared memory (D={d}, k={k}, "
@@ -227,13 +273,24 @@ def _launch(q, x, sqnorm, alive, k, metric_ip, n_rows, *, max_scans=0,
     per, n_splits = scan_splits(b, n_rows, q.device)
     part_v = torch.empty((n_splits, b, k), dtype=torch.float32, device=q.device)
     part_i = torch.empty((n_splits, b, k), dtype=torch.int32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if sq8 is not None:
+        mins, scales, qc = sq8
+        check(lib.pyrope_fused_scan_sq8(
+            q.data_ptr(), x.data_ptr(), mins.data_ptr(), scales.data_ptr(),
+            sqnorm.data_ptr(), alive.data_ptr(), crow.data_ptr(),
+            bitmap.data_ptr(), words, qc.data_ptr(), qc.shape[1], b,
+            x.shape[0], d, k, int(metric_ip), per, n_splits,
+            part_v.data_ptr(), part_i.data_ptr(), stream,
+        ), "fused SQ8 scan kernel")
+        LAUNCHES["sq8_scan"] += 1
+        return merge_partials(part_v, part_i)
     ivf = crow is not None
     check(lib.pyrope_fused_scan(
         q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(),
         crow.data_ptr() if ivf else None, bitmap.data_ptr() if ivf else None,
         words, b, x.shape[0], d, k, int(metric_ip), max_scans, per, n_splits,
-        part_v.data_ptr(), part_i.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        part_v.data_ptr(), part_i.data_ptr(), stream,
     ), "fused scan kernel")
     LAUNCHES["ivf_scan" if ivf else "flat_scan"] += 1
     return merge_partials(part_v, part_i)
@@ -276,14 +333,41 @@ def fused_ivf_topk(q, x, sqnorm, alive, crow, probe, kp: int, k: int,
     max_scans budget here (routes with a budget take the plain dense or
     probe scans). Returns as ``fused_flat_topk``."""
     metric_ip = _metric_ip(metric)
-    if crow.dtype != torch.int32 or crow.shape != (x.shape[0],):
-        raise ValueError("crow must be int32 [N]")
-    if probe.dim() != 2 or probe.shape[0] != q.shape[0] or probe.device != q.device:
-        raise ValueError("probe must be [B, nprobe] on the queries' device")
+    _check_probe(q, x, crow, probe)
     if not _check_inputs(q, x, sqnorm, alive, k, extra=(crow,)):
         return fused_ivf_topk_plain(q, x, sqnorm, alive, crow, probe, kp, k,
                                     metric)
     check_fp32_exact(q)
     bitmap = probe_bitmap(probe, kp)
     return _launch(q, x, sqnorm, alive, k, metric_ip, x.shape[0], crow=crow,
-                   bitmap=bitmap, words=bitmap.shape[1])
+                   bitmap=bitmap)
+
+
+def fused_ivf_sq8_topk(q, codes, mins, scales, sqnorm, alive, crow, probe, qc,
+                       kp: int, k: int, metric=Metric.L2
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused dense-mask IVF scan + top-k over a residual-SQ8 slab (K4, with
+    K5 folded in).
+
+    codes [N, D] uint8 cluster-major residual codes; mins, scales [N] f32
+    and sqnorm [N] f32 = ||x̂||² of the reconstruction x̂ = c[crow] + min +
+    scale·code; qc [B, kp] f32 = q·centsᵀ (the kernel reads it for live
+    rows only); crow, probe, alive and the return as ``fused_ivf_topk``."""
+    metric_ip = _metric_ip(metric)
+    _check_probe(q, codes, crow, probe)
+    n = codes.shape[0]
+    if mins.shape != (n,) or scales.shape != (n,):
+        raise ValueError("mins and scales must be [N]")
+    if qc.shape != (q.shape[0], kp):
+        raise ValueError(f"qc must be [B, kp] = {(q.shape[0], kp)}, got {tuple(qc.shape)}")
+    if codes.dtype != torch.uint8:
+        raise ValueError(f"codes must be uint8, got {codes.dtype}")
+    if not all(t.dtype == torch.float32 for t in (mins, scales, qc)):
+        raise ValueError("mins, scales and qc must be float32")
+    if not _check_inputs(q, codes, sqnorm, alive, k, extra=(crow, mins, scales, qc),
+                         slab_dtype=torch.uint8):
+        return fused_ivf_sq8_topk_plain(q, codes, mins, scales, sqnorm, alive,
+                                        crow, probe, qc, kp, k, metric)
+    check_fp32_exact(q)
+    return _launch(q, codes, sqnorm, alive, k, metric_ip, n, crow=crow,
+                   bitmap=probe_bitmap(probe, kp), sq8=(mins, scales, qc))

@@ -1,11 +1,16 @@
 """Lloyd's k-means on the device (port of ``pyrope_tpu/ops/kmeans.py``).
 
 Each iteration scores a block of rows against the centroids (one fp32
-matmul), takes the argmax, and accumulates the centroid update with
-``index_add_`` over the block: the segment sum the JAX package writes as a
-one-hot matmul. Blocks bound the [block, K] score transient. Ties in the
-assignment go to the lower centroid id (``torch.argmax`` returns the first
-maximum, as ``jnp.argmax`` does).
+matmul), takes the argmax, and accumulates the centroid update as the JAX
+package does: a one-hot product [K, block] @ [block, D] in fp32
+(``segment_sum``). A matmul sums in an order fixed by its shapes, so a
+build on the card gives the same centroids from the same seed every time;
+``index_add_`` on a CUDA tensor adds with atomics in an unfixed order, and
+flipping ``torch.use_deterministic_algorithms`` is the caller's process
+state, not this module's. Counts are ``bincount``s of integers, exact in
+any order. Blocks bound the [block, K] score and one-hot transients. Ties
+in the assignment go to the lower centroid id (``torch.argmax`` returns
+the first maximum, as ``jnp.argmax`` does).
 
 Seeding: ``init="sample"`` draws the initial rows with the same numpy call
 as the JAX package, so both start from equal centroids. ``init="kmeans++"``
@@ -80,6 +85,15 @@ def _assign(x: torch.Tensor, cents: torch.Tensor, metric: Metric,
     ])
 
 
+def segment_sum(a: torch.Tensor, x: torch.Tensor, k: int) -> torch.Tensor:
+    """Rows of ``x`` summed by segment id ``a`` (< k): [..., N] ids and
+    [..., N, D] rows -> [..., k, D] fp32, as a one-hot matmul, whose
+    summation order is fixed (see the module docstring)."""
+    ids = torch.arange(k, device=a.device)
+    onehot = (a[..., None] == ids).float()                   # [..., N, k]
+    return torch.matmul(onehot.transpose(-1, -2), x.float())
+
+
 def _lloyd(x: torch.Tensor, cents: torch.Tensor, metric: Metric, iters: int,
            block: int) -> torch.Tensor:
     n, d = x.shape
@@ -90,7 +104,7 @@ def _lloyd(x: torch.Tensor, cents: torch.Tensor, metric: Metric, iters: int,
         for s in range(0, n, block):
             xb = x[s : s + block].float()
             a = torch.argmax(score_matrix(xb, cents, metric), dim=1)
-            sums.index_add_(0, a, xb)  # in place: the blocked segment sum
+            sums += segment_sum(a, xb, k)
             counts += torch.bincount(a, minlength=k).float()
         new = sums / torch.clamp(counts, min=1.0)[:, None]
         # an empty cluster keeps its previous centroid

@@ -1,10 +1,10 @@
 """Index factory and multi-tenant registry (port of ``pyrope_tpu/registry.py``).
 
 Every index is a Delta(head=Flat, tail=<algo>): the JAX package's numpy-only
-``DeltaIndex`` over the port's Flat and IVF-Flat indexes, all on the device
-the caller names. ``get_or_create`` validates dim/metric; a per-index epoch
-counter backs cache invalidation. IVF_PQ, HNSW and an HNSW head are not yet
-ported and raise NotImplementedError.
+``DeltaIndex`` over the port's Flat, IVF-Flat and IVF-PQ indexes, all on
+the device the caller names. ``get_or_create`` validates dim/metric; a
+per-index epoch counter backs cache invalidation. HNSW and an HNSW head
+are not yet ported and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from pyrope_tpu.types import IndexConfig, Metric
 from pyrope_tpu_torch.device import resolve_device
 from pyrope_tpu_torch.index.flat import FlatIndex
 from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex
+from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
 
 
 def create_index(config: IndexConfig, device) -> DeltaIndex:
@@ -31,13 +32,18 @@ def create_index(config: IndexConfig, device) -> DeltaIndex:
         )
     if config.head_algorithm.upper() == "HNSW":
         raise NotImplementedError("head_algorithm='HNSW' not yet ported")
-    if algo in ("IVF_PQ", "IVFPQ", "HNSW"):
+    if algo == "HNSW":
         raise NotImplementedError(f"algorithm {config.algorithm!r} not yet ported")
     dev = resolve_device(device)
     p = config.params
     head: VectorIndex = FlatIndex(config.dim, config.metric, device=dev)
     if algo == "FLAT":
         tail: VectorIndex = FlatIndex(config.dim, config.metric, device=dev)
+    elif algo in ("IVF_PQ", "IVFPQ"):
+        tail = IvfPqIndex(config.dim, config.metric, device=dev, nlist=p.nlist,
+                          pq_m=p.pq_m, ksub=p.k, nprobe=p.nprobe,
+                          refine=p.refine, refine_storage=p.refine_storage,
+                          scan_mode=p.scan_mode, train_init=p.train_init)
     else:  # IVF_FLAT, the default
         tail = IvfFlatIndex(config.dim, config.metric, device=dev,
                             nlist=p.nlist, nprobe=p.nprobe,

@@ -20,7 +20,12 @@ RTOL = 1e-5
 ATOL = 1e-4
 
 
-def assert_same_hits(vals_a, idx_a, vals_b, idx_b) -> None:
+# the JAX package's SQ8 kernel tolerance (tests/test_pallas_scan.py): the
+# scale·(q·code) term's dot runs up to 255·Σ|q|, so summation order shows more
+SQ8_RTOL = 1e-4
+
+
+def assert_same_hits(vals_a, idx_a, vals_b, idx_b, rtol=RTOL) -> None:
     """Per-row equal hit sets, scores within tolerance, and order equal
     except inside runs of near-equal scores. Ids may be ints or strings."""
     va, vb = np.asarray(vals_a, np.float64), np.asarray(vals_b, np.float64)
@@ -28,10 +33,10 @@ def assert_same_hits(vals_a, idx_a, vals_b, idx_b) -> None:
     assert ia.shape == ib.shape, (ia.shape, ib.shape)
     for row in range(ia.shape[0]):
         assert set(ia[row].tolist()) == set(ib[row].tolist()), (row, ia[row], ib[row])
-    np.testing.assert_allclose(va, vb, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(va, vb, rtol=rtol, atol=ATOL)
     for row, j in zip(*np.nonzero(ia != ib)):
         near = [jj for jj in (j - 1, j + 1) if 0 <= jj < va.shape[1]
-                and np.isclose(va[row, j], va[row, jj], rtol=RTOL, atol=ATOL)]
+                and np.isclose(va[row, j], va[row, jj], rtol=rtol, atol=ATOL)]
         assert near, f"row {row} rank {j}: {ia[row]} vs {ib[row]} differ outside a tie"
 
 
@@ -46,9 +51,9 @@ def hits_to_arrays(results):
     return vals, ids
 
 
-def assert_same_results(res_a, res_b) -> None:
+def assert_same_results(res_a, res_b, rtol=RTOL) -> None:
     """Two search_batch outputs name the same hits with the same scores."""
-    assert_same_hits(*hits_to_arrays(res_a), *hits_to_arrays(res_b))
+    assert_same_hits(*hits_to_arrays(res_a), *hits_to_arrays(res_b), rtol=rtol)
 
 
 # ---- seeded inputs shared by the kernel tests ------------------------------
@@ -76,6 +81,25 @@ def ivf_case(seed, n, b, d, kc, nprobe):
     probe = np.stack([rng.choice(kc, size=nprobe, replace=False)
                       for _ in range(b)]).astype(np.int32)
     return x, q, sq, alive, crow, probe
+
+
+def sq8_case(seed, n, b, d, kc, nprobe, kp):
+    """ivf_case's corpus stored as residual SQ8 against per-cluster means,
+    encoded as the JAX package's host encoder does. Returns (q, codes,
+    mins, scales, sqnorm of the reconstruction, alive, crow, probe, cents
+    [kp, D] zero-padded, qc = q·centsᵀ [B, kp])."""
+    x, q, _, alive, crow, probe = ivf_case(seed, n, b, d, kc, nprobe)
+    cents = np.zeros((kp, d), np.float32)
+    for c in range(kc):
+        if (crow == c).any():
+            cents[c] = x[crow == c].mean(axis=0)
+    r = x - cents[crow]
+    mn = r.min(axis=1)
+    sc = np.maximum(r.max(axis=1) - mn, 1e-12) / np.float32(255.0)
+    codes = np.clip(np.round((r - mn[:, None]) / sc[:, None]), 0, 255).astype(np.uint8)
+    xhat = cents[crow] + mn[:, None] + sc[:, None] * codes.astype(np.float32)
+    sq = np.einsum("nd,nd->n", xhat, xhat).astype(np.float32)
+    return q, codes, mn, sc, sq, alive, crow, probe, cents, q @ cents.T
 
 
 def split_partials(q, x, sq, alive, k, per):

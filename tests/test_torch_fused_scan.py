@@ -1,12 +1,13 @@
 """Port parity: ops/fused_scan.py against the JAX package's Pallas kernels.
 
 The JAX side runs pallas_flat_topk / pallas_ivf_topk /
-pallas_ivf_topk_windowed in interpret mode on the CPU, as
-tests/test_pallas_scan.py does; the port side runs the plain versions of
-its CUDA kernels (what the wrappers dispatch to for CPU tensors). Both are
-fp32 with a different summation order: hit sets must be equal, scores
-within rtol 1e-5 / atol 1e-4, order equal except inside near-ties (see
-_torch_parity). The kernels themselves are held against these plain
+pallas_ivf_topk_windowed / pallas_ivf_sq8_topk(_windowed) in interpret
+mode on the CPU, as tests/test_pallas_scan.py does; the port side runs the
+plain versions of its CUDA kernels (what the wrappers dispatch to for CPU
+tensors). Both are fp32 with a different summation order: hit sets must
+be equal, scores within rtol 1e-5 / atol 1e-4 (the SQ8 kernels: the JAX
+package's own rtol 1e-4 / atol 1e-4), order equal except inside near-ties
+(see _torch_parity). The kernels themselves are held against these plain
 versions on the card in test_torch_kernels_cuda.py.
 """
 
@@ -14,12 +15,24 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import as_tensor, assert_same_hits, flat_case, ivf_case, split_partials
+from _torch_parity import (
+    SQ8_RTOL,
+    as_tensor,
+    assert_same_hits,
+    flat_case,
+    ivf_case,
+    split_partials,
+    sq8_case,
+)
 
 from pyrope_tpu.ops.pallas_scan import (
+    MASK_SENT,
     pallas_flat_topk,
+    pallas_ivf_sq8_topk,
+    pallas_ivf_sq8_topk_windowed,
     pallas_ivf_topk,
     pallas_ivf_topk_windowed,
+    padded_probe_width,
     tile_cluster_windows,
 )
 from pyrope_tpu.types import Metric
@@ -107,6 +120,62 @@ def test_ivf_plain_vs_pallas_windowed(metric):
     assert_same_hits(tv, ti, jv, ji)
 
 
+def _sq8_port(case, kp, k, metric):
+    q, codes, mn, sc, sq, alive, crow, probe, _, qc = case
+    return fs.fused_ivf_sq8_topk(*(as_tensor(a) for a in (
+        q, codes, mn, sc, sq, alive, crow, probe, qc)), kp, k, metric)
+
+
+@pytest.mark.parametrize("d", [32, 24])
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT])
+def test_ivf_sq8_plain_vs_pallas(metric, d):
+    # the shapes of test_pallas_scan.py's K4 test; d 24 is no multiple of 16
+    n, b, k, kc, kp = 4096, 16, 10, 24, 128
+    case = sq8_case(21, n, b, d, kc, 5, kp)
+    q, codes, mn, sc, sq, alive, crow, probe, _, qc = case
+    tq = np.full((b, kp), MASK_SENT, np.float32)
+    tq[np.arange(b)[:, None], probe] = np.take_along_axis(qc, probe, axis=1)
+    jv, ji = pallas_ivf_sq8_topk(*(jnp.asarray(a) for a in (
+        q, codes, mn, sc, sq, alive, crow, tq)), k, metric)
+    tv, ti = _sq8_port(case, kp, k, metric)
+    assert ti.dtype == torch.int32
+    assert_same_hits(tv, ti, jv, ji, rtol=SQ8_RTOL)
+
+
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT])
+def test_ivf_sq8_plain_vs_pallas_windowed(metric):
+    # kc 640 > 512: the JAX package's windowed SQ8 kernel (K5), which the
+    # port folds into its one SQ8 mode
+    n, b, k, kc = 16384, 16, 10, 640
+    kp = padded_probe_width(kc)
+    case = sq8_case(22, n, b, 32, kc, 5, kp)
+    q, codes, mn, sc, sq, alive, crow, probe, _, qc = case
+    tq_t = np.full((kp, b), MASK_SENT, np.float32)
+    tq_t[probe.T, np.arange(b)[None, :]] = np.take_along_axis(qc, probe, axis=1).T
+    tile_clo, ok = tile_cluster_windows(crow, n, n, 4096, kpad=kp)
+    assert ok
+    jv, ji = pallas_ivf_sq8_topk_windowed(*(jnp.asarray(a) for a in (
+        q, codes, mn, sc, sq, alive, crow, tq_t, tile_clo)), k, metric)
+    tv, ti = _sq8_port(case, kp, k, metric)
+    assert_same_hits(tv, ti, jv, ji, rtol=SQ8_RTOL)
+
+
+def test_ivf_sq8_dead_pad_rows_never_surface():
+    """Pad rows encode -c and are alive=False: with every live row of the
+    probed clusters gone, the slots stay empty."""
+    n, b, kc, kp = 1024, 4, 6, 8
+    q, codes, mn, sc, sq, alive, crow, probe, cents, qc = sq8_case(3, n, b, 16, kc, 2, kp)
+    alive[:] = False
+    alive[crow == probe[0, 0]] = True      # query 0's first list only
+    tv, ti = _sq8_port((q, codes, mn, sc, sq, alive, crow, probe, cents, qc),
+                       kp, 10, Metric.L2)
+    live = set(np.nonzero(alive)[0].tolist())
+    for row in range(b):
+        got = [r for r in ti[row].tolist() if r >= 0]
+        assert set(got) <= live
+        assert np.isneginf(tv[row].numpy()[len(got):]).all()
+
+
 def test_merge_partials_equals_one_scan():
     x, q, sq, alive = flat_case(7, 3000, 9, 8)
     x[2500] = x[60]                     # a tie across splits
@@ -143,3 +212,11 @@ def test_wrapper_validation():
     with pytest.raises(ValueError, match="int32"):
         fs.fused_ivf_topk(q, x, sq, alive, torch.zeros(64, dtype=torch.int64),
                           torch.zeros((4, 2), dtype=torch.int64), 8, 5)
+    codes, crow = torch.zeros((64, 8), dtype=torch.uint8), torch.zeros(64, dtype=torch.int32)
+    probe, qc = torch.zeros((4, 2), dtype=torch.int64), torch.zeros((4, 8))
+    with pytest.raises(ValueError, match="uint8"):
+        fs.fused_ivf_sq8_topk(q, x, sq, sq, sq, alive, crow, probe, qc, 8, 5)
+    with pytest.raises(ValueError, match="qc"):
+        fs.fused_ivf_sq8_topk(q, codes, sq, sq, sq, alive, crow, probe, qc[:, :4], 8, 5)
+    with pytest.raises(ValueError, match="mins"):
+        fs.fused_ivf_sq8_topk(q, codes, sq[:9], sq, sq, alive, crow, probe, qc, 8, 5)

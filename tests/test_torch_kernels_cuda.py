@@ -8,14 +8,25 @@ jax, so it also runs where only torch is installed:
     python3 -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
 Both sides compute in fp32 (TF32 off) with a different summation order:
-hit sets must be equal, scores within rtol 1e-5 / atol 1e-4 (see
-_torch_parity).
+hit sets must be equal, scores within rtol 1e-5 / atol 1e-4 (the SQ8 scan:
+the JAX package's SQ8 tolerance, rtol 1e-4 / atol 1e-4; see _torch_parity).
+The builds on the card are deterministic: two from one seed give bit-equal
+centroids, codebooks and codes.
 """
 
 import numpy as np
 import pytest
 import torch
-from _torch_parity import as_tensor, assert_same_hits, flat_case, ivf_case, split_partials
+from _torch_parity import (
+    SQ8_RTOL,
+    as_tensor,
+    assert_same_hits,
+    assert_same_results,
+    flat_case,
+    ivf_case,
+    split_partials,
+    sq8_case,
+)
 
 from pyrope_tpu.types import Metric
 from pyrope_tpu_torch.ops import fused_scan as fs
@@ -111,6 +122,92 @@ def test_ivf_index_kernel_route_matches_plain_route(cuda_device):
     fused.selection = "exact"  # the plain dense route on the same partition
     assert fused.describe_scan(128) == "dense-xla"
     want = fused.search_batch(q, 10)
-    from _torch_parity import assert_same_results
-
     assert_same_results(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT])
+@pytest.mark.parametrize("kc,d", [(100, 24), (1000, 40)])
+def test_sq8_kernel_vs_plain(cuda_device, metric, kc, d):
+    n, b, k = 20_000, 130, 10   # ragged edges; d not a multiple of 16
+    case = sq8_case(13, n, b, d, kc, 7, kc)
+    args = [as_tensor(a).to(cuda_device) for a in case]
+    args.pop(8)                                  # cents: the kernel takes qc
+    before = fs.LAUNCHES["sq8_scan"]
+    kv, ki = fs.fused_ivf_sq8_topk(*args, kc, k, metric)
+    assert fs.LAUNCHES["sq8_scan"] == before + 1
+    pv, pi = fs.fused_ivf_sq8_topk_plain(*args, kc, k, metric)
+    torch.cuda.synchronize()
+    assert_same_hits(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu(), rtol=SQ8_RTOL)
+
+
+@pytest.mark.cuda
+def test_sq8_wrapper_raises_on_bad_cuda_inputs(cuda_device):
+    case = [as_tensor(a).to(cuda_device) for a in sq8_case(14, 4096, 16, 32, 50, 3, 50)]
+    q, codes, mn, sc, sq, alive, crow, probe, _, qc = case
+    before = dict(fs.LAUNCHES)
+    with pytest.raises(ValueError, match="contiguous"):
+        fs.fused_ivf_sq8_topk(q, codes, mn, sc, sq, alive, crow, probe,
+                              qc.T.contiguous().T, 50, 10)
+    with pytest.raises(ValueError, match="uint8"):
+        fs.fused_ivf_sq8_topk(q, codes.float(), mn, sc, sq, alive, crow, probe, qc, 50, 10)
+    with pytest.raises(ValueError, match="one device"):
+        fs.fused_ivf_sq8_topk(q, codes, mn.cpu(), sc, sq, alive, crow, probe, qc, 50, 10)
+    with pytest.raises(ValueError, match="k must be"):
+        fs.fused_ivf_sq8_topk(q, codes, mn, sc, sq, alive, crow, probe, qc, 50, 129)
+    assert fs.LAUNCHES == before                 # nothing ran, nothing fell back
+    v, i = fs.fused_ivf_sq8_topk(q[:0], codes, mn, sc, sq, alive, crow, probe[:0],
+                                 qc[:0], 50, 10)
+    assert v.shape == i.shape == (0, 10)
+
+
+@pytest.mark.cuda
+def test_builds_on_the_card_are_deterministic(cuda_device):
+    """Two builds from one seed: bit-equal k-means centroids and
+    assignments, PQ codebooks and codes, and SQ8 slab codes."""
+    from pyrope_tpu.utils.datasets import synthetic_clustered
+    from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
+    from pyrope_tpu_torch.ops.kmeans import kmeans_build
+
+    x = synthetic_clustered(200_000, 32, n_clusters=256, seed=3)
+    runs = [kmeans_build(x, 256, "L2", device=cuda_device, seed=5) for _ in range(2)]
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    np.testing.assert_array_equal(runs[0][1], runs[1][1])
+    ixs = []
+    for _ in range(2):
+        ix = IvfPqIndex(32, "L2", device=cuda_device, nlist=64, pq_m=8,
+                        refine_storage="sq8res")
+        ix.add_batch([str(i) for i in range(len(x))], x)
+        ix.build()
+        ixs.append(ix)
+    a, b = ixs
+    np.testing.assert_array_equal(a.get_centroids(), b.get_centroids())
+    np.testing.assert_array_equal(a.pq.codebooks, b.pq.codebooks)
+    np.testing.assert_array_equal(a._codes, b._codes)
+    for key in ("codes8", "mins", "scales", "sq8norm"):
+        assert torch.equal(a._dev[key], b._dev[key]), key
+
+
+@pytest.mark.cuda
+def test_ivf_pq_sq8_route_matches_the_plain_route(cuda_device, tmp_path):
+    """The SQ8 kernel route on the card against the same index carried to
+    the CPU, where the route runs the plain version."""
+    from pyrope_tpu_torch import convert
+    from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
+
+    rng = np.random.default_rng(10)
+    base = rng.normal(size=(30_000, 32)).astype(np.float32)
+    q = rng.normal(size=(100, 32)).astype(np.float32)
+    ix = IvfPqIndex(32, "L2", device=cuda_device, nlist=600, nprobe=20, pq_m=8,
+                    refine_storage="sq8res", scan_mode="dense")
+    ix.add_batch([str(i) for i in range(len(base))], base)
+    ix.build()
+    assert ix.describe_scan(128) == "dense-sq8-pallas-win"
+    before = fs.LAUNCHES["sq8_scan"]
+    got = ix.search_batch(q, 10)
+    assert fs.LAUNCHES["sq8_scan"] == before + 1
+    ix.snapshot(str(tmp_path / "ix.npz"))
+    with np.load(tmp_path / "ix.npz") as z:
+        cpu = convert.ivf_pq_from_arrays(z, "cpu")
+    assert cpu.describe_scan(128) == "dense-sq8-pallas-win"
+    assert_same_results(got, cpu.search_batch(q, 10), rtol=SQ8_RTOL)
