@@ -12,13 +12,22 @@ eight phases, one line each (phase 8 two); any failed check exits non-zero:
                the main paths' shapes: equal hit sets, scores within
                |a-b| <= 1e-4 + 1e-5|b| (fp32 both sides, other summation
                order; the SQ8 scan 1e-4 + 1e-4|b|, the JAX package's SQ8
-               tolerance), kernel and plain times (CUDA events, median)
+               tolerance), kernel and plain times (CUDA events, median),
+               the nearest PyTorch composition's time (topk of the masked
+               fp32 scores) beside each main case and the narrow rows, each
+               case's bound (what its inputs need, bytes or operations); and
+               the list scan's edge cases, IVF and SQ8 mode: a 50k-row list
+               (at nprobe 3, and at nprobe 96 with k 128), nprobe >= the
+               non-empty lists, probed empty lists, B 1000, k 128, a row
+               copied into two lists, 30% tombstones
   4. slice     create_index(IVF_FLAT, nlist 1000, nprobe 3, dense) on 1M x
                128 clustered rows through the registry's Delta(Flat,
                IVF_FLAT): add_batch, build (compaction -> k-means -> slab),
                search_batch / device_search on b1024; route
                dense-pallas-win, recall@10 >= 0.995 against numpy ground
-               truth; build_s, QPS, p50/p99 batch latency
+               truth; build_s, QPS, p50/p99 batch latency, per-layer
+               times, and a torch.profiler trace of 40 pipelined b1024
+               device_search batches (device idle share, kernel shares)
   5. narrow    IvfFlatIndex nlist 100, nprobe 96 on 100k uniform rows,
                b4096: route dense-pallas, recall@10 within 0.005 of 0.9972
   6. flat      FlatIndex(selection="pallas") on 1M uniform rows, b1024:
@@ -54,8 +63,8 @@ import time
 import numpy as np
 import torch
 
-from pyrope_tpu.types import IndexConfig, IndexParams, Metric
-from pyrope_tpu.utils.datasets import (
+from pyrope_tpu_torch.types import IndexConfig, IndexParams, Metric
+from pyrope_tpu_torch.utils.datasets import (
     ground_truth,
     id_lists_to_rows,
     recall_at_k,
@@ -64,7 +73,7 @@ from pyrope_tpu.utils.datasets import (
     synthetic_clustered_queries,
     synthetic_queries,
 )
-from pyrope_tpu.utils.stats import LatencySummary
+from pyrope_tpu_torch.utils.stats import LatencySummary
 from pyrope_tpu_torch.index.flat import FlatIndex
 from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex, rank_probes
 from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
@@ -77,6 +86,7 @@ RTOL, ATOL = 1e-5, 1e-4
 SQ8_RTOL = 1e-4   # the JAX package's SQ8 kernel tolerance
 K = 10
 SOURCE = "pyrope_tpu_torch/csrc/fused_scan.cu"
+LIST_SOURCE = "pyrope_tpu_torch/csrc/ivf_list_scan.cu"
 PALLAS = "pyrope_tpu/ops/pallas_scan.py"
 
 
@@ -172,6 +182,34 @@ def exact_misses_are_ties(ix, base, queries, truth) -> tuple[float, int]:
     return rec, bad
 
 
+def device_shares(fn, iters: int) -> dict:
+    """A torch.profiler trace of ``iters`` pipelined calls: the device span
+    (first kernel start to last kernel end), the kernels' busy time, the
+    idle share of the span and the largest kernels' shares of busy time.
+    Where the profiler records no device time, the fields say so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"device_time": "not measured"}
+    span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"span_ms": round(span / 1e3, 3), "busy_ms": round(busy / 1e3, 3),
+            "idle_share": round(1.0 - busy / span, 4),
+            "shares": {name: round(us / busy, 4) for name, us in top}}
+
+
 def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -195,9 +233,68 @@ def phase_build() -> None:
         ptxas=repr("; ".join(regs)))
 
 
+HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+FP32_FLOP_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least time on the card, ms, and what sets it: each input byte read
+    once and each output written once over the memory rate, against the
+    operations over the fp32 rate."""
+    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def l2_or_ip(q, dots, sq, ip):
+    return dots if ip else -torch.clamp((q * q).sum(1, keepdim=True) - 2.0 * dots
+                                        + sq[None, :], min=0.0)
+
+
+def composition_topk(scores, mask, k):
+    """The nearest PyTorch composition of a masked scan + top-k: topk of the
+    fp32 scores under torch.where (no single call computes the function)."""
+    v, i = torch.topk(torch.where(mask, scores, float("-inf")), k, dim=1)
+    return v, torch.where(torch.isfinite(v), i, -1).int()
+
+
+def layout(n, kp, g, dev, *, big=0, empty=0):
+    """A cluster-major crow of n rows over kp clusters: clusters 0..empty-1
+    hold no rows, cluster ``empty`` gets ``big`` extra rows. Returns
+    (crow, offsets, lens, max_len)."""
+    ids = torch.randint(empty, kp, (n - big,), generator=g, device=dev)
+    crow = torch.sort(torch.cat([ids, torch.full((big,), empty, device=dev)])).values.int()
+    offs, lens = fs.list_csr(crow, kp)
+    return crow, offs, lens, int(lens.max())
+
+
+def probes(b, kp, nprobe, g, dev, *, lo=0, forced=None, every=1):
+    """[b, nprobe] distinct probes among clusters lo..kp-1; with ``forced``
+    (a cluster id, or a tensor of ids per row) in column 0 of every
+    ``every``-th row."""
+    p = torch.rand((b, kp - lo), generator=g, device=dev).argsort(1)[:, :nprobe] + lo
+    if forced is not None:
+        f = forced if torch.is_tensor(forced) else torch.full((b,), forced, device=dev)
+        rows = torch.arange(0, b, every, device=dev)
+        p[rows, 0] = f[rows]
+    return p
+
+
+def list_bound(x_bytes_per_row, q, probe, lens, alive, crow, kp, k, extra=0):
+    """Bound of an IVF/SQ8 list scan on these inputs: each probed cluster's
+    rows read once, the (query, alive row) pairs' FMAs."""
+    b, d = q.shape
+    used = torch.zeros(kp, dtype=torch.bool, device=q.device)
+    used[probe.reshape(-1).long()] = True
+    rows = int(lens[used].sum())
+    alive_c = torch.zeros(kp, device=q.device).index_add_(0, crow.long(), alive.float())
+    pairs = float(alive_c[probe.long()].sum())
+    return bound(rows * x_bytes_per_row + b * d * 4 + probe.numel() * 8 + b * k * 8 + extra,
+                 2.0 * d * pairs)
+
+
 def phase_kernels(dev) -> dict:
-    """Kernel vs plain at the main path's shapes. Returns the JSON record's
-    measured fields per kernel."""
+    """Kernel vs plain at the main path's shapes, and the list scan's edge
+    cases. Returns the JSON record's measured fields per kernel."""
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
     n, d, b = 1_000_000, 128, 1024
@@ -208,64 +305,140 @@ def phase_kernels(dev) -> dict:
     rec = {kind: {"err": 0.0} for kind in ("flat", "ivf", "sq8", "merge")}
     cells = []
 
-    def case(kind, name, kern, plain, reps=10, plain_reps=3, main=False):
+    def case(kind, name, kern, plain, reps=10, plain_reps=3, main=False, comp=None,
+             bnd=None):
         err, swaps = compare(kern(), plain(), name, SQ8_RTOL if kind == "sq8" else RTOL)
         rec[kind]["err"] = max(rec[kind]["err"], err)
         ms, pms = cuda_ms(kern, reps), cuda_ms(plain, plain_reps)
+        cms = cuda_ms(comp, plain_reps) if comp is not None else None
         if main:
-            rec[kind].update(ms=ms, plain_ms=pms)
-        cells.append(f"{name}:{ms:.3f}ms/plain {pms:.3f}ms/err {err:.2e}/ties {swaps}")
+            rec[kind].update(ms=ms, plain_ms=pms, composition_ms=cms)
+        cell = f"{name}:{ms:.3f}ms/plain {pms:.3f}ms/err {err:.2e}/ties {swaps}"
+        if cms is not None:
+            cell += f"/composition {cms:.3f}ms"
+        if bnd is not None:
+            cell += f"/bound {bnd[0]:.4f}ms {bnd[1]}"
+        cells.append(cell)
 
+    rows = torch.arange(n, device=dev)
     for k, ms_cut in ((10, n), (100, n), (10, 600_000)):
+        main = k == 10 and ms_cut == n
         case("flat", f"flat_1M_b1024_k{k}_ms{ms_cut}",
              lambda: fs.fused_flat_topk(q, x, sq, alive, ms_cut, k),
              lambda: fs.fused_flat_topk_plain(q, x, sq, alive, ms_cut, k,
                                               chunk_rows=65536),
-             main=(k == 10 and ms_cut == n))
-    kp = 1000
-    crow = torch.sort(torch.randint(0, kp, (n,), generator=g, device=dev)).values.int()
-    for nprobe in (3, 32):
-        probe = torch.rand((b, kp), generator=g, device=dev).argsort(1)[:, :nprobe]
-        case("ivf", f"ivf_1M_nlist1000_np{nprobe}_b1024",
-             lambda: fs.fused_ivf_topk(q, x, sq, alive, crow, probe, kp, K),
-             lambda: fs.fused_ivf_topk_plain(q, x, sq, alive, crow, probe, kp, K,
+             main=main, comp=(lambda: composition_topk(
+                 l2_or_ip(q, q @ x.T, sq, False), (alive & (rows < ms_cut))[None, :], k))
+             if main else None,
+             bnd=bound(ms_cut * (d * 4 + 5) + b * d * 4 + b * k * 8,
+                       2.0 * b * int(alive[:ms_cut].sum()) * d))
+    live = int(alive.sum())
+    rec["flat"]["bound"] = bound(n * (d * 4 + 5) + b * d * 4 + b * K * 8, 2.0 * b * live * d)
+
+    def ivf_case(name, qv, xv, sqv, alv, lay, kp, probe, k=K, main=False, reps=10,
+                 comp=False):
+        crow, offs, lens, ml = lay
+        bnd = list_bound(d * 4 + 5, qv, probe, lens, alv, crow, kp, k)
+        case("ivf", name,
+             lambda: fs.fused_ivf_topk(qv, xv, sqv, alv, crow, offs, lens, probe, kp, k,
+                                       max_len=ml),
+             lambda: fs.fused_ivf_topk_plain(qv, xv, sqv, alv, crow, probe, kp, k,
                                              chunk_rows=65536),
-             main=(nprobe == 3))
+             reps=reps, main=main, comp=(lambda: composition_topk(
+                 l2_or_ip(qv, qv @ xv.T, sqv, False),
+                 fs.probe_table(probe, kp)[:, crow.long()] & alv[None, :], k))
+             if main or comp else None, bnd=bnd)
+        if main:
+            rec["ivf"]["bound"] = bnd
+
+    def sq8_case(name, qv, xv, alv, lay, kp, probe, metric="L2", k=K, main=False,
+                 reps=10, comp=False):
+        crow, offs, lens, ml = lay
+        cents = xv[torch.randint(0, xv.shape[0], (kp,), generator=g, device=dev)]
+        codes, mins, scales, sq8 = sq8res_encode(xv, cents, crow)
+        qc = qv @ cents.T
+        ip = metric == "IP"
+        bnd = list_bound(d + 13, qv, probe, lens, alv, crow, kp, k, extra=probe.numel() * 4)
+        case("sq8", f"{name}_{metric}",
+             lambda: fs.fused_ivf_sq8_topk(qv, codes, mins, scales, sq8, alv, crow, offs,
+                                           lens, probe, qc, kp, k, metric, max_len=ml),
+             lambda: fs.fused_ivf_sq8_topk_plain(qv, codes, mins, scales, sq8, alv, crow,
+                                                 probe, qc, kp, k, metric,
+                                                 chunk_rows=65536),
+             reps=reps, main=main, comp=(lambda: composition_topk(
+                 fs.sq8_scores(qv, qc, codes, mins, scales, sq8, crow, ip),
+                 fs.probe_table(probe, kp)[:, crow.long()] & alv[None, :], k))
+             if main or comp else None, bnd=bnd)
+        if main:
+            rec["sq8"]["bound"] = bnd
+
+    kp = 1000
+    lay = layout(n, kp, g, dev)
+    for nprobe in (3, 32):
+        ivf_case(f"ivf_1M_nlist1000_np{nprobe}_b1024", q, x, sq, alive, lay, kp,
+                 probes(b, kp, nprobe, g, dev), main=(nprobe == 3))
     n2, b2, kp2 = 100_000, 4096, 100
     x2, sq2, alive2 = x[:n2].contiguous(), sq[:n2].contiguous(), alive[:n2].contiguous()
     q2 = torch.rand((b2, d), generator=g, device=dev)
-    crow2 = torch.sort(torch.randint(0, kp2, (n2,), generator=g, device=dev)).values.int()
-    probe2 = torch.rand((b2, kp2), generator=g, device=dev).argsort(1)[:, :96]
-    case("ivf", "ivf_100k_nlist100_np96_b4096",
-         lambda: fs.fused_ivf_topk(q2, x2, sq2, alive2, crow2, probe2, kp2, K),
-         lambda: fs.fused_ivf_topk_plain(q2, x2, sq2, alive2, crow2, probe2, kp2, K,
-                                         chunk_rows=16384))
+    ivf_case("ivf_100k_nlist100_np96_b4096", q2, x2, sq2, alive2, layout(n2, kp2, g, dev),
+             kp2, probes(b2, kp2, 96, g, dev), reps=5, comp=True)
     # the SQ8 scan: x stored as residual SQ8 against one centroid per cluster
     for n_s, kp_s in ((n, 1000), (100_000, 100)):
-        xs = x[:n_s]
-        crow_s = torch.sort(torch.randint(0, kp_s, (n_s,), generator=g,
-                                          device=dev)).values.int()
-        cents = xs[torch.randint(0, n_s, (kp_s,), generator=g, device=dev)]
-        codes, mins, scales, sq8 = sq8res_encode(xs, cents, crow_s)
-        alive_s = alive[:n_s].contiguous()
-        probe_s = torch.rand((b, kp_s), generator=g, device=dev).argsort(1)[:, :3]
-        qc = q @ cents.T
-        for metric in (Metric.L2, Metric.INNER_PRODUCT):
-            args = (q, codes, mins, scales, sq8, alive_s, crow_s, probe_s, qc, kp_s, K, metric)
-            case("sq8", f"sq8_{n_s // 1000}k_nlist{kp_s}_np3_b1024_{metric.value}",
-                 lambda: fs.fused_ivf_sq8_topk(*args),
-                 lambda: fs.fused_ivf_sq8_topk_plain(*args, chunk_rows=65536),
-                 main=(n_s == n and metric == Metric.L2))
-        del codes, mins, scales, sq8
-    # the merge alone, on partials of the main path's shape (1M rows, b1024)
-    _, splits = fs.scan_splits(b, n, dev)
-    pv = torch.rand((splits, b, K), generator=g, device=dev).sort(2, descending=True).values
-    pi = (torch.arange(splits, device=dev)[:, None, None] * 100_000
-          + torch.randint(0, 100_000, (splits, b, K), generator=g, device=dev)).int()
-    pi = torch.sort(pi, dim=2).values  # rows ascending within each sorted list
-    case("merge", f"merge_S{splits}_b1024_k10",
-         lambda: fs.merge_partials(pv, pi), lambda: fs.merge_partials_plain(pv, pi),
-         reps=20, plain_reps=10, main=True)
+        lay_s = lay if n_s == n else layout(n_s, kp_s, g, dev)
+        probe_s = probes(b, kp_s, 3, g, dev)
+        for metric in ("L2", "IP"):
+            sq8_case(f"sq8_{n_s // 1000}k_nlist{kp_s}_np3_b1024", q, x[:n_s],
+                     alive[:n_s].contiguous(), lay_s, kp_s, probe_s, metric,
+                     main=(n_s == n and metric == "L2"), comp=(metric == "L2"))
+
+    # edge cases of the list scan's work layout, both modes, held to the same
+    # tolerances
+    skew = layout(n, kp, g, dev, big=50_000)        # one 50k-row list
+    p_skew = probes(b, kp, 3, g, dev, lo=1, forced=0, every=2)
+    p_skew96 = probes(b, kp, 96, g, dev, lo=1, forced=0, every=2)
+    few = layout(100_000, 100, g, dev, empty=10)     # 90 non-empty lists
+    holes = layout(n, kp, g, dev, empty=100)         # 100 empty lists, probed
+    p_holes = probes(b, kp, 3, g, dev, lo=100, every=3,
+                     forced=torch.randint(0, 100, (b,), generator=g, device=dev))
+    p_main = probes(b, kp, 3, g, dev)
+    dead = alive & (torch.rand(n, generator=g, device=dev) > 0.3)
+    crow_m, offs_m = lay[0], lay[1]
+    c1, c2 = int(p_main[0, 0]), int(p_main[0, 1])  # a row copied across two lists
+    r1, r2 = int(offs_m[c1]), int(offs_m[c2])
+    xd, qd = x.clone(), q.clone()
+    xd[r2] = xd[r1]
+    qd[0] = xd[r1]
+    sqd = (xd * xd).sum(1)
+    for name, args in (
+        ("skewed_50k_np3_b1024", (q, x, sq, alive, skew, kp, p_skew)),
+        ("skewed_50k_np96_k128_b1024", (q, x, sq, alive, skew, kp, p_skew96)),
+        ("nprobe100_ge_90_lists_b256", (q[:256], x2, sq2, alive2, few, 100,
+                                        probes(256, 100, 100, g, dev))),
+        ("empty_lists_probed_np3_b1024", (q, x, sq, alive, holes, kp, p_holes)),
+        ("ragged_b1000_np3", (q[:1000], x, sq, alive, lay, kp, p_main[:1000])),
+        ("k128_np3_b1024", (q, x, sq, alive, lay, kp, p_main)),
+        ("dup_rows_two_lists_np3_b1024", (qd, xd, sqd, alive, lay, kp, p_main)),
+        ("tombstones_30pct_np3_b1024", (q, x, sq, dead, lay, kp, p_main)),
+    ):
+        qv, xv, sqv, alv, lay_e, kp_e, probe = args
+        k = 128 if "k128" in name else K
+        ivf_case(f"ivf_{name}", qv, xv, sqv, alv, lay_e, kp_e, probe, k=k, reps=3)
+        sq8_case(f"sq8_{name}", qv, xv, alv, lay_e, kp_e, probe, k=k, reps=3)
+    del xd
+    # the merge alone, on partials of the slice's shape: each query's slots
+    # (its lists' segments) from the list scan's inversion of the main probes
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    seg = fs.list_seg(b, 3, kp, lay[3], sms)
+    qend = fs.invert_probes(p_main, lay[2], kp, lay[3], seg, n).slot_end
+    lists = int(qend[-1, -1])
+    pv = torch.rand((lists, K), generator=g, device=dev).sort(1, descending=True).values
+    pi = torch.randint(0, n, (lists, K), generator=g, device=dev).int()
+    case("merge", f"merge_{lists}lists_b1024_k10",
+         lambda: fs.merge_partials(pv, pi, qend), lambda: fs.merge_partials_plain(pv, pi, qend),
+         reps=20, plain_reps=10, main=True, comp=lambda: torch.topk(
+             pv[:lists // b * b].reshape(b, -1), K, dim=1))
+    rec["merge"]["bound"] = bound(lists * K * 8 + (b + 1) * 4 + b * K * 8, 0.0)
+    cells[-1] += f"/bound {rec['merge']['bound'][0]:.4f}ms bytes"
     say("3 kernels", cells=repr(" | ".join(cells)))
     return rec
 
@@ -315,9 +488,15 @@ def phase_slice(dev, counts_before, data) -> dict:
     rank_ms = cuda_ms(lambda: rank_probes(
         q_dev[0], tdev["cents"], tdev["cvalid"], tdev["offsets"], tdev["lens"],
         3, n, Metric.L2), 10)
+    kp = tdev["cents"].shape[0]
     scan_ms = cuda_ms(lambda: fs.fused_ivf_topk(
         q_dev[0], tdev["xperm"], tdev["sqnorm"], tdev["alive"], tdev["crow"],
-        probe, tdev["cents"].shape[0], K), 10)
+        tdev["offsets"], tdev["lens"], probe, kp, K, max_len=tdev["l_pad"]), 10)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    seg = fs.list_seg(1024, 3, kp, tdev["l_pad"], sms)
+    invert_ms = cuda_ms(lambda: fs.invert_probes(probe, tdev["lens"], kp, tdev["l_pad"],
+                                                 seg, tdev["xperm"].shape[0]), 10)
+    trace = device_shares(lambda: ix.device_search(q_dev[0], K), 40)
     t0 = time.perf_counter()
     ix.resolve_rows(rows.cpu().numpy())
     resolve_ms = (time.perf_counter() - t0) * 1e3
@@ -326,6 +505,7 @@ def phase_slice(dev, counts_before, data) -> dict:
         recall_device_search=r_device, **srv,
         search_batch_b1024_ms=round(search_batch_ms, 1),
         rank_probes_ms=round(rank_ms, 3), scan_plus_merge_ms=round(scan_ms, 3),
+        inversion_ms=round(invert_ms, 3), trace_40_b1024=repr(trace),
         resolve_rows_ms=round(resolve_ms, 2),
         ivf_launches=fs.LAUNCHES["ivf_scan"] - counts_before["ivf_scan"])
     return srv
@@ -413,7 +593,9 @@ def phase_pq(dev, data) -> None:
         layers[f"b{len(qb)}_sq8_scan_plus_merge_ms"] = round(cuda_ms(
             lambda: fs.fused_ivf_sq8_topk(
                 qb, tdev["codes8"], tdev["mins"], tdev["scales"], tdev["sq8norm"],
-                tdev["alive"], tdev["crow"], probe, qc, tdev["cents"].shape[0], K), 10), 3)
+                tdev["alive"], tdev["crow"], tdev["offsets"], tdev["lens"], probe, qc,
+                tdev["cents"].shape[0], K, max_len=tdev["l_pad"]), 10), 3)
+    layers["trace_40_b1024"] = repr(device_shares(lambda: ix.device_search(q1024[0], K), 40))
     say("7 pq", route=route, n=n, build_s=round(build_s, 2),
         recall_search_batch=r_search, recall_device_search=r_device,
         **{f"b256_{k}": v for k, v in s256.items()},
@@ -518,23 +700,21 @@ def main() -> int:
     say("launches", ivf_flat_path=repr(ivf_flat_path), ivf_pq_path=repr(ivf_pq_path))
     launches = {name: ivf_flat_path[name] + ivf_pq_path[name] for name in fs.LAUNCHES}
 
+    def entry(name, kind, source, replaces, launched):
+        r = rec[kind]
+        bound_ms, bound_by = r["bound"]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launched, "max_abs_err": r["err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None, "composition_ms": r["composition_ms"]}
+
     kernels = [
-        {"name": "fused_scan_kernel<FLAT>", "route": "cuda", "source": SOURCE,
-         "replaces": f"{PALLAS}:672", "launches": launches["flat_scan"],
-         "max_abs_err": rec["flat"]["err"], "ms": rec["flat"]["ms"],
-         "plain_ms": rec["flat"]["plain_ms"]},
-        {"name": "fused_scan_kernel<IVF>", "route": "cuda", "source": SOURCE,
-         "replaces": f"{PALLAS}:1035", "launches": launches["ivf_scan"],
-         "max_abs_err": rec["ivf"]["err"], "ms": rec["ivf"]["ms"],
-         "plain_ms": rec["ivf"]["plain_ms"]},
-        {"name": "fused_scan_kernel<SQ8>", "route": "cuda", "source": SOURCE,
-         "replaces": f"{PALLAS}:1204, {PALLAS}:1341", "launches": launches["sq8_scan"],
-         "max_abs_err": rec["sq8"]["err"], "ms": rec["sq8"]["ms"],
-         "plain_ms": rec["sq8"]["plain_ms"]},
-        {"name": "merge_partials_kernel", "route": "cuda", "source": SOURCE,
-         "replaces": f"{PALLAS}:401", "launches": launches["merge"],
-         "max_abs_err": rec["merge"]["err"], "ms": rec["merge"]["ms"],
-         "plain_ms": rec["merge"]["plain_ms"]},
+        entry("fused_scan_kernel", "flat", SOURCE, f"{PALLAS}:672", launches["flat_scan"]),
+        entry("ivf_list_scan_kernel<IVF>", "ivf", LIST_SOURCE,
+              f"{PALLAS}:1035, {PALLAS}:992", launches["ivf_scan"]),
+        entry("ivf_list_scan_kernel<SQ8>", "sq8", LIST_SOURCE,
+              f"{PALLAS}:1204, {PALLAS}:1341", launches["sq8_scan"]),
+        entry("merge_partials_kernel", "merge", SOURCE, f"{PALLAS}:401", launches["merge"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,24 +1,25 @@
 """pyrope_tpu_torch — the PyTorch + CUDA port of pyrope_tpu.
 
 A second package beside the JAX one, held against it as its reference. It
-imports the JAX package's framework-free modules (``pyrope_tpu.types``,
-``pyrope_tpu.index.base``, ``pyrope_tpu.index.delta``, ``pyrope_tpu.utils``)
-and never jax. Ported so far, the IVF-Flat and IVF-PQ serving paths:
+imports nothing of the JAX package and never jax: it keeps its own copies of
+the framework-free modules (``types``, ``index/base``, ``index/delta``,
+``utils``). Ported so far, the IVF-Flat and IVF-PQ serving paths:
 
 - ``FlatIndex``     — exact scan; ``selection="pallas"`` runs the fused CUDA
   scan kernel (ops/fused_scan.py, csrc/fused_scan.cu)
-- ``IvfFlatIndex``  — k-means + cluster-major slab; dense routes run the same
-  kernel with a probe bitmap
+- ``IvfFlatIndex``  — k-means + cluster-major slab; dense routes run the
+  cluster-major list scan kernel (csrc/ivf_list_scan.cu)
 - ``IvfPqIndex``    — coarse k-means + PQ codes + a rerank slab, fp32 or
-  residual-SQ8 (``refine_storage="sq8res"``, the same kernel in SQ8 mode)
-- ``DeltaIndex``    — the JAX package's Head+Tail composite, reused as is
+  residual-SQ8 (``refine_storage="sq8res"``, the list scan in SQ8 mode)
+- ``DeltaIndex``    — the Head+Tail composite (numpy only)
 - ``create_index`` / ``VectorIndexRegistry`` — Delta(Flat, Flat|IVF_FLAT|IVF_PQ)
 
-Every index and op takes an explicit ``device``. Importing this package
+Every index and op takes a ``device``, ``"cuda"`` unless the caller asks
+for the CPU; CUDA on a host without a GPU raises. Importing this package
 loads no CUDA state and builds no kernel: the kernels build at first launch.
 """
 
-from pyrope_tpu.types import (
+from pyrope_tpu_torch.types import (
     IndexConfig,
     IndexParams,
     IndexStats,
@@ -46,7 +47,7 @@ _LAZY = {
     "FlatIndex": "pyrope_tpu_torch.index.flat",
     "IvfFlatIndex": "pyrope_tpu_torch.index.ivf_flat",
     "IvfPqIndex": "pyrope_tpu_torch.index.ivf_pq",
-    "DeltaIndex": "pyrope_tpu.index.delta",
+    "DeltaIndex": "pyrope_tpu_torch.index.delta",
     "VectorIndexRegistry": "pyrope_tpu_torch.registry",
     "create_index": "pyrope_tpu_torch.registry",
 }

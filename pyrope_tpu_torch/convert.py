@@ -20,7 +20,7 @@ from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex
 from pyrope_tpu_torch.index.ivf_pq import COARSE_SEED, FORMAT, IvfPqIndex
 
 
-def ivf_flat_from_arrays(arrays, device) -> IvfFlatIndex:
+def ivf_flat_from_arrays(arrays, device="cuda") -> IvfFlatIndex:
     """IvfFlatIndex on ``device`` from ``pyrope_tpu.ivf_flat.v1`` arrays:
     meta, centroids, xperm, perm_ids, alive, offsets, lens, buf_ids,
     buf_vecs."""
@@ -33,7 +33,7 @@ def ivf_flat_from_arrays(arrays, device) -> IvfFlatIndex:
     return ix
 
 
-def ivf_pq_from_arrays(arrays, device) -> IvfPqIndex:
+def ivf_pq_from_arrays(arrays, device="cuda") -> IvfPqIndex:
     """IvfPqIndex on ``device`` from ``pyrope_tpu.ivf_pq.v1`` arrays: meta,
     centroids, codebooks, xperm, codes, perm_ids, alive, offsets, lens,
     buf_ids, buf_vecs."""
@@ -49,7 +49,7 @@ def ivf_pq_from_arrays(arrays, device) -> IvfPqIndex:
     return ix
 
 
-def flat_from_arrays(arrays, device) -> FlatIndex:
+def flat_from_arrays(arrays, device="cuda") -> FlatIndex:
     """FlatIndex on ``device`` from ``pyrope_tpu.flat.v1`` arrays: meta,
     ids, vecs."""
     meta = read_meta(arrays, "pyrope_tpu.flat.v1")

@@ -1,8 +1,9 @@
 """The one place a device argument is checked.
 
-No code in the port picks a device by itself: every index and every op that
-creates tensors takes ``device`` from its caller. Asking for CUDA on a host
-without a usable GPU raises; nothing runs on the CPU instead.
+Every index and every op that creates tensors takes ``device`` from its
+caller, ``"cuda"`` when the caller names none: the port runs on the card
+unless asked for the CPU. Asking for CUDA on a host without a usable GPU
+raises; nothing runs on the CPU instead.
 """
 
 from __future__ import annotations

@@ -1,2 +1,2 @@
-"""Index families of the port: Flat and IVF-Flat (Delta is the JAX
-package's numpy-only composite, imported as is)."""
+"""Index families of the port: Flat, IVF-Flat, IVF-PQ, and the numpy-only
+Delta composite and VectorIndex contract they share."""

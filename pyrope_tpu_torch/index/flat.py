@@ -24,15 +24,15 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from pyrope_tpu.index.base import VectorIndex
-from pyrope_tpu.types import (
+from pyrope_tpu_torch.index.base import VectorIndex
+from pyrope_tpu_torch.types import (
     DEFAULT_SEARCH_OPTIONS,
     IndexStats,
     Metric,
     SearchOptions,
     SearchResult,
 )
-from pyrope_tpu.utils.shapes import capacity_bucket
+from pyrope_tpu_torch.utils.shapes import capacity_bucket
 from pyrope_tpu_torch.device import resolve_device
 from pyrope_tpu_torch.ops.distance import row_sqnorms, score_matrix
 from pyrope_tpu_torch.ops.fused_scan import fused_flat_topk
@@ -59,7 +59,7 @@ class FlatIndex(VectorIndex):
         dim: int,
         metric: Metric | str = Metric.L2,
         *,
-        device,
+        device="cuda",
         storage: str = "fp32",
         selection: str = "exact",  # exact | pallas | approx[:recall]
         min_capacity: int = 1024,

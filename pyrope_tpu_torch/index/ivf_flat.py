@@ -9,11 +9,12 @@ the centroids, probes the top ``nprobe`` lists and honors the
 
 Scan routes, by the same names as the JAX package, so a recorded
 ``scan_path`` names the code that ran:
-  - ``dense-pallas`` / ``dense-pallas-win``: the fused CUDA scan kernel
-    (ops/fused_scan.fused_ivf_topk) over the whole slab, probe membership
-    from a bitmap. The JAX package splits these into its kernels K2 and K3
-    at 512 clusters; here both names run the one kernel, and the name
-    still follows the cluster-table width.
+  - ``dense-pallas`` / ``dense-pallas-win``: the CUDA list scan
+    (ops/fused_scan.fused_ivf_topk): the probe lists inverted on the
+    device, each probed cluster's rows scanned once for the queries that
+    probe it. The JAX package splits these into its kernels K2 and K3 at
+    512 clusters; here both names run the one kernel, and the name still
+    follows the cluster-table width.
   - ``dense-xla``: plain torch, one [B, N] score matrix masked by probe
     membership and the max_scans budget (the JAX package's XLA kernel).
   - ``probe``: plain torch, a gather of each probed list + a running merge.
@@ -33,15 +34,15 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from pyrope_tpu.index.base import CentroidsProvider, VectorIndex
-from pyrope_tpu.types import (
+from pyrope_tpu_torch.index.base import CentroidsProvider, VectorIndex
+from pyrope_tpu_torch.types import (
     DEFAULT_SEARCH_OPTIONS,
     IndexStats,
     Metric,
     SearchOptions,
     SearchResult,
 )
-from pyrope_tpu.utils.shapes import batch_bucket, round_up
+from pyrope_tpu_torch.utils.shapes import batch_bucket, round_up
 from pyrope_tpu_torch.device import resolve_device
 from pyrope_tpu_torch.index.flat import FlatIndex, read_meta, to_device
 from pyrope_tpu_torch.ops.distance import row_sqnorms, score_matrix
@@ -147,11 +148,11 @@ def dense_probe_mask(probe, eff, crow, pos, alive, kpad):
 
 def pallas_dense_ok(selection: str, metric: Metric, ms: int, n: int,
                     kpad: int) -> bool:
-    """Eligibility of the fused dense kernel: full scan only (no max_scans
-    budget), L2/IP, and a probe bitmap the kernel stages in shared memory.
-    The JAX package's tile-divisibility and window terms have no
-    counterpart: the kernel masks ragged edges and takes any cluster
-    layout."""
+    """Eligibility of the list scan kernel: full scan only (no max_scans
+    budget), L2/IP, and at most IVF_MAX_KPAD clusters (a routing cap kept
+    from the dense-mask kernel; the list scan takes any width). The JAX
+    package's tile-divisibility and window terms have no counterpart: the
+    kernel masks ragged edges and takes any cluster layout."""
     if selection == "exact":
         return False
     return metric != Metric.COSINE and ms >= n and kpad <= IVF_MAX_KPAD
@@ -167,7 +168,7 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
         dim: int,
         metric: Metric | str = Metric.L2,
         *,
-        device,
+        device="cuda",
         nlist: int = 100,
         nprobe: int = DEFAULT_NPROBE,
         seed: int = 42,
@@ -175,7 +176,8 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
         train_init: str = "kmeans++",  # | "sample"
         selection: str = "auto",       # auto | pallas | exact
     ):
-        """As the JAX package's IvfFlatIndex, with an explicit ``device``.
+        """As the JAX package's IvfFlatIndex, on ``device`` (the card unless
+        the caller asks for the CPU).
         ``selection``: 'auto' routes eligible dense scans through the fused
         kernel, 'pallas' requires it, 'exact' forces the plain dense scan."""
         if scan_mode not in ("auto", "dense", "probe"):
@@ -477,7 +479,8 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
         if path in ("dense-pallas", "dense-pallas-win"):
             return fused_ivf_topk(
                 q, dev["xperm"], dev["sqnorm"], dev["alive"], dev["crow"],
-                probe, dev["cents"].shape[0], top_k, self.metric,
+                dev["offsets"], dev["lens"], probe, dev["cents"].shape[0],
+                top_k, self.metric, max_len=dev["l_pad"],
             )
         if path == "dense-xla":
             mask = dense_probe_mask(probe, eff, dev["crow"], dev["pos"],

@@ -14,19 +14,19 @@ kept: raw rows stay on the host only.
 
 Scan routes, by the same names as the JAX package, so a recorded route
 names the code that ran:
-  - ``dense-sq8-pallas`` / ``dense-sq8-pallas-win``: the fused CUDA scan
-    kernel in SQ8 mode (ops/fused_scan.fused_ivf_sq8_topk) over the SQ8
-    slab; the JAX package's kernels K4 and K5.
-  - ``dense-exact-pallas`` / ``dense-exact-pallas-win``: the fused kernel
-    in IVF mode (``fused_ivf_topk``) over the fp32 rerank slab (the JAX
+  - ``dense-sq8-pallas`` / ``dense-sq8-pallas-win``: the CUDA list scan
+    in SQ8 mode (ops/fused_scan.fused_ivf_sq8_topk) over the SQ8 slab; the
+    JAX package's kernels K4 and K5.
+  - ``dense-exact-pallas`` / ``dense-exact-pallas-win``: the list scan in
+    IVF mode (``fused_ivf_topk``) over the fp32 rerank slab (the JAX
     package's ``promote=True`` is the identity on fp32).
   - plain torch, as they are XLA in the JAX package: ``dense-sq8-xla``,
     ``dense-exact-xla``, ``dense-adc`` (refine 0), ``probe-adc``,
     ``probe-adc+rerank`` and ``probe-adc+rerank-sq8``. These carry the
     ``max_scans`` budgets.
 The ``-win`` names follow the cluster-table width (> 512), as in the JAX
-package, though here one kernel serves both: its probe bitmap takes any
-nlist up to IVF_MAX_KPAD. So the eligibility test keeps only the JAX
+package, though here one kernel serves both: the list scan takes any
+nlist (routes cap it at IVF_MAX_KPAD). So the eligibility test keeps only the JAX
 package's semantic terms (L2/IP, full scan, fp32) and drops its tile and
 window terms (``pick_row_tile``, ``tile_cluster_windows``/``win_ok``):
 where a JAX index's slab does not fit the windowed kernel (``win_ok``
@@ -44,15 +44,15 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from pyrope_tpu.index.base import CentroidsProvider, VectorIndex
-from pyrope_tpu.types import (
+from pyrope_tpu_torch.index.base import CentroidsProvider, VectorIndex
+from pyrope_tpu_torch.types import (
     DEFAULT_SEARCH_OPTIONS,
     IndexStats,
     Metric,
     SearchOptions,
     SearchResult,
 )
-from pyrope_tpu.utils.shapes import batch_bucket, round_up
+from pyrope_tpu_torch.utils.shapes import batch_bucket, round_up
 from pyrope_tpu_torch.device import resolve_device
 from pyrope_tpu_torch.index.flat import FlatIndex, read_meta, to_device
 from pyrope_tpu_torch.index.ivf_flat import (
@@ -168,7 +168,7 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         dim: int,
         metric: Metric | str = Metric.L2,
         *,
-        device,
+        device="cuda",
         nlist: int = 100,
         pq_m: int = 4,
         ksub: int = 256,
@@ -180,7 +180,8 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         scan_mode: str = "auto",
         train_init: str = "kmeans++",  # | "sample"
     ):
-        """As the JAX package's IvfPqIndex, with an explicit ``device``.
+        """As the JAX package's IvfPqIndex, on ``device`` (the card unless
+        the caller asks for the CPU).
         ``refine``: the ADC shortlist is ``refine * top_k`` rows, re-scored
         exactly from the rerank slab (0: pure ADC). ``scan_mode``: 'auto' |
         'dense' | 'probe'."""
@@ -531,11 +532,13 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
             qc = q @ dev["cents"].T
             return fused_ivf_sq8_topk(
                 q, dev["codes8"], dev["mins"], dev["scales"], dev["sq8norm"],
-                dev["alive"], dev["crow"], probe, qc, kpad, top_k, metric,
+                dev["alive"], dev["crow"], dev["offsets"], dev["lens"], probe,
+                qc, kpad, top_k, metric, max_len=dev["l_pad"],
             )
         if path.startswith("dense-exact-pallas"):
             return fused_ivf_topk(q, dev["xraw"], dev["xsqnorm"], dev["alive"],
-                                  dev["crow"], probe, kpad, top_k, metric)
+                                  dev["crow"], dev["offsets"], dev["lens"], probe,
+                                  kpad, top_k, metric, max_len=dev["l_pad"])
         if path in ("dense-sq8-xla", "dense-exact-xla"):
             mask = dense_probe_mask(probe, eff, dev["crow"], dev["pos"],
                                     dev["alive"], kpad)

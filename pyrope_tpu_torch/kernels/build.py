@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels (``pyrope_tpu_torch/csrc/*.cu``).
 
-nvcc compiles the sources into one shared library with a plain C interface
-at first use; ctypes loads it. Tensors cross as ``data_ptr()`` integers and
+nvcc compiles each source to an object, all at once in parallel, and links
+them into one shared library with a plain C interface at first use; ctypes
+loads it. Tensors cross as ``data_ptr()`` integers and
 the stream as ``torch.cuda.current_stream().cuda_stream``, every one
 declared ``c_void_p`` so ctypes never cuts a pointer to 32 bits.
 
 The library lands in ``build/pyrope_tpu_torch/`` at the repo root, named
-after a hash of the sources and the nvcc flags, so a changed source builds
+after a hash of the sources, their headers and the nvcc flags, so a changed source builds
 anew and an unchanged one is loaded as it is. A missing nvcc or a failed
 build raises with nvcc's own output: there is no fallback.
 """
@@ -26,7 +27,7 @@ _SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "pyrope_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -36,28 +37,42 @@ _build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # d, k, words, sq8
-    "pyrope_scan_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
+    # d, k
+    "pyrope_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    # d, k, sq8
+    "pyrope_list_scan_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "pyrope_error_string": (ctypes.c_char_p, [_I]),
-    # q, x, sqnorm, alive, crow, bitmap, words, B, N, D, k, metric_ip,
-    # max_scans, rows_per_split, n_splits, part_v, part_i, stream
+    # q, x, sqnorm, alive, B, N, D, k, metric_ip, max_scans, rows_per_split,
+    # n_splits, part_v, part_i, stream
     "pyrope_fused_scan": (
-        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-             _P, _P, _P],
+        _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     ),
-    # q, codes, mins, scales, sqnorm, alive, crow, bitmap, words, qc, kp, B,
-    # N, D, k, metric_ip, rows_per_split, n_splits, part_v, part_i, stream
-    "pyrope_fused_scan_sq8": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-             _I, _I, _P, _P, _P],
+    # q, x, sqnorm, alive, pairs, P, cstart, ccnt, item_end, item_c, slot_end,
+    # offsets, lens, nclus, grid, B, D, k, metric_ip, seg, nslots, vec,
+    # part_v, part_i, qfloor, stream
+    "pyrope_ivf_list_scan": (
+        _I, [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+             _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     ),
-    # part_v, part_i, S, B, k, out_v, out_i, stream
-    "pyrope_merge_partials": (_I, [_P, _P, _I, _I, _I, _P, _P, _P]),
+    # q, codes, mins, scales, sqnorm, alive, qc, kp, pairs, P, cstart, ccnt,
+    # item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k,
+    # metric_ip, seg, nslots, vec, part_v, part_i, qfloor, stream
+    "pyrope_ivf_list_scan_sq8": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+             _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    ),
+    # part_v, part_i, S, B, k, qend (null: [S, B, k] lists), P, out_v,
+    # out_i, stream
+    "pyrope_merge_partials": (_I, [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P]),
 }
 
 
 def _sources() -> list[Path]:
     return sorted(_SRC_DIR.glob("*.cu"))
+
+
+def _headers() -> list[Path]:
+    return sorted(_SRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -76,7 +91,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libpyrope_kernels_{h.hexdigest()[:16]}.so"
@@ -91,17 +106,38 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+             "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    _build_log = proc.stdout + proc.stderr
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    procs: list[subprocess.Popen] = []
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for c in cmds]   # one nvcc per source
+        logs = []
+        for c, proc in zip(cmds, procs):
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(c)}\n{stderr}")
+            logs.append(stdout + stderr)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}): {' '.join(link)}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for proc in procs:  # after a failure, stop the other compiles too
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+    _build_log = "".join(logs)
     return out
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from pyrope_tpu.types import Metric
+from pyrope_tpu_torch.types import Metric
 
 
 def check_fp32_exact(t: torch.Tensor) -> None:

@@ -1,28 +1,26 @@
-"""Fused exact scan + running top-k: wrappers of the CUDA kernels in
-``pyrope_tpu_torch/csrc/fused_scan.cu`` and their plain PyTorch twins.
+"""Exact scans + running top-k: wrappers of the CUDA kernels in
+``pyrope_tpu_torch/csrc/`` and their plain PyTorch twins.
 
 Replaces ``pyrope_tpu/ops/pallas_scan.py``:
-  - ``fused_flat_topk``  <- ``pallas_flat_topk`` (K1, :672)
+  - ``fused_flat_topk``  <- ``pallas_flat_topk`` (K1, :672): the flat scan
+    kernel (csrc/fused_scan.cu), corpus splits into [splits, B, k] partials.
   - ``fused_ivf_topk``   <- ``pallas_ivf_topk`` (K2, :1035) and
-    ``pallas_ivf_topk_windowed`` (K3, :992): the CUDA kernel resolves probe
-    membership with a bitmap lookup in shared memory, which takes any
-    cluster-table width, so K3's per-tile cluster window has no counterpart.
+    ``pallas_ivf_topk_windowed`` (K3, :992), and
   - ``fused_ivf_sq8_topk`` <- ``pallas_ivf_sq8_topk`` (K4, :1204) and
-    ``pallas_ivf_sq8_topk_windowed`` (K5, :1341), folded the same way: the
-    IVF scan over a residual-SQ8 slab (uint8 codes + per-row min/scale).
-    The TPU kernels' masked [B, Kp] centroid-dot table (``MASK_SENT``
-    where a cluster is not probed) becomes the probe bitmap plus the plain
-    qc = q·centsᵀ the kernel reads for live rows only.
-All run the same scan kernel (FLAT, IVF or SQ8 mode) and then the merge
-kernel that reduces the per-split partial lists, the work of the Pallas
-bodies' ``_merge_tile`` (:401) and ``_finish_topk`` (:642).
+    ``pallas_ivf_sq8_topk_windowed`` (K5, :1341): the cluster-major list
+    scan (csrc/ivf_list_scan.cu). The TPU kernels scan the whole slab and
+    mask the rows of unprobed clusters (K3/K5 add a per-tile cluster window,
+    K4/K5 a masked [B, Kp] centroid-dot table); here the probe lists are
+    inverted on the device (``invert_probes``) and each probed cluster's
+    rows (``offsets``/``lens``, the CSR the indexes keep) are scanned once
+    for the queries that probe it. The SQ8 scan reads qc = q·centsᵀ once
+    per (query, cluster).
+All end in the merge kernel that reduces the per-split or per-list sorted
+partials, the work of the Pallas bodies' ``_merge_tile`` (:401) and
+``_finish_topk`` (:642).
 
-What bounds the kernel on an H100, and what the design does about it, is
-in the header of the CUDA source: at B = 1024 the slab is re-read once per
-64-query tile (the query tiles of one corpus split run side by side, so
-the re-reads can share L2), the fp32 product runs on the CUDA cores (exact
-fp32 has no tensor-core path), and the threshold-gated top-k update is the
-per-row cost.
+What bounds each kernel on an H100, and what its design does about it, is
+in the header of its CUDA source.
 
 Semantics, shared with the JAX kernels: L2 scores -max(‖q‖²−2q·x+‖x‖², 0),
 IP scores q·x (x the reconstruction x̂ in SQ8 mode); cosine raises
@@ -37,18 +35,23 @@ to ``LAUNCHES``.
 
 from __future__ import annotations
 
+import dataclasses
+import numbers
+
 import torch
 
-from pyrope_tpu.types import Metric
+from pyrope_tpu_torch.types import Metric
 from pyrope_tpu_torch.ops.distance import check_fp32_exact
 
-# MAXK, BT and RT of the CUDA source; the kernel refuses any other k range
+# MAXK, BT and RT of the CUDA sources; the kernels refuse any other k range
 MAX_K = 128              # list slots per query (4 per lane)
-QUERY_TILE = 64          # queries per block
+QUERY_TILE = 64          # queries per block (flat scan) or per list chunk
 ROW_TILE = 128           # corpus rows per tile
+LIST_SEG = 2048          # rows of one cluster a list-scan block walks at most
+LIST_SEG_MIN = 256       # shortest segment list_seg cuts for parallelism
 SMEM_LIMIT = 232_448     # bytes of shared memory a block may use on sm_90
-IVF_MAX_KPAD = 8192      # widest probe bitmap a route sends the kernel
-_BLOCKS_PER_SM = 4       # grid target: blocks in flight per SM
+IVF_MAX_KPAD = 8192      # widest cluster table a route sends the list scan
+_BLOCKS_PER_SM = 4       # flat grid target: blocks in flight per SM
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"flat_scan": 0, "ivf_scan": 0, "sq8_scan": 0, "merge": 0}
@@ -215,84 +218,94 @@ def scan_splits(b: int, n_rows: int, dev: torch.device) -> tuple[int, int]:
     return per, max(-(-n_rows // per), 1)
 
 
-def merge_partials_plain(part_v, part_i):
-    """Plain version of ``merge_partials``. Split-major concatenation puts
-    lower rows first among equal scores, so a stable sort keeps (score
-    desc, row asc)."""
+def merge_partials_plain(part_v, part_i, qend=None):
+    """Plain version of ``merge_partials``: (score desc, row asc) over every
+    list of a query, whatever order the lists come in (two stable sorts:
+    rows, then scores)."""
+    if qend is not None:  # per-query lists, padded to [most lists, B, k]
+        qoff = torch.nn.functional.pad(qend[:, -1], (1, 0))
+        k, cnt = part_v.shape[1], qoff.diff()
+        m = int(cnt.max()) if cnt.numel() else 0
+        if m == 0:
+            return _empty_hits(cnt.numel(), k, part_v.device)
+        j = torch.arange(m, device=part_v.device)
+        ok = (j[None, :] < cnt[:, None])[..., None]
+        rows = torch.where(ok[..., 0], qoff[:-1, None] + j, 0).long()
+        part_v = torch.where(ok, part_v[rows], float("-inf")).permute(1, 0, 2)
+        part_i = torch.where(ok, part_i[rows], -1).permute(1, 0, 2)
     s, b, k = part_v.shape
     v = part_v.permute(1, 0, 2).reshape(b, s * k)
     i = part_i.permute(1, 0, 2).reshape(b, s * k)
+    by_row = torch.sort(i, dim=1, stable=True).indices
+    v, i = torch.gather(v, 1, by_row), torch.gather(i, 1, by_row)
     vals, pos = torch.sort(v, dim=1, descending=True, stable=True)
     return vals[:, :k], torch.gather(i, 1, pos[:, :k])
 
 
-def merge_partials(part_v, part_i):
-    """[S, B, k] per-split sorted lists (f32 scores, int32 rows, -inf/-1
-    empty) -> the [B, k] top-k of each query across splits, (score desc,
-    row asc): the merge kernel on CUDA tensors, the plain version on CPU
-    ones."""
+def merge_partials(part_v, part_i, qend=None):
+    """Sorted lists (f32 scores, int32 rows, -inf/-1 empty) -> the [B, k]
+    top-k of each query across its lists, (score desc, row asc): the merge
+    kernel on CUDA tensors, the plain version on CPU ones. Lists are
+    [S, B, k] (S lists for every query), or with ``qend`` [B, P] int32
+    [slots, k] rows, query b's from qend[b-1, -1] (0 for b = 0) to
+    qend[b, -1] (the list scan's running slot counts, ``ListWork``)."""
     if part_v.device.type == "cpu":
-        return merge_partials_plain(part_v, part_i)
+        return merge_partials_plain(part_v, part_i, qend)
     from pyrope_tpu_torch.kernels.build import check, load
 
     if part_v.dtype != torch.float32 or part_i.dtype != torch.int32:
         raise ValueError("partials must be float32 scores and int32 rows")
-    if not (part_v.is_contiguous() and part_i.is_contiguous()):
+    tensors = (part_v, part_i) if qend is None else (part_v, part_i, qend)
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous tensors")
-    s, b, k = part_v.shape
+    if qend is None:
+        s, b, k = part_v.shape
+        nprobe = 0
+    else:
+        if qend.dtype != torch.int32 or qend.device != part_v.device:
+            raise ValueError("qend must be int32 on the partials' device")
+        (s, k), (b, nprobe) = part_v.shape, qend.shape
     out_v = torch.empty((b, k), dtype=torch.float32, device=part_v.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=part_v.device)
     if b == 0:
         return out_v, out_i  # an empty grid is not a valid launch
     check(load().pyrope_merge_partials(
-        part_v.data_ptr(), part_i.data_ptr(), s, b, k, out_v.data_ptr(),
+        part_v.data_ptr(), part_i.data_ptr(), s, b, k,
+        None if qend is None else qend.data_ptr(), nprobe, out_v.data_ptr(),
         out_i.data_ptr(), torch.cuda.current_stream(part_v.device).cuda_stream,
     ), "merge kernel")
     LAUNCHES["merge"] += 1
     return out_v, out_i
 
 
-def _launch(q, x, sqnorm, alive, k, metric_ip, n_rows, *, max_scans=0,
-            crow=None, bitmap=None, sq8=None):
-    """The scan kernel into [splits, B, k] partials, then the merge. FLAT
-    mode without ``crow``; IVF mode with ``crow`` and ``bitmap``; SQ8 mode
-    when ``sq8`` = (mins, scales, qc) comes too."""
+def _empty_hits(b, k, dev):
+    return (torch.full((b, k), float("-inf"), device=dev),
+            torch.full((b, k), -1, dtype=torch.int32, device=dev))
+
+
+def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
+    """The flat scan kernel into [splits, B, k] partials, then the merge."""
     from pyrope_tpu_torch.kernels.build import check, load
 
     lib = load()
     b, d = q.shape
-    words = 0 if bitmap is None else bitmap.shape[1]
-    smem = lib.pyrope_scan_smem_bytes(d, k, words, int(sq8 is not None))
+    smem = lib.pyrope_scan_smem_bytes(d, k)
     if smem > SMEM_LIMIT:
         raise ValueError(
-            f"scan needs {smem} B of shared memory (D={d}, k={k}, "
-            f"bitmap words={words}), over the {SMEM_LIMIT} B a block may use")
+            f"scan needs {smem} B of shared memory (D={d}, k={k}), over the "
+            f"{SMEM_LIMIT} B a block may use")
     if b == 0:  # an empty grid is not a valid launch
-        empty = torch.empty((0, k), dtype=torch.float32, device=q.device)
-        return empty, empty.int()
-    per, n_splits = scan_splits(b, n_rows, q.device)
+        return _empty_hits(0, k, q.device)
+    per, n_splits = scan_splits(b, max_scans, q.device)
     part_v = torch.empty((n_splits, b, k), dtype=torch.float32, device=q.device)
     part_i = torch.empty((n_splits, b, k), dtype=torch.int32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if sq8 is not None:
-        mins, scales, qc = sq8
-        check(lib.pyrope_fused_scan_sq8(
-            q.data_ptr(), x.data_ptr(), mins.data_ptr(), scales.data_ptr(),
-            sqnorm.data_ptr(), alive.data_ptr(), crow.data_ptr(),
-            bitmap.data_ptr(), words, qc.data_ptr(), qc.shape[1], b,
-            x.shape[0], d, k, int(metric_ip), per, n_splits,
-            part_v.data_ptr(), part_i.data_ptr(), stream,
-        ), "fused SQ8 scan kernel")
-        LAUNCHES["sq8_scan"] += 1
-        return merge_partials(part_v, part_i)
-    ivf = crow is not None
     check(lib.pyrope_fused_scan(
-        q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(),
-        crow.data_ptr() if ivf else None, bitmap.data_ptr() if ivf else None,
-        words, b, x.shape[0], d, k, int(metric_ip), max_scans, per, n_splits,
-        part_v.data_ptr(), part_i.data_ptr(), stream,
+        q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), b,
+        x.shape[0], d, k, int(metric_ip), max_scans, per, n_splits,
+        part_v.data_ptr(), part_i.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream,
     ), "fused scan kernel")
-    LAUNCHES["ivf_scan" if ivf else "flat_scan"] += 1
+    LAUNCHES["flat_scan"] += 1
     return merge_partials(part_v, part_i)
 
 
@@ -309,52 +322,205 @@ def fused_flat_topk(q, x, sqnorm, alive, max_scans: int, k: int,
         return fused_flat_topk_plain(q, x, sqnorm, alive, max_scans, k, metric)
     check_fp32_exact(q)
     ms = max(min(int(max_scans), x.shape[0]), 0)
-    return _launch(q, x, sqnorm, alive, k, metric_ip, ms, max_scans=ms)
+    return _launch(q, x, sqnorm, alive, k, metric_ip, ms)
 
 
-def probe_bitmap(probe: torch.Tensor, kp: int) -> torch.Tensor:
-    """[B, nprobe] probe ids -> [B, ceil(kp/32)] int32 words, bit c%32 of
-    word c//32 set iff cluster c is probed (the kernel reads them as
-    uint32)."""
-    words = -(-kp // 32)
-    t = probe_table(probe, words * 32).view(probe.shape[0], words, 32)
-    shifts = torch.arange(32, device=probe.device, dtype=torch.int64)
-    w = (t.long() << shifts).sum(dim=-1)                 # < 2**32
-    return torch.where(w >= 2**31, w - 2**32, w).int()   # same bits, int32
+# ---- the cluster-major list scan (IVF and SQ8 modes) --------------------------
 
 
-def fused_ivf_topk(q, x, sqnorm, alive, crow, probe, kp: int, k: int,
-                   metric=Metric.L2) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused dense-mask IVF scan + top-k (K2, with K3 folded in).
+def list_csr(crow: torch.Tensor, kp: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(offsets, lens) int32 [kp] of a cluster-major row -> cluster map."""
+    lens = torch.bincount(crow.long(), minlength=kp)[:kp]
+    return (torch.cumsum(lens, 0) - lens).int(), lens.int()
+
+
+@dataclasses.dataclass
+class ListWork:
+    """What the list scan reads besides the data: the probe lists inverted
+    (pairs grouped by cluster), the item table and the pairs' partial
+    slots. Built on the device with no host sync; ``grid``, ``segs`` and
+    ``slots`` come from shapes alone."""
+
+    pairs: torch.Tensor     # [B·P] int32 pair ids j = b·P + p, by (cluster, b)
+    cstart: torch.Tensor    # [kp] int32 first pair of each cluster
+    ccnt: torch.Tensor      # [kp] int32 pairs (probing queries) per cluster
+    item_end: torch.Tensor  # [kp] int32 inclusive prefix sum of items
+    item_c: torch.Tensor    # [grid] int32 cluster of each block (kp: none)
+    slot_end: torch.Tensor  # [B, P] int32 slots of pairs 0..j (row-major), inclusive
+    segs: int               # S: row segments per cluster, at most
+    grid: int               # blocks launched, >= the items there are
+    slots: int              # partial slots allocated, >= slot_end[-1, -1]
+
+
+def list_grid(b: int, nprobe: int, kp: int, max_len: int, seg: int,
+              chunk: int = QUERY_TILE) -> tuple[int, int]:
+    """(grid, segs) of the list scan from shapes alone. A cluster probed by
+    n queries has ceil(n/chunk) <= n/chunk + 1 chunks, so all clusters have
+    at most ceil(B·P/chunk) + min(kp, B·P) chunks, each of at most
+    ceil(max_len/seg) segments."""
+    segs = max(1, -(-int(max_len) // seg))
+    pairs = b * nprobe
+    return (-(-pairs // chunk) + min(kp, pairs)) * segs, segs
+
+
+def list_slots(b: int, nprobe: int, segs: int, seg: int, n_rows: int) -> int:
+    """Partial slots of the list scan from shapes alone: a query's distinct
+    probes have at most P·S segments, and at most P + n_rows // seg, since
+    their lists are disjoint and ceil(l/seg) <= l // seg + 1."""
+    return b * min(nprobe * segs, nprobe + n_rows // seg)
+
+
+def list_seg(b: int, nprobe: int, kp: int, max_len: int, sms: int) -> int:
+    """Segment length of a list-scan launch, from shapes alone: LIST_SEG,
+    halved (down to LIST_SEG_MIN) while the grid bound holds fewer than
+    _BLOCKS_PER_SM blocks per SM, so a batch that probes few lists still
+    fills the card (100k rows, nlist 100, b1024, nprobe 3: 100 lists)."""
+    seg = LIST_SEG
+    while (seg > LIST_SEG_MIN
+           and list_grid(b, nprobe, kp, max_len, seg)[0] < _BLOCKS_PER_SM * sms):
+        seg //= 2
+    return seg
+
+
+def invert_probes(probe: torch.Tensor, lens: torch.Tensor, kp: int, max_len: int,
+                  seg: int, n_rows: int, chunk: int = QUERY_TILE) -> ListWork:
+    """Group the (query, probe position) pairs of ``probe`` [B, P] by
+    cluster and lay out the list scan's items: item = (cluster, chunk of <=
+    ``chunk`` of its queries, segment of <= ``seg`` of its ``lens`` rows).
+    Pair j = b·P + p gets one partial slot per segment of its list, the
+    slot_end[j] - segments(j) .. slot_end[j] before it; a query's slots are
+    contiguous, so the merge reads only the lists its probes have.
+    ``max_len`` >= every list length; the lists cover at most ``n_rows``
+    rows. Device-side torch throughout, in few launches: on the card each
+    costs more host time than device time."""
+    b, nprobe = probe.shape
+    dev = probe.device
+    grid, segs = list_grid(b, nprobe, kp, max_len, seg, chunk)
+    bb = max(b, 1)
+    kt = torch.int32 if (kp + 1) * bb < 2**31 else torch.int64
+    rows = torch.arange(b, device=dev, dtype=kt)[:, None]
+    key, order = torch.sort((probe.to(kt) * bb + rows).reshape(-1))  # distinct keys
+    bounds = torch.searchsorted(key, torch.arange(kp + 1, device=dev, dtype=kt) * bb,
+                                out_int32=True)
+    ccnt = bounds.diff()
+    nseg = (lens + (seg - 1)) // seg
+    item_end = torch.cumsum((ccnt + (chunk - 1)) // chunk * nseg, 0, dtype=torch.int32)
+    item_c = torch.searchsorted(item_end, torch.arange(grid, device=dev, dtype=torch.int32),
+                                right=True, out_int32=True)
+    slot_end = torch.take(nseg, probe.long()).view(-1).cumsum(0, dtype=torch.int32)
+    return ListWork(order.int(), bounds[:-1], ccnt, item_end, item_c,
+                    slot_end.view(b, nprobe), segs, grid,
+                    list_slots(b, nprobe, segs, seg, n_rows))
+
+
+def _check_lists(q, probe, offsets, lens, kp, max_len):
+    if probe.dim() != 2 or probe.shape[0] != q.shape[0] or probe.device != q.device:
+        raise ValueError("probe must be [B, nprobe] on the queries' device")
+    for name, t in (("offsets", offsets), ("lens", lens)):
+        if t.dtype != torch.int32 or t.shape != (kp,):
+            raise ValueError(f"{name} must be int32 [kp] = [{kp}]")
+    if not isinstance(max_len, numbers.Integral):
+        raise TypeError(f"max_len must be a host int, got {type(max_len).__name__}")
+
+
+def _check_list_preconditions(probe, lens, max_len):
+    """What the list scan relies on: a probe row names distinct clusters,
+    and ``max_len`` >= every lens[c]. Checked on the CPU path only: on the
+    card a check would sync the host, and there a violation gives wrong
+    hits (the kernel never writes out of bounds)."""
+    if lens.numel() and int(lens.max()) > max_len:
+        raise ValueError(f"max_len {max_len} is below the longest list, {int(lens.max())}")
+    ranked = probe.sort(dim=1).values
+    if bool((ranked[:, 1:] == ranked[:, :-1]).any()):
+        raise ValueError("a probe row names a cluster twice")
+
+
+def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
+                 max_len, sq8=None):
+    """The list scan kernel into per-query partial slots, then the merge.
+    IVF mode over an fp32 slab; SQ8 mode when ``sq8`` = (mins, scales, qc)."""
+    from pyrope_tpu_torch.kernels.build import check, load
+
+    lib = load()
+    b, d = q.shape
+    smem = lib.pyrope_list_scan_smem_bytes(d, k, int(sq8 is not None))
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"list scan needs {smem} B of shared memory (D={d}, k={k}), over "
+            f"the {SMEM_LIMIT} B a block may use")
+    nprobe = probe.shape[1]
+    if b == 0 or nprobe == 0:
+        return _empty_hits(b, k, q.device)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    seg = list_seg(b, nprobe, kp, max_len, sms)
+    w = invert_probes(probe, lens, kp, max_len, seg, slab.shape[0])
+    # every slot below slot_end[-1, -1] is written by the one item covering it
+    part_v = torch.empty((w.slots, k), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((w.slots, k), dtype=torch.int32, device=q.device)
+    qfloor = torch.zeros(b, dtype=torch.int64, device=q.device)  # 0: no floor yet
+    vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0
+              and slab.data_ptr() % (4 if sq8 is not None else 16) == 0)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tables = (w.pairs.data_ptr(), nprobe, w.cstart.data_ptr(), w.ccnt.data_ptr(),
+              w.item_end.data_ptr(), w.item_c.data_ptr(), w.slot_end.data_ptr(),
+              offsets.data_ptr(), lens.data_ptr(), kp, w.grid, b, d, k,
+              int(metric_ip), seg, w.slots, vec, part_v.data_ptr(), part_i.data_ptr(),
+              qfloor.data_ptr(), stream)
+    if sq8 is not None:
+        mins, scales, qc = sq8
+        check(lib.pyrope_ivf_list_scan_sq8(
+            q.data_ptr(), slab.data_ptr(), mins.data_ptr(), scales.data_ptr(),
+            sqnorm.data_ptr(), alive.data_ptr(), qc.data_ptr(), qc.shape[1],
+            *tables), "IVF list scan kernel (SQ8)")
+        LAUNCHES["sq8_scan"] += 1
+    else:
+        check(lib.pyrope_ivf_list_scan(
+            q.data_ptr(), slab.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(),
+            *tables), "IVF list scan kernel")
+        LAUNCHES["ivf_scan"] += 1
+    return merge_partials(part_v, part_i, w.slot_end)
+
+
+def fused_ivf_topk(q, x, sqnorm, alive, crow, offsets, lens, probe, kp: int,
+                   k: int, metric=Metric.L2, *, max_len: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """IVF scan + top-k over the probed lists (K2, with K3 folded in).
 
     x [N, D] cluster-major f32 slab; crow [N] int32 cluster of each row
-    (< kp); probe [B, nprobe] probed cluster ids (< kp). A row hits iff it
-    is alive and its cluster is in the query's probe set; there is no
-    max_scans budget here (routes with a budget take the plain dense or
-    probe scans). Returns as ``fused_flat_topk``."""
+    (< kp); offsets, lens [kp] int32 the lists' CSR (cluster c's rows are
+    offsets[c] .. offsets[c]+lens[c], matching crow); probe [B, nprobe]
+    probed cluster ids (< kp, distinct in a row, as ``rank_probes`` gives
+    them; see ``_check_list_preconditions``). A row hits iff it is alive and its cluster
+    is in the query's probe set; there is no max_scans budget here (routes
+    with a budget take the plain dense or probe scans). ``max_len`` >=
+    every list length, a host int (the indexes' ``l_pad``). Returns as
+    ``fused_flat_topk``."""
     metric_ip = _metric_ip(metric)
     _check_probe(q, x, crow, probe)
-    if not _check_inputs(q, x, sqnorm, alive, k, extra=(crow,)):
+    _check_lists(q, probe, offsets, lens, kp, max_len)
+    if not _check_inputs(q, x, sqnorm, alive, k, extra=(crow, offsets, lens)):
+        _check_list_preconditions(probe, lens, max_len)
         return fused_ivf_topk_plain(q, x, sqnorm, alive, crow, probe, kp, k,
                                     metric)
     check_fp32_exact(q)
-    bitmap = probe_bitmap(probe, kp)
-    return _launch(q, x, sqnorm, alive, k, metric_ip, x.shape[0], crow=crow,
-                   bitmap=bitmap)
+    return _launch_list(q, x, sqnorm, alive, offsets, lens, probe, kp, k,
+                        metric_ip, max_len)
 
 
-def fused_ivf_sq8_topk(q, codes, mins, scales, sqnorm, alive, crow, probe, qc,
-                       kp: int, k: int, metric=Metric.L2
+def fused_ivf_sq8_topk(q, codes, mins, scales, sqnorm, alive, crow, offsets, lens,
+                       probe, qc, kp: int, k: int, metric=Metric.L2, *,
+                       max_len: int
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused dense-mask IVF scan + top-k over a residual-SQ8 slab (K4, with
-    K5 folded in).
+    """IVF scan + top-k over a residual-SQ8 slab (K4, with K5 folded in).
 
     codes [N, D] uint8 cluster-major residual codes; mins, scales [N] f32
     and sqnorm [N] f32 = ||x̂||² of the reconstruction x̂ = c[crow] + min +
-    scale·code; qc [B, kp] f32 = q·centsᵀ (the kernel reads it for live
-    rows only); crow, probe, alive and the return as ``fused_ivf_topk``."""
+    scale·code; qc [B, kp] f32 = q·centsᵀ (the kernel reads qc[b, c] once
+    per probed list); crow, offsets, lens, probe, max_len and the return as
+    ``fused_ivf_topk``."""
     metric_ip = _metric_ip(metric)
     _check_probe(q, codes, crow, probe)
+    _check_lists(q, probe, offsets, lens, kp, max_len)
     n = codes.shape[0]
     if mins.shape != (n,) or scales.shape != (n,):
         raise ValueError("mins and scales must be [N]")
@@ -364,10 +530,12 @@ def fused_ivf_sq8_topk(q, codes, mins, scales, sqnorm, alive, crow, probe, qc,
         raise ValueError(f"codes must be uint8, got {codes.dtype}")
     if not all(t.dtype == torch.float32 for t in (mins, scales, qc)):
         raise ValueError("mins, scales and qc must be float32")
-    if not _check_inputs(q, codes, sqnorm, alive, k, extra=(crow, mins, scales, qc),
+    if not _check_inputs(q, codes, sqnorm, alive, k,
+                         extra=(crow, offsets, lens, mins, scales, qc),
                          slab_dtype=torch.uint8):
+        _check_list_preconditions(probe, lens, max_len)
         return fused_ivf_sq8_topk_plain(q, codes, mins, scales, sqnorm, alive,
                                         crow, probe, qc, kp, k, metric)
     check_fp32_exact(q)
-    return _launch(q, codes, sqnorm, alive, k, metric_ip, n, crow=crow,
-                   bitmap=probe_bitmap(probe, kp), sq8=(mins, scales, qc))
+    return _launch_list(q, codes, sqnorm, alive, offsets, lens, probe, kp, k,
+                        metric_ip, max_len, sq8=(mins, scales, qc))

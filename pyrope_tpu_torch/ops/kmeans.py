@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pyrope_tpu.types import Metric
+from pyrope_tpu_torch.types import Metric
 from pyrope_tpu_torch.device import resolve_device
 from pyrope_tpu_torch.ops.distance import row_sqnorms, score_matrix
 
@@ -126,7 +126,7 @@ def kmeans_train(
     k: int,
     metric: Metric | str = Metric.L2,
     *,
-    device,
+    device="cuda",
     iters: int = DEFAULT_ITERS,
     seed: int = 42,
     block: int = 65536,
@@ -144,7 +144,7 @@ def kmeans_build(
     k: int,
     metric: Metric | str = Metric.L2,
     *,
-    device,
+    device="cuda",
     iters: int = DEFAULT_ITERS,
     seed: int = 42,
     block: int = 65536,
@@ -168,7 +168,7 @@ def kmeans_assign(
     centroids: np.ndarray,
     metric: Metric | str = Metric.L2,
     *,
-    device,
+    device="cuda",
     block: int = 65536,
 ) -> np.ndarray:
     """Nearest-centroid id per row, honoring the metric. Returns int32 [N]."""

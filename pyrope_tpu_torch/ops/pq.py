@@ -28,7 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pyrope_tpu.types import Metric
+from pyrope_tpu_torch.types import Metric
 from pyrope_tpu_torch.ops.distance import check_fp32_exact
 from pyrope_tpu_torch.ops.kmeans import kmeans_assign, kmeans_train, segment_sum
 
@@ -54,7 +54,7 @@ class ProductQuantizer:
     def _subspace(self, data: np.ndarray, mi: int) -> np.ndarray:
         return np.ascontiguousarray(data[:, mi * self.sub : (mi + 1) * self.sub])
 
-    def train(self, data: np.ndarray, *, device, seed: int = 42,
+    def train(self, data: np.ndarray, *, device="cuda", seed: int = 42,
               iters: int = 10) -> None:
         """Per-subspace k-means on L2 from sampled rows, seed 42+m. With
         fewer rows than ksub the last centroid fills the unused codes."""
@@ -69,7 +69,7 @@ class ProductQuantizer:
             cbs[mi, c.shape[0] :] = c[-1]  # unused codes stay harmless
         self.codebooks = cbs
 
-    def encode(self, data: np.ndarray, *, device) -> np.ndarray:
+    def encode(self, data: np.ndarray, *, device="cuda") -> np.ndarray:
         """[N, D] -> uint8 codes [N, m] (nearest sub-centroid)."""
         assert self.codebooks is not None
         data = np.asarray(data, np.float32)

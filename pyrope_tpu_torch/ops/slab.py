@@ -20,7 +20,7 @@ import torch
 SQ8_CHUNK = 262_144  # rows encoded per step: bounds the fp32 residual transient
 
 
-def pad_order(order: np.ndarray, npad: int, oob: int, device) -> torch.Tensor:
+def pad_order(order: np.ndarray, npad: int, oob: int, device="cuda") -> torch.Tensor:
     """Permutation padded to ``npad`` with the out-of-range index ``oob``;
     take_slab turns those rows into zeros."""
     out = np.full(npad, oob, np.int64)

@@ -104,7 +104,7 @@ def chunked_exact_topk(
     rows [B, k]) sorted descending; -inf/-1 mark missing hits. Independent
     of the fused kernel (plain matmul + stable selection), so it can serve
     as its cross-check."""
-    from pyrope_tpu.types import Metric
+    from pyrope_tpu_torch.types import Metric
     from pyrope_tpu_torch.ops.distance import score_matrix
 
     metric = Metric.parse(metric)

@@ -1,8 +1,8 @@
 """Index factory and multi-tenant registry (port of ``pyrope_tpu/registry.py``).
 
-Every index is a Delta(head=Flat, tail=<algo>): the JAX package's numpy-only
+Every index is a Delta(head=Flat, tail=<algo>): the numpy-only
 ``DeltaIndex`` over the port's Flat, IVF-Flat and IVF-PQ indexes, all on
-the device the caller names. ``get_or_create`` validates dim/metric; a
+the device the caller names (``"cuda"`` by default). ``get_or_create`` validates dim/metric; a
 per-index epoch counter backs cache invalidation. HNSW and an HNSW head
 are not yet ported and raise NotImplementedError.
 """
@@ -13,16 +13,16 @@ import dataclasses
 import threading
 from typing import Optional
 
-from pyrope_tpu.index.base import VectorIndex
-from pyrope_tpu.index.delta import DeltaIndex
-from pyrope_tpu.types import IndexConfig, Metric
+from pyrope_tpu_torch.index.base import VectorIndex
+from pyrope_tpu_torch.index.delta import DeltaIndex
+from pyrope_tpu_torch.types import IndexConfig, Metric
 from pyrope_tpu_torch.device import resolve_device
 from pyrope_tpu_torch.index.flat import FlatIndex
 from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex
 from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
 
 
-def create_index(config: IndexConfig, device) -> DeltaIndex:
+def create_index(config: IndexConfig, device="cuda") -> DeltaIndex:
     """Delta(head=Flat, tail=algo) on ``device``."""
     algo = config.algorithm.upper().replace("-", "_").replace(" ", "_")
     if algo not in ("FLAT", "IVF_FLAT", "IVFFLAT", "IVF_PQ", "IVFPQ", "HNSW"):
@@ -64,7 +64,7 @@ class VectorIndexRegistry:
     """(tenant, index) -> IndexState with epoch-based cache invalidation;
     every index it creates lives on ``device``."""
 
-    def __init__(self, device):
+    def __init__(self, device="cuda"):
         self._device = resolve_device(device)
         self._lock = threading.Lock()
         self._states: dict[tuple[str, str], IndexState] = {}

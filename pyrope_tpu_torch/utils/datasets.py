@@ -1,0 +1,107 @@
+"""Seeded datasets, ground truth and recall (numpy only).
+
+The port's copy of what it uses of ``pyrope_tpu/utils/datasets.py``: the
+same generators with the same seeds, so both packages see the same rows.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+BASE_SEED = 42     # synthetic base vectors seed
+QUERY_SEED = 1337  # synthetic query seed
+
+
+def synthetic(n: int, dim: int, seed: int = BASE_SEED) -> np.ndarray:
+    """Seeded uniform [0, 1) float32 vectors."""
+    rng = np.random.default_rng(seed)
+    return rng.random((n, dim), dtype=np.float32)
+
+
+def synthetic_queries(n: int, dim: int, seed: int = QUERY_SEED) -> np.ndarray:
+    return synthetic(n, dim, seed)
+
+
+def synthetic_clustered(
+    n: int, dim: int, n_clusters: int = 100, seed: int = BASE_SEED,
+    spread: float = 0.05,
+) -> np.ndarray:
+    """Mixture-of-Gaussians corpus: the clustered regime embedding spaces
+    show and IVF exploits."""
+    rng = np.random.default_rng(seed)
+    centers = rng.random((n_clusters, dim)).astype(np.float32)
+    assign = rng.integers(0, n_clusters, n)
+    noise = rng.normal(0.0, spread, (n, dim)).astype(np.float32)
+    return centers[assign] + noise
+
+
+def synthetic_clustered_queries(
+    n: int, dim: int, n_clusters: int = 100, seed: int = QUERY_SEED,
+    base_seed: int = BASE_SEED, spread: float = 0.05,
+) -> np.ndarray:
+    """Queries drawn near the same cluster centers as the corpus."""
+    rng = np.random.default_rng(seed)
+    centers_rng = np.random.default_rng(base_seed)
+    centers = centers_rng.random((n_clusters, dim)).astype(np.float32)
+    assign = rng.integers(0, n_clusters, n)
+    noise = rng.normal(0.0, spread, (n, dim)).astype(np.float32)
+    return centers[assign] + noise
+
+
+def ground_truth(
+    base: np.ndarray, queries: np.ndarray, k: int, metric: str = "L2",
+    block: int = 4096,
+) -> np.ndarray:
+    """Exact top-k row indices per query (numpy float64, blocked over base
+    rows)."""
+    from pyrope_tpu_torch.types import Metric
+
+    m = Metric.parse(metric)
+    q = np.asarray(queries, np.float64)
+    if m == Metric.COSINE:
+        q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    qq = (q * q).sum(1)[:, None]
+    nq = q.shape[0]
+    # running top-k per block: peak memory O(Q*block), not O(Q*N) float64
+    best_s = np.full((nq, k), -np.inf)
+    best_i = np.full((nq, k), -1, np.int64)
+    n = np.asarray(base).shape[0]
+    for s in range(0, n, block):
+        blk = np.asarray(base[s : s + block], np.float64)
+        if m == Metric.COSINE:
+            blk = blk / np.maximum(np.linalg.norm(blk, axis=1, keepdims=True), 1e-12)
+        dots = q @ blk.T
+        if m == Metric.L2:
+            sc = -(qq - 2 * dots + (blk * blk).sum(1)[None, :])
+        else:
+            sc = dots
+        cand_s = np.concatenate([best_s, sc], axis=1)
+        cand_i = np.concatenate(
+            [best_i, np.broadcast_to(np.arange(s, s + blk.shape[0]), sc.shape)], axis=1
+        )
+        sel = np.argpartition(-cand_s, kth=min(k, cand_s.shape[1] - 1), axis=1)[:, :k]
+        best_s = np.take_along_axis(cand_s, sel, axis=1)
+        best_i = np.take_along_axis(cand_i, sel, axis=1)
+    order = best_s.argsort(axis=1)[:, ::-1]
+    return np.take_along_axis(best_i, order, axis=1)
+
+
+def id_lists_to_rows(id_lists: "list[list[str]]", k: int | None = None) -> np.ndarray:
+    """resolve_rows output (numeric-string ids, '' = miss) -> int row matrix
+    padded with -1, ready for recall_at_k."""
+    width = k or max((len(r) for r in id_lists), default=0)
+    out = np.full((len(id_lists), width), -1, np.int64)
+    for bi, row in enumerate(id_lists):
+        for j, i in enumerate(row[:width]):
+            if i:
+                out[bi, j] = int(i)
+    return out
+
+
+def recall_at_k(result_ids: np.ndarray, truth_ids: np.ndarray, k: int) -> float:
+    """Mean |result ∩ truth| / k over queries. Inputs: [B, >=k] int arrays
+    (-1 pads missing hits)."""
+    hits = 0
+    for res, tru in zip(result_ids, truth_ids):
+        hits += len(set(int(r) for r in res[:k] if r >= 0) & set(int(t) for t in tru[:k]))
+    return hits / (len(result_ids) * k)

@@ -7,14 +7,22 @@ scan), so scores agree to the JAX tests' own tolerance, rtol 1e-5 and atol
 1e-4 (tests/test_pallas_scan.py), not bit for bit. Hit sets must be equal;
 an ordered list may differ from the other only where adjacent scores lie
 within that tolerance.
+
+The two packages have their own types (``Metric``, ``SearchOptions``,
+``IndexConfig``, ``IndexStats``): a JAX-side value crosses to the port only
+through the ``port_*`` helpers here, never as the JAX object itself.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from pyrope_tpu_torch.ops.fused_scan import fused_flat_topk_plain
+from pyrope_tpu_torch import types as port_types
+from pyrope_tpu_torch.ops import fused_scan as fs
+from pyrope_tpu_torch.ops.fused_scan import fused_flat_topk_plain, list_csr
 
 RTOL = 1e-5
 ATOL = 1e-4
@@ -56,6 +64,30 @@ def assert_same_results(res_a, res_b, rtol=RTOL) -> None:
     assert_same_hits(*hits_to_arrays(res_a), *hits_to_arrays(res_b), rtol=rtol)
 
 
+# ---- the seam between the two packages' types -------------------------------
+
+
+def port_metric(metric) -> str:
+    """A metric (either package's enum, or a string) as the string value
+    both packages parse."""
+    return getattr(metric, "value", metric)
+
+
+def port_options(opts) -> "port_types.SearchOptions":
+    """The JAX package's SearchOptions as the port's."""
+    return port_types.SearchOptions(**dataclasses.asdict(opts))
+
+
+def port_config(cfg) -> "port_types.IndexConfig":
+    """The JAX package's IndexConfig as the port's (through its dict form)."""
+    return port_types.IndexConfig.from_dict(cfg.to_dict())
+
+
+def stats_tuple(stats) -> tuple:
+    """An IndexStats of either package as (count, dim, metric value)."""
+    return stats.count, stats.dim, port_metric(stats.metric)
+
+
 # ---- seeded inputs shared by the kernel tests ------------------------------
 
 
@@ -83,6 +115,11 @@ def ivf_case(seed, n, b, d, kc, nprobe):
     return x, q, sq, alive, crow, probe
 
 
+def csr(crow, kp):
+    """(offsets, lens) int32 tensors [kp] of a cluster-major crow."""
+    return list_csr(as_tensor(crow), kp)
+
+
 def sq8_case(seed, n, b, d, kc, nprobe, kp):
     """ivf_case's corpus stored as residual SQ8 against per-cluster means,
     encoded as the JAX package's host encoder does. Returns (q, codes,
@@ -102,6 +139,61 @@ def sq8_case(seed, n, b, d, kc, nprobe, kp):
     return q, codes, mn, sc, sq, alive, crow, probe, cents, q @ cents.T
 
 
+def list_case(seed, n, b, d, kc, nprobe, *, big=0, empty=0, dead=0.0, dup=False):
+    """A cluster-major IVF case for the list scan's layouts. ``big`` extra
+    rows go to one cluster (skew); clusters 0..empty-1 hold no rows and
+    every third query probes one of them; a ``dead`` share of rows is
+    tombstoned; ``dup`` copies a row of one cluster into another and makes
+    query 0 that row, probing both (exact score ties across lists).
+    Returns (x, q, sq, alive, crow, probe) as numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((n, d), np.float32)
+    q = rng.random((b, d), np.float32)
+    w = np.ones(kc)
+    w[:empty] = 0.0
+    lens = rng.multinomial(n - big, w / w.sum())
+    hot = empty                               # the skewed cluster
+    lens[hot] += big
+    crow = np.repeat(np.arange(kc, dtype=np.int32), lens)
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    forced = np.full((b, 2), -1)
+    if big:
+        forced[::2, 0] = hot
+    if empty:
+        forced[::3, 1] = rng.integers(0, empty, len(forced[::3]))
+    if dup:
+        c1, c2 = hot + 1, hot + 2
+        r1, r2 = offs[c1] + lens[c1] // 2, offs[c2] + lens[c2] // 2
+        x[r2] = x[r1]
+        q[0] = x[r1]
+        forced[0] = (c1, c2)
+    probe = np.empty((b, nprobe), np.int32)
+    for i in range(b):
+        want = [c for c in forced[i] if c >= 0][:nprobe]
+        rest = [c for c in rng.permutation(kc) if c not in want]
+        probe[i] = (want + rest)[:nprobe]
+    alive = rng.random(n) >= dead
+    sq = np.einsum("nd,nd->n", x, x).astype(np.float32)
+    return x, q, sq, alive, crow, probe
+
+
+def sq8_of(case, kp):
+    """A list_case's corpus as residual SQ8 against per-cluster means, as
+    sq8_case encodes it: (codes, mins, scales, sqnorm of x̂, cents [kp, D],
+    qc [B, kp])."""
+    x, q, _, _, crow, _ = case
+    cents = np.zeros((kp, x.shape[1]), np.float32)
+    for c in np.unique(crow):
+        cents[c] = x[crow == c].mean(axis=0)
+    r = x - cents[crow]
+    mn = r.min(axis=1)
+    sc = np.maximum(r.max(axis=1) - mn, 1e-12) / np.float32(255.0)
+    codes = np.clip(np.round((r - mn[:, None]) / sc[:, None]), 0, 255).astype(np.uint8)
+    xhat = cents[crow] + mn[:, None] + sc[:, None] * codes.astype(np.float32)
+    sq = np.einsum("nd,nd->n", xhat, xhat).astype(np.float32)
+    return codes, mn, sc, sq, cents, (q @ cents.T).astype(np.float32)
+
+
 def split_partials(q, x, sq, alive, k, per):
     """Per-split plain scans stacked as the scan kernel's [S, B, k] output."""
     parts = []
@@ -113,3 +205,109 @@ def split_partials(q, x, sq, alive, k, per):
                                            x.shape[0], k))
     return (torch.stack([v for v, _ in parts]).contiguous(),
             torch.stack([i for _, i in parts]).contiguous())
+
+
+# ---- the list scan's work layout, emulated on the CPU -------------------------
+
+
+def list_item(work, item, lens, offsets, seg, chunk=fs.QUERY_TILE):
+    """The kernel's decode of block ``item``: (cluster, pair ids, segment,
+    rows lo..hi), or None past the last item."""
+    c = int(work.item_c[item])
+    if c >= work.ccnt.shape[0]:
+        return None
+    cnt, n = int(work.ccnt[c]), int(lens[c])
+    ns, nch = -(-n // seg), -(-cnt // chunk)
+    local = item - (int(work.item_end[c]) - nch * ns)
+    ch, s = divmod(local, ns)
+    q0 = int(work.cstart[c]) + ch * chunk
+    pairs = work.pairs[q0:q0 + min(chunk, cnt - ch * chunk)].long()
+    lo = int(offsets[c]) + s * seg
+    return c, pairs, s, lo, int(offsets[c]) + min(n, (s + 1) * seg)
+
+
+def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_len,
+                           seg, chunk=fs.QUERY_TILE, order=None):
+    """Plain emulation of the list scan kernel's work layout: invert_probes,
+    then every item's sorted lists into its queries' slots (``slot_of``)
+    of the [slots, k] partials, as the kernel writes them. Returns
+    (part_v, part_i, work); slots no item wrote hold NaN / -2.
+    ``item_scores(b_ids, c, s, e)`` -> [len(b_ids), e-s] scores of rows
+    s..e of cluster c. Items run in ``order`` (default: item order), one
+    after another, with the kernel's per-query floor: an item keeps only
+    the rows that beat its query's floor, and a full list of k such rows
+    raises the floor to its k-th entry."""
+    b, nprobe = probe.shape
+    work = fs.invert_probes(probe, lens, kp, max_len, seg, int(lens.sum()), chunk)
+    part_v = torch.full((work.slots, k), float("nan"))
+    part_i = torch.full((work.slots, k), -2, dtype=torch.int32)
+    floor_v = torch.full((b,), float("-inf"))
+    floor_i = torch.full((b,), -1, dtype=torch.int64)
+    for item in (range(work.grid) if order is None else order):
+        got = list_item(work, item, lens, offsets, seg, chunk)
+        if got is None:
+            continue
+        c, pairs, s, lo, hi = got
+        bq = pairs // nprobe
+        sc = torch.where(alive[None, lo:hi], item_scores(bq, c, lo, hi), float("-inf"))
+        fv, fi = floor_v[bq, None], floor_i[bq, None]
+        rows = torch.arange(lo, hi)[None, :]
+        above = (sc > fv) | ((sc == fv) & (rows < fi))  # beats the floor
+        sc = torch.where(above, sc, float("-inf"))
+        vals, pos = torch.sort(sc, dim=1, descending=True, stable=True)
+        kk = min(k, hi - lo)
+        vals, rows = vals[:, :kk], torch.where(torch.isfinite(vals), pos + lo, -1)[:, :kk]
+        slot = slot_of(work, pairs, lens[c], seg) + s
+        part_v[slot], part_i[slot] = float("-inf"), -1
+        part_v[slot, :kk], part_i[slot, :kk] = vals, rows.int()
+        if kk == k:  # a full list: its k-th entry beats the floor it started from
+            full = torch.isfinite(vals[:, -1])
+            floor_v[bq[full]] = vals[full, -1]
+            floor_i[bq[full]] = rows[full, -1]
+    return part_v, part_i, work
+
+
+def slot_of(work, pairs, n, seg):
+    """The first partial slot of pairs ``pairs`` of one list of ``n`` rows,
+    as the kernel computes it: the running segment count less the list's."""
+    return work.slot_end.view(-1)[pairs].long() - -(-int(n) // seg)
+
+
+def query_offsets(work):
+    """[B+1]: query b's partial slots are qoff[b] .. qoff[b+1]."""
+    return torch.nn.functional.pad(work.slot_end[:, -1], (1, 0))
+
+
+def list_scan_emulated(*args, **kw):
+    """``list_partials_emulated``, then the merge over each query's slots."""
+    part_v, part_i, work = list_partials_emulated(*args, **kw)
+    return fs.merge_partials_plain(part_v, part_i, work.slot_end)
+
+
+def _l2_or_ip(q, dots, sq, metric):
+    if port_types.Metric.parse(metric) == port_types.Metric.INNER_PRODUCT:
+        return dots
+    return -torch.clamp((q * q).sum(1, keepdim=True) - 2.0 * dots + sq[None, :], min=0.0)
+
+
+def fused_ivf_topk_emulated(q, x, sqnorm, alive, offsets, lens, probe, kp, k,
+                            metric="L2", *, max_len=None, seg=fs.LIST_SEG, order=None):
+    """``list_scan_emulated`` with the IVF scores (CPU tensors)."""
+    return list_scan_emulated(
+        lambda bq, c, s, e: _l2_or_ip(q[bq], q[bq] @ x[s:e].T, sqnorm[s:e], metric),
+        alive, offsets, lens, probe, kp, k,
+        int(lens.max()) if max_len is None else max_len, seg, order=order)
+
+
+def fused_ivf_sq8_topk_emulated(q, codes, mins, scales, sqnorm, alive, offsets,
+                                lens, probe, qc, kp, k, metric="L2", *, seg=fs.LIST_SEG):
+    """``list_scan_emulated`` with the SQ8 scores (CPU tensors)."""
+    ip = port_types.Metric.parse(metric) == port_types.Metric.INNER_PRODUCT
+
+    def item_scores(bq, c, s, e):
+        crow = torch.full((e - s,), c, dtype=torch.int32)
+        return fs.sq8_scores(q[bq], qc[bq], codes[s:e], mins[s:e], scales[s:e],
+                             sqnorm[s:e], crow, ip)
+
+    return list_scan_emulated(item_scores, alive, offsets, lens, probe, kp, k,
+                              int(lens.max()), seg)

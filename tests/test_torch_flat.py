@@ -10,7 +10,7 @@ different summation order: scores within rtol 1e-5 / atol 1e-4.
 import numpy as np
 import pytest
 import torch
-from _torch_parity import assert_same_results
+from _torch_parity import assert_same_results, port_options, stats_tuple
 
 import pyrope_tpu as jpt
 from pyrope_tpu.types import SearchOptions
@@ -38,10 +38,11 @@ def test_flat_matches_jax_after_mutations(selection, metric):
     tix = FlatIndex(16, metric, device="cpu", selection=selection)
     for ix in (jix, tix):
         _mutate(ix, base)
-    assert tix.get_stats() == jix.get_stats()
+    assert stats_tuple(tix.get_stats()) == stats_tuple(jix.get_stats())
     assert_same_results(tix.search_batch(q, 10), jix.search_batch(q, 10))
     opts = SearchOptions(max_scans=700)
-    assert_same_results(tix.search_batch(q, 10, opts), jix.search_batch(q, 10, opts))
+    assert_same_results(tix.search_batch(q, 10, port_options(opts)),
+                        jix.search_batch(q, 10, opts))
 
 
 def test_incremental_sync_scatters_rows():
@@ -81,7 +82,7 @@ def test_snapshot_crosses_both_ways(tmp_path):
     jix.snapshot(str(tmp_path / "j.npz"))
     with np.load(tmp_path / "j.npz") as z:
         tix = convert.flat_from_arrays(z, "cpu")
-    assert tix.metric == jix.metric
+    assert tix.metric.value == jix.metric.value
     assert_same_results(tix.search_batch(q, 5), jix.search_batch(q, 5))
     tix.snapshot(str(tmp_path / "t.npz"))
     back = jpt.FlatIndex(8, "L2")

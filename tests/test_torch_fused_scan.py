@@ -19,8 +19,10 @@ from _torch_parity import (
     SQ8_RTOL,
     as_tensor,
     assert_same_hits,
+    csr,
     flat_case,
     ivf_case,
+    port_metric,
     split_partials,
     sq8_case,
 )
@@ -51,10 +53,11 @@ def test_flat_plain_vs_pallas(metric, k, n):
     jv, ji = pallas_flat_topk(jnp.asarray(q), jnp.asarray(x), jnp.asarray(sq),
                               jnp.asarray(alive), ms, k, metric)
     tv, ti = fs.fused_flat_topk_plain(as_tensor(q), as_tensor(x), as_tensor(sq), as_tensor(alive), ms, k,
-                                      metric, chunk_rows=1000)
+                                      port_metric(metric), chunk_rows=1000)
     assert_same_hits(tv, ti, jv, ji)
     # the wrapper takes the plain version for CPU tensors
-    wv, wi = fs.fused_flat_topk(as_tensor(q), as_tensor(x), as_tensor(sq), as_tensor(alive), ms, k, metric)
+    wv, wi = fs.fused_flat_topk(as_tensor(q), as_tensor(x), as_tensor(sq), as_tensor(alive), ms, k,
+                                port_metric(metric))
     np.testing.assert_array_equal(wi.numpy(), ti.numpy())
     assert wi.dtype == torch.int32
 
@@ -96,7 +99,8 @@ def test_ivf_plain_vs_pallas(metric):
                              jnp.asarray(alive), jnp.asarray(crow),
                              jnp.asarray(probed), k, metric)
     tv, ti = fs.fused_ivf_topk(as_tensor(q), as_tensor(x), as_tensor(sq), as_tensor(alive), as_tensor(crow),
-                               as_tensor(probe), kp, k, metric)
+                               *csr(crow, kp), as_tensor(probe), kp, k, port_metric(metric),
+                               max_len=n)
     assert_same_hits(tv, ti, jv, ji)
 
 
@@ -116,14 +120,16 @@ def test_ivf_plain_vs_pallas_windowed(metric):
         jnp.asarray(tile_clo), k, metric,
     )
     tv, ti = fs.fused_ivf_topk(as_tensor(q), as_tensor(x), as_tensor(sq), as_tensor(alive), as_tensor(crow),
-                               as_tensor(probe), kc, k, metric)
+                               *csr(crow, kc), as_tensor(probe), kc, k, port_metric(metric),
+                               max_len=n)
     assert_same_hits(tv, ti, jv, ji)
 
 
 def _sq8_port(case, kp, k, metric):
     q, codes, mn, sc, sq, alive, crow, probe, _, qc = case
     return fs.fused_ivf_sq8_topk(*(as_tensor(a) for a in (
-        q, codes, mn, sc, sq, alive, crow, probe, qc)), kp, k, metric)
+        q, codes, mn, sc, sq, alive, crow)), *csr(crow, kp), as_tensor(probe),
+        as_tensor(qc), kp, k, port_metric(metric), max_len=len(crow))
 
 
 @pytest.mark.parametrize("d", [32, 24])
@@ -168,7 +174,7 @@ def test_ivf_sq8_dead_pad_rows_never_surface():
     alive[:] = False
     alive[crow == probe[0, 0]] = True      # query 0's first list only
     tv, ti = _sq8_port((q, codes, mn, sc, sq, alive, crow, probe, cents, qc),
-                       kp, 10, Metric.L2)
+                       kp, 10, "L2")
     live = set(np.nonzero(alive)[0].tolist())
     for row in range(b):
         got = [r for r in ti[row].tolist() if r >= 0]
@@ -189,34 +195,31 @@ def test_merge_partials_equals_one_scan():
     assert list(mi.numpy()[0, :2]) == [60, 2500]
 
 
-def test_probe_bitmap_bits():
-    probe = torch.tensor([[0, 31, 32, 999], [5, 6, 7, 998]])
-    bm = fs.probe_bitmap(probe, 1000)
-    assert bm.shape == (2, 32) and bm.dtype == torch.int32
-    bits = bm.numpy().view(np.uint32)
-    for b in range(2):
-        got = {w * 32 + i for w in range(32) for i in range(32)
-               if bits[b, w] >> i & 1}
-        assert got == set(probe[b].tolist())
-
-
 def test_wrapper_validation():
     q, x = torch.zeros((4, 8)), torch.zeros((64, 8))
     sq, alive = torch.zeros(64), torch.ones(64, dtype=torch.bool)
     with pytest.raises(ValueError, match="cosine"):
-        fs.fused_flat_topk(q, x, sq, alive, 64, 5, Metric.COSINE)
+        fs.fused_flat_topk(q, x, sq, alive, 64, 5, "COSINE")
     with pytest.raises(ValueError, match="k must be"):
         fs.fused_flat_topk(q, x, sq, alive, 64, fs.MAX_K + 1)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         fs.fused_flat_topk(q, x.bfloat16(), sq, alive, 64, 5)
-    with pytest.raises(ValueError, match="int32"):
-        fs.fused_ivf_topk(q, x, sq, alive, torch.zeros(64, dtype=torch.int64),
-                          torch.zeros((4, 2), dtype=torch.int64), 8, 5)
     codes, crow = torch.zeros((64, 8), dtype=torch.uint8), torch.zeros(64, dtype=torch.int32)
     probe, qc = torch.zeros((4, 2), dtype=torch.int64), torch.zeros((4, 8))
+    offs, lens = fs.list_csr(crow, 8)
+    with pytest.raises(ValueError, match="int32"):
+        fs.fused_ivf_topk(q, x, sq, alive, torch.zeros(64, dtype=torch.int64),
+                          offs, lens, probe, 8, 5, max_len=64)
+    with pytest.raises(ValueError, match="lens must be int32"):
+        fs.fused_ivf_topk(q, x, sq, alive, crow, offs, lens.long(), probe, 8, 5, max_len=64)
+    with pytest.raises(ValueError, match="offsets must be int32"):
+        fs.fused_ivf_topk(q, x, sq, alive, crow, offs[:4], lens, probe, 8, 5, max_len=64)
     with pytest.raises(ValueError, match="uint8"):
-        fs.fused_ivf_sq8_topk(q, x, sq, sq, sq, alive, crow, probe, qc, 8, 5)
+        fs.fused_ivf_sq8_topk(q, x, sq, sq, sq, alive, crow, offs, lens, probe, qc, 8, 5,
+                              max_len=64)
     with pytest.raises(ValueError, match="qc"):
-        fs.fused_ivf_sq8_topk(q, codes, sq, sq, sq, alive, crow, probe, qc[:, :4], 8, 5)
+        fs.fused_ivf_sq8_topk(q, codes, sq, sq, sq, alive, crow, offs, lens, probe,
+                              qc[:, :4], 8, 5, max_len=64)
     with pytest.raises(ValueError, match="mins"):
-        fs.fused_ivf_sq8_topk(q, codes, sq[:9], sq, sq, alive, crow, probe, qc, 8, 5)
+        fs.fused_ivf_sq8_topk(q, codes, sq[:9], sq, sq, alive, crow, offs, lens, probe,
+                              qc, 8, 5, max_len=64)

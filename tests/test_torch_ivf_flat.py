@@ -12,7 +12,7 @@ equal except inside near-ties (see _torch_parity).
 import numpy as np
 import pytest
 import torch
-from _torch_parity import assert_same_results
+from _torch_parity import assert_same_results, port_options
 
 import pyrope_tpu as jpt
 from pyrope_tpu.types import SearchOptions
@@ -77,7 +77,8 @@ def test_max_scans_route_matches_jax(narrow):
     opts = SearchOptions(max_scans=500)
     assert jix.describe_scan(8, max_scans=500) == "dense-xla"
     assert tix.describe_scan(8, max_scans=500) == "dense-xla"
-    assert_same_results(tix.search_batch(q, 5, opts), jix.search_batch(q, 5, opts))
+    assert_same_results(tix.search_batch(q, 5, port_options(opts)),
+                        jix.search_batch(q, 5, opts))
 
 
 def test_describe_scan_strings_match_jax(narrow, wide):

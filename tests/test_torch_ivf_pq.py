@@ -16,7 +16,7 @@ fp32 on both sides with another summation order: within rtol 1e-5 / atol
 import numpy as np
 import pytest
 import torch
-from _torch_parity import SQ8_RTOL, assert_same_results
+from _torch_parity import SQ8_RTOL, assert_same_results, port_options
 
 import pyrope_tpu as jpt
 from pyrope_tpu.types import SearchOptions
@@ -90,7 +90,8 @@ def test_every_route_matches_jax(request, fixture, route):
     assert jix.describe_scan(8, max_scans=ms) == route
     assert tix.describe_scan(8, max_scans=ms) == route
     opts = SearchOptions(max_scans=ms)
-    assert_same_results(tix.search_batch(q, 10, opts), jix.search_batch(q, 10, opts),
+    assert_same_results(tix.search_batch(q, 10, port_options(opts)),
+                        jix.search_batch(q, 10, opts),
                         rtol=_tolerance(route))
 
 
@@ -208,8 +209,9 @@ def test_not_yet_ported_options_raise(tmp_path):
         IvfPqIndex(8, "L2", device="cpu", refine_storage="int4")
     with pytest.raises(ValueError):
         IvfPqIndex(8, "L2", device="cpu", scan_mode="sparse")
-    with pytest.raises(TypeError):
-        IvfPqIndex(8, "L2")  # no default device
+    if not torch.cuda.is_available():  # the default device is the card
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            IvfPqIndex(8, "L2")
     jix = jpt.IvfPqIndex(8, "L2", refine_storage="bf16")
     jix.snapshot(str(tmp_path / "bf16.npz"))
     with np.load(tmp_path / "bf16.npz") as z, pytest.raises(NotImplementedError):

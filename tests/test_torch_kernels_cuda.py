@@ -22,14 +22,18 @@ from _torch_parity import (
     as_tensor,
     assert_same_hits,
     assert_same_results,
+    csr,
     flat_case,
+    fused_ivf_topk_emulated,
     ivf_case,
+    list_case,
     split_partials,
     sq8_case,
+    sq8_of,
 )
 
-from pyrope_tpu.types import Metric
 from pyrope_tpu_torch.ops import fused_scan as fs
+from pyrope_tpu_torch.types import Metric
 
 
 @pytest.fixture
@@ -61,11 +65,14 @@ def test_flat_kernel_vs_plain(cuda_device, metric, k):
 def test_ivf_kernel_vs_plain(cuda_device, kc):
     n, b, d, k = 20_000, 130, 32, 10
     x, q, sq, alive, crow, probe = ivf_case(6, n, b, d, kc, 7)
-    args = [as_tensor(a).to(cuda_device) for a in (q, x, sq, alive, crow, probe)]
+    q, x, sq, alive, crow, probe = (as_tensor(a).to(cuda_device)
+                                    for a in (q, x, sq, alive, crow, probe))
+    offs, lens = (t.to(cuda_device) for t in csr(crow.cpu(), kc))
     before = fs.LAUNCHES["ivf_scan"]
-    kv, ki = fs.fused_ivf_topk(*args, kc, k)
+    kv, ki = fs.fused_ivf_topk(q, x, sq, alive, crow, offs, lens, probe, kc, k,
+                               max_len=n)
     assert fs.LAUNCHES["ivf_scan"] == before + 1
-    pv, pi = fs.fused_ivf_topk_plain(*args, kc, k)
+    pv, pi = fs.fused_ivf_topk_plain(q, x, sq, alive, crow, probe, kc, k)
     torch.cuda.synchronize()
     assert_same_hits(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
 
@@ -73,10 +80,12 @@ def test_ivf_kernel_vs_plain(cuda_device, kc):
 @pytest.mark.cuda
 def test_kernels_take_an_empty_batch(cuda_device):
     x, q, sq, alive, crow, probe = ivf_case(4, 4096, 8, 16, 50, 3)
+    offs, lens = (t.to(cuda_device) for t in csr(crow, 50))
     q, x, sq, alive, crow, probe = (as_tensor(a).to(cuda_device)
                                     for a in (q[:0], x, sq, alive, crow, probe[:0]))
     for v, i in (fs.fused_flat_topk(q, x, sq, alive, 4096, 10),
-                 fs.fused_ivf_topk(q, x, sq, alive, crow, probe, 50, 10)):
+                 fs.fused_ivf_topk(q, x, sq, alive, crow, offs, lens, probe, 50, 10,
+                                   max_len=4096)):
         assert v.shape == i.shape == (0, 10)
         assert (v.dtype, i.dtype) == (torch.float32, torch.int32)
 
@@ -131,10 +140,12 @@ def test_ivf_index_kernel_route_matches_plain_route(cuda_device):
 def test_sq8_kernel_vs_plain(cuda_device, metric, kc, d):
     n, b, k = 20_000, 130, 10   # ragged edges; d not a multiple of 16
     case = sq8_case(13, n, b, d, kc, 7, kc)
+    offs, lens = (t.to(cuda_device) for t in csr(case[6], kc))
     args = [as_tensor(a).to(cuda_device) for a in case]
     args.pop(8)                                  # cents: the kernel takes qc
     before = fs.LAUNCHES["sq8_scan"]
-    kv, ki = fs.fused_ivf_sq8_topk(*args, kc, k, metric)
+    kv, ki = fs.fused_ivf_sq8_topk(*args[:7], offs, lens, *args[7:], kc, k, metric,
+                                   max_len=n)
     assert fs.LAUNCHES["sq8_scan"] == before + 1
     pv, pi = fs.fused_ivf_sq8_topk_plain(*args, kc, k, metric)
     torch.cuda.synchronize()
@@ -143,21 +154,26 @@ def test_sq8_kernel_vs_plain(cuda_device, metric, kc, d):
 
 @pytest.mark.cuda
 def test_sq8_wrapper_raises_on_bad_cuda_inputs(cuda_device):
-    case = [as_tensor(a).to(cuda_device) for a in sq8_case(14, 4096, 16, 32, 50, 3, 50)]
+    raw = sq8_case(14, 4096, 16, 32, 50, 3, 50)
+    case = [as_tensor(a).to(cuda_device) for a in raw]
     q, codes, mn, sc, sq, alive, crow, probe, _, qc = case
+    ol = [t.to(cuda_device) for t in csr(raw[6], 50)]
     before = dict(fs.LAUNCHES)
     with pytest.raises(ValueError, match="contiguous"):
-        fs.fused_ivf_sq8_topk(q, codes, mn, sc, sq, alive, crow, probe,
-                              qc.T.contiguous().T, 50, 10)
+        fs.fused_ivf_sq8_topk(q, codes, mn, sc, sq, alive, crow, *ol, probe,
+                              qc.T.contiguous().T, 50, 10, max_len=4096)
     with pytest.raises(ValueError, match="uint8"):
-        fs.fused_ivf_sq8_topk(q, codes.float(), mn, sc, sq, alive, crow, probe, qc, 50, 10)
+        fs.fused_ivf_sq8_topk(q, codes.float(), mn, sc, sq, alive, crow, *ol, probe, qc,
+                              50, 10, max_len=4096)
     with pytest.raises(ValueError, match="one device"):
-        fs.fused_ivf_sq8_topk(q, codes, mn.cpu(), sc, sq, alive, crow, probe, qc, 50, 10)
+        fs.fused_ivf_sq8_topk(q, codes, mn.cpu(), sc, sq, alive, crow, *ol, probe, qc,
+                              50, 10, max_len=4096)
     with pytest.raises(ValueError, match="k must be"):
-        fs.fused_ivf_sq8_topk(q, codes, mn, sc, sq, alive, crow, probe, qc, 50, 129)
+        fs.fused_ivf_sq8_topk(q, codes, mn, sc, sq, alive, crow, *ol, probe, qc, 50, 129,
+                              max_len=4096)
     assert fs.LAUNCHES == before                 # nothing ran, nothing fell back
-    v, i = fs.fused_ivf_sq8_topk(q[:0], codes, mn, sc, sq, alive, crow, probe[:0],
-                                 qc[:0], 50, 10)
+    v, i = fs.fused_ivf_sq8_topk(q[:0], codes, mn, sc, sq, alive, crow, *ol, probe[:0],
+                                 qc[:0], 50, 10, max_len=4096)
     assert v.shape == i.shape == (0, 10)
 
 
@@ -165,7 +181,7 @@ def test_sq8_wrapper_raises_on_bad_cuda_inputs(cuda_device):
 def test_builds_on_the_card_are_deterministic(cuda_device):
     """Two builds from one seed: bit-equal k-means centroids and
     assignments, PQ codebooks and codes, and SQ8 slab codes."""
-    from pyrope_tpu.utils.datasets import synthetic_clustered
+    from pyrope_tpu_torch.utils.datasets import synthetic_clustered
     from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
     from pyrope_tpu_torch.ops.kmeans import kmeans_build
 
@@ -211,3 +227,129 @@ def test_ivf_pq_sq8_route_matches_the_plain_route(cuda_device, tmp_path):
         cpu = convert.ivf_pq_from_arrays(z, "cpu")
     assert cpu.describe_scan(128) == "dense-sq8-pallas-win"
     assert_same_results(got, cpu.search_batch(q, 10), rtol=SQ8_RTOL)
+
+
+# the list scan's layouts on the card: name -> (list_case kwargs, nprobe, k)
+LIST_CASES = {
+    "skewed": (dict(big=6000), 3, 10),            # one long list: 2048-row segments
+    "all_lists": (dict(empty=7), 120, 10),        # nprobe >= non-empty clusters
+    "empty_probed": (dict(empty=20), 5, 10),
+    "k128": (dict(big=2000), 3, 128),
+    "dup_ties": (dict(dup=True), 3, 10),
+    "tombstones": (dict(dead=0.4), 7, 10),
+    "wide_chunks": (dict(), 100, 10),             # 130 queries a list: layout A
+}
+
+
+def _list_inputs(name, dev, d, kc=128, n=20_000, b=130):
+    kw, nprobe, k = LIST_CASES[name]
+    case = list_case(17, n, b, d, kc, nprobe, **kw)
+    offs, lens = (t.to(dev) for t in csr(case[4], kc))
+    return case, [as_tensor(a).to(dev) for a in case], offs, lens, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 30])          # 30: the plain-load staging
+@pytest.mark.parametrize("name", sorted(LIST_CASES))
+def test_list_scan_vs_plain(cuda_device, name, d):
+    _, (x, q, sq, alive, crow, probe), offs, lens, k = _list_inputs(name, cuda_device, d)
+    for metric in (Metric.L2, Metric.INNER_PRODUCT):
+        before = fs.LAUNCHES["ivf_scan"]
+        kv, ki = fs.fused_ivf_topk(q, x, sq, alive, crow, offs, lens, probe, 128, k,
+                                   metric, max_len=int(lens.max()))
+        assert fs.LAUNCHES["ivf_scan"] == before + 1
+        pv, pi = fs.fused_ivf_topk_plain(q, x, sq, alive, crow, probe, 128, k, metric)
+        torch.cuda.synchronize()
+        assert_same_hits(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 24, 30])
+@pytest.mark.parametrize("name", sorted(LIST_CASES))
+def test_sq8_list_scan_vs_plain(cuda_device, name, d):
+    case, (_, q, _, alive, crow, probe), offs, lens, k = _list_inputs(name, cuda_device, d)
+    codes, mn, sc, sq, _, qc = (as_tensor(a).to(cuda_device) for a in sq8_of(case, 128))
+    for metric in (Metric.L2, Metric.INNER_PRODUCT):
+        before = fs.LAUNCHES["sq8_scan"]
+        kv, ki = fs.fused_ivf_sq8_topk(q, codes, mn, sc, sq, alive, crow, offs, lens,
+                                       probe, qc, 128, k, metric, max_len=int(lens.max()))
+        assert fs.LAUNCHES["sq8_scan"] == before + 1
+        pv, pi = fs.fused_ivf_sq8_topk_plain(q, codes, mn, sc, sq, alive, crow, probe,
+                                             qc, 128, k, metric)
+        torch.cuda.synchronize()
+        assert_same_hits(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu(), rtol=SQ8_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["skewed", "wide_chunks", "dup_ties"])
+def test_list_scan_launches_are_bit_equal(cuda_device, name):
+    """Each partial slot has one writer and each block a fixed order; the
+    per-query floors depend on the order blocks ran in, but only drop rows
+    that k others beat. So two launches on the same inputs return
+    bit-equal results, whatever order the blocks ran in."""
+    case, (x, q, sq, alive, crow, probe), offs, lens, k = _list_inputs(name, cuda_device, 32)
+    ml = int(lens.max())
+    runs = [fs.fused_ivf_topk(q, x, sq, alive, crow, offs, lens, probe, 128, k, max_len=ml)
+            for _ in range(2)]
+    codes, mn, sc, sq8, _, qc = (as_tensor(a).to(cuda_device) for a in sq8_of(case, 128))
+    runs8 = [fs.fused_ivf_sq8_topk(q, codes, mn, sc, sq8, alive, crow, offs, lens, probe,
+                                   qc, 128, k, max_len=ml) for _ in range(2)]
+    for a, b in (runs, runs8):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_list_scan_matches_its_cpu_emulation(cuda_device):
+    """The kernel against the CPU emulation of its own work layout, at the
+    segment length the wrapper picks."""
+    case, (x, q, sq, alive, crow, probe), offs, lens, k = _list_inputs("skewed", cuda_device, 32)
+    ml = int(lens.max())
+    kv, ki = fs.fused_ivf_topk(q, x, sq, alive, crow, offs, lens, probe, 128, k, max_len=ml)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    seg = fs.list_seg(q.shape[0], probe.shape[1], 128, ml, sms)
+    ev, ei = fused_ivf_topk_emulated(*(t.cpu() for t in (q, x, sq, alive, offs, lens,
+                                                         probe)), 128, k, seg=seg)
+    torch.cuda.synchronize()
+    assert_same_hits(kv.cpu(), ki.cpu(), ev, ei)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["skewed", "all_lists", "k128"])
+def test_list_scan_takes_max_len_at_and_above_the_longest_list(cuda_device, name):
+    """max_len exactly the longest list, or an l_pad-style bound above it
+    (more segments allowed, another segment length): bit-equal results,
+    equal to the plain version. A max_len below the longest list breaks
+    the precondition: the launch then stays inside its buffers (no CUDA
+    error), and the next call is right."""
+    _, (x, q, sq, alive, crow, probe), offs, lens, k = _list_inputs(name, cuda_device, 32)
+    ml = int(lens.max())
+    runs = [fs.fused_ivf_topk(q, x, sq, alive, crow, offs, lens, probe, 128, k, max_len=m)
+            for m in (ml, -(-ml // 128) * 128, ml + 5000)]
+    for v, i in runs[1:]:
+        assert torch.equal(v, runs[0][0]) and torch.equal(i, runs[0][1])
+    pv, pi = fs.fused_ivf_topk_plain(q, x, sq, alive, crow, probe, 128, k)
+    assert_same_hits(runs[0][0].cpu(), runs[0][1].cpu(), pv.cpu(), pi.cpu())
+    fs.fused_ivf_topk(q, x, sq, alive, crow, offs, lens, probe, 128, k, max_len=ml // 8)
+    torch.cuda.synchronize()
+    again = fs.fused_ivf_topk(q, x, sq, alive, crow, offs, lens, probe, 128, k, max_len=ml)
+    assert torch.equal(again[0], runs[0][0]) and torch.equal(again[1], runs[0][1])
+
+
+@pytest.mark.cuda
+def test_merge_kernel_takes_per_query_slots(cuda_device):
+    """The list scan's merge form ([slots, k] rows, query b's from
+    qend[b-1, -1] to qend[b, -1], some queries with none) against the plain
+    version."""
+    x, q, sq, alive = flat_case(8, 20_000, 70, 16)
+    pv, pi = split_partials(q, x, sq, alive, 100, per=1280)    # [16, 70, 100]
+    cnt = torch.from_numpy(np.random.default_rng(2).integers(0, 17, 70))
+    cnt[::9] = 0
+    qend = torch.stack([cnt // 2, cnt - cnt // 2], 1).reshape(-1).cumsum(0).int().view(70, 2)
+    rows = torch.cat([torch.arange(c) for c in cnt.tolist()])          # list s of query b
+    owner = torch.repeat_interleave(torch.arange(70), cnt)
+    sv, si = pv[rows, owner].contiguous(), pi[rows, owner].contiguous()
+    kv, ki = fs.merge_partials(sv.to(cuda_device), si.to(cuda_device), qend.to(cuda_device))
+    mv, mi = fs.merge_partials_plain(sv, si, qend)
+    np.testing.assert_array_equal(ki.cpu().numpy(), mi.numpy())
+    np.testing.assert_array_equal(kv.cpu().numpy(), mv.numpy())
+    assert (mi[cnt == 0] == -1).all()

@@ -1,11 +1,14 @@
-"""The port stands apart from JAX, and never picks a device by itself.
+"""The port stands apart from the JAX package, and runs on the card by default.
 
-Importing every pyrope_tpu_torch module must leave jax out of sys.modules
-(the port imports only the JAX package's framework-free modules), must not
-initialize CUDA, and asking for a CUDA device on a host without one raises
-instead of running on the CPU.
+Importing every pyrope_tpu_torch module must load neither jax nor any
+module of the JAX package (the port keeps its own copies of the
+framework-free ones), must not initialize CUDA, and asking for a CUDA
+device (the default) on a host without one raises instead of running on
+the CPU.
 """
 
+import functools
+import json
 import os
 import pathlib
 import re
@@ -19,38 +22,56 @@ from pyrope_tpu_torch.device import resolve_device
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "pyrope_tpu_torch"
-ALLOWED = ("pyrope_tpu.types", "pyrope_tpu.index.base", "pyrope_tpu.index.delta",
-           "pyrope_tpu.utils")
+ALLOWED = ()  # modules of the JAX package the port may import: none
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import pyrope_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pyrope_tpu_torch.__path__,
                                                "pyrope_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 import torch
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
-assert not torch.cuda.is_initialized()
-print(len(names))
+print(json.dumps({
+    "modules": len(names),
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "jax_package": sorted(m for m in sys.modules
+                          if m == "pyrope_tpu" or m.startswith("pyrope_tpu.")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
 """
 
 
-def test_importing_every_module_loads_no_jax():
+@functools.lru_cache(maxsize=1)
+def _probe() -> dict:
+    """Import every port module in a fresh interpreter; what it loaded."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12  # every module was imported
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_importing_every_module_loads_no_jax():
+    got = _probe()
+    assert got["modules"] >= 18  # every module was imported
+    assert got["jax"] == []
+    assert not got["cuda_initialized"]
+
+
+def test_importing_every_module_loads_no_jax_package_module():
+    assert _probe()["jax_package"] == []
 
 
 def test_sources_import_only_framework_free_pyrope_tpu_modules():
-    pat = re.compile(r"^\s*(?:from|import)\s+(jax\b|pyrope_tpu\.[\w.]+)", re.M)
-    for path in PKG.rglob("*.py"):
+    """Now: no module of the JAX package at all (ALLOWED is empty), in the
+    package and in chip_smoke.py."""
+    pat = re.compile(r"^\s*(?:from|import)\s+(jax\b|pyrope_tpu(?:\.[\w.]+)?\b)", re.M)
+    for path in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         for mod in pat.findall(path.read_text()):
             assert mod != "jax", path
-            assert mod.startswith(ALLOWED), (path, mod)
+            assert ALLOWED and mod.startswith(ALLOWED), (path, mod)
 
 
 def test_cuda_without_a_gpu_raises():
@@ -68,12 +89,27 @@ def test_cuda_without_a_gpu_raises():
 
 
 def test_device_is_required_and_checked():
+    """Every entry point defaults to the card: without one, constructing
+    with no device raises as an explicit "cuda" does."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    from pyrope_tpu_torch import convert
+    from pyrope_tpu_torch.index.flat import FlatIndex
     from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex
+    from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
+    from pyrope_tpu_torch.registry import VectorIndexRegistry, create_index
+    from pyrope_tpu_torch.types import IndexConfig
 
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device(None)
     with pytest.raises(ValueError):
         resolve_device("meta")
-    with pytest.raises(TypeError):
-        IvfFlatIndex(8, "L2")  # no default device
+    for make in (lambda: IvfFlatIndex(8, "L2"), lambda: FlatIndex(8, "L2"),
+                 lambda: IvfPqIndex(8, "L2"), VectorIndexRegistry,
+                 lambda: create_index(IndexConfig(dim=8))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    meta = '{"format": "pyrope_tpu.flat.v1", "dim": 8, "metric": "L2"}'
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.flat_from_arrays({"meta": meta, "ids": [], "vecs": []})

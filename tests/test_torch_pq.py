@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import ATOL, RTOL, as_tensor, assert_same_hits
+from _torch_parity import ATOL, RTOL, as_tensor, assert_same_hits, port_metric
 
 from pyrope_tpu.index import ivf_pq as jivfpq
 from pyrope_tpu.ops import distance as jdist
@@ -228,7 +228,8 @@ def test_rerank_exact_sq8res_vs_jax(metric):
                                        jnp.asarray(cand), 10, metric)
     tv, ti = tdist.rerank_exact_sq8res(*(as_tensor(a) for a in slab), as_tensor(crow),
                                        as_tensor(cents), as_tensor(np.asarray(sq)),
-                                       as_tensor(q), as_tensor(cand), 10, metric)
+                                       as_tensor(q), as_tensor(cand), 10,
+                                       port_metric(metric))
     assert ti.dtype == torch.int32
     assert (ti.numpy()[0, 1:] == -1).all()
     assert_same_hits(tv, ti, jv, ji)

@@ -16,11 +16,13 @@ data's cluster radius): shared scores there agree within atol 2e-3.
 import numpy as np
 import pytest
 import torch
+from _torch_parity import port_config, port_options
 
 from pyrope_tpu import registry as jreg
 from pyrope_tpu.types import IndexConfig, IndexParams, SearchOptions
 from pyrope_tpu.utils.datasets import synthetic_clustered, synthetic_clustered_queries
 from pyrope_tpu_torch import registry as treg
+from pyrope_tpu_torch import types as tt
 
 N, D, NLIST = 8000, 32, 32
 
@@ -54,7 +56,7 @@ def pair():
     q = synthetic_clustered_queries(64, D, n_clusters=NLIST, base_seed=3)
     jr, tr = jreg.VectorIndexRegistry(), treg.VectorIndexRegistry("cpu")
     jd = jr.create("t", "ix", _config()).index
-    td = tr.create("t", "ix", _config()).index
+    td = tr.create("t", "ix", port_config(_config())).index
     ids = [str(i) for i in range(N)]
     for d in (jd, td):
         d.add_batch(ids, base)
@@ -84,7 +86,7 @@ def test_head_writes_merge_with_tail(pair):
         assert all(h.id != "17" for r in res_t for h in r)
         assert _agreement(res_t, res_j) >= 0.99
         opts = SearchOptions(nprobe=NLIST)  # every list: exact over the tail
-        assert _agreement(td.search_batch(q, 10, opts),
+        assert _agreement(td.search_batch(q, 10, port_options(opts)),
                           jd.search_batch(q, 10, opts)) >= 0.99
     finally:
         for d in (jd, td):
@@ -96,7 +98,7 @@ def test_head_writes_merge_with_tail(pair):
 def pq_pair(pair):
     _, _, base, q = pair
     jd = jreg.create_index(_pq_config())
-    td = treg.create_index(_pq_config(), "cpu")
+    td = treg.create_index(port_config(_pq_config()), "cpu")
     ids = [str(i) for i in range(N)]
     for d in (jd, td):
         d.add_batch(ids, base)
@@ -131,23 +133,23 @@ def test_registry_surface():
     with pytest.raises(ValueError, match="dim"):
         tr.get_or_create("t", "a", 9)
     with pytest.raises(ValueError, match="exists"):
-        tr.create("t", "a", IndexConfig(dim=8))
+        tr.create("t", "a", tt.IndexConfig(dim=8))
     assert tr.increment_epoch("t", "a") == 1 and tr.get_epoch("t", "a") == 1
     assert tr.list_indexes() == [("t", "a")]
     assert tr.drop("t", "a") and tr.try_get("t", "a") is None
-    flat = treg.create_index(IndexConfig(dim=8, algorithm="FLAT"), "cpu")
+    flat = treg.create_index(tt.IndexConfig(dim=8, algorithm="FLAT"), "cpu")
     assert type(flat.tail).__name__ == "FlatIndex"
-    pq = treg.create_index(IndexConfig(dim=8, algorithm="IVF_PQ", params=IndexParams(
+    pq = treg.create_index(tt.IndexConfig(dim=8, algorithm="IVF_PQ", params=tt.IndexParams(
         nlist=4, pq_m=2, k=16, refine=8, refine_storage="sq8res")), "cpu")
     tail = pq.tail
     assert type(tail).__name__ == "IvfPqIndex"
     assert (tail.nlist, tail.pq.m, tail.pq.ksub, tail.refine, tail.refine_storage) == (
         4, 2, 16, 8, "sq8res")
-    assert type(treg.create_index(IndexConfig(dim=8, algorithm="ivfpq"), "cpu").tail
+    assert type(treg.create_index(tt.IndexConfig(dim=8, algorithm="ivfpq"), "cpu").tail
                 ).__name__ == "IvfPqIndex"
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        treg.create_index(IndexConfig(dim=8, algorithm="HNSW"), "cpu")
+        treg.create_index(tt.IndexConfig(dim=8, algorithm="HNSW"), "cpu")
     with pytest.raises(NotImplementedError):
-        treg.create_index(IndexConfig(dim=8, head_algorithm="HNSW"), "cpu")
+        treg.create_index(tt.IndexConfig(dim=8, head_algorithm="HNSW"), "cpu")
     with pytest.raises(ValueError, match="unknown algorithm"):
-        treg.create_index(IndexConfig(dim=8, algorithm="LSH"), "cpu")
+        treg.create_index(tt.IndexConfig(dim=8, algorithm="LSH"), "cpu")

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import ATOL, RTOL, assert_same_hits
+from _torch_parity import ATOL, RTOL, assert_same_hits, port_metric
 
 from pyrope_tpu.ops import distance as jdist
 from pyrope_tpu.ops import topk as jtopk
@@ -104,7 +104,7 @@ def test_score_matrix_vs_jax(metric):
     q = rng.normal(size=(7, 24)).astype(np.float32)
     x = rng.normal(size=(50, 24)).astype(np.float32)
     js = np.asarray(jdist.score_matrix(jnp.asarray(q), jnp.asarray(x), metric))
-    ts = tdist.score_matrix(_t(q), _t(x), metric).numpy()
+    ts = tdist.score_matrix(_t(q), _t(x), port_metric(metric)).numpy()
     np.testing.assert_allclose(ts, js, rtol=RTOL, atol=ATOL)
 
 
@@ -118,7 +118,7 @@ def test_rerank_exact_vs_jax(metric):
     cand[:, -3:] = -1
     jv, ji = jdist.rerank_exact(jnp.asarray(x), jnp.asarray(sq), jnp.asarray(q),
                                 jnp.asarray(cand), 15, metric)
-    tv, ti = tdist.rerank_exact(_t(x), _t(sq), _t(q), _t(cand), 15, metric)
+    tv, ti = tdist.rerank_exact(_t(x), _t(sq), _t(q), _t(cand), 15, port_metric(metric))
     assert_same_hits(tv, ti, jv, ji)
 
 
