@@ -15,7 +15,11 @@ eight phases, one line each (phase 8 two); any failed check exits non-zero:
                tolerance), kernel and plain times (CUDA events, median),
                the nearest PyTorch composition's time (topk of the masked
                fp32 scores) beside each main case and the narrow rows, each
-               case's bound (what its inputs need, bytes or operations); and
+               case's bound (what its inputs need, bytes or operations); the
+               flat scan at b1024 (k 10, k 100, max_scans 600k), b64, b1 and
+               over an 8k-row slab, with q @ x.T alone (torch.matmul, fp32)
+               timed beside the main case; the merge on the slice's
+               per-query slots and on the flat path's [B, splits, k]; and
                the list scan's edge cases, IVF and SQ8 mode: a 50k-row list
                (at nprobe 3, and at nprobe 96 with k 128), nprobe >= the
                non-empty lists, probed empty lists, B 1000, k 128, a row
@@ -306,16 +310,19 @@ def phase_kernels(dev) -> dict:
     cells = []
 
     def case(kind, name, kern, plain, reps=10, plain_reps=3, main=False, comp=None,
-             bnd=None):
+             bnd=None, lib=None):
         err, swaps = compare(kern(), plain(), name, SQ8_RTOL if kind == "sq8" else RTOL)
         rec[kind]["err"] = max(rec[kind]["err"], err)
         ms, pms = cuda_ms(kern, reps), cuda_ms(plain, plain_reps)
         cms = cuda_ms(comp, plain_reps) if comp is not None else None
+        lms = cuda_ms(lib, reps) if lib is not None else None
         if main:
-            rec[kind].update(ms=ms, plain_ms=pms, composition_ms=cms)
+            rec[kind].update(ms=ms, plain_ms=pms, composition_ms=cms, library_ms=lms)
         cell = f"{name}:{ms:.3f}ms/plain {pms:.3f}ms/err {err:.2e}/ties {swaps}"
         if cms is not None:
             cell += f"/composition {cms:.3f}ms"
+        if lms is not None:
+            cell += f"/library {lms:.3f}ms"
         if bnd is not None:
             cell += f"/bound {bnd[0]:.4f}ms {bnd[1]}"
         cells.append(cell)
@@ -330,10 +337,25 @@ def phase_kernels(dev) -> dict:
              main=main, comp=(lambda: composition_topk(
                  l2_or_ip(q, q @ x.T, sq, False), (alive & (rows < ms_cut))[None, :], k))
              if main else None,
+             # q @ x.T alone: the product, not the function (no metric, mask,
+             # top-k); what fp32 on the CUDA cores reaches through the library
+             lib=(lambda: q @ x.T) if main else None,
              bnd=bound(ms_cut * (d * 4 + 5) + b * d * 4 + b * k * 8,
                        2.0 * b * int(alive[:ms_cut].sum()) * d))
     live = int(alive.sum())
     rec["flat"]["bound"] = bound(n * (d * 4 + 5) + b * d * 4 + b * K * 8, 2.0 * b * live * d)
+    # small batches (the 64-query tile) and a Delta-head-sized slab
+    for name, qv, rows_n in (("flat_1M_b64_k10", q[:64].contiguous(), n),
+                             ("flat_1M_b1_k10", q[:1].contiguous(), n),
+                             ("flat_8k_b1024_k10", q, 8192)):
+        xv, sqv, alv = (t[:rows_n].contiguous() for t in (x, sq, alive))
+        bv = qv.shape[0]
+        case("flat", name,
+             lambda: fs.fused_flat_topk(qv, xv, sqv, alv, rows_n, K),
+             lambda: fs.fused_flat_topk_plain(qv, xv, sqv, alv, rows_n, K, chunk_rows=65536),
+             bnd=bound(rows_n * (d * 4 + 5) + bv * d * 4 + bv * K * 8,
+                       2.0 * bv * int(alv.sum()) * d))
+        del xv, sqv, alv
 
     def ivf_case(name, qv, xv, sqv, alv, lay, kp, probe, k=K, main=False, reps=10,
                  comp=False):
@@ -439,6 +461,17 @@ def phase_kernels(dev) -> dict:
              pv[:lists // b * b].reshape(b, -1), K, dim=1))
     rec["merge"]["bound"] = bound(lists * K * 8 + (b + 1) * 4 + b * K * 8, 0.0)
     cells[-1] += f"/bound {rec['merge']['bound'][0]:.4f}ms bytes"
+    # the merge on the flat path's partials at b1024: [B, splits, k], the
+    # layout and split count fused_flat_topk hands it
+    splits = fs.scan_splits(b, n, dev, fs.flat_tile(d, K, b)[0])[1]
+    fv = torch.rand((b, splits, K), generator=g, device=dev).sort(2, descending=True).values
+    fi = torch.randint(0, n, (b, splits, K), generator=g, device=dev).int()
+    sbk = (fv.permute(1, 0, 2).contiguous(), fi.permute(1, 0, 2).contiguous())
+    case("merge", f"merge_flat_{splits}splits_b1024_k10",
+         lambda: fs._merge_launch(fv, fi, splits, b, K, None, 0, splits * K, K),
+         lambda: fs.merge_partials_plain(*sbk), reps=20, plain_reps=10,
+         comp=lambda: torch.topk(fv.view(b, -1), K, dim=1),
+         bnd=bound(b * splits * K * 8 + b * K * 8, 0.0))
     say("3 kernels", cells=repr(" | ".join(cells)))
     return rec
 
@@ -706,7 +739,7 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launched, "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": None, "composition_ms": r["composition_ms"]}
+                "library_ms": r["library_ms"], "composition_ms": r["composition_ms"]}
 
     kernels = [
         entry("fused_scan_kernel", "flat", SOURCE, f"{PALLAS}:672", launches["flat_scan"]),

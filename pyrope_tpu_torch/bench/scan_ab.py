@@ -1,7 +1,7 @@
 """Time the scan kernels of two or more checkouts of the port on one GPU, in turns.
 
     python3 -m pyrope_tpu_torch.bench.scan_ab --tree build/other --tree . \\
-        [--order ABBA] [--trace] [--out build/scan_ab.json]
+        [--order ABBA] [--trace] [--cases REGEX] [--out build/scan_ab.json]
 
 Each tree is a directory holding a ``pyrope_tpu_torch`` package (``git
 archive`` of a commit, or the repo root). For every turn of ``--order``
@@ -11,12 +11,20 @@ package from that tree, builds its kernels, makes the same seeded inputs on
 the card and times each case: the wrapper (kernels and the device-side
 bookkeeping around them) as the median of CUDA-event times over ``--reps``
 launches, three times, so the spread shows. ``--trace`` adds, per case, a
-torch.profiler trace of five calls: the device time per call and the
-largest kernels' shares of it. The cases are the main paths' shapes:
+torch.profiler trace of five calls: the device time per call, the
+largest kernels' shares of it and their times. ``--cases`` keeps the cases
+whose name matches a regular expression. The cases are the main paths'
+shapes, the flat scan's other batch sizes and widths, and the merge alone
+beside ``torch.topk`` over the same candidates (a ``topk_`` twin per merge
+case: the library call, which keeps no row order at ties):
 
   ivf_1M_nlist1000_np3_b1024, ivf_100k_nlist100_np96_b4096,
   sq8_1000k_nlist1000_np3_b1024_{L2,IP}, sq8_100k_nlist100_np3_b1024_{L2,IP},
-  flat_1M_b1024_k10
+  flat_1M_b1024_k10, flat_1M_b1024_k100, flat_1M_b64_k10, flat_1M_b1_k10,
+  flat_8k_b1024_k10, matmul_1M_b1024 (q @ x.T alone, fp32, TF32 off),
+  merge_3lists_b1024_k10 (the slice: per-query slots),
+  merge_flat_splits_b1024_k10 (66 lists a query, the flat path's splits at
+  b1024), merge_108lists_b1024_k128 (a skewed list at nprobe 96)
 
 Prints one JSON object per worker and writes all of them to ``--out``;
 every record names the card and its power limit.
@@ -27,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -54,10 +63,11 @@ def _kernel_shares(fn, calls: int = 5) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"device_ms_per_call": round(busy / calls / 1e3, 4),
             "kernels": len(by_name),
-            "shares": {n: round(us / busy, 3) for n, us in top} if busy else {}}
+            "shares": {n: round(us / busy, 3) for n, us in top} if busy else {},
+            "kernel_ms_per_call": {n: round(us / calls / 1e3, 5) for n, us in top}}
 
 
-def _worker(reps: int, trace: bool) -> dict:
+def _worker(reps: int, trace: bool, cases: str) -> dict:
     import torch
 
     from pyrope_tpu_torch.kernels import build as kbuild
@@ -88,6 +98,8 @@ def _worker(reps: int, trace: bool) -> dict:
         return out
 
     def case(name, fn):
+        if not re.search(cases, name):
+            return
         res[name] = timed(fn)
         if trace:
             traces[name] = _kernel_shares(fn)
@@ -138,6 +150,30 @@ def _worker(reps: int, trace: bool) -> dict:
                 qc, kp, metric))
         del codes, mins, scales, sq8n
     case("flat_1M_b1024_k10", lambda: fs.fused_flat_topk(q, x, sq, alive, n, K))
+    case("flat_1M_b1024_k100", lambda: fs.fused_flat_topk(q, x, sq, alive, n, 100))
+    for bs in (64, 1):
+        qs = q[:bs].contiguous()
+        case(f"flat_1M_b{bs}_k10", lambda: fs.fused_flat_topk(qs, x, sq, alive, n, K))
+    x8, sq8k, alive8 = (t[:8192].contiguous() for t in (x, sq, alive))
+    case("flat_8k_b1024_k10", lambda: fs.fused_flat_topk(q, x8, sq8k, alive8, 8192, K))
+    case("matmul_1M_b1024", lambda: q @ x.T)
+
+    def merge_cases(name, lists, k):
+        """``lists`` sorted lists a query, as [S, B, k] and as per-query
+        slots, beside torch.topk over the same [B, lists * k] candidates."""
+        pv = torch.rand((lists, b, k), generator=g, device=dev).sort(2, descending=True).values
+        pi = torch.randint(0, n, (lists, b, k), generator=g, device=dev).int()
+        case(f"merge_{name}", lambda: fs.merge_partials(pv, pi))
+        sv = pv.permute(1, 0, 2).reshape(b * lists, k).contiguous()
+        si = pi.permute(1, 0, 2).reshape(b * lists, k).contiguous()
+        qend = (torch.arange(1, b + 1, device=dev, dtype=torch.int32) * lists).view(b, 1)
+        case(f"merge_slots_{name}", lambda: fs.merge_partials(sv, si, qend))
+        flat = sv.view(b, lists * k)
+        case(f"topk_{name}", lambda: torch.topk(flat, k, dim=1))
+
+    merge_cases("3lists_b1024_k10", 3, K)
+    merge_cases("flat_splits_b1024_k10", 66, K)
+    merge_cases("108lists_b1024_k128", 108, 128)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
@@ -152,11 +188,12 @@ def main() -> int:
     ap.add_argument("--order", default="ABBA")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--cases", default="", help="regular expression over case names")
     ap.add_argument("--out", default="build/scan_ab.json")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(_worker(args.reps, args.trace)))
+        print(json.dumps(_worker(args.reps, args.trace, args.cases)))
         return 0
     if len(args.tree) < 2:
         ap.error("give two or more --tree directories")
@@ -168,7 +205,8 @@ def main() -> int:
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env["PYTHONPATH"] = str(tree)
         cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
-               "--reps", str(args.reps)] + (["--trace"] if args.trace else [])
+               "--reps", str(args.reps), "--cases", args.cases] + (
+                   ["--trace"] if args.trace else [])
         proc = subprocess.run(cmd, cwd=tree, env=env, capture_output=True, text=True,
                               timeout=900)
         if proc.returncode != 0:

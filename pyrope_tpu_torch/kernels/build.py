@@ -37,15 +37,16 @@ _build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # d, k
+    # k, query tile
     "pyrope_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     # d, k, sq8
     "pyrope_list_scan_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "pyrope_error_string": (ctypes.c_char_p, [_I]),
     # q, x, sqnorm, alive, B, N, D, k, metric_ip, max_scans, rows_per_split,
-    # n_splits, part_v, part_i, stream
+    # n_splits, query tile, vec, part_v, part_i, pub, pub_c, pub_g, stream
     "pyrope_fused_scan": (
-        _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+        _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+             _I, _I, _P],
     ),
     # q, x, sqnorm, alive, pairs, P, cstart, ccnt, item_end, item_c, slot_end,
     # offsets, lens, nclus, grid, B, D, k, metric_ip, seg, nslots, vec,
@@ -61,9 +62,12 @@ _SIGNATURES = {
         _I, [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
              _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     ),
-    # part_v, part_i, S, B, k, qend (null: [S, B, k] lists), P, out_v,
-    # out_i, stream
-    "pyrope_merge_partials": (_I, [_P, _P, _I, _I, _I, _P, _I, _P, _P, _P]),
+    # part_v, part_i, S, B, k, qend (null: S lists a query at the strides),
+    # P, qstride, lstride, out_v, out_i, stream
+    "pyrope_merge_partials": (
+        _I, [_P, _P, _I, _I, _I, _P, _I, ctypes.c_longlong, ctypes.c_longlong,
+             _P, _P, _P],
+    ),
 }
 
 

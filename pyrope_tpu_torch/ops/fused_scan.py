@@ -3,7 +3,8 @@
 
 Replaces ``pyrope_tpu/ops/pallas_scan.py``:
   - ``fused_flat_topk``  <- ``pallas_flat_topk`` (K1, :672): the flat scan
-    kernel (csrc/fused_scan.cu), corpus splits into [splits, B, k] partials.
+    kernel (csrc/fused_scan.cu), corpus splits into [B, splits, k] partials;
+    ``flat_tile`` picks its query tile, ``scan_splits`` its grid.
   - ``fused_ivf_topk``   <- ``pallas_ivf_topk`` (K2, :1035) and
     ``pallas_ivf_topk_windowed`` (K3, :992), and
   - ``fused_ivf_sq8_topk`` <- ``pallas_ivf_sq8_topk`` (K4, :1204) and
@@ -45,13 +46,20 @@ from pyrope_tpu_torch.ops.distance import check_fp32_exact
 
 # MAXK, BT and RT of the CUDA sources; the kernels refuse any other k range
 MAX_K = 128              # list slots per query (4 per lane)
-QUERY_TILE = 64          # queries per block (flat scan) or per list chunk
+QUERY_TILE = 64          # queries per list chunk; the flat scan's narrow tile
+FLAT_QUERY_TILES = (128, 64)  # the flat scan's instantiations, widest first
 ROW_TILE = 128           # corpus rows per tile
+FLAT_STAGES = 2          # NST of fused_scan.cu: stages in the copy ring
+FLAT_DEPTH_CHUNK = 32    # DC: depth elements of a row per stage (128 bytes)
+FLAT_FLOOR_WINDOW = 32   # WIN: splits whose published scores a warp reads
 LIST_SEG = 2048          # rows of one cluster a list-scan block walks at most
 LIST_SEG_MIN = 256       # shortest segment list_seg cuts for parallelism
 SMEM_LIMIT = 232_448     # bytes of shared memory a block may use on sm_90
+SMEM_TWO_BLOCKS = 115_712  # the most a block may use for two to share an SM
+                           # (233,472 B an SM, 1,024 B a block reserved)
 IVF_MAX_KPAD = 8192      # widest cluster table a route sends the list scan
-_BLOCKS_PER_SM = 4       # flat grid target: blocks in flight per SM
+_BLOCKS_PER_SM = 4       # list-scan grid target: blocks in flight per SM
+_FLAT_BLOCKS_PER_SM = 2  # flat grid target: one wave of two blocks an SM
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"flat_scan": 0, "ivf_scan": 0, "sq8_scan": 0, "merge": 0}
@@ -206,14 +214,58 @@ def _check_probe(q, x, crow, probe):
         raise ValueError("probe must be [B, nprobe] on the queries' device")
 
 
-def scan_splits(b: int, n_rows: int, dev: torch.device) -> tuple[int, int]:
+def flat_scan_smem_bytes(k: int, query_tile: int) -> int:
+    """Shared memory of a flat-scan block, as ``scan_smem_bytes`` of
+    fused_scan.cu computes it: the ring of stages (each a depth chunk of
+    the tile's rows and queries, and the rows' table), four words a query,
+    and the lists. It does not depend on D: q is streamed."""
+    stage = (ROW_TILE + query_tile) * FLAT_DEPTH_CHUNK
+    return 4 * (FLAT_STAGES * (stage + ROW_TILE) + 4 * query_tile
+                + 2 * query_tile * k)
+
+
+def flat_tile(d: int, k: int, b: int) -> tuple[int, int]:
+    """(query tile, shared-memory bytes) of the flat scan's instantiation
+    for depth ``d``, ``k`` hits and ``b`` queries: the 128-query tile, or
+    the 64-query one where a batch fits it (at B <= 64 a wider tile is
+    padding). The first of which two blocks fit an SM wins (two blocks hide
+    each other's list insertions: k <= 45 at 128 queries, k <= 125 at 64),
+    else the first that fits at all. Raises where none fits."""
+    if d < 1 or not 1 <= k <= MAX_K:
+        raise ValueError(f"flat scan takes D >= 1 and k in [1, {MAX_K}], got D={d}, k={k}")
+    fits = [(tile, flat_scan_smem_bytes(k, tile)) for tile in FLAT_QUERY_TILES
+            if b > QUERY_TILE or tile == QUERY_TILE]
+    for limit in (SMEM_TWO_BLOCKS, SMEM_LIMIT):
+        for tile, smem in fits:
+            if smem <= limit:
+                return tile, smem
+    raise ValueError(
+        f"flat scan needs {min(smem for _, smem in fits)} B of shared memory "
+        f"(D={d}, k={k}), over the {SMEM_LIMIT} B a block may use")
+
+
+def flat_floor(k: int, n_splits: int) -> tuple[int, int]:
+    """(c, g) of the flat scan's shared floor: each of a query's splits
+    publishes the c-th score of its list, and a warp drops rows under the
+    g-th largest of up to FLAT_FLOOR_WINDOW published scores; g·c >= k
+    rows lie at or above it, so no dropped row is a hit."""
+    c = -(-k // min(n_splits, FLAT_FLOOR_WINDOW))
+    return c, -(-k // c)
+
+
+def scan_splits(b: int, n_rows: int, dev: torch.device,
+                query_tile: int = QUERY_TILE) -> tuple[int, int]:
     """(rows_per_split, n_splits) of the scan grid: enough corpus splits
-    that it holds about _BLOCKS_PER_SM blocks per SM, each split a whole
-    number of row tiles."""
+    that it holds about _FLAT_BLOCKS_PER_SM blocks per SM, each split a
+    whole number of row tiles."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    q_tiles = -(-b // QUERY_TILE)
+    return _splits(b, n_rows, sms, query_tile)
+
+
+def _splits(b: int, n_rows: int, sms: int, query_tile: int) -> tuple[int, int]:
+    q_tiles = -(-b // query_tile)
     tiles = max(-(-n_rows // ROW_TILE), 1)
-    want = min(max(-(-_BLOCKS_PER_SM * sms // q_tiles), 1), tiles)
+    want = min(max(-(-_FLAT_BLOCKS_PER_SM * sms // q_tiles), 1), tiles)
     per = -(-tiles // want) * ROW_TILE
     return per, max(-(-n_rows // per), 1)
 
@@ -251,8 +303,6 @@ def merge_partials(part_v, part_i, qend=None):
     qend[b, -1] (the list scan's running slot counts, ``ListWork``)."""
     if part_v.device.type == "cpu":
         return merge_partials_plain(part_v, part_i, qend)
-    from pyrope_tpu_torch.kernels.build import check, load
-
     if part_v.dtype != torch.float32 or part_i.dtype != torch.int32:
         raise ValueError("partials must be float32 scores and int32 rows")
     tensors = (part_v, part_i) if qend is None else (part_v, part_i, qend)
@@ -265,14 +315,26 @@ def merge_partials(part_v, part_i, qend=None):
         if qend.dtype != torch.int32 or qend.device != part_v.device:
             raise ValueError("qend must be int32 on the partials' device")
         (s, k), (b, nprobe) = part_v.shape, qend.shape
+    if qend is None:  # [S, B, k]: list s of query b at (s·B + b)·k
+        return _merge_launch(part_v, part_i, s, b, k, None, 0, k, b * k)
+    return _merge_launch(part_v, part_i, s, b, k, qend, nprobe, 0, k)
+
+
+def _merge_launch(part_v, part_i, s, b, k, qend, nprobe, qstride, lstride):
+    """The merge kernel over partials whose list ``l`` of query ``q`` starts
+    at entry q·qstride + l·lstride (``qend`` None), or over [s, k] rows cut
+    by ``qend``. The one place the merge is launched and counted."""
+    from pyrope_tpu_torch.kernels.build import check, load
+
     out_v = torch.empty((b, k), dtype=torch.float32, device=part_v.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=part_v.device)
     if b == 0:
         return out_v, out_i  # an empty grid is not a valid launch
     check(load().pyrope_merge_partials(
         part_v.data_ptr(), part_i.data_ptr(), s, b, k,
-        None if qend is None else qend.data_ptr(), nprobe, out_v.data_ptr(),
-        out_i.data_ptr(), torch.cuda.current_stream(part_v.device).cuda_stream,
+        None if qend is None else qend.data_ptr(), nprobe, qstride, lstride,
+        out_v.data_ptr(), out_i.data_ptr(),
+        torch.cuda.current_stream(part_v.device).cuda_stream,
     ), "merge kernel")
     LAUNCHES["merge"] += 1
     return out_v, out_i
@@ -284,29 +346,30 @@ def _empty_hits(b, k, dev):
 
 
 def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
-    """The flat scan kernel into [splits, B, k] partials, then the merge."""
+    """The flat scan kernel into [B, splits, k] partials, then the merge."""
     from pyrope_tpu_torch.kernels.build import check, load
 
     lib = load()
     b, d = q.shape
-    smem = lib.pyrope_scan_smem_bytes(d, k)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"scan needs {smem} B of shared memory (D={d}, k={k}), over the "
-            f"{SMEM_LIMIT} B a block may use")
+    tile, smem = flat_tile(d, k, b)
+    if lib.pyrope_scan_smem_bytes(k, tile) != smem:
+        raise RuntimeError("flat_tile and fused_scan.cu disagree on shared memory")
     if b == 0:  # an empty grid is not a valid launch
         return _empty_hits(0, k, q.device)
-    per, n_splits = scan_splits(b, max_scans, q.device)
-    part_v = torch.empty((n_splits, b, k), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((n_splits, b, k), dtype=torch.int32, device=q.device)
+    per, n_splits = scan_splits(b, max_scans, q.device, tile)
+    part_v = torch.empty((b, n_splits, k), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((b, n_splits, k), dtype=torch.int32, device=q.device)
+    pub_c, pub_g = flat_floor(k, n_splits)
+    pub = torch.full((b, n_splits), float("-inf"), device=q.device)
+    vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
     check(lib.pyrope_fused_scan(
         q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), b,
-        x.shape[0], d, k, int(metric_ip), max_scans, per, n_splits,
-        part_v.data_ptr(), part_i.data_ptr(),
+        x.shape[0], d, k, int(metric_ip), max_scans, per, n_splits, tile, vec,
+        part_v.data_ptr(), part_i.data_ptr(), pub.data_ptr(), pub_c, pub_g,
         torch.cuda.current_stream(q.device).cuda_stream,
     ), "fused scan kernel")
     LAUNCHES["flat_scan"] += 1
-    return merge_partials(part_v, part_i)
+    return _merge_launch(part_v, part_i, n_splits, b, k, None, 0, n_splits * k, k)
 
 
 def fused_flat_topk(q, x, sqnorm, alive, max_scans: int, k: int,

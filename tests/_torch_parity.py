@@ -311,3 +311,133 @@ def fused_ivf_sq8_topk_emulated(q, codes, mins, scales, sqnorm, alive, offsets,
 
     return list_scan_emulated(item_scores, alive, offsets, lens, probe, kp, k,
                               int(lens.max()), seg)
+
+
+# ---- the flat scan's block and the merge's head floor, emulated on the CPU ----
+
+
+def _beats(v, r, tv, ti):
+    """(v, r) strictly precedes (tv, ti) in (score desc, row asc) order, as
+    the kernels' ``beats`` compares floats."""
+    return v > tv or (v == tv and r < ti)
+
+
+class _SortedList:
+    """A kernel top-k list: at most k entries in (score desc, row asc)
+    order; ``kth`` is its k-th entry, (-inf, -1) while it is not full."""
+
+    def __init__(self, k):
+        self.k, self.items = k, []
+
+    @property
+    def kth(self):
+        return self.items[-1] if len(self.items) == self.k else (float("-inf"), -1)
+
+    def offer_batch(self, cands, threshold=None):
+        """``warp_offer_batch``: every candidate that beats ``threshold``
+        (default: the k-th entry) goes in by rank; what lands past k drops."""
+        tv, ti = self.kth if threshold is None else threshold
+        take = [(v, r) for v, r in cands if _beats(v, r, tv, ti)]
+        self.items = sorted(self.items + take, key=lambda e: (-e[0], e[1]))[:self.k]
+
+    def padded(self):
+        return self.items + [(float("-inf"), -1)] * (self.k - len(self.items))
+
+
+def flat_scan_emulated(scores, row_ok, max_scans, k, *, query_tile, per, n_splits,
+                       batch=16, seed=0, refresh_every=None):
+    """Plain emulation of the flat scan kernel's blocks on a [B, N] score
+    matrix: grid (query tiles) x (``n_splits`` splits of ``per`` rows). A
+    warp owns a query's list in its block. Per row tile it compares the
+    query's scores with the threshold ((+inf, -1) for a padding query): if
+    the best score reaches the threshold's, the rows that beat it are
+    offered ``batch`` rows at a time, and a full list whose k-th entry beats
+    the threshold raises it. Every split publishes the c-th score of its
+    list (``fs.flat_floor``); after tiles 0, 1, 3, 7, ... and every 32nd
+    (``refresh_every``: after every that many) a block takes the g-th
+    largest score t its window of splits has published and, where that is
+    higher, (t, INT_MAX) as its threshold. The blocks of the grid advance a
+    tile at a time in a seeded random order, as concurrent blocks might.
+    Returns the [B, S, k] partials the kernel writes (float32 scores, int32
+    rows)."""
+    b, n = scores.shape
+    rng = np.random.default_rng(seed)
+    sc, ok = scores.numpy(), row_ok.numpy()
+    part_v = np.full((b, n_splits, k), np.nan, np.float32)
+    part_i = np.full((b, n_splits, k), -2, np.int32)
+    c, g = fs.flat_floor(k, n_splits)
+    pub = np.full((b, n_splits), -np.inf, np.float32)
+    win = fs.FLAT_FLOOR_WINDOW
+    blocks = []
+    for q0 in range(0, b, query_tile):
+        for s in range(n_splits):
+            limit = min(s * per + per, n, max_scans)
+            real = min(query_tile, b - q0)
+            blocks.append(dict(
+                q0=q0, s=s, limit=limit, t=0,
+                tiles=list(range(s * per, max(limit, s * per), fs.ROW_TILE)),
+                lists=[_SortedList(k) for _ in range(real)],
+                thr=[(float("-inf"), -1)] * real))
+    active = [blk for blk in blocks if blk["tiles"]]
+    while active:
+        for at in rng.permutation(len(active)):
+            blk = active[at]
+            row0 = blk["tiles"].pop(0)
+            rows = np.arange(row0, min(row0 + fs.ROW_TILE, blk["limit"]))
+            for i, lst in enumerate(blk["lists"]):
+                q = blk["q0"] + i
+                vals = np.where(ok[rows], sc[q, rows], -np.inf)
+                if not vals.max() >= blk["thr"][i][0]:    # one vote for the tile
+                    continue
+                for g0 in range(0, len(rows), batch):
+                    cands = [(float(v), int(r)) for v, r in
+                             zip(vals[g0:g0 + batch], rows[g0:g0 + batch])
+                             if _beats(v, r, *blk["thr"][i])]
+                    if not cands:
+                        continue
+                    lst.offer_batch(cands, blk["thr"][i])
+                    if _beats(*lst.kth, *blk["thr"][i]):
+                        blk["thr"][i] = lst.kth
+                    if len(lst.items) >= c:
+                        pub[q, blk["s"]] = max(pub[q, blk["s"]], lst.items[c - 1][0])
+            t = blk["t"]
+            blk["t"] += 1
+            due = ((t & (t + 1)) == 0 or (t & 31) == 31 if refresh_every is None
+                   else (t + 1) % refresh_every == 0)
+            if due:
+                w0 = max(0, min(blk["s"] // win * win, n_splits - win))
+                for i in range(len(blk["lists"])):
+                    seen = np.sort(pub[blk["q0"] + i, w0:w0 + win])[::-1]
+                    floor = float(seen[g - 1])             # the g-th largest
+                    if floor > blk["thr"][i][0]:
+                        blk["thr"][i] = (floor, 2**31 - 1)
+        active = [blk for blk in active if blk["tiles"]]
+    for blk in blocks:
+        for i, lst in enumerate(blk["lists"]):
+            ent = lst.padded()
+            part_v[blk["q0"] + i, blk["s"]] = [v for v, _ in ent]
+            part_i[blk["q0"] + i, blk["s"]] = [r for _, r in ent]
+    return torch.from_numpy(part_v), torch.from_numpy(part_i)
+
+
+def merge_emulated(part_v, part_i, batch=32):
+    """Plain emulation of the merge kernel on [S, B, k] partials: all list
+    heads are offered first (so the k-th best head is the threshold when a
+    query has k lists or more), then every other entry, ``batch`` at a time,
+    only those beating the threshold going in."""
+    s, b, k = part_v.shape
+    out_v = np.full((b, k), -np.inf, np.float32)
+    out_i = np.full((b, k), -1, np.int32)
+    pv, pi = part_v.numpy(), part_i.numpy()
+    for q in range(b):
+        lst = _SortedList(k)
+        heads = [(float(pv[l, q, 0]), int(pi[l, q, 0])) for l in range(s)]
+        rest = [(float(pv[l, q, e]), int(pi[l, q, e])) for l in range(s)
+                for e in range(1, k)]
+        for cands in (heads, rest):
+            for c0 in range(0, len(cands), batch):
+                lst.offer_batch(cands[c0:c0 + batch])
+        ent = lst.padded()
+        out_v[q] = [v for v, _ in ent]
+        out_i[q] = [r for _, r in ent]
+    return torch.from_numpy(out_v), torch.from_numpy(out_i)

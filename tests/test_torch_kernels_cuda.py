@@ -353,3 +353,100 @@ def test_merge_kernel_takes_per_query_slots(cuda_device):
     np.testing.assert_array_equal(ki.cpu().numpy(), mi.numpy())
     np.testing.assert_array_equal(kv.cpu().numpy(), mv.numpy())
     assert (mi[cnt == 0] == -1).all()
+
+
+# ---- the flat scan's two tile instantiations and the merge's layouts ---------
+
+
+def _flat_inputs(dev, seed, n, b, d, dead=0.0):
+    x, q, sq, alive = flat_case(seed, n, b, d)
+    if dead:
+        alive &= np.random.default_rng(seed).random(n) >= dead
+    return [as_tensor(a).to(dev) for a in (q, x, sq, alive)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT])
+@pytest.mark.parametrize("d", [16, 100, 128, 384])
+@pytest.mark.parametrize("b", [1, 70, 129, 1024])
+def test_flat_tiles_vs_plain(cuda_device, metric, d, b):
+    """Both tiles (B <= 64: the 64-query tile; k 128: one block an SM), both
+    metrics' instantiations, N no multiple of the row tile, max_scans inside
+    a tile, 20% tombstones."""
+    n = 5_000 if b == 1024 else 20_001
+    args = _flat_inputs(cuda_device, 50 + d, n, b, d, dead=0.2)
+    for k in (1, 10, 128):
+        assert fs.flat_tile(d, k, b)[0] == (64 if b <= 64 else 128)
+        before = fs.LAUNCHES["flat_scan"]
+        kv, ki = fs.fused_flat_topk(*args, n - 77, k, metric)
+        assert fs.LAUNCHES["flat_scan"] == before + 1
+        pv, pi = fs.fused_flat_topk_plain(*args, n - 77, k, metric)
+        torch.cuda.synchronize()
+        assert_same_hits(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [30, 128])          # 30: the plain-load staging
+def test_flat_unaligned_and_odd_depth(cuda_device, d):
+    q, x, sq, alive = _flat_inputs(cuda_device, 60, 9_000, 130, d)
+    xo = torch.empty(x.numel() + 1, device=cuda_device)[1:].view_as(x).copy_(x)
+    assert xo.data_ptr() % 16 != 0 and xo.is_contiguous()
+    for slab in (x, xo):
+        kv, ki = fs.fused_flat_topk(q, slab, sq, alive, 9_000, 10)
+        pv, pi = fs.fused_flat_topk_plain(q, slab, sq, alive, 9_000, 10)
+        torch.cuda.synchronize()
+        assert_same_hits(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,k", [(3, 10), (200, 10), (200, 30), (200, 100)])
+def test_flat_duplicates_dead_rows_and_bit_equal_launches(cuda_device, b, k):
+    n, d = 30_000, 64
+    x, q, sq, alive = flat_case(61, n, b, d)
+    x[129] = x[130] = x[25_000] = x[64]       # exact ties in a tile, across splits
+    sq = np.einsum("nd,nd->n", x, x).astype(np.float32)
+    q[0] = x[64]
+    tq, tx, tsq, tal = (as_tensor(a).to(cuda_device) for a in (q, x, sq, alive))
+    runs = [fs.fused_flat_topk(tq, tx, tsq, tal, n, k) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert runs[0][1][0, :4].tolist() == [64, 129, 130, 25_000]
+    pv, pi = fs.fused_flat_topk_plain(tq, tx, tsq, tal, n, k)
+    assert_same_hits(runs[0][0].cpu(), runs[0][1].cpu(), pv.cpu(), pi.cpu())
+    for dead, ms in ((torch.zeros_like(tal), n), (tal, 0)):   # nothing survives
+        v, i = fs.fused_flat_topk(tq, tx, tsq, dead, ms, k)
+        assert (i == -1).all() and torch.isinf(v).all()
+    few = torch.zeros_like(tal)
+    few[[5, 20_000]] = True                                   # fewer live than k
+    v, i = fs.fused_flat_topk(tq, tx, tsq, few, n, k)
+    if k > 1:
+        assert (i[:, 2:] == -1).all() and (i[:, :2].sort(1).values.cpu()
+                                           == torch.tensor([5, 20_000])).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 10, 128])
+@pytest.mark.parametrize("s", [1, 3, 33, 200])
+def test_merge_kernel_layouts_vs_plain(cuda_device, s, k):
+    """S lists a query as [S, B, k], and the same lists as per-query slots
+    ([slots, k] + qend): bit-equal to the plain version, ties included."""
+    b = 70
+    rng = np.random.default_rng(70 + s)
+    v = np.sort(rng.integers(0, 40, (s, b, k)).astype(np.float32), axis=2)[:, :, ::-1]
+    rows = np.stack([rng.permutation(s * k) for _ in range(b)], 1).reshape(s, k, b)
+    rows = np.ascontiguousarray(rows.transpose(0, 2, 1)).astype(np.int32)
+    order = np.lexsort((rows, -v), axis=2)                    # ties: lower row first
+    pv = torch.from_numpy(np.take_along_axis(np.ascontiguousarray(v), order, 2))
+    pi = torch.from_numpy(np.take_along_axis(rows, order, 2))
+    pv[s // 2, ::3] = float("-inf")                           # an empty list
+    pi[s // 2, ::3] = -1
+    mv, mi = fs.merge_partials_plain(pv, pi)
+    kv, ki = fs.merge_partials(pv.to(cuda_device), pi.to(cuda_device))
+    np.testing.assert_array_equal(ki.cpu().numpy(), mi.numpy())
+    np.testing.assert_array_equal(kv.cpu().numpy(), mv.numpy())
+    sv = pv.permute(1, 0, 2).reshape(b * s, k).contiguous()   # query b: slots b·s..
+    si = pi.permute(1, 0, 2).reshape(b * s, k).contiguous()
+    qend = (torch.arange(1, b + 1, dtype=torch.int32) * s).view(b, 1)
+    kv, ki = fs.merge_partials(sv.to(cuda_device), si.to(cuda_device), qend.to(cuda_device))
+    np.testing.assert_array_equal(ki.cpu().numpy(), mi.numpy())
+    np.testing.assert_array_equal(kv.cpu().numpy(), mv.numpy())
