@@ -4,7 +4,7 @@
     python3 chip_smoke.py          # from the repo root, on a host with a GPU
 
 Builds the CUDA kernels from pyrope_tpu_torch/csrc at first use, then runs
-eight phases, one line each (phase 8 two); any failed check exits non-zero:
+twelve phases, one line each (phase 8 two); any failed check exits non-zero:
 
   1. device    torch/CUDA versions, the card's name and power limit
   2. build     nvcc build time, registers and spills per kernel
@@ -23,7 +23,14 @@ eight phases, one line each (phase 8 two); any failed check exits non-zero:
                the list scan's edge cases, IVF and SQ8 mode: a 50k-row list
                (at nprobe 3, and at nprobe 96 with k 128), nprobe >= the
                non-empty lists, probed empty lists, B 1000, k 128, a row
-               copied into two lists, 30% tombstones
+               copied into two lists, 30% tombstones; the bf16 slab modes:
+               the flat scan at 1M x 128 (b1024 and b64 at k 10, b64 at the
+               hybrid's k 64), the list scan without promote (100k, nlist
+               100, nprobe 96, b256, k 64) and with it (1M, nlist 1000,
+               nprobe 3, b64, k 10), each beside the composition, the bare
+               bf16 q16 @ x16.T, and its bound (bf16 rows over the memory
+               rate against the bf16 tensor-core peak, or the fp32 peak with
+               promote)
   4. slice     create_index(IVF_FLAT, nlist 1000, nprobe 3, dense) on 1M x
                128 clustered rows through the registry's Delta(Flat,
                IVF_FLAT): add_batch, build (compaction -> k-means -> slab),
@@ -48,10 +55,30 @@ eight phases, one line each (phase 8 two); any failed check exits non-zero:
                the registry default fp32 rerank slab (dense-exact-pallas,
                the IVF kernel); and a second build from the same seed with
                bit-equal centroids, codebooks, PQ codes and SQ8 codes
+  9. flat bf16 FlatIndex(storage="bf16", selection="pallas") on phase 6's
+               1M uniform rows (flat1m_pallas): route flat-pallas, the bf16
+               flat scan; recall@10 of b1024 within 0.005 of 0.9817, b64's
+               beside 0.9855; QPS, p50/p99 at b1024 and b64
+ 10. flat hybrid FlatIndex(selection="hybrid") on the same rows
+               (flat1m_hybrid, flat1m_hybrid_b256): flat-pallas-hybrid at
+               b64 and b256, flat-pallas at b1024; no miss beyond fp32 ties
+ 11. ivf hybrid IvfFlatIndex(selection="hybrid"): 100k uniform, nlist 100,
+               nprobe 96 (ivf100k_np96_hybrid_b256, dense-pallas-hybrid) and
+               the 1M uniform rows, nlist 1000, nprobe 256, bf16 training
+               (ivf1m_np256_hybrid_b256, dense-pallas-win-hybrid), b256:
+               hits equal the fp32 list scan's on the same queries (sent
+               inside a b1024 batch, above HYBRID_MAX_BATCH), but for k-th
+               place ties
+ 12. pq bf16   create_index(IVF_PQ, nlist 1000, pq_m 16, ksub 256,
+               refine_storage bf16), bf16 training, on phase 4's clustered
+               rows (ivfpq1m_bf16slab): route dense-exact-pallas-win at b64
+               (the bf16 list scan with promote), a 256,000,000-byte slab,
+               recall@10 of 1024 queries within 0.03 of 0.725
 
 The kernels' launch counters are zeroed before each serving path (phases
-4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path) and read after it:
-every kernel of a path must have run on it. The last three lines are the
+4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9, 10, 11 and
+12, one path each) and read after it: every kernel of a path must have run
+on it. The last three lines are the
 kernels' JSON record, the card as nvidia-smi names it, and
 {"ok": true, "device": {...}}.
 """
@@ -169,11 +196,15 @@ def serve(ix, q_dev: list[torch.Tensor], iters: int) -> dict:
             "p99_ms": round(s.p99_ms, 3)}
 
 
-def exact_misses_are_ties(ix, base, queries, truth) -> tuple[float, int]:
+def exact_misses_are_ties(ix, base, queries, truth, batch=None) -> tuple[float, int]:
     """Recall against float64 ground truth, and the number of misses that
     are not fp32 ties at the k-th place (float64 distance of the returned
-    row within 1e-4 of the true k-th distance)."""
-    rows = id_lists_to_rows([[h.id for h in r] for r in ix.search_batch(queries, K)], K)
+    row within 1e-4 of the true k-th distance). ``batch``: search_batch in
+    batches of that many queries (None: all at once)."""
+    step = batch or len(queries)
+    results = [r for s in range(0, len(queries), step)
+               for r in ix.search_batch(queries[s:s + step], K)]
+    rows = id_lists_to_rows([[h.id for h in r] for r in results], K)
     rec = recall_at_k(rows, truth, K)
     bad = 0
     for b in range(len(queries)):
@@ -239,13 +270,15 @@ def phase_build() -> None:
 
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 FP32_FLOP_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
+BF16_FLOP_S = 989e12    # H100 SXM bf16 tensor-core rate, dense
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, rate: float = FP32_FLOP_S) -> tuple[float, str]:
     """Least time on the card, ms, and what sets it: each input byte read
     once and each output written once over the memory rate, against the
-    operations over the fp32 rate."""
-    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+    operations over the rate of their type (fp32, or bf16 products with
+    fp32 sums: the tensor cores')."""
+    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -283,7 +316,8 @@ def probes(b, kp, nprobe, g, dev, *, lo=0, forced=None, every=1):
     return p
 
 
-def list_bound(x_bytes_per_row, q, probe, lens, alive, crow, kp, k, extra=0):
+def list_bound(x_bytes_per_row, q, probe, lens, alive, crow, kp, k, extra=0,
+               rate=FP32_FLOP_S):
     """Bound of an IVF/SQ8 list scan on these inputs: each probed cluster's
     rows read once, the (query, alive row) pairs' FMAs."""
     b, d = q.shape
@@ -293,7 +327,7 @@ def list_bound(x_bytes_per_row, q, probe, lens, alive, crow, kp, k, extra=0):
     alive_c = torch.zeros(kp, device=q.device).index_add_(0, crow.long(), alive.float())
     pairs = float(alive_c[probe.long()].sum())
     return bound(rows * x_bytes_per_row + b * d * 4 + probe.numel() * 8 + b * k * 8 + extra,
-                 2.0 * d * pairs)
+                 2.0 * d * pairs, rate)
 
 
 def phase_kernels(dev) -> dict:
@@ -306,7 +340,8 @@ def phase_kernels(dev) -> dict:
     sq = (x * x).sum(1)
     alive = torch.rand(n, generator=g, device=dev) > 0.01
     q = torch.rand((b, d), generator=g, device=dev)
-    rec = {kind: {"err": 0.0} for kind in ("flat", "ivf", "sq8", "merge")}
+    rec = {kind: {"err": 0.0}
+           for kind in ("flat", "ivf", "sq8", "merge", "flat_bf16", "ivf_bf16", "ivf_bf16p")}
     cells = []
 
     def case(kind, name, kern, plain, reps=10, plain_reps=3, main=False, comp=None,
@@ -447,6 +482,62 @@ def phase_kernels(dev) -> dict:
         ivf_case(f"ivf_{name}", qv, xv, sqv, alv, lay_e, kp_e, probe, k=k, reps=3)
         sq8_case(f"sq8_{name}", qv, xv, alv, lay_e, kp_e, probe, k=k, reps=3)
     del xd
+
+    # the bf16 slab modes at the shapes of phases 9-12: rows rounded to bf16,
+    # sqnorm of the fp32 rows; the composition scores bf16(q)·x (or q·x with
+    # promote) in fp32 and takes torch.topk; the library call is the bare
+    # bf16 product q16 @ x16.T (bf16 sums: not the function, a yardstick)
+    x16 = x.bfloat16()
+    q16 = q.bfloat16()
+    for name, bv, k, main in (("flat_bf16_1M_b1024_k10", b, K, True),
+                              ("flat_bf16_1M_b64_k10", 64, K, False),
+                              ("flat_bf16_1M_b64_k64", 64, 64, False)):
+        qv, qv16 = q[:bv].contiguous(), q16[:bv].contiguous()
+        bnd = bound(n * (d * 2 + 5) + bv * d * 4 + bv * k * 8, 2.0 * bv * live * d,
+                    BF16_FLOP_S)
+        if main:
+            rec["flat_bf16"]["bound"] = bnd
+        case("flat_bf16", name,
+             lambda: fs.fused_flat_topk(qv, x16, sq, alive, n, k),
+             lambda: fs.fused_flat_topk_plain(qv, x16, sq, alive, n, k, chunk_rows=65536),
+             main=main,
+             comp=lambda: composition_topk(l2_or_ip(qv, qv16.float() @ x16.float().T, sq, False),
+                                           alive[None, :], k),
+             lib=lambda: qv16 @ x16.T, bnd=bnd)
+    # without promote: the IVF-Flat hybrid's shortlist scan (100k, nprobe 96, k 64)
+    x2_16 = x2.bfloat16()
+    lay2 = layout(n2, kp2, g, dev)
+    q3 = q2[:256].contiguous()
+    q3_16 = q3.bfloat16()
+    p3 = probes(256, kp2, 96, g, dev)
+    bnd = list_bound(d * 2 + 5, q3, p3, lay2[2], alive2, lay2[0], kp2, 64, rate=BF16_FLOP_S)
+    rec["ivf_bf16"]["bound"] = bnd
+    case("ivf_bf16", "ivf_bf16_100k_nlist100_np96_b256_k64",
+         lambda: fs.fused_ivf_topk(q3, x2_16, sq2, alive2, lay2[0], lay2[1], lay2[2], p3,
+                                   kp2, 64, max_len=lay2[3]),
+         lambda: fs.fused_ivf_topk_plain(q3, x2_16, sq2, alive2, lay2[0], p3, kp2, 64,
+                                         chunk_rows=65536),
+         main=True, bnd=bnd, lib=lambda: q3_16 @ x2_16.T,
+         comp=lambda: composition_topk(
+             l2_or_ip(q3, q3_16.float() @ x2_16.float().T, sq2, False),
+             fs.probe_table(p3, kp2)[:, lay2[0].long()] & alive2[None, :], 64))
+    # with promote: IVF-PQ's bf16 rerank slab scanned exactly (1M, nprobe 3, k 10)
+    q4 = q[:64].contiguous()
+    q4_16 = q4.bfloat16()
+    p4 = probes(64, kp, 3, g, dev)
+    bnd = list_bound(d * 2 + 5, q4, p4, lay[2], alive, lay[0], kp, K)
+    rec["ivf_bf16p"]["bound"] = bnd
+    case("ivf_bf16p", "ivf_bf16_promote_1M_nlist1000_np3_b64_k10",
+         lambda: fs.fused_ivf_topk(q4, x16, sq, alive, lay[0], lay[1], lay[2], p4, kp, K,
+                                   max_len=lay[3], promote_fp32=True),
+         lambda: fs.fused_ivf_topk_plain(q4, x16, sq, alive, lay[0], p4, kp, K,
+                                         promote_fp32=True, chunk_rows=65536),
+         main=True, bnd=bnd, lib=lambda: q4_16 @ x16.T,
+         comp=lambda: composition_topk(
+             l2_or_ip(q4, q4 @ x16.float().T, sq, False),
+             fs.probe_table(p4, kp)[:, lay[0].long()] & alive[None, :], K))
+    del x16, x2_16
+
     # the merge alone, on partials of the slice's shape: each query's slots
     # (its lists' segments) from the list scan's inversion of the main probes
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -566,11 +657,18 @@ def phase_narrow(dev) -> None:
         recall=r, **srv)
 
 
-def phase_flat(dev) -> None:
-    n, d, b = 1_000_000, 128, 1024
-    base = synthetic(n, d)
-    queries = synthetic_queries(4 * b, d)
-    truth = ground_truth(base, queries[:b], K, block=16384)
+def uniform_1m() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The 1M x 128 uniform corpus of phases 6 and 9-11 (the reference's
+    flat1m and ivf1m rows), 4096 queries, and the ground truth of the first
+    1024."""
+    base = synthetic(1_000_000, 128)
+    queries = synthetic_queries(4 * 1024, 128)
+    return base, queries, ground_truth(base, queries[:1024], K, block=16384)
+
+
+def phase_flat(dev, data) -> None:
+    base, queries, truth = data
+    n, d, b = base.shape[0], base.shape[1], 1024
     ix = FlatIndex(d, "L2", device=dev, selection="pallas")
     ix.add_batch([str(i) for i in range(n)], base)
     require(ix.describe_scan(b) == "flat-pallas", "flat route")
@@ -701,6 +799,151 @@ def phase_pq_narrow(dev) -> None:
         fp32_recall=r_fp32, fp32_qps=serve(reg, q_dev, iters=20)["qps"])
 
 
+def phase_flat_bf16(dev, data) -> None:
+    """flat1m_pallas: the bf16 slab through the bf16 flat scan."""
+    base, queries, truth = data
+    n, d = base.shape
+    ix = FlatIndex(d, "L2", device=dev, storage="bf16", selection="pallas")
+    ix.add_batch([str(i) for i in range(n)], base)
+    routes = {b: ix.describe_scan(b) for b in (1024, 64)}
+    require(set(routes.values()) == {"flat-pallas"}, f"flat bf16 routes {routes}")
+    require(ix._sync()["vecs"].dtype == torch.bfloat16, "the flat slab is not bf16")
+    r1024 = recall(ix.search_batch(queries[:1024], K), truth)
+    require(abs(r1024 - 0.9817) <= 0.005,
+            f"flat bf16 b1024 recall@10 {r1024} not within 0.005 of 0.9817")
+    r64 = recall([r for s in range(0, 256, 64) for r in ix.search_batch(queries[s:s + 64], K)],
+                 truth[:256])
+    q1024 = [torch.from_numpy(queries[i * 1024:(i + 1) * 1024]).to(dev) for i in range(4)]
+    q64 = [torch.from_numpy(queries[i * 64:(i + 1) * 64]).to(dev) for i in range(16)]
+    s1024, s64 = serve(ix, q1024, iters=50), serve(ix, q64, iters=200)
+    say("9 flat bf16", route="flat-pallas", n=n, recall_b1024=r1024,
+        recall_b64_first256=r64, reference="0.9817 (b1024), 0.9855 (b64)",
+        **{f"b1024_{k}": v for k, v in s1024.items()},
+        **{f"b64_{k}": v for k, v in s64.items()})
+
+
+def phase_flat_hybrid(dev, data) -> None:
+    """flat1m_hybrid (b64), flat1m_hybrid_b256: the bf16 twin scanned for a
+    top-R shortlist, reranked off the fp32 slab; b1024 scans the fp32 slab."""
+    base, queries, truth = data
+    n, d = base.shape
+    ix = FlatIndex(d, "L2", device=dev, selection="hybrid")
+    ix.add_batch([str(i) for i in range(n)], base)
+    routes = {b: ix.describe_scan(b) for b in (64, 256, 1024)}
+    require(routes == {64: "flat-pallas-hybrid", 256: "flat-pallas-hybrid",
+                       1024: "flat-pallas"}, f"flat hybrid routes {routes}")
+    fields = {}
+    for b in (64, 256, 1024):
+        rec_b, not_ties = exact_misses_are_ties(ix, base, queries[:1024], truth, batch=b)
+        require(not_ties == 0, f"flat hybrid b{b} recall {rec_b}: {not_ties} misses "
+                "beyond fp32 ties")
+        q_dev = [torch.from_numpy(queries[i * b:(i + 1) * b]).to(dev)
+                 for i in range(len(queries) // b)]
+        srv = serve(ix, q_dev, iters=max(50, 12_800 // b))
+        fields.update({f"b{b}_route": routes[b], f"b{b}_recall": rec_b,
+                       **{f"b{b}_{k}": v for k, v in srv.items()}})
+    say("10 flat hybrid", n=n, R=ix._shortlist(K), misses_beyond_fp32_ties=0,
+        reference="recall 1.0 (flat1m_hybrid, flat1m_hybrid_b256)", **fields)
+
+
+def _hybrid_against_fp32(dev, ix, queries, truth, name, route):
+    """The b256 hybrid route's hits against the fp32 list scan's on the same
+    queries (sent as the first 256 of a b1024 batch); recall and QPS."""
+    require(ix.describe_scan(256) == route, f"{name} b256 route {ix.describe_scan(256)}")
+    require(ix.describe_scan(1024) == route[:-len("-hybrid")],
+            f"{name} b1024 route {ix.describe_scan(1024)}")
+    q1024 = torch.from_numpy(queries[:1024]).to(dev)
+    q256 = q1024[:256].contiguous()
+    hybrid = ix.device_search(q256, K)
+    fp32 = ix.device_search(q1024, K)
+    err, swaps = compare(hybrid, tuple(t[:256] for t in fp32), f"{name} hybrid vs fp32")
+    rows = id_lists_to_rows(ix.resolve_rows(hybrid[1].cpu().numpy()), K)
+    srv = serve(ix, [q1024[i * 256:(i + 1) * 256].contiguous() for i in range(4)], iters=200)
+    return {f"{name}_route": route, f"{name}_max_abs_err_vs_fp32": err,
+            f"{name}_kth_ties": swaps, f"{name}_recall_b256": recall_at_k(rows, truth[:256], K),
+            **{f"{name}_b256_{k}": v for k, v in srv.items()}}
+
+
+def phase_ivf_hybrid(dev, data) -> None:
+    """ivf100k_np96_hybrid_b256 and ivf1m_np256_hybrid_b256."""
+    base, queries, truth = data
+    n, d = base.shape
+    small, small_q = synthetic(100_000, d), synthetic_queries(1024, d)
+    narrow = IvfFlatIndex(d, "L2", device=dev, nlist=100, nprobe=96, selection="hybrid")
+    narrow.add_batch([str(i) for i in range(len(small))], small)
+    narrow.build()
+    fields = _hybrid_against_fp32(dev, narrow, small_q,
+                                  ground_truth(small, small_q[:256], K, block=16384),
+                                  "ivf100k_np96", "dense-pallas-hybrid")
+    del narrow
+    wide = IvfFlatIndex(d, "L2", device=dev, nlist=1000, nprobe=256,
+                        train_dtype="bfloat16", selection="hybrid")
+    wide.add_batch([str(i) for i in range(n)], base)
+    t0 = time.perf_counter()
+    wide.build()
+    torch.cuda.synchronize()
+    fields["ivf1m_np256_build_s"] = round(time.perf_counter() - t0, 2)
+    fields.update(_hybrid_against_fp32(dev, wide, queries, truth, "ivf1m_np256",
+                                       "dense-pallas-win-hybrid"))
+    say("11 ivf hybrid", R=wide._shortlist(wide._sync(), K), **fields)
+
+
+def phase_pq_bf16(dev, data) -> None:
+    """ivfpq1m_bf16slab: Delta(Flat, IVF_PQ) with a bf16 rerank slab, scanned
+    by the bf16 list scan with promote."""
+    base, queries, truth = data
+    n, d = base.shape
+    ix = create_index(IndexConfig(dim=d, metric=Metric.L2, algorithm="IVF_PQ",
+                                  params=IndexParams(nlist=1000, pq_m=16, k=256,
+                                                     refine_storage="bf16")),
+                      device=dev)
+    ix.tail.train_dtype = "bfloat16"   # the reference row's training dtype
+    ix.add_batch([str(i) for i in range(n)], base)
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    ix.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_alloc = torch.cuda.memory_allocated(dev) - alloc0
+    tail = ix.tail
+    route = tail.describe_scan(64)
+    require(route == "dense-exact-pallas-win", f"1M bf16-slab route is {route}")
+    # the slab as it lies on the card: npad = slab_pad(n, l_pad) rows, padding
+    # included; its storage must be half an fp32 slab of the same rows
+    slab = tail._dev["xraw"]
+    npad = slab.shape[0]
+    slab_bytes = slab.untyped_storage().nbytes()
+    require(slab.dtype == torch.bfloat16 and slab.shape[1] == d and npad >= n
+            and 2 * slab_bytes == npad * d * 4 and n * d * 2 == 256_000_000,
+            f"bf16 slab {slab.dtype} {tuple(slab.shape)}: {slab_bytes} B of storage, "
+            f"an fp32 slab of the same rows {npad * d * 4} B")
+    require(build_alloc >= slab_bytes,
+            f"the build allocated {build_alloc} B, less than its {slab_bytes} B slab")
+    q64 = [torch.from_numpy(queries[i * 64:(i + 1) * 64]).to(dev) for i in range(16)]
+    rows = np.concatenate([ix.device_search(qb, K)[1].cpu().numpy() for qb in q64])
+    r = recall_at_k(id_lists_to_rows(ix.resolve_rows(rows), K), truth, K)
+    require(abs(r - 0.725) <= 0.03, f"bf16-slab recall@10 {r} not within 0.03 of 0.725")
+    srv = serve(ix, q64, iters=400)
+    say("12 pq bf16", route=route, n=n, build_s=round(build_s, 2), recall_1024_b64=r,
+        reference=0.725, slab_rows=npad, slab_bytes=slab_bytes,
+        slab_bytes_unpadded=n * d * 2, build_allocated_bytes=build_alloc,
+        memory_bytes_as_counted=repr(tail.memory_bytes()),
+        **{f"b64_{k}": v for k, v in srv.items()})
+
+
+def run_path(name: str, fn, kernels: tuple[str, ...]) -> dict:
+    """One serving path: the launch counts zeroed before it and read after;
+    each of ``kernels`` must have run on it."""
+    fs.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    got = dict(fs.LAUNCHES)
+    for kernel in kernels:
+        require(got[kernel] > 0, f"kernel {kernel} was not launched on the {name} path")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU",
@@ -714,24 +957,33 @@ def main() -> int:
     phase_build()
     rec = phase_kernels(dev)
 
-    data = clustered_1m()
-    fs.reset_launches()  # the IVF-Flat path's run: phases 4-6
-    phase_slice(dev, dict(fs.LAUNCHES), data)
-    phase_narrow(dev)
-    phase_flat(dev)
-    torch.cuda.synchronize()
-    ivf_flat_path = dict(fs.LAUNCHES)
-    for name in ("flat_scan", "ivf_scan", "merge"):
-        require(ivf_flat_path[name] > 0, f"kernel {name} was not launched on the IVF-Flat path")
-    fs.reset_launches()  # the IVF-PQ path's run: phases 7-8
-    phase_pq(dev, data)
-    phase_pq_narrow(dev)
-    torch.cuda.synchronize()
-    ivf_pq_path = dict(fs.LAUNCHES)
-    for name in ("sq8_scan", "ivf_scan", "merge"):
-        require(ivf_pq_path[name] > 0, f"kernel {name} was not launched on the IVF-PQ path")
-    say("launches", ivf_flat_path=repr(ivf_flat_path), ivf_pq_path=repr(ivf_pq_path))
-    launches = {name: ivf_flat_path[name] + ivf_pq_path[name] for name in fs.LAUNCHES}
+    data, uniform = clustered_1m(), uniform_1m()
+
+    def ivf_flat():  # phases 4-6
+        phase_slice(dev, dict(fs.LAUNCHES), data)
+        phase_narrow(dev)
+        phase_flat(dev, uniform)
+
+    def ivf_pq():    # phases 7-8
+        phase_pq(dev, data)
+        phase_pq_narrow(dev)
+
+    paths = {name: run_path(name, fn, kernels) for name, fn, kernels in (
+        ("IVF-Flat", ivf_flat, ("flat_scan", "ivf_scan", "merge")),
+        ("IVF-PQ", ivf_pq, ("sq8_scan", "ivf_scan", "merge")),
+        ("flat bf16", lambda: phase_flat_bf16(dev, uniform), ("flat_scan_bf16", "merge")),
+        ("flat hybrid", lambda: phase_flat_hybrid(dev, uniform),
+         ("flat_scan_bf16", "flat_scan", "merge")),
+        ("IVF-Flat hybrid", lambda: phase_ivf_hybrid(dev, uniform),
+         ("ivf_scan_bf16", "ivf_scan", "merge")),
+        ("IVF-PQ bf16", lambda: phase_pq_bf16(dev, data), ("ivf_scan_bf16", "merge")),
+    )}
+    say("launches", **{name.replace(" ", "_"): repr(got) for name, got in paths.items()})
+    launches = {name: sum(got[name] for got in paths.values()) for name in fs.LAUNCHES}
+    # the list scan's bf16 mode runs without promote on the hybrid path only,
+    # with promote on the bf16-slab path only
+    bf16_plain = paths["IVF-Flat hybrid"]["ivf_scan_bf16"]
+    bf16_promote = paths["IVF-PQ bf16"]["ivf_scan_bf16"]
 
     def entry(name, kind, source, replaces, launched):
         r = rec[kind]
@@ -743,8 +995,14 @@ def main() -> int:
 
     kernels = [
         entry("fused_scan_kernel", "flat", SOURCE, f"{PALLAS}:672", launches["flat_scan"]),
+        entry("fused_scan_kernel<bf16>", "flat_bf16", SOURCE, f"{PALLAS}:672, {PALLAS}:232",
+              launches["flat_scan_bf16"]),
         entry("ivf_list_scan_kernel<IVF>", "ivf", LIST_SOURCE,
               f"{PALLAS}:1035, {PALLAS}:992", launches["ivf_scan"]),
+        entry("ivf_list_scan_kernel<BF16>", "ivf_bf16", LIST_SOURCE,
+              f"{PALLAS}:1035, {PALLAS}:992, {PALLAS}:232", bf16_plain),
+        entry("ivf_list_scan_kernel<BF16> promote_fp32", "ivf_bf16p", LIST_SOURCE,
+              f"{PALLAS}:992, {PALLAS}:1035, {PALLAS}:232", bf16_promote),
         entry("ivf_list_scan_kernel<SQ8>", "sq8", LIST_SOURCE,
               f"{PALLAS}:1204, {PALLAS}:1341", launches["sq8_scan"]),
         entry("merge_partials_kernel", "merge", SOURCE, f"{PALLAS}:401", launches["merge"]),

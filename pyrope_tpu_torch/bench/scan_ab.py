@@ -24,7 +24,16 @@ case: the library call, which keeps no row order at ties):
   flat_8k_b1024_k10, matmul_1M_b1024 (q @ x.T alone, fp32, TF32 off),
   merge_3lists_b1024_k10 (the slice: per-query slots),
   merge_flat_splits_b1024_k10 (66 lists a query, the flat path's splits at
-  b1024), merge_108lists_b1024_k128 (a skewed list at nprobe 96)
+  b1024), merge_108lists_b1024_k128 (a skewed list at nprobe 96),
+  and where the tree has the bf16 slab modes: flat_bf16_1M_b1024_k10,
+  flat_bf16_1M_b64_k10, flat_bf16_1M_b64_k64 (the hybrid's shortlist),
+  ivf_bf16_100k_nlist100_np96_b256_k64 (no promote: the IVF hybrid),
+  ivf_bf16_promote_1M_nlist1000_np3_b64_k10 (IVF-PQ's bf16 rerank slab),
+  matmul_bf16_1M_b1024 (q16 @ x16.T alone, bf16 sums), and the fp32 modes
+  at those shapes: flat_fp32_1M_b64_k64, ivf_fp32_100k_nlist100_np96_b256_k64,
+  ivf_fp32_1M_nlist1000_np3_b64_k10
+
+    --cases '_bf16_|_fp32_'    # the bf16 modes beside fp32 at their shapes
 
 Prints one JSON object per worker and writes all of them to ``--out``;
 every record names the card and its power limit.
@@ -157,6 +166,28 @@ def _worker(reps: int, trace: bool, cases: str) -> dict:
     x8, sq8k, alive8 = (t[:8192].contiguous() for t in (x, sq, alive))
     case("flat_8k_b1024_k10", lambda: fs.fused_flat_topk(q, x8, sq8k, alive8, 8192, K))
     case("matmul_1M_b1024", lambda: q @ x.T)
+    if "flat_scan_bf16" in fs.LAUNCHES:   # trees with the bf16 slab modes
+        x16, q16 = x.bfloat16(), q.bfloat16()
+        for bs, k in ((b, K), (64, K), (64, 64)):
+            qs = q[:bs].contiguous()
+            case(f"flat_bf16_1M_b{bs}_k{k}",
+                 lambda: fs.fused_flat_topk(qs, x16, sq, alive, n, k))
+        q3 = q2[:256].contiguous()
+        offs3, lens3, ml3 = lists(crow2, 100)
+        x2_32 = x[:n2].contiguous()
+        sq2, alive2, p3 = (t.contiguous() for t in (sq[:n2], alive[:n2], probe2[:256]))
+        q4, p4 = q[:64].contiguous(), probe[:64].contiguous()
+        offs4, lens4, ml4 = lists(crow, 1000)
+        for tag, x2s, xs in (("bf16", x2_32.bfloat16(), x16), ("fp32", x2_32, x)):
+            case(f"ivf_{tag}_100k_nlist100_np96_b256_k64", lambda: fs.fused_ivf_topk(
+                q3, x2s, sq2, alive2, crow2, offs3, lens3, p3, 100, 64, max_len=ml3))
+            name = ("ivf_bf16_promote_1M_nlist1000_np3_b64_k10" if tag == "bf16"
+                    else "ivf_fp32_1M_nlist1000_np3_b64_k10")
+            case(name, lambda: fs.fused_ivf_topk(q4, xs, sq, alive, crow, offs4, lens4,
+                                                  p4, 1000, K, max_len=ml4, promote_fp32=True))
+        case("flat_fp32_1M_b64_k64", lambda: fs.fused_flat_topk(q4, x, sq, alive, n, 64))
+        case("matmul_bf16_1M_b1024", lambda: q16 @ x16.T)
+        del x16, x2s, x2_32
 
     def merge_cases(name, lists, k):
         """``lists`` sorted lists a query, as [S, B, k] and as per-query

@@ -10,7 +10,11 @@ same codebooks and codes. Loading a JAX snapshot is this applied to
 
 ``arrays`` is any mapping with the snapshot's keys: an ``np.load`` result,
 or a dict built from a live JAX index. ``meta`` may be the snapshot's json
-text or a dict.
+text or a dict. A bf16 slab is rounded from the fp32 rows the snapshot
+holds, to nearest-even as JAX rounds it, so it is bit-equal to the JAX
+index's. Options the snapshots do not record (``selection``,
+``compute_dtype``, ``train_dtype``) are set on a constructed index that then
+``load``s the snapshot, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,8 +55,9 @@ def ivf_pq_from_arrays(arrays, device="cuda") -> IvfPqIndex:
 
 def flat_from_arrays(arrays, device="cuda") -> FlatIndex:
     """FlatIndex on ``device`` from ``pyrope_tpu.flat.v1`` arrays: meta,
-    ids, vecs."""
+    ids, vecs; the storage ("fp32" or "bf16") as meta names it."""
     meta = read_meta(arrays, "pyrope_tpu.flat.v1")
-    ix = FlatIndex(int(meta["dim"]), meta["metric"], device=device)
+    ix = FlatIndex(int(meta["dim"]), meta["metric"], device=device,
+                   storage=str(meta.get("storage", "fp32")))
     ix._restore(arrays)
     return ix

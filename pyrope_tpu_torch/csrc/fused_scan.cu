@@ -104,6 +104,23 @@
 // in. Nothing depends on a previous list's data, so there is no chain of
 // global-memory latencies; at the shapes it sees it is bound by its launch.
 //
+// The bf16 slab mode (fused_scan_kernel<BT, IP, uint16_t>) replaces the
+// branch x.dtype == bfloat16 of the TPU kernels' _tile_scores (:232-264):
+// the MXU multiplies bf16(q) by the bf16 rows and sums in fp32. A product
+// of two bf16 values is exact in fp32, so fp32 FMAs on values widened from
+// bf16 give the MXU's products exactly; only the order of the sum differs.
+// The wrapper rounds q to bf16 (an fp32 tensor of bf16 values) and passes
+// |q|^2 of the unrounded q beside it (qsq), as _tile_scores takes it; the
+// rows' sqnorm are those of the fp32 rows. A bf16 stage is 64 depths deep:
+// a row is 128 bytes again, so the fp32 swizzle holds (the 16 rows a warp
+// reads 8 bytes of at once fall in 8 bank pairs, two wavefronts, as a
+// float4 load of fp32 rows takes), and the q stage is 64 floats deep. Half
+// the chunks of 32-depth stages (64-byte rows, swizzle c ^ ((r >> 1) & 3)):
+// measured on an H100 at 700 W, 8.08-8.27 against 8.58-8.65 ms device time
+// at 1M x 128, b1024, k10 (bench/scan_ab.py, one call, ABBA). The FMA loop
+// widens on load (a 16-bit shift); q stays fp32. The slab's bytes halve,
+// the FMAs are the same: about as fast as fp32 here.
+//
 // Not done here: a tensor-core path where exactness allows (a 3xbf16 split
 // product); a narrow query tile for batches of a few queries (a 64-query
 // tile at B = 1 is mostly padding: the scan is then bound by the FMAs of
@@ -118,7 +135,6 @@
 namespace {
 
 constexpr int RT = 128;          // corpus rows per tile
-constexpr int DC = 32;           // depth chunk per stage: one 128-byte row
 constexpr int NST = 2;           // stages in the ring
 constexpr int FLOOR_BATCH = 4;   // queries whose published scores load together
 constexpr int WIN = 32;          // splits whose published entries a warp reads
@@ -127,10 +143,17 @@ constexpr int WARPS = THREADS / 32;
 constexpr int TR = 8;            // rows per thread
 constexpr int MERGE_IN_FLIGHT = 4;  // merge: batches of 32 loads in flight
 
-__host__ __device__ constexpr int stage_floats(int bt) { return (RT + bt) * DC; }
+// Depth elements a stage holds: one 128-byte row of the slab.
+__host__ __device__ constexpr int depth_chunk(int elem) { return 128 / elem; }
 
-size_t scan_smem_bytes(int k, int bt) {
-  return sizeof(float) * ((size_t)NST * stage_floats(bt)  // the ring
+// A stage: the rows' depth chunk (RT rows of 128 bytes) and the queries'
+// (bt x depth_chunk floats), in floats.
+__host__ __device__ constexpr int stage_floats(int bt, int elem) {
+  return RT * 32 + bt * depth_chunk(elem);
+}
+
+size_t scan_smem_bytes(int k, int bt, int elem) {
+  return sizeof(float) * ((size_t)NST * stage_floats(bt, elem)  // the ring
                           + NST * RT          // row sqnorm (+inf: dead), a tile a stage
                           + 4 * (size_t)bt    // |q|^2, threshold, score published
                           + 2 * (size_t)bt * k);  // lists: values, rows
@@ -151,6 +174,29 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// A staged row of the slab: XT float (fp32 rows) or uint16_t (bf16 rows, as
+// their bits). A row of a stage is 128 bytes, eight 16-byte pieces, piece c
+// of row r at c ^ (r & 7); load4 returns depths 4 d4 .. 4 d4 + 3 as floats.
+template <typename XT>
+struct Rows;
+
+template <>
+struct Rows<float> {
+  __device__ static float4 load4(const char* xs, int r, int d4) {
+    return *reinterpret_cast<const float4*>(xs + r * 128 + ((d4 ^ (r & 7)) << 4));
+  }
+};
+
+template <>
+struct Rows<uint16_t> {
+  __device__ static float4 load4(const char* xs, int r, int d4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(
+        xs + r * 128 + (((d4 >> 1) ^ (r & 7)) << 4) + ((d4 & 1) << 3));
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  }
+};
 
 // The insertion path, out of line: the epilogue's offer sites hold a call
 // each, not the insertion's code. Offers every lane's (v, r) to one list
@@ -244,12 +290,16 @@ __device__ __noinline__ void take_floor(const float* pub, int S, int win0,
   __syncwarp();
 }
 
-// vec: D % 4 == 0 and q's and x's bases are 16-byte aligned, so rows are
-// staged with cp.async; else plain loads and stores stage them (no overlap).
+// vec: a row of x and of q is a whole number of 16-byte pieces (D % 4 == 0
+// for fp32 rows, D % 8 == 0 for bf16) and q's and x's bases are 16-byte
+// aligned, so rows are staged with cp.async; else plain loads and stores
+// stage them (no overlap). qsq: null, or |q|^2 [B] to take in place of the
+// streamed q's own (the bf16 mode's q is rounded, its |q|^2 is not).
 // part_v, part_i: [B, S, k], S = gridDim.y.
-template <int BT, bool IP>
+template <int BT, bool IP, typename XT>
 __global__ void __launch_bounds__(THREADS, 2)
-fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
+fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
+                  const float* __restrict__ qsq,
                   const float* __restrict__ sqnorm,
                   const uint8_t* __restrict__ alive, int B, int N, int D,
                   int k, int max_scans, int rows_per_split, int vec,
@@ -260,9 +310,16 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
   constexpr int RG = 32 / QG;       // row groups: rows lr + RG j, j < TR
   constexpr int TQ = BT / 16;       // queries per thread
   constexpr int WQ = QG * TQ;       // queries a warp owns
-  constexpr int STAGE = stage_floats(BT);
+  constexpr int STAGE = stage_floats(BT, sizeof(XT));
+  constexpr int DC = depth_chunk(sizeof(XT));  // depth elements a stage
+  constexpr int QP = DC / 4;                   // float4 pieces of a query row
+  constexpr int QSH = QP == 16 ? 4 : 3;        // log2(QP)
+  constexpr int XBYTES = RT * 128;             // a stage's rows
+  constexpr int XE = 16 / sizeof(XT);          // elements a 16-byte piece
+  using R = Rows<XT>;
   extern __shared__ __align__(16) float smem[];
-  float* stages = smem;                        // [NST][RT + BT][DC], swizzled
+  float* stages = smem;                        // [NST]: rows [RT][128 bytes],
+                                               // then queries [BT][DC], swizzled
   float* rsq = stages + NST * STAGE;           // [NST][RT], +inf: row is out
   float* qq = rsq + NST * RT;                 // [BT]
   float* thv = qq + BT;                        // [BT] threshold score
@@ -293,24 +350,33 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
     if (st >= nstage) return;
     const int tile = st / nchunk, ch = st - tile * nchunk;
     const int row0 = r_begin + tile * RT, d0 = ch * DC;
-    const int nq4 = min(DC, D4 - d0) >> 2;
-    float* sb = stages + (st % NST) * STAGE;
+    const int nd = min(DC, D4 - d0);   // depth elements this chunk
+    char* sb = reinterpret_cast<char*>(stages + (st % NST) * STAGE);
 #pragma unroll
-    for (int e = tid; e < (RT + BT) * (DC / 4); e += THREADS) {
+    for (int e = tid; e < RT * 8; e += THREADS) {
       const int rr = e >> 3, c = e & 7;
-      if (c >= nq4) continue;
-      float* dst = sb + rr * DC + ((c ^ (rr & 7)) << 2);
-      bool ok;
-      const float* src;
-      if (rr < RT) {
-        ok = row0 + rr < limit;
-        src = x + (size_t)(row0 + rr) * D + d0 + 4 * c;
-      } else {
-        ok = q0 + rr - RT < B;
-        src = q + (size_t)(q0 + rr - RT) * D + d0 + 4 * c;
-      }
+      if (c * XE >= nd) continue;
+      XT* dst = reinterpret_cast<XT*>(sb + rr * 128 + ((c ^ (rr & 7)) << 4));
+      const bool ok = row0 + rr < limit;
+      const XT* src = x + (size_t)(row0 + rr) * D + d0 + XE * c;
       if (vec) {
         cp_async16(dst, ok ? src : x, ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int u = 0; u < XE; ++u)
+          dst[u] = (ok && d0 + XE * c + u < D) ? src[u] : XT(0);
+      }
+    }
+    float* qsb = reinterpret_cast<float*>(sb + XBYTES);
+#pragma unroll
+    for (int e = tid; e < BT * QP; e += THREADS) {
+      const int rr = e >> QSH, c = e & (QP - 1);
+      if (4 * c >= nd) continue;
+      float* dst = qsb + rr * DC + ((c ^ (rr & 7)) << 2);
+      const bool ok = q0 + rr < B;
+      const float* src = q + (size_t)(q0 + rr) * D + d0 + 4 * c;
+      if (vec) {
+        cp_async16(dst, ok ? src : q, ok ? 16 : 0);
       } else {
 #pragma unroll
         for (int u = 0; u < 4; ++u)
@@ -347,6 +413,10 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
     pubv[i] = -INFINITY;
   }
   for (int i = warp; i < BT; i += WARPS) {
+    if (qsq) {   // warp-uniform
+      if (lane == 0) qq[i] = q0 + i < B ? qsq[q0 + i] : 0.f;
+      continue;
+    }
     float s = 0.f;
     if (q0 + i < B) {
       for (int d = lane; d < D; d += 32) {
@@ -374,15 +444,13 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
     load_stage(st + NST - 1);
     cp_async_commit();
 
-    const float* xs = stages + (st % NST) * STAGE;
-    const float* qs = xs + RT * DC;
+    const char* xs = reinterpret_cast<const char*>(stages + (st % NST) * STAGE);
+    const float* qs = reinterpret_cast<const float*>(xs + XBYTES);
     const int nq4 = min(DC, D4 - ch * DC) >> 2;
     for (int d4 = 0; d4 < nq4; ++d4) {
       float4 xv[TR];
 #pragma unroll
-      for (int j = 0; j < TR; ++j)
-        xv[j] = *reinterpret_cast<const float4*>(
-            xs + (lr + RG * j) * DC + ((d4 ^ (lr & 7)) << 2));
+      for (int j = 0; j < TR; ++j) xv[j] = R::load4(xs, lr + RG * j, d4);
 #pragma unroll
       for (int i = 0; i < TQ; ++i) {
         const float4 a = *reinterpret_cast<const float4*>(
@@ -544,20 +612,20 @@ merge_partials_kernel(const float* __restrict__ part_v,
   }
 }
 
-template <int BT, bool IP>
-int launch_scan(const void* q, const void* x, const void* sqnorm,
-                const void* alive, int B, int N, int D, int k, int max_scans,
-                int rows_per_split, int n_splits, int vec, void* part_v,
-                void* part_i, void* pub, int pub_c, int pub_g,
-                cudaStream_t stream) {
-  const size_t smem = scan_smem_bytes(k, BT);
+template <int BT, bool IP, typename XT>
+int launch_scan(const void* q, const void* x, const void* qsq,
+                const void* sqnorm, const void* alive, int B, int N, int D,
+                int k, int max_scans, int rows_per_split, int n_splits,
+                int vec, void* part_v, void* part_i, void* pub, int pub_c,
+                int pub_g, cudaStream_t stream) {
+  const size_t smem = scan_smem_bytes(k, BT, sizeof(XT));
   cudaError_t err = cudaFuncSetAttribute(
-      fused_scan_kernel<BT, IP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fused_scan_kernel<BT, IP, XT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + BT - 1) / BT, n_splits);
-  fused_scan_kernel<BT, IP><<<grid, THREADS, smem, stream>>>(
-      (const float*)q, (const float*)x, (const float*)sqnorm,
+  fused_scan_kernel<BT, IP, XT><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const XT*)x, (const float*)qsq, (const float*)sqnorm,
       (const uint8_t*)alive, B, N, D, k, max_scans, rows_per_split, vec,
       (float*)part_v, (int32_t*)part_i, (float*)pub, pub_c, pub_g);
   return (int)cudaGetLastError();
@@ -567,35 +635,44 @@ int launch_scan(const void* q, const void* x, const void* sqnorm,
 
 extern "C" {
 
-// Shared memory of a flat-scan block with a bt-query tile (64 or 128); the
-// wrapper's flat_tile computes the same number.
-long long pyrope_scan_smem_bytes(int k, int bt) {
-  return (long long)scan_smem_bytes(k, bt);
+// Shared memory of a flat-scan block with a bt-query tile (64 or 128) over
+// rows of elem bytes an element (4: fp32, 2: bf16); the wrapper's
+// flat_scan_smem_bytes computes the same number.
+long long pyrope_scan_smem_bytes(int k, int bt, int elem) {
+  return (long long)scan_smem_bytes(k, bt, elem);
 }
 
 const char* pyrope_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// FLAT mode: rows >= max_scans never hit. bt: the query tile, 64 or 128;
+// FLAT mode: rows >= max_scans never hit. x: fp32 rows (elem 4) or bf16
+// rows (elem 2); qsq: null, or |q|^2 [B] (the bf16 mode: q rounded to bf16
+// by the caller, |q|^2 of the unrounded q). bt: the query tile, 64 or 128;
 // partials [B, n_splits, k]; pub [B, n_splits] floats, -inf from the caller:
 // each split publishes its list's pub_c-th score there, and pub_g * pub_c >=
 // k with pub_g <= min(n_splits, 32).
-int pyrope_fused_scan(const void* q, const void* x, const void* sqnorm,
-                      const void* alive, int B, int N, int D, int k,
-                      int metric_ip, int max_scans, int rows_per_split,
-                      int n_splits, int bt, int vec, void* part_v,
-                      void* part_i, void* pub, int pub_c, int pub_g,
-                      void* stream) {
-  if (k < 1 || k > MAXK || (bt != 64 && bt != 128) || pub_c < 1 ||
-      pub_c > k || pub_g < 1 || pub_g > WIN || pub_g > n_splits ||
+int pyrope_fused_scan(const void* q, const void* x, const void* qsq,
+                      const void* sqnorm, const void* alive, int B, int N,
+                      int D, int k, int metric_ip, int max_scans,
+                      int rows_per_split, int n_splits, int bt, int elem,
+                      int vec, void* part_v, void* part_i, void* pub,
+                      int pub_c, int pub_g, void* stream) {
+  if (k < 1 || k > MAXK || (bt != 64 && bt != 128) || (elem != 4 && elem != 2) ||
+      pub_c < 1 || pub_c > k || pub_g < 1 || pub_g > WIN || pub_g > n_splits ||
       pub_g * pub_c < k)
     return (int)cudaErrorInvalidValue;
-  auto* launch = bt == 128 ? (metric_ip ? launch_scan<128, true> : launch_scan<128, false>)
-                           : (metric_ip ? launch_scan<64, true> : launch_scan<64, false>);
-  return launch(q, x, sqnorm, alive, B, N, D, k, max_scans, rows_per_split,
-                n_splits, vec, part_v, part_i, pub, pub_c, pub_g,
-                (cudaStream_t)stream);
+  using Launch = int (*)(const void*, const void*, const void*, const void*,
+                         const void*, int, int, int, int, int, int, int, int,
+                         void*, void*, void*, int, int, cudaStream_t);
+  static const Launch table[2][2][2] = {   // [bf16][bt == 128][ip]
+      {{launch_scan<64, false, float>, launch_scan<64, true, float>},
+       {launch_scan<128, false, float>, launch_scan<128, true, float>}},
+      {{launch_scan<64, false, uint16_t>, launch_scan<64, true, uint16_t>},
+       {launch_scan<128, false, uint16_t>, launch_scan<128, true, uint16_t>}}};
+  return table[elem == 2][bt == 128][metric_ip != 0](
+      q, x, qsq, sqnorm, alive, B, N, D, k, max_scans, rows_per_split,
+      n_splits, vec, part_v, part_i, pub, pub_c, pub_g, (cudaStream_t)stream);
 }
 
 // qend: null for S lists a query at strides (qstride, lstride), else int32

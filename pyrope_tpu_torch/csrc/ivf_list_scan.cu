@@ -18,6 +18,14 @@
 //        (uint8 codes), so q.x^ = qc[b, c] + scales[t] * (q.code) + mins[t]
 //        * sum(q), with qc = q . cents^T computed outside (a plain fp32
 //        product); sqnorm[t] = |x^|^2.
+//   BF16: x is a bf16 row widened to fp32 (the branch x.dtype == bfloat16 of
+//        the TPU kernels' _tile_scores, :232-264), sqnorm[t] that of the
+//        fp32 row before the cast. With promote_fp32 the TPU multiplies the
+//        fp32 q by the widened row; without it bf16(q) by the row, fp32
+//        sums. A product of two bf16 values is exact in fp32, so both are
+//        fp32 FMAs here: the wrapper passes q rounded to bf16 (an fp32
+//        tensor) where promote is off, and |q|^2 of the unrounded q beside
+//        it (qsq); with promote it passes q as it is and no qsq.
 // and returns the top k in the total order (score desc, row asc), (-inf, -1)
 // in empty slots. Products and sums are IEEE fp32 FMAs on the CUDA cores: no
 // TF32, no bf16 split.
@@ -85,6 +93,10 @@
 // TFLOP/s), and the 8x4 register tile (float4 depth reads off a
 // conflict-free row-major stage) and the top-k insertions set the pace: a
 // query's list is offered ~8 rows per cluster above its floor there.
+// The BF16 mode stages half the bytes a row (8-byte cp.async copies: a
+// 136-byte stage row is 8-byte aligned) and widens on load; a half-warp's
+// 8-byte reads of 16 rows at XLD 68 cover the 32 banks once. Its FMAs are
+// the fp32 mode's: faster only where the slab's bytes bound the scan.
 
 #include <type_traits>
 
@@ -105,14 +117,19 @@ constexpr int QS_LD = BT + 4;    // float4-aligned query columns
 constexpr int XLD = DCH + 4;     // stage row stride (elements): conflict-free
                                  // float4 (fp32) and 32-bit (uint8) row reads
 
-enum Mode { MODE_IVF = 1, MODE_SQ8 = 2 };
+enum Mode { MODE_IVF = 1, MODE_SQ8 = 2, MODE_BF16 = 3 };
 
 __host__ __device__ __forceinline__ int round4(int d) { return (d + 3) & ~3; }
 
-size_t list_scan_smem_bytes(int d, int k, bool sq8) {
-  return sizeof(float) * (size_t)round4(d) * QS_LD   // qs
-         + (size_t)2 * RT * XLD * (sq8 ? 1 : 4)      // xs, two stages
-         + (size_t)2 * RT * 4 * (sq8 ? 4 : 2)        // row tables, two tiles
+__host__ __device__ constexpr int elem_bytes(int mode) {
+  return mode == MODE_SQ8 ? 1 : mode == MODE_BF16 ? 2 : 4;
+}
+
+size_t list_scan_smem_bytes(int d, int k, int mode) {
+  const bool sq8 = mode == MODE_SQ8;
+  return sizeof(float) * (size_t)round4(d) * QS_LD        // qs
+         + (size_t)2 * RT * XLD * elem_bytes(mode)        // xs, two stages
+         + (size_t)2 * RT * 4 * (sq8 ? 4 : 2)             // row tables, two tiles
          + (size_t)7 * BT * 4                        // per-query tables
          + (size_t)8 * BT * k;                       // lists: values, rows
 }
@@ -131,6 +148,13 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                "l"(src), "r"(bytes));
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -141,12 +165,17 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Four depths of one staged row as floats.
-template <bool SQ8>
+template <int MODE>
 __device__ __forceinline__ float4 row4(const void* xs, int r, int qd) {
-  if constexpr (SQ8) {
+  if constexpr (MODE == MODE_SQ8) {
     const uchar4 u =
         *reinterpret_cast<const uchar4*>((const uint8_t*)xs + r * XLD + 4 * qd);
     return make_float4(u.x, u.y, u.z, u.w);
+  } else if constexpr (MODE == MODE_BF16) {
+    const uint2 u =
+        *reinterpret_cast<const uint2*>((const uint16_t*)xs + r * XLD + 4 * qd);
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
   } else {
     return *reinterpret_cast<const float4*>((const float*)xs + r * XLD + 4 * qd);
   }
@@ -187,13 +216,15 @@ __device__ __noinline__ Entry offer(float* lv, int* li, int k, float v, int r,
   return {tv, ti};
 }
 
-// slab: float [N, D] (IVF) or uint8 [N, D] (SQ8). mins, scales, qc [B, kp]
-// are read in SQ8 mode only. vec: D % 4 == 0 and the slab's and q's bases
-// are aligned, so slab rows are staged with cp.async and queries gathered
-// as float4; else plain loads do both.
+// slab: float [N, D] (IVF), uint8 [N, D] (SQ8) or bf16 bits [N, D] (BF16).
+// mins, scales, qc [B, kp] are read in SQ8 mode only. qsq: null, or |q|^2
+// [B] to take in place of the gathered q's own. vec: D % 4 == 0 and the
+// slab's and q's bases are aligned, so slab rows are staged with cp.async
+// and queries gathered as float4; else plain loads do both.
 template <int MODE>
 __global__ void __launch_bounds__(THREADS, 2)
 ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
+                     const float* __restrict__ qsq,
                      const float* __restrict__ sqnorm,
                      const uint8_t* __restrict__ alive,
                      const float* __restrict__ mins,
@@ -211,7 +242,9 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
                      float* __restrict__ part_v, int32_t* __restrict__ part_i,
                      unsigned long long* __restrict__ qfloor) {
   constexpr bool SQ8 = MODE == MODE_SQ8;
-  using Elem = typename std::conditional<SQ8, uint8_t, float>::type;
+  using Elem = typename std::conditional<
+      SQ8, uint8_t,
+      typename std::conditional<MODE == MODE_BF16, uint16_t, float>::type>::type;
   const int c = item_c[blockIdx.x];
   if (c >= nclus) return;  // past the last item
   const int cnt = ccnt[c];
@@ -273,6 +306,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
       const Elem* src = (const Elem*)slab + (size_t)row * D + d0 + 4 * qd;
       if (vec) {
         if constexpr (SQ8) cp_async4(dst, ok ? src : slab, ok ? 4 : 0);
+        else if constexpr (MODE == MODE_BF16) cp_async8(dst, ok ? src : slab, ok ? 8 : 0);
         else cp_async16(dst, ok ? src : slab, ok ? 16 : 0);
       } else {
 #pragma unroll
@@ -373,7 +407,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
       s1 += __shfl_xor_sync(FULL, s1, off);
     }
     if (lane == 0) {
-      qq[i] = s2;
+      qq[i] = qsq ? qsq[qb[i]] : s2;
       qsum[i] = s1;
     }
   }
@@ -420,7 +454,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
       for (int qd = 0; qd < nq; ++qd) {
         float4 xv[RPL];
 #pragma unroll
-        for (int j = 0; j < RPL; ++j) xv[j] = row4<SQ8>(xb, lane + 32 * j, qd);
+        for (int j = 0; j < RPL; ++j) xv[j] = row4<MODE>(xb, lane + 32 * j, qd);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const float* qr = qcol + (4 * qd + u) * QS_LD;
@@ -437,7 +471,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
     } else if (small) {
       const float* qcol = qs + (size_t)d0 * QS_LD + 4 * g;
       for (int qd = 0; qd < nq; ++qd) {
-        const float4 xv = row4<SQ8>(xb, rb, qd);
+        const float4 xv = row4<MODE>(xb, rb, qd);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const float4 a =
@@ -544,7 +578,8 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
 }
 
 template <int MODE>
-int launch_list_scan(const void* q, const void* slab, const void* sqnorm,
+int launch_list_scan(const void* q, const void* slab, const void* qsq,
+                     const void* sqnorm,
                      const void* alive, const void* mins, const void* scales,
                      const void* qc, int kp, const void* pairs, int P,
                      const void* cstart, const void* ccnt,
@@ -554,14 +589,15 @@ int launch_list_scan(const void* q, const void* slab, const void* sqnorm,
                      int metric_ip, int seg, int nslots, int vec, void* part_v,
                      void* part_i, void* qfloor, void* stream) {
   if (k < 1 || k > MAXK || seg < 1 || P < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = list_scan_smem_bytes(D, k, MODE == MODE_SQ8);
+  const size_t smem = list_scan_smem_bytes(D, k, MODE);
   cudaError_t err = cudaFuncSetAttribute(
       ivf_list_scan_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (grid == 0) return 0;
   ivf_list_scan_kernel<MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)q, slab, (const float*)sqnorm, (const uint8_t*)alive,
+      (const float*)q, slab, (const float*)qsq, (const float*)sqnorm,
+      (const uint8_t*)alive,
       (const float*)mins, (const float*)scales, (const float*)qc, kp,
       (const int32_t*)pairs, P, (const int32_t*)cstart, (const int32_t*)ccnt,
       (const int32_t*)item_end, (const int32_t*)item_c,
@@ -576,8 +612,10 @@ int launch_list_scan(const void* q, const void* slab, const void* sqnorm,
 
 extern "C" {
 
-long long pyrope_list_scan_smem_bytes(int d, int k, int sq8) {
-  return (long long)list_scan_smem_bytes(d, k, sq8 != 0);
+// mode: 1 IVF (fp32 rows), 2 SQ8, 3 BF16; the wrapper's
+// list_scan_smem_bytes computes the same number.
+long long pyrope_list_scan_smem_bytes(int d, int k, int mode) {
+  return (long long)list_scan_smem_bytes(d, k, mode);
 }
 
 // IVF mode: x [N, D] f32. The work tables come from invert_probes
@@ -592,7 +630,7 @@ int pyrope_ivf_list_scan(const void* q, const void* x, const void* sqnorm,
                          void* part_v, void* part_i, void* qfloor,
                          void* stream) {
   return launch_list_scan<MODE_IVF>(
-      q, x, sqnorm, alive, nullptr, nullptr, nullptr, 0, pairs, P, cstart,
+      q, x, nullptr, sqnorm, alive, nullptr, nullptr, nullptr, 0, pairs, P, cstart,
       ccnt, item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k,
       metric_ip, seg, nslots, vec, part_v, part_i, qfloor, stream);
 }
@@ -610,9 +648,26 @@ int pyrope_ivf_list_scan_sq8(const void* q, const void* codes,
                              int vec, void* part_v, void* part_i,
                              void* qfloor, void* stream) {
   return launch_list_scan<MODE_SQ8>(
-      q, codes, sqnorm, alive, mins, scales, qc, kp, pairs, P, cstart, ccnt,
+      q, codes, nullptr, sqnorm, alive, mins, scales, qc, kp, pairs, P, cstart, ccnt,
       item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k, metric_ip,
       seg, nslots, vec, part_v, part_i, qfloor, stream);
+}
+
+// BF16 mode: x [N, D] bf16; qsq null (promote_fp32: q as it is) or |q|^2
+// [B] of the unrounded q (q rounded to bf16 by the caller).
+int pyrope_ivf_list_scan_bf16(const void* q, const void* x, const void* qsq,
+                              const void* sqnorm, const void* alive,
+                              const void* pairs, int P, const void* cstart,
+                              const void* ccnt, const void* item_end,
+                              const void* item_c, const void* slot_end,
+                              const void* offsets, const void* lens, int nclus,
+                              int grid, int B, int D, int k, int metric_ip,
+                              int seg, int nslots, int vec, void* part_v,
+                              void* part_i, void* qfloor, void* stream) {
+  return launch_list_scan<MODE_BF16>(
+      q, x, qsq, sqnorm, alive, nullptr, nullptr, nullptr, 0, pairs, P, cstart,
+      ccnt, item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k,
+      metric_ip, seg, nslots, vec, part_v, part_i, qfloor, stream);
 }
 
 }  // extern "C"

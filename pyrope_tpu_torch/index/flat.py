@@ -5,15 +5,28 @@ tombstone (alive) mask and the id table. A device copy (vectors, fp32 row
 sqnorms, alive) is synced lazily before queries: in full after growth or
 bulk loads, by scattering the few mutated rows otherwise.
 
-Selection:
-  - ``exact``: plain torch, one [B, cap] score matrix + stable top-k (the
-    JAX package's XLA path).
-  - ``pallas``: the fused scan kernel K1 (ops/fused_scan.fused_flat_topk),
-    exact, no [B, cap] score matrix. Cosine runs the exact path, as in the
-    JAX package (the kernel takes pre-normalized IP only).
+Storage: ``fp32``, or ``bf16`` (the device slab rounded to bf16, sqnorms
+of the fp32 rows). ``sq8`` is not yet ported and raises
+NotImplementedError.
+
+Selection (routes by the JAX package's names, ``describe_scan``):
+  - ``exact`` (``flat-exact``): plain torch, one [B, cap] score matrix +
+    stable top-k (the JAX package's XLA path); off a bf16 slab the rows are
+    widened (an exact product), with ``compute_dtype`` both operands are
+    rounded to it and summed in fp32.
+  - ``pallas`` (``flat-pallas``): the fused scan kernel K1
+    (ops/fused_scan.fused_flat_topk), no [B, cap] score matrix; off a bf16
+    slab its bf16 mode (bf16(q)·x, fp32 sums). Cosine runs the exact path,
+    as in the JAX package (the kernel takes pre-normalized IP only). k
+    above the kernel's MAX_K raises (ROADMAP.md queue 2 item B).
+  - ``hybrid[:R]`` (``flat-pallas-hybrid``): a bf16 twin of the fp32 slab;
+    the scan kernel's bf16 mode keeps each query's top R
+    (``hybrid_shortlist``) and ``rerank_exact`` rescores those rows off the
+    fp32 slab. Batches above HYBRID_MAX_BATCH, and shortlists wider than
+    the kernel holds (R > MAX_K: k > 32 or an explicit R > 128), take the
+    fp32 scan (``flat-pallas``): both sides of the route are exact; k above
+    MAX_K takes ``flat-exact``. Cosine takes ``flat-exact``.
   - ``approx[:recall]``: runs exact (see ops/topk.py).
-Not yet ported: ``storage`` bf16 / sq8 and ``selection`` hybrid; asking
-for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,11 +45,36 @@ from pyrope_tpu_torch.types import (
     SearchOptions,
     SearchResult,
 )
-from pyrope_tpu_torch.utils.shapes import capacity_bucket
+from pyrope_tpu_torch.utils.shapes import batch_bucket, capacity_bucket, next_pow2
 from pyrope_tpu_torch.device import resolve_device
-from pyrope_tpu_torch.ops.distance import row_sqnorms, score_matrix
-from pyrope_tpu_torch.ops.fused_scan import fused_flat_topk
+from pyrope_tpu_torch.ops.distance import rerank_exact, row_sqnorms, score_matrix
+from pyrope_tpu_torch.ops.fused_scan import fused_flat_topk, k_refusal
 from pyrope_tpu_torch.ops.topk import masked_topk, parse_selection
+
+# Above this (bucketed) batch a hybrid index scans the fp32 slab instead,
+# as the JAX package routes it (its index/flat.py HYBRID_MAX_BATCH): both
+# sides of the route are exact, only the kernel changes.
+HYBRID_MAX_BATCH = 256
+
+
+def pick_row_tile(n: int, d: int, itemsize: int, cap: int = 4096) -> int:
+    """The row tile the JAX package's Pallas kernels pick for an [n, d]
+    slab of ``itemsize``-byte elements (its ops/pallas_scan.pick_row_tile:
+    the largest power of two <= cap whose tile fits 4 MB, floor 256,
+    clamped to n). The port's kernels do not tile by it; the hybrid
+    shortlist is clamped to it, so both packages keep the same R."""
+    rt = cap
+    while rt > 256 and rt * d * itemsize > 4 * 1024 * 1024:
+        rt //= 2
+    return min(rt, n)
+
+
+def hybrid_shortlist(k: int, r_param: float, row_tile: int) -> int:
+    """Shortlist width R of the hybrid routes: the explicit 'hybrid:R'
+    value, else max(64, next_pow2(4k)); a power of two, clamped to the JAX
+    package's row tile (``pick_row_tile``)."""
+    r = int(r_param) if r_param else max(64, next_pow2(4 * k))
+    return min(next_pow2(max(r, k)), row_tile)
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -46,7 +84,14 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class FlatIndex(VectorIndex):
-    """Exact scan index with tombstone deletes (fp32 storage)."""
+    """Exact scan index with tombstone deletes (fp32 or bf16 storage)."""
+
+    @property
+    def _hybrid(self) -> bool:
+        """The hybrid route is on (bf16 twin slab + fp32 rerank); cosine
+        takes the exact path, as with 'pallas'."""
+        return (self.selection.partition(":")[0] == "hybrid"
+                and self.metric != Metric.COSINE)
 
     @property
     def host_write_cheap(self) -> bool:  # see VectorIndex
@@ -60,21 +105,25 @@ class FlatIndex(VectorIndex):
         metric: Metric | str = Metric.L2,
         *,
         device="cuda",
-        storage: str = "fp32",
-        selection: str = "exact",  # exact | pallas | approx[:recall]
+        storage: str = "fp32",  # fp32 | bf16 (sq8 not yet ported)
+        compute_dtype: Optional[str] = None,
+        selection: str = "exact",  # exact | pallas | approx[:recall] | hybrid[:R]
         min_capacity: int = 1024,
     ):
         if storage not in ("fp32", "bf16", "sq8"):
             raise ValueError(f"storage must be fp32|bf16|sq8, got {storage}")
         mode, _ = parse_selection(selection)  # validate eagerly
-        if storage != "fp32":
-            raise NotImplementedError(f"storage={storage!r} not yet ported")
-        if mode == "hybrid":
-            raise NotImplementedError("selection='hybrid' not yet ported")
+        if storage == "sq8":
+            raise NotImplementedError("storage='sq8' not yet ported")
+        if mode == "hybrid" and storage != "fp32":
+            raise ValueError(
+                "selection='hybrid' reranks off the fp32 slab; storage must "
+                f"be fp32 (got {storage!r})")
         self.dim = int(dim)
         self.metric = Metric.parse(metric)
         self.device = resolve_device(device)
         self.storage = storage
+        self.compute_dtype = compute_dtype
         self.selection = selection
         self._min_cap = min_capacity
         self._clear()
@@ -208,10 +257,12 @@ class FlatIndex(VectorIndex):
             return self._sync_incremental()
         vecs = to_device(self._vecs, self.device)
         self._dev = {
-            "vecs": vecs,
-            "sqnorm": row_sqnorms(vecs),
+            "vecs": vecs.bfloat16() if self.storage == "bf16" else vecs,
+            "sqnorm": row_sqnorms(vecs),  # of the fp32 rows
             "alive": to_device(self._alive, self.device),
         }
+        if self._hybrid:  # the bf16 twin the scan reads; +50% device bytes
+            self._dev["vecs16"] = vecs.bfloat16()
         self._dirty = False
         self._dirty_rows = set()
         return self._dev
@@ -226,7 +277,9 @@ class FlatIndex(VectorIndex):
         v = to_device(self._vecs[rows], self.device)
         dev = self._dev
         dev["alive"][idx] = False
-        dev["vecs"][idx] = v
+        dev["vecs"][idx] = v.to(dev["vecs"].dtype)
+        if "vecs16" in dev:
+            dev["vecs16"][idx] = v.bfloat16()
         dev["sqnorm"][idx] = row_sqnorms(v)
         dev["alive"][idx] = to_device(self._alive[rows], self.device)
         self._dirty = False
@@ -243,19 +296,52 @@ class FlatIndex(VectorIndex):
             raise ValueError(f"query tensor on {q.device}, index on {self.device}")
         return q
 
+    def _shortlist(self, top_k: int) -> int:
+        return hybrid_shortlist(top_k, parse_selection(self.selection)[1],
+                                pick_row_tile(self._cap, self.dim, 2))
+
+    def _route(self, batch: int, top_k: int) -> str:
+        """The route a batch (bucketed, as the JAX package routes it) of
+        ``top_k`` queries runs: 'flat-pallas-hybrid', 'flat-pallas' or
+        'flat-exact'. The single source of routing truth for searches and
+        describe_scan. Explicit 'pallas' at a k the kernel does not take
+        raises."""
+        if self.metric == Metric.COSINE:
+            return "flat-exact"
+        if self._hybrid:
+            if (batch <= HYBRID_MAX_BATCH
+                    and k_refusal(self._shortlist(top_k)) is None):
+                return "flat-pallas-hybrid"
+            return "flat-pallas" if k_refusal(top_k) is None else "flat-exact"
+        if self.selection != "pallas":
+            return "flat-exact"
+        why = k_refusal(top_k)
+        if why is not None:
+            raise ValueError(f"selection='pallas' needs the flat scan kernel: {why}")
+        return "flat-pallas"
+
     def _search_device(self, q: torch.Tensor, top_k: int,
-                       max_scans: Optional[int]) -> tuple[torch.Tensor, torch.Tensor]:
+                       max_scans: Optional[int], batch: Optional[int] = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
         """q [B, D] on the index device -> (scores [B, k], rows [B, k]);
-        rows are slab positions, -1 marks missing hits."""
+        rows are slab positions, -1 marks missing hits. ``batch``: what
+        routing sees (search_batch passes the bucketed batch)."""
+        route = self._route(q.shape[0] if batch is None else batch, top_k)
         dev = self._sync()
         ms = self._count if max_scans is None else min(max_scans, self._count)
-        if self.selection == "pallas" and self.metric != Metric.COSINE:
+        if route == "flat-pallas-hybrid":
+            _, rows = fused_flat_topk(q, dev["vecs16"], dev["sqnorm"], dev["alive"],
+                                      ms, self._shortlist(top_k), self.metric)
+            return rerank_exact(dev["vecs"], dev["sqnorm"], q, rows, top_k, self.metric)
+        if route == "flat-pallas":
             return fused_flat_topk(q, dev["vecs"], dev["sqnorm"], dev["alive"],
                                    ms, top_k, self.metric)
-        scores = score_matrix(q, dev["vecs"], self.metric, x_sqnorm=dev["sqnorm"])
+        scores = score_matrix(q, dev["vecs"], self.metric, x_sqnorm=dev["sqnorm"],
+                              compute_dtype=self.compute_dtype)
         row = torch.arange(self._cap, device=self.device)
         mask = dev["alive"] & (row < ms)
-        return masked_topk(scores, mask[None, :], top_k, self.selection)
+        sel = "exact" if self.selection.startswith("hybrid") else self.selection
+        return masked_topk(scores, mask[None, :], top_k, sel)
 
     def device_search(
         self, q: torch.Tensor, top_k: int,
@@ -284,7 +370,7 @@ class FlatIndex(VectorIndex):
         if q.shape[1] != self.dim:
             raise ValueError(f"dim mismatch: expected {self.dim}, got {q.shape[1]}")
         vals, rows = self._search_device(self._query_tensor(q), top_k,
-                                         options.max_scans)
+                                         options.max_scans, batch_bucket(q.shape[0]))
         return self._to_results(vals.cpu().numpy(), rows.cpu().numpy())
 
     def _to_results(self, vals: np.ndarray, rows: np.ndarray) -> list[list[SearchResult]]:
@@ -335,21 +421,25 @@ class FlatIndex(VectorIndex):
         meta = read_meta(arrays, "pyrope_tpu.flat.v1")
         if int(meta["dim"]) != self.dim:
             raise ValueError("snapshot dim mismatch")
-        if meta.get("storage", "fp32") != "fp32":
-            raise NotImplementedError(f"storage={meta['storage']!r} not yet ported")
+        storage = meta.get("storage", self.storage)
+        if storage == "sq8":
+            raise NotImplementedError("storage='sq8' not yet ported")
         ids = [str(s) for s in arrays["ids"]]
         vecs = np.asarray(arrays["vecs"], np.float32)
+        # adopt the snapshot's metric and storage, as the JAX package does
         self.metric = Metric.parse(meta["metric"])
+        self.storage = storage
         self._clear()
         if ids:
             self.add_batch(ids, vecs)
 
     def describe_scan(self, batch: int | None = None,
-                      nprobe: int | None = None) -> str:
-        """Which kernel a query runs."""
-        if self.selection == "pallas" and self.metric != Metric.COSINE:
-            return "flat-pallas"
-        return "flat-exact"  # exact, approx and cosine-pallas run the exact scan
+                      nprobe: int | None = None, *, top_k: int = 10) -> str:
+        """Which kernel a query runs: 'flat-pallas-hybrid', 'flat-pallas' or
+        'flat-exact' (exact, approx and cosine run the exact scan). The
+        hybrid route depends on the batch (None: within HYBRID_MAX_BATCH)
+        and ``top_k``."""
+        return self._route(1 if batch is None else batch_bucket(batch), top_k)
 
     # ---- internals exposed for composite indexes ------------------------
 

@@ -15,12 +15,23 @@ Scan routes, by the same names as the JAX package, so a recorded
     probe it. The JAX package splits these into its kernels K2 and K3 at
     512 clusters; here both names run the one kernel, and the name still
     follows the cluster-table width.
-  - ``dense-xla``: plain torch, one [B, N] score matrix masked by probe
-    membership and the max_scans budget (the JAX package's XLA kernel).
+  - ``dense-pallas-hybrid`` / ``dense-pallas-win-hybrid``
+    (``selection="hybrid[:R]"``, at a bucketed batch <= HYBRID_MAX_BATCH):
+    the list scan's bf16 mode over a bf16 twin of the slab (``xperm16``)
+    keeps each query's top R, and ``rerank_exact`` rescores them off the
+    fp32 slab. Larger batches, and R above what the kernel holds, take the
+    fp32 list scan: both sides are exact.
+  - ``dense-xla``: plain torch, a [B, N] score matrix masked by probe
+    membership and the max_scans budget (the JAX package's XLA kernel),
+    walked in query blocks of at most DENSE_MAX_ELEMS scores. It also takes
+    the dense scans the list scan does not take (k above its MAX_K, or a D
+    whose queries overflow its shared memory: ``list_scan_refusal``), where
+    the JAX package's kernels answer; the mode (dense or probe) stays the
+    JAX package's.
   - ``probe``: plain torch, a gather of each probed list + a running merge.
-Not yet ported: ``selection='hybrid'`` (raises NotImplementedError) and
-the JAX package's bf16 ``compute_dtype`` / ``train_dtype``: search and
-k-means training run in fp32.
+``compute_dtype`` (e.g. "bfloat16") rounds the search products' operands,
+as the JAX package does, and makes the kernel routes ineligible;
+``train_dtype`` is the k-means training dtype.
 
 Invariant: an id lives either in the built main slab or in the buffer,
 never both (upsert tombstones the main row first), so merges need no dedup.
@@ -44,11 +55,24 @@ from pyrope_tpu_torch.types import (
 )
 from pyrope_tpu_torch.utils.shapes import batch_bucket, round_up
 from pyrope_tpu_torch.device import resolve_device
-from pyrope_tpu_torch.index.flat import FlatIndex, read_meta, to_device
-from pyrope_tpu_torch.ops.distance import row_sqnorms, score_matrix
-from pyrope_tpu_torch.ops.fused_scan import IVF_MAX_KPAD, fused_ivf_topk
+from pyrope_tpu_torch.index.flat import (
+    HYBRID_MAX_BATCH,
+    FlatIndex,
+    hybrid_shortlist,
+    pick_row_tile,
+    read_meta,
+    to_device,
+)
+from pyrope_tpu_torch.ops.distance import rerank_exact, rounded, row_sqnorms, score_matrix
+from pyrope_tpu_torch.ops.fused_scan import (
+    IVF_MAX_KPAD,
+    LIST_BF16,
+    LIST_IVF,
+    fused_ivf_topk,
+    list_scan_refusal,
+)
 from pyrope_tpu_torch.ops.kmeans import kmeans_build
-from pyrope_tpu_torch.ops.topk import masked_topk, merge_topk, stable_topk
+from pyrope_tpu_torch.ops.topk import masked_topk, merge_topk, parse_selection, stable_topk
 
 DEFAULT_NPROBE = 3
 
@@ -92,11 +116,13 @@ def slab_pad(n: int, l_pad: int) -> int:
     return int(round_up(npad, 4096) if npad > 4096 else round_up(npad, 128))
 
 
-def rank_probes(q, cents, cvalid, offsets, lens, nprobe, max_scans, metric):
+def rank_probes(q, cents, cvalid, offsets, lens, nprobe, max_scans, metric,
+                cdtype=None):
     """Rank centroids, pick the top-nprobe lists (ties to the lower id, as
     ``lax.top_k``), and compute each probe's scan length under the
-    max_scans budget. Returns (probe [B, nprobe], offs_p, eff)."""
-    cscores = score_matrix(q, cents, metric)
+    max_scans budget. ``cdtype``: the ranking product's compute dtype.
+    Returns (probe [B, nprobe], offs_p, eff)."""
+    cscores = score_matrix(q, cents, metric, compute_dtype=cdtype)
     cscores = torch.where(cvalid[None, :], cscores, float("-inf"))
     _, probe = stable_topk(cscores, nprobe)
     lens_p = lens[probe]
@@ -108,12 +134,13 @@ def rank_probes(q, cents, cvalid, offsets, lens, nprobe, max_scans, metric):
 
 
 def scan_probed_lists(xperm, sqnorm, alive, q, offs_p, eff, *, k: int,
-                      l_pad: int, metric: Metric):
+                      l_pad: int, metric: Metric, cdtype=None):
     """Scan every probed list slice with a running top-k merge: each probe
     gathers [B, l_pad] rows from the cluster-major slab and scores them
-    against its query."""
+    against its query (operands rounded to ``cdtype`` when given)."""
     b = q.shape[0]
     qf = q.float()
+    qd = rounded(qf, cdtype)
     qq = (qf * qf).sum(dim=-1)
     qn = torch.sqrt(torch.clamp(qq, min=1e-24))
     j = torch.arange(l_pad, device=q.device)
@@ -121,7 +148,7 @@ def scan_probed_lists(xperm, sqnorm, alive, q, offs_p, eff, *, k: int,
     gidx = torch.full((b, k), -1, dtype=torch.int32, device=q.device)
     for p in range(offs_p.shape[1]):
         rows = offs_p[:, p : p + 1].long() + j                 # [B, L]
-        dots = torch.einsum("bld,bd->bl", xperm[rows].float(), qf)
+        dots = torch.einsum("bld,bd->bl", rounded(xperm[rows], cdtype), qd)
         sq = sqnorm[rows]
         if metric == Metric.L2:
             scores = -torch.clamp(qq[:, None] - 2.0 * dots + sq, min=0.0)
@@ -146,16 +173,33 @@ def dense_probe_mask(probe, eff, crow, pos, alive, kpad):
     return (pos[None, :] < allowed[:, crow.long()]) & alive[None, :]
 
 
-def pallas_dense_ok(selection: str, metric: Metric, ms: int, n: int,
+def pallas_dense_ok(selection: str, metric: Metric, compute, ms: int, n: int,
                     kpad: int) -> bool:
-    """Eligibility of the list scan kernel: full scan only (no max_scans
-    budget), L2/IP, and at most IVF_MAX_KPAD clusters (a routing cap kept
-    from the dense-mask kernel; the list scan takes any width). The JAX
-    package's tile-divisibility and window terms have no counterpart: the
-    kernel masks ragged edges and takes any cluster layout."""
+    """Eligibility of a dense scan for the kernel, by the JAX package's
+    semantic terms: full scan only (no max_scans budget), L2/IP, fp32
+    compute, and at most IVF_MAX_KPAD clusters (a routing cap kept from the
+    dense-mask kernel; the list scan takes any width). The JAX package's
+    tile-divisibility and window terms have no counterpart: the kernel masks
+    ragged edges and takes any cluster layout. It also keeps the dense mode
+    free of the DENSE_MAX_ELEMS guard (``pick_scan_mode``), as in the JAX
+    package. Whether the kernel takes the shape (k, D) is
+    ``list_scan_refusal``'s, decided after the mode."""
     if selection == "exact":
         return False
-    return metric != Metric.COSINE and ms >= n and kpad <= IVF_MAX_KPAD
+    return (metric != Metric.COSINE and compute is None and ms >= n
+            and kpad <= IVF_MAX_KPAD)
+
+
+def blocked_dense_topk(b: int, n_rows: int, scores_of, mask_of, k: int):
+    """masked_topk of ``scores_of(s, e)`` [e-s, N] under ``mask_of(s, e)``,
+    over blocks of queries s..e small enough that no [block, N] transient
+    holds more than DENSE_MAX_ELEMS elements, whatever the batch."""
+    step = max(1, DENSE_MAX_ELEMS // max(n_rows, 1))
+    parts = [masked_topk(scores_of(s, min(s + step, b)), mask_of(s, min(s + step, b)), k)
+             for s in (range(0, b, step) if b else [0])]
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts])
 
 
 class IvfFlatIndex(VectorIndex, CentroidsProvider):
@@ -171,15 +215,21 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
         device="cuda",
         nlist: int = 100,
         nprobe: int = DEFAULT_NPROBE,
+        compute_dtype: Optional[str] = None,
         seed: int = 42,
+        train_dtype: Optional[str] = None,
         scan_mode: str = "auto",
         train_init: str = "kmeans++",  # | "sample"
-        selection: str = "auto",       # auto | pallas | exact
+        selection: str = "auto",       # auto | pallas | exact | hybrid[:R]
     ):
         """As the JAX package's IvfFlatIndex, on ``device`` (the card unless
         the caller asks for the CPU).
         ``selection``: 'auto' routes eligible dense scans through the fused
-        kernel, 'pallas' requires it, 'exact' forces the plain dense scan."""
+        kernel, 'pallas' requires it, 'exact' forces the plain dense scan,
+        'hybrid[:R]' scans a bf16 twin slab for a top-R shortlist and
+        reranks it off the fp32 slab. ``compute_dtype``: the search
+        products' dtype (None: exact fp32). ``train_dtype``: k-means
+        training's."""
         if scan_mode not in ("auto", "dense", "probe"):
             raise ValueError(f"scan_mode must be auto|dense|probe, got {scan_mode!r}")
         sel = selection.partition(":")[0]
@@ -187,19 +237,22 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
             raise ValueError(
                 f"selection must be auto|pallas|exact|hybrid[:R], got {selection!r}"
             )
-        if sel == "hybrid":
-            raise NotImplementedError("selection='hybrid' not yet ported")
+        if sel == "hybrid" and compute_dtype is not None:
+            raise ValueError("selection='hybrid' reranks in fp32; "
+                             "compute_dtype must stay None (fp32)")
         self.dim = int(dim)
         self.metric = Metric.parse(metric)
         self.device = resolve_device(device)
         self.nlist = int(nlist)
         self.nprobe = int(nprobe)
+        self.compute_dtype = compute_dtype
         self.seed = seed
+        self.train_dtype = train_dtype
         self.scan_mode = scan_mode
         self.train_init = train_init
         self.selection = selection
 
-        self._buffer = FlatIndex(dim, self.metric, device=self.device)
+        self._buffer = self._new_buffer()
         # built main slab (host truth). The permuted host slab and the
         # id->row dict are materialized lazily from (_xbase, _order):
         # serving needs neither, only snapshot/scan/rebuild/mutation do.
@@ -254,6 +307,10 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
     @_main_pos.setter
     def _main_pos(self, value: dict[str, int]) -> None:
         self._main_pos_cache = value
+
+    def _new_buffer(self) -> FlatIndex:
+        return FlatIndex(self.dim, self.metric, device=self.device,
+                         compute_dtype=self.compute_dtype)
 
     # ---- mutation -------------------------------------------------------
 
@@ -318,7 +375,7 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
         # the search slab below is a device-side gather of the same buffer
         cents, assign, x_dev = kmeans_build(
             x, k, self.metric, device=self.device, seed=self.seed,
-            init=self.train_init,
+            compute_dtype=self.train_dtype, init=self.train_init,
         )
 
         order = np.argsort(assign, kind="stable")
@@ -335,7 +392,7 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
         self._centroids = cents[:k]
         self._main_live = n
         self._built = True
-        self._buffer = FlatIndex(self.dim, self.metric, device=self.device)
+        self._buffer = self._new_buffer()
         self._install_device_slab(x_dev, order)
 
     def get_centroids(self) -> Optional[np.ndarray]:
@@ -408,7 +465,13 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
         idx = pad_order(order, t["npad"], x_dev.shape[0], self.device)
         xperm, sqnorm = take_slab(x_dev, idx)
         self._dev = {"xperm": xperm, "sqnorm": sqnorm, **self._dev_common(t)}
+        self._add_twin()
         self._dirty = False
+
+    def _add_twin(self) -> None:
+        """The hybrid routes' bf16 twin of the slab, cast on the device."""
+        if self.selection.partition(":")[0] == "hybrid":
+            self._dev["xperm16"] = self._dev["xperm"].bfloat16()
 
     def _sync_locked(self) -> dict:
         if self._dev is not None and not self._dirty:
@@ -419,6 +482,7 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
         xperm[: t["n"]] = to_device(self._xperm, self.device)
         self._dev = {"xperm": xperm, "sqnorm": row_sqnorms(xperm),
                      **self._dev_common(t)}
+        self._add_twin()
         self._dirty = False
         return self._dev
 
@@ -442,12 +506,21 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
         ms = options.max_scans if options.max_scans is not None else self._main_n
         return self._run_scan(dev, q, top_k, nprobe, ms, q.shape[0])
 
-    def _resolve_scan(self, dev: dict, batch: int, nprobe: int, ms: int) -> str:
-        """(batch, nprobe, max_scans) -> the route that will run: 'probe',
-        'dense-xla', 'dense-pallas' or 'dense-pallas-win'. The single
-        source of routing truth for _run_scan and describe_scan."""
+    def _shortlist(self, dev: dict, top_k: int) -> int:
+        """The hybrid routes' R, clamped as the JAX package clamps it."""
+        return hybrid_shortlist(top_k, parse_selection(self.selection)[1],
+                                pick_row_tile(dev["xperm"].shape[0], self.dim, 4))
+
+    def _resolve_scan(self, dev: dict, batch: int, nprobe: int, ms: int,
+                      top_k: int) -> str:
+        """(batch, nprobe, max_scans, top_k) -> the route that will run:
+        'probe', 'dense-xla', 'dense-pallas[-win]' or
+        'dense-pallas[-win]-hybrid'. The single source of routing truth for
+        _run_scan and describe_scan. The mode (dense or probe) is the JAX
+        package's; which kernel takes a dense scan is decided from shapes."""
         kpad = dev["cents"].shape[0]
-        p_ok = pallas_dense_ok(self.selection, self.metric, ms, self._main_n, kpad)
+        p_ok = pallas_dense_ok(self.selection, self.metric, self.compute_dtype, ms,
+                               self._main_n, kpad)
         mode = pick_scan_mode(
             self.scan_mode, dev["xperm"].shape[0], nprobe, dev["l_pad"],
             batch=batch, pallas_ok=p_ok,
@@ -456,53 +529,73 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
             return "probe"
         if not p_ok:
             return "dense-xla"
-        return "dense-pallas-win" if kpad > WINDOWED_ROUTE_KPAD else "dense-pallas"
+        path = "dense-pallas-win" if kpad > WINDOWED_ROUTE_KPAD else "dense-pallas"
+        if (self.selection.partition(":")[0] == "hybrid" and batch <= HYBRID_MAX_BATCH
+                and list_scan_refusal(self.dim, self._shortlist(dev, top_k),
+                                      LIST_BF16) is None):
+            return path + "-hybrid"
+        if list_scan_refusal(self.dim, top_k, LIST_IVF) is not None:
+            return "dense-xla"
+        return path
 
     def _run_scan(self, dev: dict, q: torch.Tensor, top_k: int, nprobe: int,
                   ms: int, batch: int):
         """``batch`` is what routing sees: the bucketed batch for
         search_batch, as in the JAX package, so routes agree with it."""
-        path = self._resolve_scan(dev, batch, nprobe, ms)
+        path = self._resolve_scan(dev, batch, nprobe, ms, top_k)
         if (self.selection == "pallas" and ms >= self._main_n
                 and path in ("probe", "dense-xla")):
             # a max_scans budget (ms < n) takes the plain kernels; anything
             # else under explicit 'pallas' is a config error, never a swap
+            why = list_scan_refusal(self.dim, top_k, LIST_IVF)
             raise ValueError(
                 "selection='pallas' requires the fused dense kernel but the "
-                f"scan resolved to {path!r} (needs dense mode, L2/IP, at most "
-                f"{IVF_MAX_KPAD} clusters)"
-            )
+                f"scan resolved to {path!r} (needs dense mode, L2/IP, fp32 "
+                f"compute, at most {IVF_MAX_KPAD} clusters"
+                + (f"; {why})" if why else ")"))
         probe, offs_p, eff = rank_probes(
             q, dev["cents"], dev["cvalid"], dev["offsets"], dev["lens"],
-            nprobe, ms, self.metric,
+            nprobe, ms, self.metric, self.compute_dtype,
         )
+        kpad = dev["cents"].shape[0]
+        if path.endswith("-hybrid"):
+            _, rows = fused_ivf_topk(
+                q, dev["xperm16"], dev["sqnorm"], dev["alive"], dev["crow"],
+                dev["offsets"], dev["lens"], probe, kpad, self._shortlist(dev, top_k),
+                self.metric, max_len=dev["l_pad"],
+            )
+            return rerank_exact(dev["xperm"], dev["sqnorm"], q, rows, top_k, self.metric)
         if path in ("dense-pallas", "dense-pallas-win"):
             return fused_ivf_topk(
                 q, dev["xperm"], dev["sqnorm"], dev["alive"], dev["crow"],
-                dev["offsets"], dev["lens"], probe, dev["cents"].shape[0],
+                dev["offsets"], dev["lens"], probe, kpad,
                 top_k, self.metric, max_len=dev["l_pad"],
             )
         if path == "dense-xla":
-            mask = dense_probe_mask(probe, eff, dev["crow"], dev["pos"],
-                                    dev["alive"], dev["cents"].shape[0])
-            scores = score_matrix(q, dev["xperm"], self.metric,
-                                  x_sqnorm=dev["sqnorm"])
-            return masked_topk(scores, mask, top_k)
+            return blocked_dense_topk(
+                q.shape[0], dev["xperm"].shape[0],
+                lambda s, e: score_matrix(q[s:e], dev["xperm"], self.metric,
+                                          x_sqnorm=dev["sqnorm"],
+                                          compute_dtype=self.compute_dtype),
+                lambda s, e: dense_probe_mask(probe[s:e], eff[s:e], dev["crow"],
+                                              dev["pos"], dev["alive"], kpad),
+                top_k)
         return scan_probed_lists(
             dev["xperm"], dev["sqnorm"], dev["alive"], q, offs_p, eff,
             k=top_k, l_pad=dev["l_pad"], metric=self.metric,
+            cdtype=self.compute_dtype,
         )
 
     def describe_scan(self, batch: int, nprobe: Optional[int] = None,
-                      max_scans: Optional[int] = None) -> str:
-        """Which route a (batch, nprobe, max_scans) query would run
-        (max_scans None = full scan); 'buffer' before build."""
+                      max_scans: Optional[int] = None, *, top_k: int = 10) -> str:
+        """Which route a (batch, nprobe, max_scans) query of ``top_k`` hits
+        would run (max_scans None = full scan); 'buffer' before build."""
         if not self._built:
             return "buffer"
         dev = self._sync()
         np_eff = min(nprobe or self.nprobe, dev["k_actual"])
         ms = max_scans if max_scans is not None else self._main_n
-        return self._resolve_scan(dev, batch, np_eff, ms)
+        return self._resolve_scan(dev, batch, np_eff, ms, top_k)
 
     def resolve_rows(self, rows: np.ndarray) -> list[list[str]]:
         return [
@@ -622,7 +715,7 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
         self._lens = np.asarray(arrays["lens"], np.int32)
         self._main_pos = {pid: r for r, pid in enumerate(self._perm_ids)}
         self._main_live = int(self._alive.sum())
-        self._buffer = FlatIndex(self.dim, self.metric, device=self.device)
+        self._buffer = self._new_buffer()
         bids = [str(s) for s in arrays["buf_ids"]]
         if bids:
             self._buffer.add_batch(bids, np.asarray(arrays["buf_vecs"], np.float32))

@@ -6,24 +6,30 @@ FlatIndex buffer, searched exactly; ``build()`` merges main + buffer, runs
 the coarse k-means, trains PQ on the residuals r = x − c (codebooks seeded
 42+m), and permutes codes and rerank slab cluster-major on the device.
 
-The rerank slab (``refine`` > 0) is fp32 rows, or with
-``refine_storage="sq8res"`` per-row residual-SQ8 codes (uint8 codes +
+The rerank slab (``refine`` > 0) is fp32 rows, bf16 rows
+(``refine_storage="bf16"``: half the bytes; sqnorms of the fp32 rows), or
+with ``refine_storage="sq8res"`` per-row residual-SQ8 codes (uint8 codes +
 min/scale against the row's own centroid, N·(D+12) bytes): the
 memory-lean configuration. The fp32 corpus buffer k-means uploaded is not
-kept: raw rows stay on the host only.
+kept: raw rows stay on the host only. ``train_dtype`` ("bfloat16") is the
+coarse k-means' and PQ training's matmul dtype; assignments and codes are
+always fp32.
 
 Scan routes, by the same names as the JAX package, so a recorded route
 names the code that ran:
   - ``dense-sq8-pallas`` / ``dense-sq8-pallas-win``: the CUDA list scan
     in SQ8 mode (ops/fused_scan.fused_ivf_sq8_topk) over the SQ8 slab; the
     JAX package's kernels K4 and K5.
-  - ``dense-exact-pallas`` / ``dense-exact-pallas-win``: the list scan in
-    IVF mode (``fused_ivf_topk``) over the fp32 rerank slab (the JAX
-    package's ``promote=True`` is the identity on fp32).
+  - ``dense-exact-pallas`` / ``dense-exact-pallas-win``: the list scan
+    (``fused_ivf_topk``) over the rerank slab with the JAX package's
+    ``promote_fp32=True``: IVF mode on an fp32 slab (where promote is the
+    identity), BF16 mode on a bf16 one (fp32 q times the widened rows).
   - plain torch, as they are XLA in the JAX package: ``dense-sq8-xla``,
     ``dense-exact-xla``, ``dense-adc`` (refine 0), ``probe-adc``,
     ``probe-adc+rerank`` and ``probe-adc+rerank-sq8``. These carry the
-    ``max_scans`` budgets.
+    ``max_scans`` budgets, and the ``dense-*-xla`` routes the dense scans
+    the list scan does not take (``list_scan_refusal``: k above its MAX_K,
+    or a D its shared memory does not hold), walked in query blocks.
 The ``-win`` names follow the cluster-table width (> 512), as in the JAX
 package, though here one kernel serves both: the list scan takes any
 nlist (routes cap it at IVF_MAX_KPAD). So the eligibility test keeps only the JAX
@@ -31,9 +37,6 @@ package's semantic terms (L2/IP, full scan, fp32) and drops its tile and
 window terms (``pick_row_tile``, ``tile_cluster_windows``/``win_ok``):
 where a JAX index's slab does not fit the windowed kernel (``win_ok``
 False) it routes ``dense-*-xla`` and the port ``dense-*-pallas-win``.
-
-Not yet ported: ``refine_storage="bf16"`` and ``train_dtype`` (bf16
-training); both raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from pyrope_tpu_torch.index.ivf_flat import (
     DENSE_MAX_ELEMS,
     DENSE_MAX_ROWS,
     WINDOWED_ROUTE_KPAD,
+    blocked_dense_topk,
     dense_probe_mask,
     pallas_dense_ok,
     pick_scan_mode,
@@ -73,8 +77,12 @@ from pyrope_tpu_torch.ops.distance import (
     score_matrix,
 )
 from pyrope_tpu_torch.ops.fused_scan import (
+    LIST_BF16,
+    LIST_IVF,
+    LIST_SQ8,
     fused_ivf_sq8_topk,
     fused_ivf_topk,
+    list_scan_refusal,
     sq8_scores,
 )
 from pyrope_tpu_torch.ops.kmeans import kmeans_build
@@ -175,7 +183,7 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         nprobe: int = DEFAULT_NPROBE,
         seed: int = COARSE_SEED,
         refine: int = 64,
-        refine_storage: str = "fp32",  # fp32 | sq8res (bf16 not yet ported)
+        refine_storage: str = "fp32",  # fp32 | bf16 | sq8res
         train_dtype: Optional[str] = None,
         scan_mode: str = "auto",
         train_init: str = "kmeans++",  # | "sample"
@@ -184,12 +192,11 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         the caller asks for the CPU).
         ``refine``: the ADC shortlist is ``refine * top_k`` rows, re-scored
         exactly from the rerank slab (0: pure ADC). ``scan_mode``: 'auto' |
-        'dense' | 'probe'."""
+        'dense' | 'probe'. ``train_dtype``: the training matmuls' dtype
+        (None: fp32)."""
         if scan_mode not in ("auto", "dense", "probe"):
             raise ValueError(f"scan_mode must be auto|dense|probe, got {scan_mode!r}")
         _check_storage(refine_storage)
-        if train_dtype is not None:
-            raise NotImplementedError(f"train_dtype={train_dtype!r} not yet ported")
         self.dim = int(dim)
         self.metric = Metric.parse(metric)
         self.device = resolve_device(device)
@@ -324,13 +331,14 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         # training and encoding, and the permuted slabs; nothing keeps it
         cents, assign, x_dev = kmeans_build(
             x, kc, metric, device=self.device, seed=self.seed,
-            init=self.train_init,
+            compute_dtype=self.train_dtype, init=self.train_init,
         )
         codes_dev = None
         if n >= self.pq.ksub:
             assign_dev = torch.from_numpy(assign).to(self.device).long()
             r_dev = x_dev - torch.from_numpy(cents).to(self.device)[assign_dev]
-            codebooks, codes_dev = pq_train_encode_device(r_dev, n, self.pq, seed=42)
+            codebooks, codes_dev = pq_train_encode_device(r_dev, n, self.pq, seed=42,
+                                                          compute=self.train_dtype)
             del r_dev
             self.pq.codebooks = codebooks
             codes = codes_dev.cpu().numpy().astype(np.uint8)
@@ -444,7 +452,7 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
                                                     dev["crow"])
             else:
                 dev["xraw"], dev["xsqnorm"] = take_slab_cast(x_dev, idx,
-                                                             dtype="float32")
+                                                             dtype=self._slab_dtype())
         self._dev = dev
         self._dirty = False
 
@@ -467,22 +475,30 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
                 xraw = torch.zeros((npad, self.dim), dtype=torch.float32,
                                    device=self.device)
                 xraw[:n] = to_device(self._xperm, self.device)
-                dev["xraw"], dev["xsqnorm"] = xraw, row_sqnorms(xraw)
+                # sqnorms of the fp32 rows, whatever the slab stores
+                dev["xsqnorm"] = row_sqnorms(xraw)
+                dev["xraw"] = xraw.to(getattr(torch, self._slab_dtype()))
         self._dev = dev
         self._dirty = False
         return dev
 
     # ---- query ----------------------------------------------------------
 
+    def _slab_dtype(self) -> str:
+        return "bfloat16" if self.refine_storage == "bf16" else "float32"
+
     def _search_metric(self) -> Metric:
         return Metric.INNER_PRODUCT if self.metric == Metric.COSINE else self.metric
 
-    def _resolve_scan(self, dev: dict, batch: int, nprobe: int, ms: int) -> str:
-        """(batch, nprobe, max_scans) -> the route that will run, by the
-        JAX package's rules: 'probe-adc', 'probe-adc+rerank[-sq8]',
+    def _resolve_scan(self, dev: dict, batch: int, nprobe: int, ms: int,
+                      top_k: int) -> str:
+        """(batch, nprobe, max_scans, top_k) -> the route that will run, by
+        the JAX package's rules: 'probe-adc', 'probe-adc+rerank[-sq8]',
         'dense-adc', 'dense-exact-{xla,pallas,pallas-win}' or
         'dense-sq8-{xla,pallas,pallas-win}'. The single source of routing
-        truth for _run_scan and describe_scan.
+        truth for _run_scan and describe_scan. The mode (dense or probe) is
+        the JAX package's; a dense scan whose shape the list scan does not
+        take (``list_scan_refusal``) takes the plain ``dense-*-xla``.
 
         With ``refine`` > 0 dense and probe return different hit sets
         (dense exact-scans the rerank slab, probe reranks an ADC
@@ -493,7 +509,7 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         kpad = dev["cents"].shape[0]
         n = self._codes.shape[0]
         p_ok = self.refine > 0 and pallas_dense_ok(
-            "auto", self._search_metric(), ms, n, kpad)
+            "auto", self._search_metric(), None, ms, n, kpad)
         if self.scan_mode == "auto" and self.refine > 0:
             # the fused kernel holds no [B, npad] transient: eligible slabs
             # stay dense at any size
@@ -510,7 +526,9 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
             return "probe-adc"
         if self.refine == 0:
             return "dense-adc"
-        if not p_ok:
+        mode = (LIST_SQ8 if sq8 else LIST_BF16 if self.refine_storage == "bf16"
+                else LIST_IVF)
+        if not p_ok or list_scan_refusal(self.dim, top_k, mode) is not None:
             return "dense-sq8-xla" if sq8 else "dense-exact-xla"
         win = "-win" if kpad > WINDOWED_ROUTE_KPAD else ""
         return ("dense-sq8-pallas" if sq8 else "dense-exact-pallas") + win
@@ -521,7 +539,7 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         search_batch, as in the JAX package) on q [B, D] fp32."""
         metric = self._search_metric()
         probe_metric = Metric.L2 if self.metric == Metric.COSINE else self.metric
-        path = self._resolve_scan(dev, batch, nprobe, ms)
+        path = self._resolve_scan(dev, batch, nprobe, ms, top_k)
         check_fp32_exact(q)
         probe, offs_p, eff = rank_probes(
             q, dev["cents"], dev["cvalid"], dev["offsets"], dev["lens"],
@@ -538,18 +556,25 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         if path.startswith("dense-exact-pallas"):
             return fused_ivf_topk(q, dev["xraw"], dev["xsqnorm"], dev["alive"],
                                   dev["crow"], dev["offsets"], dev["lens"], probe,
-                                  kpad, top_k, metric, max_len=dev["l_pad"])
+                                  kpad, top_k, metric, max_len=dev["l_pad"],
+                                  promote_fp32=True)
         if path in ("dense-sq8-xla", "dense-exact-xla"):
-            mask = dense_probe_mask(probe, eff, dev["crow"], dev["pos"],
-                                    dev["alive"], kpad)
             if path == "dense-exact-xla":
-                scores = score_matrix(q, dev["xraw"], metric,
-                                      x_sqnorm=dev["xsqnorm"])
-            else:  # [B, npad] transients, as the JAX package's XLA route
-                scores = sq8_scores(
-                    q, q @ dev["cents"].T, dev["codes8"], dev["mins"], dev["scales"],
-                    dev["sq8norm"], dev["crow"], metric == Metric.INNER_PRODUCT)
-            return masked_topk(scores, mask, top_k)
+                xf = dev["xraw"].float()  # a bf16 slab widened once: exact products
+
+                def scores_of(s, e):
+                    return score_matrix(q[s:e], xf, metric, x_sqnorm=dev["xsqnorm"])
+            else:  # [block, npad] transients, as the JAX package's XLA route
+                def scores_of(s, e):
+                    return sq8_scores(
+                        q[s:e], q[s:e] @ dev["cents"].T, dev["codes8"], dev["mins"],
+                        dev["scales"], dev["sq8norm"], dev["crow"],
+                        metric == Metric.INNER_PRODUCT)
+            return blocked_dense_topk(
+                q.shape[0], dev["codes"].shape[0], scores_of,
+                lambda s, e: dense_probe_mask(probe[s:e], eff[s:e], dev["crow"],
+                                              dev["pos"], dev["alive"], kpad),
+                top_k)
         if path == "dense-adc":
             return adc_scan_dense(
                 dev["codes"], dev["alive"], q, dev["cents"], dev["codebooks"],
@@ -591,15 +616,15 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         return self._run_scan(dev, q, top_k, nprobe, ms, q.shape[0])
 
     def describe_scan(self, batch: int, nprobe: Optional[int] = None,
-                      max_scans: Optional[int] = None) -> str:
-        """Which route a (batch, nprobe, max_scans) query would run
-        (max_scans None = full scan); 'buffer' before build."""
+                      max_scans: Optional[int] = None, *, top_k: int = 10) -> str:
+        """Which route a (batch, nprobe, max_scans) query of ``top_k`` hits
+        would run (max_scans None = full scan); 'buffer' before build."""
         if not self._built:
             return "buffer"
         dev = self._sync()
         np_eff = min(nprobe or self.nprobe, dev["k_actual"])
         ms = max_scans if max_scans is not None else self._codes.shape[0]
-        return self._resolve_scan(dev, batch, np_eff, ms)
+        return self._resolve_scan(dev, batch, np_eff, ms, top_k)
 
     def resolve_rows(self, rows: np.ndarray) -> list[list[str]]:
         return [
@@ -678,8 +703,9 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
             if self.refine_storage == "sq8res":
                 # uint8 codes + per-row (min, scale, sqnorm) fp32
                 out["refine_slab"] = int(n * self.dim + n * 12)
-            else:
-                out["refine_slab"] = int(n * self.dim * 4 + n * 4)
+            else:  # rows of 4 (fp32) or 2 (bf16) bytes an element + sqnorm
+                elt = 2 if self.refine_storage == "bf16" else 4
+                out["refine_slab"] = int(n * self.dim * elt + n * 4)
         return out
 
     def snapshot(self, path: str) -> None:
@@ -762,6 +788,4 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
 def _check_storage(refine_storage: str) -> None:
     if refine_storage not in ("bf16", "fp32", "sq8res"):
         raise ValueError(f"refine_storage must be bf16|fp32|sq8res, got {refine_storage}")
-    if refine_storage == "bf16":
-        raise NotImplementedError("refine_storage='bf16' not yet ported")
 

@@ -29,6 +29,29 @@ def check_fp32_exact(t: torch.Tensor) -> None:
         )
 
 
+def torch_dtype(dtype) -> torch.dtype:
+    """A compute dtype as the JAX package names it ("bfloat16", ...) or a
+    torch dtype -> the torch dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    found = getattr(torch, str(dtype), None)
+    if not isinstance(found, torch.dtype) or not found.is_floating_point:
+        raise ValueError(f"unknown compute dtype {dtype!r}")
+    return found
+
+
+def rounded(x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """fp32 ``x`` with its values rounded to ``compute_dtype`` (None: x as
+    fp32). The operands of a product in ``compute_dtype`` with fp32 sums,
+    as JAX's ``preferred_element_type=float32`` takes them: products of two
+    bf16 values are exact in fp32, so an fp32 matmul of the rounded values
+    sums what the JAX package's bf16 dot sums. A matmul on bf16 tensors
+    would round the sum to bf16 as well."""
+    if compute_dtype is None:
+        return x.float()
+    return x.to(torch_dtype(compute_dtype)).float()
+
+
 def row_sqnorms(x: torch.Tensor) -> torch.Tensor:
     """Per-row squared norms ‖x‖² (fp32)."""
     xf = x.float()
@@ -41,15 +64,22 @@ def score_matrix(
     metric: Metric,
     *,
     x_sqnorm: torch.Tensor | None = None,
+    compute_dtype=None,
 ) -> torch.Tensor:
     """Scores[b, n] for every query row against every corpus row.
 
-    q: [B, D], x: [N, D] on one device. Returns [B, N] float32, higher =
-    better. ``x_sqnorm``: optional precomputed ‖x‖² [N] (fp32)."""
+    q: [B, D], x: [N, D] (fp32, or a bf16 slab, widened) on one device.
+    Returns [B, N] float32, higher = better. ``x_sqnorm``: optional
+    precomputed ‖x‖² [N] (fp32). ``compute_dtype`` (e.g. "bfloat16"): the
+    dtype both matmul operands are rounded to; the sum is fp32 and the
+    norms come from the unrounded operands, as in the JAX package."""
     metric = Metric.parse(metric)
     check_fp32_exact(q)
     qf, xf = q.float(), x.float()
-    dots = qf @ xf.T
+    if compute_dtype is None:
+        dots = qf @ xf.T
+    else:
+        dots = rounded(qf, compute_dtype) @ rounded(xf, compute_dtype).T
     if metric == Metric.INNER_PRODUCT:
         return dots
     qq = row_sqnorms(qf)

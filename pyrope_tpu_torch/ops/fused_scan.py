@@ -20,6 +20,14 @@ All end in the merge kernel that reduces the per-split or per-list sorted
 partials, the work of the Pallas bodies' ``_merge_tile`` (:401) and
 ``_finish_topk`` (:642).
 
+bf16 slabs (the branch ``x.dtype == bfloat16`` of the TPU kernels'
+``_tile_scores``, :232-264): ``fused_flat_topk`` and ``fused_ivf_topk`` take
+a bf16 ``x``. The flat scan and the list scan without ``promote_fp32``
+score bf16(q) against the bf16 rows (the MXU's single bf16 pass: exact
+products, fp32 sums); ``fused_ivf_topk(promote_fp32=True)`` scores the fp32
+q against the widened rows. In both, ‖q‖² is that of the fp32 q and
+``sqnorm`` that of the fp32 rows before the cast.
+
 What bounds each kernel on an H100, and what its design does about it, is
 in the header of its CUDA source.
 
@@ -50,7 +58,7 @@ QUERY_TILE = 64          # queries per list chunk; the flat scan's narrow tile
 FLAT_QUERY_TILES = (128, 64)  # the flat scan's instantiations, widest first
 ROW_TILE = 128           # corpus rows per tile
 FLAT_STAGES = 2          # NST of fused_scan.cu: stages in the copy ring
-FLAT_DEPTH_CHUNK = 32    # DC: depth elements of a row per stage (128 bytes)
+FLAT_ROW_BYTES = 128     # bytes of a row a stage holds: 32 fp32 or 64 bf16 depths
 FLAT_FLOOR_WINDOW = 32   # WIN: splits whose published scores a warp reads
 LIST_SEG = 2048          # rows of one cluster a list-scan block walks at most
 LIST_SEG_MIN = 256       # shortest segment list_seg cuts for parallelism
@@ -58,11 +66,17 @@ SMEM_LIMIT = 232_448     # bytes of shared memory a block may use on sm_90
 SMEM_TWO_BLOCKS = 115_712  # the most a block may use for two to share an SM
                            # (233,472 B an SM, 1,024 B a block reserved)
 IVF_MAX_KPAD = 8192      # widest cluster table a route sends the list scan
+# the list scan's modes (ivf_list_scan.cu Mode) and their slab element bytes
+LIST_IVF, LIST_SQ8, LIST_BF16 = 1, 2, 3
+_LIST_ELEM = {LIST_IVF: 4, LIST_SQ8: 1, LIST_BF16: 2}
+LIST_DEPTH_CHUNK = 64    # DCH of ivf_list_scan.cu: depth elements a stage
+LIST_LD_PAD = 4          # QS_LD - BT and XLD - DCH: the padding of its rows
 _BLOCKS_PER_SM = 4       # list-scan grid target: blocks in flight per SM
 _FLAT_BLOCKS_PER_SM = 2  # flat grid target: one wave of two blocks an SM
 
 # launches of each kernel since the last reset_launches()
-LAUNCHES = {"flat_scan": 0, "ivf_scan": 0, "sq8_scan": 0, "merge": 0}
+LAUNCHES = {"flat_scan": 0, "flat_scan_bf16": 0, "ivf_scan": 0, "ivf_scan_bf16": 0,
+            "sq8_scan": 0, "merge": 0}
 
 
 def reset_launches() -> None:
@@ -103,8 +117,13 @@ def _plain_scan(q, n, tile_scores, row_mask, k, chunk_rows):
     return best_v, best_i.int()
 
 
-def _fp32_scores(q, x, sqnorm, metric_ip):
-    return lambda s, e: _l2_or_ip(q, q @ x[s:e].T, sqnorm[s:e], metric_ip)
+def _tile_scores(q, x, sqnorm, metric_ip: bool, promote: bool = False):
+    """``tile_scores`` of the plain scans, as the TPU kernels' ``_tile_scores``
+    takes them: fp32 dots off an fp32 slab; off a bf16 slab, dots of bf16(q)
+    (the fp32 q with ``promote``) and the widened rows, summed in fp32. ‖q‖²
+    is always that of the unrounded fp32 q."""
+    qd = q.bfloat16().float() if x.dtype == torch.bfloat16 and not promote else q
+    return lambda s, e: _l2_or_ip(q, qd @ x[s:e].float().T, sqnorm[s:e], metric_ip)
 
 
 def fused_flat_topk_plain(q, x, sqnorm, alive, max_scans: int, k: int,
@@ -117,7 +136,7 @@ def fused_flat_topk_plain(q, x, sqnorm, alive, max_scans: int, k: int,
         rows = torch.arange(s, e, device=q.device)
         return (alive[s:e] & (rows < ms))[None, :]
 
-    return _plain_scan(q, x.shape[0], _fp32_scores(q, x, sqnorm, metric_ip),
+    return _plain_scan(q, x.shape[0], _tile_scores(q, x, sqnorm, metric_ip),
                        row_mask, k, chunk_rows)
 
 
@@ -128,10 +147,11 @@ def probe_table(probe: torch.Tensor, kp: int) -> torch.Tensor:
 
 
 def fused_ivf_topk_plain(q, x, sqnorm, alive, crow, probe, kp: int, k: int,
-                         metric=Metric.L2, *, chunk_rows: int = 8192):
+                         metric=Metric.L2, *, promote_fp32: bool = False,
+                         chunk_rows: int = 8192):
     """Plain version of ``fused_ivf_topk``: same inputs, same outputs."""
     metric_ip = _metric_ip(metric)
-    return _plain_scan(q, x.shape[0], _fp32_scores(q, x, sqnorm, metric_ip),
+    return _plain_scan(q, x.shape[0], _tile_scores(q, x, sqnorm, metric_ip, promote_fp32),
                        _probed_rows(probe, kp, crow, alive), k, chunk_rows)
 
 
@@ -176,17 +196,55 @@ def _metric_ip(metric) -> bool:
     return metric == Metric.INNER_PRODUCT
 
 
-def _check_inputs(q, x, sqnorm, alive, k, extra=(), slab_dtype=torch.float32):
+_FP_SLABS = (torch.float32, torch.bfloat16)
+
+
+def k_refusal(k: int) -> str | None:
+    """Why the kernels do not take ``k`` hits a query, or None."""
+    if 1 <= k <= MAX_K:
+        return None
+    why = f"k must be in [1, {MAX_K}], got {k}"
+    if k > MAX_K:
+        why += (f": the CUDA kernels hold {MAX_K} list slots a query "
+                "(wide k: ROADMAP.md queue 2 item B)")
+    return why
+
+
+def list_scan_smem_bytes(d: int, k: int, mode: int) -> int:
+    """Shared memory of a list-scan block, as ``list_scan_smem_bytes`` of
+    ivf_list_scan.cu computes it: a chunk's queries whole ([D][BT + 4]
+    floats), two stages of RT rows x (DCH + 4) slab elements, the row tables
+    of two tiles, the per-query tables and the lists."""
+    d4 = -(-d // 4) * 4
+    return (4 * d4 * (QUERY_TILE + LIST_LD_PAD)
+            + 2 * ROW_TILE * (LIST_DEPTH_CHUNK + LIST_LD_PAD) * _LIST_ELEM[mode]
+            + 2 * ROW_TILE * 4 * (4 if mode == LIST_SQ8 else 2)
+            + 7 * QUERY_TILE * 4 + 8 * QUERY_TILE * k)
+
+
+def list_scan_refusal(d: int, k: int, mode: int) -> str | None:
+    """Why the list scan does not take depth ``d`` and ``k`` hits in
+    ``mode``, or None when it does. Decided on the host from shapes alone:
+    the routes of the IVF indexes call it before any launch."""
+    why = k_refusal(k)
+    if why is None and list_scan_smem_bytes(d, k, mode) > SMEM_LIMIT:
+        why = (f"D {d} needs {list_scan_smem_bytes(d, k, mode)} B of shared memory "
+               f"in the list scan, over the {SMEM_LIMIT} B a block may use "
+               "(large D: ROADMAP.md queue 2 item C)")
+    return why
+
+
+def _check_inputs(q, x, sqnorm, alive, k, extra=(), slab_dtypes=_FP_SLABS):
     """Shapes, dtypes and devices the kernel takes; raises on the rest.
     Returns True when the tensors lie on a CUDA device."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
+    why = k_refusal(k)
+    if why is not None:
+        raise ValueError(why)
     if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1]:
         raise ValueError(f"q [B, D] and x [N, D] expected, got {tuple(q.shape)}, "
                          f"{tuple(x.shape)}")
-    if x.dtype != slab_dtype:
-        raise NotImplementedError(
-            f"slab dtype {x.dtype} not yet ported: this scan takes {slab_dtype} slabs")
+    if x.dtype not in slab_dtypes:
+        raise ValueError(f"slab dtype {x.dtype}: this scan takes {slab_dtypes} slabs")
     if q.dtype != torch.float32 or sqnorm.dtype != torch.float32:
         raise ValueError("q and sqnorm must be float32")
     if alive.dtype != torch.bool:
@@ -214,26 +272,28 @@ def _check_probe(q, x, crow, probe):
         raise ValueError("probe must be [B, nprobe] on the queries' device")
 
 
-def flat_scan_smem_bytes(k: int, query_tile: int) -> int:
+def flat_scan_smem_bytes(k: int, query_tile: int, elem: int = 4) -> int:
     """Shared memory of a flat-scan block, as ``scan_smem_bytes`` of
     fused_scan.cu computes it: the ring of stages (each a depth chunk of
-    the tile's rows and queries, and the rows' table), four words a query,
-    and the lists. It does not depend on D: q is streamed."""
-    stage = (ROW_TILE + query_tile) * FLAT_DEPTH_CHUNK
+    the tile's rows, 128 bytes of each, and the same depths of its fp32
+    queries, and the rows' table), four words a query, and the lists. It
+    does not depend on D: q is streamed."""
+    stage = ROW_TILE * FLAT_ROW_BYTES // 4 + query_tile * (FLAT_ROW_BYTES // elem)
     return 4 * (FLAT_STAGES * (stage + ROW_TILE) + 4 * query_tile
                 + 2 * query_tile * k)
 
 
-def flat_tile(d: int, k: int, b: int) -> tuple[int, int]:
+def flat_tile(d: int, k: int, b: int, elem: int = 4) -> tuple[int, int]:
     """(query tile, shared-memory bytes) of the flat scan's instantiation
-    for depth ``d``, ``k`` hits and ``b`` queries: the 128-query tile, or
+    for depth ``d``, ``k`` hits, ``b`` queries and rows of ``elem`` bytes an
+    element (4 fp32, 2 bf16): the 128-query tile, or
     the 64-query one where a batch fits it (at B <= 64 a wider tile is
     padding). The first of which two blocks fit an SM wins (two blocks hide
     each other's list insertions: k <= 45 at 128 queries, k <= 125 at 64),
     else the first that fits at all. Raises where none fits."""
     if d < 1 or not 1 <= k <= MAX_K:
         raise ValueError(f"flat scan takes D >= 1 and k in [1, {MAX_K}], got D={d}, k={k}")
-    fits = [(tile, flat_scan_smem_bytes(k, tile)) for tile in FLAT_QUERY_TILES
+    fits = [(tile, flat_scan_smem_bytes(k, tile, elem)) for tile in FLAT_QUERY_TILES
             if b > QUERY_TILE or tile == QUERY_TILE]
     for limit in (SMEM_TWO_BLOCKS, SMEM_LIMIT):
         for tile, smem in fits:
@@ -345,14 +405,22 @@ def _empty_hits(b, k, dev):
             torch.full((b, k), -1, dtype=torch.int32, device=dev))
 
 
+def _bf16_query(q):
+    """(bf16(q) as fp32, ‖q‖² of the unrounded q): what the bf16 modes
+    without promote read for q."""
+    return q.bfloat16().float(), (q * q).sum(dim=1)
+
+
 def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
-    """The flat scan kernel into [B, splits, k] partials, then the merge."""
+    """The flat scan kernel into [B, splits, k] partials, then the merge;
+    bf16 mode over a bf16 ``x``."""
     from pyrope_tpu_torch.kernels.build import check, load
 
     lib = load()
     b, d = q.shape
-    tile, smem = flat_tile(d, k, b)
-    if lib.pyrope_scan_smem_bytes(k, tile) != smem:
+    elem = x.element_size()
+    tile, smem = flat_tile(d, k, b, elem)
+    if lib.pyrope_scan_smem_bytes(k, tile, elem) != smem:
         raise RuntimeError("flat_tile and fused_scan.cu disagree on shared memory")
     if b == 0:  # an empty grid is not a valid launch
         return _empty_hits(0, k, q.device)
@@ -361,14 +429,18 @@ def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
     part_i = torch.empty((b, n_splits, k), dtype=torch.int32, device=q.device)
     pub_c, pub_g = flat_floor(k, n_splits)
     pub = torch.full((b, n_splits), float("-inf"), device=q.device)
-    vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+    qsq = None
+    if elem == 2:
+        q, qsq = _bf16_query(q)
+    vec = int(d % (16 // elem) == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
     check(lib.pyrope_fused_scan(
-        q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), b,
-        x.shape[0], d, k, int(metric_ip), max_scans, per, n_splits, tile, vec,
-        part_v.data_ptr(), part_i.data_ptr(), pub.data_ptr(), pub_c, pub_g,
+        q.data_ptr(), x.data_ptr(), None if qsq is None else qsq.data_ptr(),
+        sqnorm.data_ptr(), alive.data_ptr(), b, x.shape[0], d, k, int(metric_ip),
+        max_scans, per, n_splits, tile, elem, vec, part_v.data_ptr(),
+        part_i.data_ptr(), pub.data_ptr(), pub_c, pub_g,
         torch.cuda.current_stream(q.device).cuda_stream,
     ), "fused scan kernel")
-    LAUNCHES["flat_scan"] += 1
+    LAUNCHES["flat_scan_bf16" if elem == 2 else "flat_scan"] += 1
     return _merge_launch(part_v, part_i, n_splits, b, k, None, 0, n_splits * k, k)
 
 
@@ -376,10 +448,12 @@ def fused_flat_topk(q, x, sqnorm, alive, max_scans: int, k: int,
                     metric=Metric.L2) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused masked exact scan + top-k over a flat slab (K1).
 
-    q [B, D] f32, x [N, D] f32 slab, sqnorm [N] f32, alive [N] bool; rows
-    >= ``max_scans`` never hit. Returns (values [B, k] f32, rows [B, k]
+    q [B, D] f32, x [N, D] f32 or bf16 slab (bf16: scored as bf16(q)·x,
+    fp32 sums), sqnorm [N] f32 (of the fp32 rows), alive [N] bool; rows >=
+    ``max_scans`` never hit. Returns (values [B, k] f32, rows [B, k]
     int32), (score desc, row asc), -inf/-1 for missing hits. Any B and N:
-    the kernel masks the ragged edges itself."""
+    the kernel masks the ragged edges itself. It has no promote mode: no
+    route of the JAX package promotes a flat scan."""
     metric_ip = _metric_ip(metric)
     if not _check_inputs(q, x, sqnorm, alive, k):
         return fused_flat_topk_plain(q, x, sqnorm, alive, max_scans, k, metric)
@@ -499,18 +573,21 @@ def _check_list_preconditions(probe, lens, max_len):
 
 
 def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
-                 max_len, sq8=None):
+                 max_len, sq8=None, promote=False):
     """The list scan kernel into per-query partial slots, then the merge.
-    IVF mode over an fp32 slab; SQ8 mode when ``sq8`` = (mins, scales, qc)."""
+    IVF mode over an fp32 slab, BF16 mode over a bf16 one (q rounded unless
+    ``promote``); SQ8 mode when ``sq8`` = (mins, scales, qc)."""
     from pyrope_tpu_torch.kernels.build import check, load
 
     lib = load()
     b, d = q.shape
-    smem = lib.pyrope_list_scan_smem_bytes(d, k, int(sq8 is not None))
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"list scan needs {smem} B of shared memory (D={d}, k={k}), over "
-            f"the {SMEM_LIMIT} B a block may use")
+    mode = (LIST_SQ8 if sq8 is not None
+            else LIST_BF16 if slab.dtype == torch.bfloat16 else LIST_IVF)
+    if lib.pyrope_list_scan_smem_bytes(d, k, mode) != list_scan_smem_bytes(d, k, mode):
+        raise RuntimeError("list_scan_smem_bytes and ivf_list_scan.cu disagree")
+    why = list_scan_refusal(d, k, mode)
+    if why is not None:
+        raise ValueError(why)
     nprobe = probe.shape[1]
     if b == 0 or nprobe == 0:
         return _empty_hits(b, k, q.device)
@@ -521,8 +598,11 @@ def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
     part_v = torch.empty((w.slots, k), dtype=torch.float32, device=q.device)
     part_i = torch.empty((w.slots, k), dtype=torch.int32, device=q.device)
     qfloor = torch.zeros(b, dtype=torch.int64, device=q.device)  # 0: no floor yet
+    qsq = None
+    if mode == LIST_BF16 and not promote:
+        q, qsq = _bf16_query(q)
     vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0
-              and slab.data_ptr() % (4 if sq8 is not None else 16) == 0)
+              and slab.data_ptr() % (4 * _LIST_ELEM[mode]) == 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tables = (w.pairs.data_ptr(), nprobe, w.cstart.data_ptr(), w.ccnt.data_ptr(),
               w.item_end.data_ptr(), w.item_c.data_ptr(), w.slot_end.data_ptr(),
@@ -536,6 +616,11 @@ def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
             sqnorm.data_ptr(), alive.data_ptr(), qc.data_ptr(), qc.shape[1],
             *tables), "IVF list scan kernel (SQ8)")
         LAUNCHES["sq8_scan"] += 1
+    elif mode == LIST_BF16:
+        check(lib.pyrope_ivf_list_scan_bf16(
+            q.data_ptr(), slab.data_ptr(), None if qsq is None else qsq.data_ptr(),
+            sqnorm.data_ptr(), alive.data_ptr(), *tables), "IVF list scan kernel (BF16)")
+        LAUNCHES["ivf_scan_bf16"] += 1
     else:
         check(lib.pyrope_ivf_list_scan(
             q.data_ptr(), slab.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(),
@@ -545,11 +630,14 @@ def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
 
 
 def fused_ivf_topk(q, x, sqnorm, alive, crow, offsets, lens, probe, kp: int,
-                   k: int, metric=Metric.L2, *, max_len: int
+                   k: int, metric=Metric.L2, *, max_len: int,
+                   promote_fp32: bool = False
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """IVF scan + top-k over the probed lists (K2, with K3 folded in).
 
-    x [N, D] cluster-major f32 slab; crow [N] int32 cluster of each row
+    x [N, D] cluster-major f32 or bf16 slab (bf16: scored as bf16(q)·x, or
+    with ``promote_fp32`` as q·x in fp32; the identity on an fp32 slab);
+    sqnorm [N] f32 of the fp32 rows; crow [N] int32 cluster of each row
     (< kp); offsets, lens [kp] int32 the lists' CSR (cluster c's rows are
     offsets[c] .. offsets[c]+lens[c], matching crow); probe [B, nprobe]
     probed cluster ids (< kp, distinct in a row, as ``rank_probes`` gives
@@ -564,10 +652,10 @@ def fused_ivf_topk(q, x, sqnorm, alive, crow, offsets, lens, probe, kp: int,
     if not _check_inputs(q, x, sqnorm, alive, k, extra=(crow, offsets, lens)):
         _check_list_preconditions(probe, lens, max_len)
         return fused_ivf_topk_plain(q, x, sqnorm, alive, crow, probe, kp, k,
-                                    metric)
+                                    metric, promote_fp32=promote_fp32)
     check_fp32_exact(q)
     return _launch_list(q, x, sqnorm, alive, offsets, lens, probe, kp, k,
-                        metric_ip, max_len)
+                        metric_ip, max_len, promote=promote_fp32)
 
 
 def fused_ivf_sq8_topk(q, codes, mins, scales, sqnorm, alive, crow, offsets, lens,
@@ -595,7 +683,7 @@ def fused_ivf_sq8_topk(q, codes, mins, scales, sqnorm, alive, crow, offsets, len
         raise ValueError("mins, scales and qc must be float32")
     if not _check_inputs(q, codes, sqnorm, alive, k,
                          extra=(crow, offsets, lens, mins, scales, qc),
-                         slab_dtype=torch.uint8):
+                         slab_dtypes=(torch.uint8,)):
         _check_list_preconditions(probe, lens, max_len)
         return fused_ivf_sq8_topk_plain(q, codes, mins, scales, sqnorm, alive,
                                         crow, probe, qc, kp, k, metric)

@@ -1,8 +1,9 @@
 """Lloyd's k-means on the device (port of ``pyrope_tpu/ops/kmeans.py``).
 
 Each iteration scores a block of rows against the centroids (one fp32
-matmul), takes the argmax, and accumulates the centroid update as the JAX
-package does: a one-hot product [K, block] @ [block, D] in fp32
+matmul; with ``compute_dtype`` "bfloat16" the operands are rounded to bf16
+and summed in fp32, the JAX package's bf16 training), takes the argmax,
+and accumulates the centroid update in fp32 as the JAX package does: a one-hot product [K, block] @ [block, D] in fp32
 (``segment_sum``). A matmul sums in an order fixed by its shapes, so a
 build on the card gives the same centroids from the same seed every time;
 ``index_add_`` on a CUDA tensor adds with atomics in an unfixed order, and
@@ -77,10 +78,12 @@ def _init_cents(data: np.ndarray, x: torch.Tensor, k: int, seed: int,
 
 
 def _assign(x: torch.Tensor, cents: torch.Tensor, metric: Metric,
-            block: int) -> torch.Tensor:
-    """Nearest centroid per row in fp32, blocked. [N] int64."""
+            block: int, compute=None) -> torch.Tensor:
+    """Nearest centroid per row, blocked (the JAX package's
+    ``_assign_blocked``). [N] int64."""
     return torch.cat([
-        torch.argmax(score_matrix(x[s : s + block], cents, metric), dim=1)
+        torch.argmax(score_matrix(x[s : s + block], cents, metric,
+                                  compute_dtype=compute), dim=1)
         for s in range(0, x.shape[0], block)
     ])
 
@@ -95,7 +98,7 @@ def segment_sum(a: torch.Tensor, x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _lloyd(x: torch.Tensor, cents: torch.Tensor, metric: Metric, iters: int,
-           block: int) -> torch.Tensor:
+           block: int, compute=None) -> torch.Tensor:
     n, d = x.shape
     k = cents.shape[0]
     for _ in range(iters):
@@ -103,7 +106,7 @@ def _lloyd(x: torch.Tensor, cents: torch.Tensor, metric: Metric, iters: int,
         counts = torch.zeros(k, dtype=torch.float32, device=x.device)
         for s in range(0, n, block):
             xb = x[s : s + block].float()
-            a = torch.argmax(score_matrix(xb, cents, metric), dim=1)
+            a = torch.argmax(score_matrix(xb, cents, metric, compute_dtype=compute), dim=1)
             sums += segment_sum(a, xb, k)
             counts += torch.bincount(a, minlength=k).float()
         new = sums / torch.clamp(counts, min=1.0)[:, None]
@@ -130,12 +133,15 @@ def kmeans_train(
     iters: int = DEFAULT_ITERS,
     seed: int = 42,
     block: int = 65536,
+    compute_dtype: str | None = None,
     init: str = "kmeans++",
 ) -> np.ndarray:
-    """Train k centroids (k clipped to N). Returns [k, D] float32."""
+    """Train k centroids (k clipped to N). Returns [k, D] float32.
+    ``compute_dtype``: the Lloyd iterations' matmul dtype (None: fp32)."""
     metric, data, k, dev = _prepare(data, k, metric, device)
     x = _upload(data, dev)
-    cents = _lloyd(x, _init_cents(data, x, k, seed, init), metric, iters, block)
+    cents = _lloyd(x, _init_cents(data, x, k, seed, init), metric, iters, block,
+                   compute_dtype)
     return cents.cpu().numpy()
 
 
@@ -148,17 +154,22 @@ def kmeans_build(
     iters: int = DEFAULT_ITERS,
     seed: int = 42,
     block: int = 65536,
+    compute_dtype: str | None = None,
     init: str = "kmeans++",
 ) -> tuple[np.ndarray, np.ndarray, torch.Tensor]:
     """Single-upload train + assign for index builds: the corpus moves to
     the device once and that buffer serves the Lloyd iterations, the final
     assignment and (by the caller) the permuted search slab.
+    ``compute_dtype``: the Lloyd iterations' matmul dtype (None: fp32).
 
     Returns (centroids [k, D] fp32, assign [N] int32, x_dev [N, D])."""
     metric, data, k, dev = _prepare(data, k, metric, device)
     x = _upload(data, dev)
-    cents = _lloyd(x, _init_cents(data, x, k, seed, init), metric, iters, block)
-    # the final assignment is fp32, like the queries' centroid ranking
+    cents = _lloyd(x, _init_cents(data, x, k, seed, init), metric, iters, block,
+                   compute_dtype)
+    # the final assignment is fp32 whatever the training dtype, like the
+    # queries' centroid ranking (a bf16 assignment puts boundary rows in
+    # lists the probes do not rank first)
     assign = _assign(x, cents, metric, block)
     return cents.cpu().numpy(), assign.int().cpu().numpy(), x
 
@@ -170,6 +181,7 @@ def kmeans_assign(
     *,
     device="cuda",
     block: int = 65536,
+    compute_dtype: str | None = None,
 ) -> np.ndarray:
     """Nearest-centroid id per row, honoring the metric. Returns int32 [N]."""
     metric = Metric.parse(metric)
@@ -178,4 +190,5 @@ def kmeans_assign(
         return np.zeros(0, np.int32)
     dev = resolve_device(device)
     cents = _upload(np.asarray(centroids, np.float32), dev)
-    return _assign(_upload(data, dev), cents, metric, block).int().cpu().numpy()
+    return _assign(_upload(data, dev), cents, metric, block,
+                   compute_dtype).int().cpu().numpy()

@@ -12,8 +12,10 @@ Two training paths, as in the JAX package:
   - ``pq_train_encode_device``: all subspaces at once on a residual buffer
     already on the device, Lloyd's update as the deterministic one-hot
     ``segment_sum`` of ops/kmeans.py, batched over subspaces.
-Training and encoding run in fp32; the JAX package's bf16 training
-(``compute="bfloat16"``) is not yet ported and raises.
+Encoding runs in fp32; training too unless ``compute`` names a dtype
+("bfloat16": the nearest-codeword scores of the Lloyd iterations take
+operands rounded to bf16 with fp32 sums, the JAX package's bf16 training;
+the centroid sums stay fp32).
 
 The ADC accumulates are a gather per subspace, summed over subspaces in
 the JAX package's order. Its one-hot matmul form is a TPU device for the
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from pyrope_tpu_torch.types import Metric
-from pyrope_tpu_torch.ops.distance import check_fp32_exact
+from pyrope_tpu_torch.ops.distance import check_fp32_exact, rounded
 from pyrope_tpu_torch.ops.kmeans import kmeans_assign, kmeans_train, segment_sum
 
 
@@ -102,16 +104,17 @@ class ProductQuantizer:
 
 
 def _nearest_codes(xblk: torch.Tensor, cents: torch.Tensor,
-                   cc: torch.Tensor) -> torch.Tensor:
+                   cc: torch.Tensor, compute=None) -> torch.Tensor:
     """Nearest sub-centroid of every subspace: xblk [B, M, S], cents
     [M, K, S], cc [M, K] = ||c||^2 -> [M, B] int64. The score 2q.c - ||c||^2
-    has its argmax at the L2 argmin (ties to the lower code)."""
-    d = torch.einsum("bms,mks->mbk", xblk, cents)
+    has its argmax at the L2 argmin (ties to the lower code); ``compute``:
+    the dtype the dot's operands are rounded to (None: fp32)."""
+    d = torch.einsum("bms,mks->mbk", rounded(xblk, compute), rounded(cents, compute))
     return torch.argmax(2.0 * d - cc[:, None, :], dim=-1)
 
 
 def _pq_lloyd(x: torch.Tensor, cents: torch.Tensor, iters: int,
-              block: int) -> torch.Tensor:
+              block: int, compute=None) -> torch.Tensor:
     """Batched Lloyd over all subspaces: x [N, M, S] (valid rows only),
     cents [M, K, S] -> [M, K, S]. An empty code keeps its codeword."""
     n, m, _ = x.shape
@@ -123,7 +126,7 @@ def _pq_lloyd(x: torch.Tensor, cents: torch.Tensor, iters: int,
         counts = torch.zeros(m * k, dtype=torch.float32, device=x.device)
         for s in range(0, n, block):
             xblk = x[s : s + block]
-            a = _nearest_codes(xblk, cents, cc)                  # [M, B]
+            a = _nearest_codes(xblk, cents, cc, compute)         # [M, B]
             sums += segment_sum(a, xblk.transpose(0, 1), k)      # [M, K, S]
             counts += torch.bincount((a + offs).reshape(-1), minlength=m * k).float()
         counts = counts.view(m, k)
@@ -158,11 +161,10 @@ def pq_train_encode_device(
     to the host. Requires n >= ksub.
 
     Returns (codebooks [m, ksub, sub] numpy, codes [N, m] int32 on the
-    device, for every row of ``r_dev``). ``compute`` is the JAX package's
-    training dtype: only None (fp32) is ported. Unlike the JAX function,
-    whose default is "bfloat16", the default here is None."""
-    if compute is not None:
-        raise NotImplementedError(f"PQ training compute={compute!r} not yet ported")
+    device, for every row of ``r_dev``). ``compute`` is the training dtype
+    of the Lloyd iterations (None: fp32; "bfloat16"); the codes are always
+    encoded in fp32. Unlike the JAX function, whose default is "bfloat16",
+    the default here is None: the indexes pass their ``train_dtype``."""
     m, ksub, sub = pq.m, pq.ksub, pq.sub
     check_fp32_exact(r_dev)
     x = r_dev.float().reshape(r_dev.shape[0], m, sub)
@@ -173,7 +175,7 @@ def pq_train_encode_device(
     ])                                                        # [m, ksub]
     rows = torch.from_numpy(init_rows).to(x.device)
     cents0 = x[rows, torch.arange(m, device=x.device)[:, None], :]  # [m, ksub, sub]
-    cents = _pq_lloyd(x[:n], cents0, iters, block)
+    cents = _pq_lloyd(x[:n], cents0, iters, block, compute)
     # the stored codes are the index's truth: always encoded in fp32
     codes = _pq_encode(x, cents, block)
     return cents.cpu().numpy(), codes

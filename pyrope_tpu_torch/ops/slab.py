@@ -45,12 +45,13 @@ def take_slab(x: torch.Tensor, idx: torch.Tensor) -> tuple[torch.Tensor, torch.T
 
 def take_slab_cast(x: torch.Tensor, idx: torch.Tensor, *,
                    dtype: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """Permuted slab stored as ``dtype`` + fp32 sqnorms of the rows before
-    the cast. Only float32 is ported: the scan kernel takes no bf16 slab
-    yet."""
-    if dtype != "float32":
-        raise NotImplementedError(f"slab dtype {dtype!r} not yet ported")
-    return take_slab(x, idx)
+    """Permuted slab stored as ``dtype`` ("float32" or "bfloat16") + fp32
+    sqnorms of the rows before the cast, so L2 off a bf16 slab is exact up
+    to the stored row's rounding."""
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"slab dtype must be float32|bfloat16, got {dtype!r}")
+    xp, sq = take_slab(x, idx)
+    return (xp.bfloat16() if dtype == "bfloat16" else xp), sq
 
 
 def sq8res_encode(xf: torch.Tensor, cents: torch.Tensor, crow: torch.Tensor

@@ -91,8 +91,10 @@ def test_snapshot_crosses_both_ways(tmp_path):
 
 
 def test_not_yet_ported_options_raise():
-    for kw in ({"storage": "bf16"}, {"storage": "sq8"}, {"selection": "hybrid"}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            FlatIndex(8, "L2", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        FlatIndex(8, "L2", device="cpu", storage="sq8")
+    # the hybrid route reranks off an fp32 slab, as in the JAX package
+    with pytest.raises(ValueError, match="fp32"):
+        FlatIndex(8, "L2", device="cpu", storage="bf16", selection="hybrid")
     with pytest.raises(ValueError):
         FlatIndex(8, "L2", device="cpu", storage="fp16")

@@ -204,8 +204,8 @@ def test_wrapper_validation():
         fs.fused_flat_topk(q, x, sq, alive, 64, 5, "COSINE")
     with pytest.raises(ValueError, match="k must be"):
         fs.fused_flat_topk(q, x, sq, alive, 64, fs.MAX_K + 1)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        fs.fused_flat_topk(q, x.bfloat16(), sq, alive, 64, 5)
+    with pytest.raises(ValueError, match="slab dtype"):
+        fs.fused_flat_topk(q, x.half(), sq, alive, 64, 5)
     codes, crow = torch.zeros((64, 8), dtype=torch.uint8), torch.zeros(64, dtype=torch.int32)
     probe, qc = torch.zeros((4, 2), dtype=torch.int64), torch.zeros((4, 8))
     offs, lens = fs.list_csr(crow, 8)

@@ -150,7 +150,8 @@ def test_mutations_buffer_and_rebuild():
 
 
 def test_not_yet_ported_options_raise():
-    with pytest.raises(NotImplementedError):
-        IvfFlatIndex(8, "L2", device="cpu", selection="hybrid")
+    # hybrid reranks in fp32, as in the JAX package
+    with pytest.raises(ValueError, match="compute_dtype"):
+        IvfFlatIndex(8, "L2", device="cpu", selection="hybrid", compute_dtype="bfloat16")
     with pytest.raises(ValueError):
         IvfFlatIndex(8, "L2", device="cpu", scan_mode="sparse")

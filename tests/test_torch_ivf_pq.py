@@ -201,10 +201,8 @@ def test_tiny_corpus_takes_the_host_pq_path():
 
 
 def test_not_yet_ported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        IvfPqIndex(8, "L2", device="cpu", refine_storage="bf16")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        IvfPqIndex(8, "L2", device="cpu", train_dtype="bfloat16")
+    ix = IvfPqIndex(8, "L2", device="cpu", refine_storage="bf16", train_dtype="bfloat16")
+    assert (ix.refine_storage, ix.train_dtype) == ("bf16", "bfloat16")
     with pytest.raises(ValueError):
         IvfPqIndex(8, "L2", device="cpu", refine_storage="int4")
     with pytest.raises(ValueError):
@@ -214,5 +212,5 @@ def test_not_yet_ported_options_raise(tmp_path):
             IvfPqIndex(8, "L2")
     jix = jpt.IvfPqIndex(8, "L2", refine_storage="bf16")
     jix.snapshot(str(tmp_path / "bf16.npz"))
-    with np.load(tmp_path / "bf16.npz") as z, pytest.raises(NotImplementedError):
-        convert.ivf_pq_from_arrays(z, "cpu")
+    with np.load(tmp_path / "bf16.npz") as z:
+        assert convert.ivf_pq_from_arrays(z, "cpu").refine_storage == "bf16"

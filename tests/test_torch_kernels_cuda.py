@@ -11,7 +11,10 @@ Both sides compute in fp32 (TF32 off) with a different summation order:
 hit sets must be equal, scores within rtol 1e-5 / atol 1e-4 (the SQ8 scan:
 the JAX package's SQ8 tolerance, rtol 1e-4 / atol 1e-4; see _torch_parity).
 The builds on the card are deterministic: two from one seed give bit-equal
-centroids, codebooks and codes.
+centroids, codebooks and codes. The bf16 slab modes are held to the same
+tolerance against their plain versions (exact products of bf16 values,
+fp32 sums in another order); scores rounded to bf16 tie more often, so a
+hit may differ there only as a k-th place tie.
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ import torch
 from _torch_parity import (
     SQ8_RTOL,
     as_tensor,
+    assert_hits_but_kth_ties,
     assert_same_hits,
     assert_same_results,
     csr,
@@ -33,7 +37,7 @@ from _torch_parity import (
 )
 
 from pyrope_tpu_torch.ops import fused_scan as fs
-from pyrope_tpu_torch.types import Metric
+from pyrope_tpu_torch.types import Metric, SearchOptions
 
 
 @pytest.fixture
@@ -450,3 +454,202 @@ def test_merge_kernel_layouts_vs_plain(cuda_device, s, k):
     kv, ki = fs.merge_partials(sv.to(cuda_device), si.to(cuda_device), qend.to(cuda_device))
     np.testing.assert_array_equal(ki.cpu().numpy(), mi.numpy())
     np.testing.assert_array_equal(kv.cpu().numpy(), mv.numpy())
+
+
+# ---- the bf16 slab modes (flat scan, list scan with and without promote) ----
+
+
+def _bf16_flat_inputs(dev, seed, n, b, d, dead=0.0):
+    q, x, sq, alive = _flat_inputs(dev, seed, n, b, d, dead)
+    return q, x.bfloat16(), sq, alive   # sqnorm of the fp32 rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 37, 100, 128, 384])   # 37, 100: plain-load staging
+@pytest.mark.parametrize("b", [1, 70, 257])
+def test_flat_bf16_vs_plain(cuda_device, d, b):
+    n = 20_001
+    args = _bf16_flat_inputs(cuda_device, 80 + d, n, b, d, dead=0.2)
+    for k in (1, 10, 64, 128):
+        assert fs.flat_tile(d, k, b, 2)[0] in fs.FLAT_QUERY_TILES
+        for metric in (Metric.L2, Metric.INNER_PRODUCT):
+            before = dict(fs.LAUNCHES)
+            kv, ki = fs.fused_flat_topk(*args, n - 77, k, metric)
+            assert fs.LAUNCHES["flat_scan_bf16"] == before["flat_scan_bf16"] + 1
+            assert fs.LAUNCHES["flat_scan"] == before["flat_scan"]
+            pv, pi = fs.fused_flat_topk_plain(*args, n - 77, k, metric)
+            torch.cuda.synchronize()
+            assert_hits_but_kth_ties(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 64])
+def test_flat_bf16_duplicates_and_bit_equal_launches(cuda_device, k):
+    n, d, b = 30_000, 64, 200
+    x, q, sq, alive = flat_case(62, n, b, d)
+    x[129] = x[130] = x[25_000] = x[64]       # exact ties in a tile, across splits
+    sq = np.einsum("nd,nd->n", x, x).astype(np.float32)
+    q[0] = x[64]
+    tq, tsq, tal = (as_tensor(a).to(cuda_device) for a in (q, sq, alive))
+    tx = as_tensor(x).to(cuda_device).bfloat16()
+    runs = [fs.fused_flat_topk(tq, tx, tsq, tal, n, k) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert runs[0][1][0, :4].tolist() == [64, 129, 130, 25_000]
+    pv, pi = fs.fused_flat_topk_plain(tq, tx, tsq, tal, n, k)
+    assert_hits_but_kth_ties(runs[0][0].cpu(), runs[0][1].cpu(), pv.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("promote", [False, True])
+@pytest.mark.parametrize("d", [16, 30, 100, 128, 384])   # 30: the plain-load staging
+@pytest.mark.parametrize("name", sorted(LIST_CASES))
+def test_bf16_list_scan_vs_plain(cuda_device, name, d, promote):
+    _, (x, q, sq, alive, crow, probe), offs, lens, k = _list_inputs(name, cuda_device, d)
+    x16 = x.bfloat16()
+    for metric in (Metric.L2, Metric.INNER_PRODUCT):
+        before = dict(fs.LAUNCHES)
+        kv, ki = fs.fused_ivf_topk(q, x16, sq, alive, crow, offs, lens, probe, 128, k,
+                                   metric, max_len=int(lens.max()), promote_fp32=promote)
+        assert fs.LAUNCHES["ivf_scan_bf16"] == before["ivf_scan_bf16"] + 1
+        assert fs.LAUNCHES["ivf_scan"] == before["ivf_scan"]
+        pv, pi = fs.fused_ivf_topk_plain(q, x16, sq, alive, crow, probe, 128, k, metric,
+                                         promote_fp32=promote)
+        torch.cuda.synchronize()
+        assert_hits_but_kth_ties(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 70, 257])
+@pytest.mark.parametrize("k", [1, 10, 64, 128])
+def test_bf16_list_scan_batches_k_and_bit_equal_launches(cuda_device, b, k):
+    case = list_case(23, 20_000, b, 128, 128, 5, dead=0.1, dup=True)
+    x, q, sq, alive, crow, probe = (as_tensor(a).to(cuda_device) for a in case)
+    offs, lens = (t.to(cuda_device) for t in csr(case[4], 128))
+    x16 = x.bfloat16()
+    for promote in (False, True):
+        runs = [fs.fused_ivf_topk(q, x16, sq, alive, crow, offs, lens, probe, 128, k,
+                                  max_len=int(lens.max()), promote_fp32=promote)
+                for _ in range(2)]
+        pv, pi = fs.fused_ivf_topk_plain(q, x16, sq, alive, crow, probe, 128, k,
+                                         promote_fp32=promote)
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+        assert_hits_but_kth_ties(runs[0][0].cpu(), runs[0][1].cpu(), pv.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+def test_smem_formulas_match_the_library(cuda_device):
+    """The routes decide from the Python formulas which shapes the kernels
+    take; they must equal the sources' own."""
+    from pyrope_tpu_torch.kernels.build import load
+
+    lib = load()
+    for d in (1, 16, 30, 128, 384, 565, 566, 600, 768, 1024):
+        for k in (1, 10, 64, 128):
+            for mode in (fs.LIST_IVF, fs.LIST_SQ8, fs.LIST_BF16):
+                assert (lib.pyrope_list_scan_smem_bytes(d, k, mode)
+                        == fs.list_scan_smem_bytes(d, k, mode)), (d, k, mode)
+    for k in (1, 10, 64, 100, 128):
+        for tile in fs.FLAT_QUERY_TILES:
+            for elem in (4, 2):
+                assert (lib.pyrope_scan_smem_bytes(k, tile, elem)
+                        == fs.flat_scan_smem_bytes(k, tile, elem)), (k, tile, elem)
+    assert fs.list_scan_smem_bytes(768, 10, fs.LIST_IVF) == 287_488
+    assert fs.list_scan_refusal(768, 10, fs.LIST_IVF) is not None
+
+
+@pytest.mark.cuda
+def test_k200_and_d768_routes_answer_on_the_card(cuda_device):
+    """Shapes the list scan does not take route to the plain dense scan
+    (decided on the host, shown by describe_scan), and answer as the
+    index's exact route does; explicit 'pallas' raises naming the limit."""
+    from pyrope_tpu_torch.index.flat import FlatIndex
+    from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex
+    from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
+
+    rng = np.random.default_rng(31)
+    for d, k in ((768, 10), (32, 200)):
+        base = rng.normal(size=(4_000, d)).astype(np.float32)
+        q = rng.normal(size=(16, d)).astype(np.float32)
+        ids = [str(i) for i in range(len(base))]
+        ix = IvfFlatIndex(d, "L2", device=cuda_device, nlist=16, nprobe=4)
+        ix.add_batch(ids, base)
+        ix.build()
+        assert ix.describe_scan(16, top_k=k) == "dense-xla"
+        got = ix.search_batch(q, k)
+        ix.selection = "exact"
+        assert_same_results(got, ix.search_batch(q, k))
+        ix.selection = "pallas"
+        with pytest.raises(ValueError, match="ROADMAP.md queue 2 item"):
+            ix.search_batch(q, k)
+        pq = IvfPqIndex(d, "L2", device=cuda_device, nlist=16, pq_m=4, nprobe=4)
+        pq.add_batch(ids, base)
+        pq.build()
+        assert pq.describe_scan(16, top_k=k) == "dense-exact-xla"
+        assert len(pq.search_batch(q, k)[0]) == k
+    flat = FlatIndex(32, "L2", device=cuda_device, selection="pallas")
+    flat.add_batch(ids, base)
+    with pytest.raises(ValueError, match="ROADMAP.md queue 2 item B"):
+        flat.search_batch(q, 200)
+
+
+@pytest.mark.cuda
+def test_bf16_index_routes_launch_their_kernels(cuda_device):
+    """Flat bf16 and hybrid, IVF-Flat hybrid and IVF-PQ's bf16 slab on the
+    card: each route launches its bf16 kernel and returns the hits of the
+    index's fp32 or plain route on the same data, but for k-th place ties."""
+    from pyrope_tpu_torch.index.flat import FlatIndex
+    from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex
+    from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
+
+    rng = np.random.default_rng(32)
+    base = rng.normal(size=(20_000, 32)).astype(np.float32)
+    q = rng.normal(size=(64, 32)).astype(np.float32)
+    ids = [str(i) for i in range(len(base))]
+
+    def run(ix, key, batch_q=q):
+        before = fs.LAUNCHES[key]
+        out = ix.search_batch(batch_q, 10)
+        assert fs.LAUNCHES[key] > before, key
+        return out
+
+    hyb = FlatIndex(32, "L2", device=cuda_device, selection="hybrid")
+    hyb.add_batch(ids, base)
+    assert hyb.describe_scan(64) == "flat-pallas-hybrid"
+    got = run(hyb, "flat_scan_bf16")
+    hyb.selection = "exact"
+    assert_same_results(got, hyb.search_batch(q, 10))
+    bf, cpu = (FlatIndex(32, "L2", device=dev, storage="bf16", selection="pallas")
+               for dev in (cuda_device, "cpu"))
+    for ix in (bf, cpu):
+        ix.add_batch(ids, base)
+    got = run(bf, "flat_scan_bf16")   # against the plain version on the CPU
+    assert_hits_but_kth_ties(*_arrays(got), *_arrays(cpu.search_batch(q, 10)))
+
+    ivf = IvfFlatIndex(32, "L2", device=cuda_device, nlist=600, nprobe=20,
+                       scan_mode="dense", selection="hybrid")
+    ivf.add_batch(ids, base)
+    ivf.build()
+    assert ivf.describe_scan(64) == "dense-pallas-win-hybrid"
+    got = run(ivf, "ivf_scan_bf16")
+    wide = np.concatenate([q, rng.normal(size=(1024 - 64, 32)).astype(np.float32)])
+    assert ivf.describe_scan(1024) == "dense-pallas-win"
+    assert_same_results(got, run(ivf, "ivf_scan", wide)[:64])
+
+    pq = IvfPqIndex(32, "L2", device=cuda_device, nlist=16, pq_m=4, nprobe=4,
+                    refine_storage="bf16", train_dtype="bfloat16")
+    pq.add_batch(ids, base)
+    pq.build()
+    assert pq._dev["xraw"].dtype == torch.bfloat16
+    assert pq.describe_scan(64) == "dense-exact-pallas"
+    got = run(pq, "ivf_scan_bf16")
+    plain = pq.search_batch(q, 10, SearchOptions(max_scans=len(base) - 1))
+    assert pq.describe_scan(64, max_scans=len(base) - 1) == "dense-exact-xla"
+    assert_hits_but_kth_ties(*_arrays(got), *_arrays(plain))
+
+
+def _arrays(results):
+    from _torch_parity import hits_to_arrays
+
+    return hits_to_arrays(results)

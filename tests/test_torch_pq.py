@@ -62,9 +62,14 @@ def test_pq_train_encode_device_vs_jax(n, d, m, ksub):
 
 
 def test_pq_bf16_training_not_yet_ported():
+    # bf16 training is ported (held against the JAX package in
+    # test_torch_bf16_ops.py); an unknown dtype still raises
     pq = tpq.ProductQuantizer(m=4, ksub=16, dim=16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpq.pq_train_encode_device(torch.zeros(64, 16), 64, pq, compute="bfloat16")
+    cb, codes = tpq.pq_train_encode_device(torch.from_numpy(_residuals(3, 64, 16)), 64,
+                                           pq, compute="bfloat16")
+    assert cb.shape == (4, 16, 4) and codes.shape == (64, 4)
+    with pytest.raises(ValueError, match="compute dtype"):
+        tpq.pq_train_encode_device(torch.zeros(64, 16), 64, pq, compute="int8")
 
 
 @pytest.mark.parametrize("n", [300, 100])  # n < ksub: the last codeword fills the rest
@@ -206,8 +211,14 @@ def test_take_rows_and_cast_vs_jax():
     tx, tsq = tslab.take_slab_cast(as_tensor(x), tidx, dtype="float32")
     np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
     np.testing.assert_allclose(tsq.numpy(), np.asarray(jsq), rtol=RTOL, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tslab.take_slab_cast(as_tensor(x), tidx, dtype="bfloat16")
+    # bf16: rounded to nearest-even on both sides, bit for bit
+    jx16, jsq16 = jslab.take_slab_cast(jnp.asarray(x), jidx, dtype="bfloat16")
+    tx16, tsq16 = tslab.take_slab_cast(as_tensor(x), tidx, dtype="bfloat16")
+    assert tx16.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        tx16.view(torch.int16).numpy(),
+        torch.from_numpy(np.asarray(jx16.astype(jnp.float32))).bfloat16().view(torch.int16).numpy())
+    np.testing.assert_allclose(tsq16.numpy(), np.asarray(jsq16), rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT, Metric.COSINE])
