@@ -4,7 +4,8 @@
     python3 chip_smoke.py          # from the repo root, on a host with a GPU
 
 Builds the CUDA kernels from pyrope_tpu_torch/csrc at first use, then runs
-twelve phases, one line each (phase 8 two); any failed check exits non-zero:
+fourteen phases, one line each (phase 8 two); any failed check exits
+non-zero. Each serving path's wall time and the total are printed:
 
   1. device    torch/CUDA versions, the card's name and power limit
   2. build     nvcc build time, registers and spills per kernel
@@ -30,7 +31,15 @@ twelve phases, one line each (phase 8 two); any failed check exits non-zero:
                nprobe 3, b64, k 10), each beside the composition, the bare
                bf16 q16 @ x16.T, and its bound (bf16 rows over the memory
                rate against the bf16 tensor-core peak, or the fp32 peak with
-               promote)
+               promote); the wide modes (k > 128), each beside the
+               composition and its bound: the flat scan fp32 at b1024 k 1000
+               and b64 k 10,000, bf16 at b256 k 512; the list scan at k 1000
+               in both layouts (1M nlist 1000 np3 b1024; 100k nlist 100 np96
+               b1024), bf16 without promote at 100k np96 b256 k 512, with
+               promote at 1M np3 b64 k 200, SQ8 at 100k np96 b1024 k 200; the
+               wide merge on the flat path's [1024, 33, 1000] and on the list
+               scan's slots; and the list scan at D 768 (1M clustered rows,
+               nlist 1000, np3, b1024, k 10), IVF and SQ8 modes
   4. slice     create_index(IVF_FLAT, nlist 1000, nprobe 3, dense) on 1M x
                128 clustered rows through the registry's Delta(Flat,
                IVF_FLAT): add_batch, build (compaction -> k-means -> slab),
@@ -40,9 +49,12 @@ twelve phases, one line each (phase 8 two); any failed check exits non-zero:
                times, and a torch.profiler trace of 40 pipelined b1024
                device_search batches (device idle share, kernel shares)
   5. narrow    IvfFlatIndex nlist 100, nprobe 96 on 100k uniform rows,
-               b4096: route dense-pallas, recall@10 within 0.005 of 0.9972
+               b4096: route dense-pallas, recall@10 within 0.005 of 0.9972;
+               selection="pallas" at k 200 (the wide list scan), held
+               against the plain list scan
   6. flat      FlatIndex(selection="pallas") on 1M uniform rows, b1024:
-               exact, recall@10 1.0
+               exact, recall@10 1.0; k 200 (the wide flat scan) held against
+               the plain scan
   7. pq        create_index(IVF_PQ, nlist 1000, pq_m 16, ksub 256,
                refine_storage sq8res) on the same 1M clustered rows through
                Delta(Flat, IVF_PQ): add_batch, build; route
@@ -54,7 +66,8 @@ twelve phases, one line each (phase 8 two); any failed check exits non-zero:
                index in probe mode (probe-adc+rerank-sq8, the ADC path);
                the registry default fp32 rerank slab (dense-exact-pallas,
                the IVF kernel); and a second build from the same seed with
-               bit-equal centroids, codebooks, PQ codes and SQ8 codes
+               bit-equal centroids, codebooks, PQ codes and SQ8 codes; k 200
+               (the wide SQ8 list scan) against the plain route's hits
   9. flat bf16 FlatIndex(storage="bf16", selection="pallas") on phase 6's
                1M uniform rows (flat1m_pallas): route flat-pallas, the bf16
                flat scan; recall@10 of b1024 within 0.005 of 0.9817, b64's
@@ -68,17 +81,29 @@ twelve phases, one line each (phase 8 two); any failed check exits non-zero:
                (ivf1m_np256_hybrid_b256, dense-pallas-win-hybrid), b256:
                hits equal the fp32 list scan's on the same queries (sent
                inside a b1024 batch, above HYBRID_MAX_BATCH), but for k-th
-               place ties
+               place ties; the 100k index also at k 100 (R 512: the list
+               scan's wide bf16 mode) against the fp32 list scan at k 100
  12. pq bf16   create_index(IVF_PQ, nlist 1000, pq_m 16, ksub 256,
                refine_storage bf16), bf16 training, on phase 4's clustered
                rows (ivfpq1m_bf16slab): route dense-exact-pallas-win at b64
                (the bf16 list scan with promote), a 256,000,000-byte slab,
-               recall@10 of 1024 queries within 0.03 of 0.725
+               recall@10 of 1024 queries within 0.03 of 0.725; k 200 (its
+               wide mode) against the plain route's hits
+ 13. flat hybrid k100 FlatIndex(selection="hybrid") on phase 6's rows
+               (flat1m_hybrid_k100): b256, k 100, route flat-pallas-hybrid
+               at R 512 (the wide bf16 flat scan), recall@100 1.0 with no
+               miss beyond fp32 ties (truth in float64 on the card); QPS
+ 14. ivf d768  IvfFlatIndex nlist 1000, bf16 training, default nprobe, on
+               synthetic_clustered(1M, 768, 1000 centers) (ivf1m_d768_b1024):
+               route dense-pallas-win (the list scan with q streamed by
+               depth), recall@10 >= 0.9894 (the reference's 0.9994 less
+               0.01); build_s, QPS, p50/p99, device bytes
 
 The kernels' launch counters are zeroed before each serving path (phases
-4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9, 10, 11 and
-12, one path each) and read after it: every kernel of a path must have run
-on it. The last three lines are the
+4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-14, one path
+each) and read after it: every kernel of a path must have run on it, the
+wide modes (the ``_wide`` counters) on the paths that ask for k > 128 or
+R > 128. The last three lines are the
 kernels' JSON record, the card as nvidia-smi names it, and
 {"ok": true, "device": {...}}.
 """
@@ -94,7 +119,7 @@ import time
 import numpy as np
 import torch
 
-from pyrope_tpu_torch.types import IndexConfig, IndexParams, Metric
+from pyrope_tpu_torch.types import IndexConfig, IndexParams, Metric, SearchOptions
 from pyrope_tpu_torch.utils.datasets import (
     ground_truth,
     id_lists_to_rows,
@@ -175,44 +200,44 @@ def recall(results, truth, top_k=K) -> float:
     return recall_at_k(rows, truth, top_k)
 
 
-def serve(ix, q_dev: list[torch.Tensor], iters: int) -> dict:
+def serve(ix, q_dev: list[torch.Tensor], iters: int, k: int = K) -> dict:
     """Pipelined device_search throughput (one synchronize at the end) and
     blocking per-batch latency including the rows' fetch to the host."""
     b = q_dev[0].shape[0]
-    ix.device_search(q_dev[0], K)
+    ix.device_search(q_dev[0], k)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = [ix.device_search(q_dev[i % len(q_dev)], K) for i in range(iters)]
+    outs = [ix.device_search(q_dev[i % len(q_dev)], k) for i in range(iters)]
     torch.cuda.synchronize()
     qps = iters * b / (time.perf_counter() - t0)
     del outs
     lat = []
     for i in range(30):
         t0 = time.perf_counter()
-        ix.device_search(q_dev[i % len(q_dev)], K)[1].cpu()
+        ix.device_search(q_dev[i % len(q_dev)], k)[1].cpu()
         lat.append((time.perf_counter() - t0) * 1e3)
     s = LatencySummary.from_samples(lat)
     return {"qps": round(qps, 1), "p50_ms": round(s.p50_ms, 3),
             "p99_ms": round(s.p99_ms, 3)}
 
 
-def exact_misses_are_ties(ix, base, queries, truth, batch=None) -> tuple[float, int]:
-    """Recall against float64 ground truth, and the number of misses that
+def exact_misses_are_ties(ix, base, queries, truth, batch=None, k=K) -> tuple[float, int]:
+    """Recall@k against float64 ground truth, and the number of misses that
     are not fp32 ties at the k-th place (float64 distance of the returned
     row within 1e-4 of the true k-th distance). ``batch``: search_batch in
     batches of that many queries (None: all at once)."""
     step = batch or len(queries)
     results = [r for s in range(0, len(queries), step)
-               for r in ix.search_batch(queries[s:s + step], K)]
-    rows = id_lists_to_rows([[h.id for h in r] for r in results], K)
-    rec = recall_at_k(rows, truth, K)
+               for r in ix.search_batch(queries[s:s + step], k)]
+    rows = id_lists_to_rows([[h.id for h in r] for r in results], k)
+    rec = recall_at_k(rows, truth, k)
     bad = 0
     for b in range(len(queries)):
         extra = set(rows[b]) - set(truth[b])
         if not extra:
             continue
         d = lambda r: float(np.sum((base[r].astype(np.float64) - queries[b]) ** 2))
-        kth = d(truth[b][K - 1])
+        kth = d(truth[b][k - 1])
         bad += sum(abs(d(r) - kth) > ATOL for r in extra)
     return rec, bad
 
@@ -341,12 +366,16 @@ def phase_kernels(dev) -> dict:
     alive = torch.rand(n, generator=g, device=dev) > 0.01
     q = torch.rand((b, d), generator=g, device=dev)
     rec = {kind: {"err": 0.0}
-           for kind in ("flat", "ivf", "sq8", "merge", "flat_bf16", "ivf_bf16", "ivf_bf16p")}
+           for kind in ("flat", "ivf", "sq8", "merge", "flat_bf16", "ivf_bf16", "ivf_bf16p",
+                        "flat_wide", "flat_bf16_wide", "ivf_wide", "ivf_bf16_wide",
+                        "ivf_bf16p_wide", "sq8_wide", "ivf_large_d", "sq8_large_d",
+                        "merge_wide")}
     cells = []
 
     def case(kind, name, kern, plain, reps=10, plain_reps=3, main=False, comp=None,
              bnd=None, lib=None):
-        err, swaps = compare(kern(), plain(), name, SQ8_RTOL if kind == "sq8" else RTOL)
+        err, swaps = compare(kern(), plain(), name,
+                             SQ8_RTOL if kind.startswith("sq8") else RTOL)
         rec[kind]["err"] = max(rec[kind]["err"], err)
         ms, pms = cuda_ms(kern, reps), cuda_ms(plain, plain_reps)
         cms = cuda_ms(comp, plain_reps) if comp is not None else None
@@ -393,41 +422,43 @@ def phase_kernels(dev) -> dict:
         del xv, sqv, alv
 
     def ivf_case(name, qv, xv, sqv, alv, lay, kp, probe, k=K, main=False, reps=10,
-                 comp=False):
+                 comp=False, kind="ivf", plain_reps=3):
         crow, offs, lens, ml = lay
-        bnd = list_bound(d * 4 + 5, qv, probe, lens, alv, crow, kp, k)
-        case("ivf", name,
+        bnd = list_bound(xv.shape[1] * 4 + 5, qv, probe, lens, alv, crow, kp, k)
+        case(kind, name,
              lambda: fs.fused_ivf_topk(qv, xv, sqv, alv, crow, offs, lens, probe, kp, k,
                                        max_len=ml),
              lambda: fs.fused_ivf_topk_plain(qv, xv, sqv, alv, crow, probe, kp, k,
                                              chunk_rows=65536),
-             reps=reps, main=main, comp=(lambda: composition_topk(
+             reps=reps, plain_reps=plain_reps, main=main, comp=(lambda: composition_topk(
                  l2_or_ip(qv, qv @ xv.T, sqv, False),
                  fs.probe_table(probe, kp)[:, crow.long()] & alv[None, :], k))
              if main or comp else None, bnd=bnd)
         if main:
-            rec["ivf"]["bound"] = bnd
+            rec[kind]["bound"] = bnd
 
     def sq8_case(name, qv, xv, alv, lay, kp, probe, metric="L2", k=K, main=False,
-                 reps=10, comp=False):
+                 reps=10, comp=False, kind="sq8", cents=None, plain_reps=3):
         crow, offs, lens, ml = lay
-        cents = xv[torch.randint(0, xv.shape[0], (kp,), generator=g, device=dev)]
+        if cents is None:
+            cents = xv[torch.randint(0, xv.shape[0], (kp,), generator=g, device=dev)]
         codes, mins, scales, sq8 = sq8res_encode(xv, cents, crow)
         qc = qv @ cents.T
         ip = metric == "IP"
-        bnd = list_bound(d + 13, qv, probe, lens, alv, crow, kp, k, extra=probe.numel() * 4)
-        case("sq8", f"{name}_{metric}",
+        bnd = list_bound(xv.shape[1] + 13, qv, probe, lens, alv, crow, kp, k,
+                         extra=probe.numel() * 4)
+        case(kind, f"{name}_{metric}",
              lambda: fs.fused_ivf_sq8_topk(qv, codes, mins, scales, sq8, alv, crow, offs,
                                            lens, probe, qc, kp, k, metric, max_len=ml),
              lambda: fs.fused_ivf_sq8_topk_plain(qv, codes, mins, scales, sq8, alv, crow,
                                                  probe, qc, kp, k, metric,
                                                  chunk_rows=65536),
-             reps=reps, main=main, comp=(lambda: composition_topk(
+             reps=reps, plain_reps=plain_reps, main=main, comp=(lambda: composition_topk(
                  fs.sq8_scores(qv, qc, codes, mins, scales, sq8, crow, ip),
                  fs.probe_table(probe, kp)[:, crow.long()] & alv[None, :], k))
              if main or comp else None, bnd=bnd)
         if main:
-            rec["sq8"]["bound"] = bnd
+            rec[kind]["bound"] = bnd
 
     kp = 1000
     lay = layout(n, kp, g, dev)
@@ -536,6 +567,59 @@ def phase_kernels(dev) -> dict:
          comp=lambda: composition_topk(
              l2_or_ip(q4, q4 @ x16.float().T, sq, False),
              fs.probe_table(p4, kp)[:, lay[0].long()] & alive[None, :], K))
+
+    # ---- the wide modes (k > 128): flat scan, list scan in every mode ----
+    for kind, name, bv, k, xs in (
+            ("flat_wide", "flat_wide_1M_b1024_k1000", b, 1000, x),
+            ("flat_bf16_wide", "flat_bf16_wide_1M_b256_k512", 256, 512, x16),
+            ("flat_wide", "flat_wide_1M_b64_k10000", 64, 10_000, x)):
+        qv = q[:bv].contiguous()
+        bf = xs.dtype == torch.bfloat16
+        main = name in ("flat_wide_1M_b1024_k1000", "flat_bf16_wide_1M_b256_k512")
+        bnd = bound(n * (d * xs.element_size() + 5) + bv * d * 4 + bv * k * 8,
+                    2.0 * bv * live * d, BF16_FLOP_S if bf else FP32_FLOP_S)
+        if main:
+            rec[kind]["bound"] = bnd
+        case(kind, name,
+             lambda: fs.fused_flat_topk(qv, xs, sq, alive, n, k),
+             lambda: fs.fused_flat_topk_plain(qv, xs, sq, alive, n, k, chunk_rows=65536),
+             reps=5, plain_reps=2, main=main, bnd=bnd,
+             comp=lambda: composition_topk(l2_or_ip(
+                 qv, (qv.bfloat16().float() @ xs.float().T) if bf else qv @ xs.T, sq, False),
+                 alive[None, :], k))
+    # layout B (about 3 queries a cluster) and layout A (~980 a cluster) at k 1000
+    ivf_case("ivf_wide_1M_nlist1000_np3_b1024_k1000", q, x, sq, alive, lay, kp, p_main,
+             k=1000, main=True, reps=5, comp=True, kind="ivf_wide")
+    q5 = q2[:1024].contiguous()
+    p5 = probes(1024, kp2, 96, g, dev)
+    ivf_case("ivf_wide_100k_nlist100_np96_b1024_k1000", q5, x2, sq2, alive2, lay2, kp2, p5,
+             k=1000, reps=5, comp=True, kind="ivf_wide")
+    # the IVF-Flat hybrid's shortlist scan at k 100 (R 512), no promote
+    bnd = list_bound(d * 2 + 5, q3, p3, lay2[2], alive2, lay2[0], kp2, 512, rate=BF16_FLOP_S)
+    rec["ivf_bf16_wide"]["bound"] = bnd
+    case("ivf_bf16_wide", "ivf_bf16_wide_100k_nlist100_np96_b256_k512",
+         lambda: fs.fused_ivf_topk(q3, x2_16, sq2, alive2, lay2[0], lay2[1], lay2[2], p3,
+                                   kp2, 512, max_len=lay2[3]),
+         lambda: fs.fused_ivf_topk_plain(q3, x2_16, sq2, alive2, lay2[0], p3, kp2, 512,
+                                         chunk_rows=65536),
+         main=True, bnd=bnd, reps=5,
+         comp=lambda: composition_topk(
+             l2_or_ip(q3, q3_16.float() @ x2_16.float().T, sq2, False),
+             fs.probe_table(p3, kp2)[:, lay2[0].long()] & alive2[None, :], 512))
+    # with promote at k 200: IVF-PQ's bf16 rerank slab scanned exactly
+    bnd = list_bound(d * 2 + 5, q4, p4, lay[2], alive, lay[0], kp, 200)
+    rec["ivf_bf16p_wide"]["bound"] = bnd
+    case("ivf_bf16p_wide", "ivf_bf16_promote_wide_1M_nlist1000_np3_b64_k200",
+         lambda: fs.fused_ivf_topk(q4, x16, sq, alive, lay[0], lay[1], lay[2], p4, kp, 200,
+                                   max_len=lay[3], promote_fp32=True),
+         lambda: fs.fused_ivf_topk_plain(q4, x16, sq, alive, lay[0], p4, kp, 200,
+                                         promote_fp32=True, chunk_rows=65536),
+         main=True, bnd=bnd, reps=5,
+         comp=lambda: composition_topk(
+             l2_or_ip(q4, q4 @ x16.float().T, sq, False),
+             fs.probe_table(p4, kp)[:, lay[0].long()] & alive[None, :], 200))
+    sq8_case("sq8_wide_100k_nlist100_np96_b1024_k200", q5, x2, alive2, lay2, kp2, p5,
+             k=200, main=True, reps=5, comp=True, kind="sq8_wide")
     del x16, x2_16
 
     # the merge alone, on partials of the slice's shape: each query's slots
@@ -563,6 +647,55 @@ def phase_kernels(dev) -> dict:
          lambda: fs.merge_partials_plain(*sbk), reps=20, plain_reps=10,
          comp=lambda: torch.topk(fv.view(b, -1), K, dim=1),
          bnd=bound(b * splits * K * 8 + b * K * 8, 0.0))
+    del fv, fi, sbk
+
+    # the wide merge: the flat path's [B, splits, k] at b1024 k1000, and the
+    # list scan's slots of min(k, seg, max_len) entries (layout A case above)
+    kw = 1000
+    splits = fs.scan_splits(b, n, dev, fs.FLAT_WIDE_TILE, kw)[1]
+    fv = torch.rand((b, splits, kw), generator=g, device=dev).sort(2, descending=True).values
+    fi = torch.randint(0, n, (b, splits, kw), generator=g, device=dev).int()
+    bnd = bound(b * splits * kw * 8 + b * kw * 8, 0.0)
+    rec["merge_wide"]["bound"] = bnd
+    case("merge_wide", f"merge_wide_flat_{splits}splits_b1024_k{kw}",
+         lambda: fs._merge_launch(fv, fi, splits, b, kw, None, 0, splits * kw, kw),
+         lambda: fs.merge_partials_plain(fv.permute(1, 0, 2), fi.permute(1, 0, 2)),
+         reps=5, plain_reps=2, main=True, bnd=bnd,
+         comp=lambda: torch.topk(fv.view(b, -1), kw, dim=1))
+    del fv, fi
+    seg = fs.list_seg(1024, 96, kp2, lay2[3], sms)
+    qend = fs.invert_probes(p5, lay2[2], kp2, lay2[3], seg, n2).slot_end
+    width = fs.list_slot_width(kw, seg, lay2[3])
+    lists = int(qend[-1, -1])
+    pv = torch.rand((lists, width), generator=g, device=dev).sort(1, descending=True).values
+    pi = torch.randint(0, n2, (lists, width), generator=g, device=dev).int()
+    case("merge_wide", f"merge_wide_{lists}slots_w{width}_b1024_k{kw}",
+         lambda: fs.merge_partials(pv, pi, qend, kw),
+         lambda: fs.merge_partials_plain(pv, pi, qend, kw), reps=5, plain_reps=2,
+         bnd=bound(lists * width * 8 + (1024 + 1) * 4 + 1024 * kw * 8, 0.0),
+         comp=lambda: torch.topk(pv[:lists // 1024 * 1024].reshape(1024, -1), kw, dim=1))
+    del pv, pi
+
+    # the list scan at large D: ivf1m_d768_b1024's scan, 1M x 768 clustered
+    # rows (1000 centers, spread 0.05, made here on the card) in cluster-major
+    # order, each query's 3 nearest centers probed; then the SQ8 mode on the
+    # same rows, residuals against the centers
+    d7 = 768
+    cents7 = torch.rand((kp, d7), generator=g, device=dev)
+    assign = torch.sort(torch.randint(0, kp, (n,), generator=g, device=dev)).values
+    x7 = cents7[assign].add_(torch.randn((n, d7), generator=g, device=dev), alpha=0.05)
+    sq7 = (x7 * x7).sum(1)
+    q7 = cents7[torch.randint(0, kp, (b,), generator=g, device=dev)].add_(
+        torch.randn((b, d7), generator=g, device=dev), alpha=0.05)
+    crow7 = assign.int()
+    offs7, lens7 = fs.list_csr(crow7, kp)
+    lay7 = (crow7, offs7, lens7, int(lens7.max()))
+    p7 = torch.cdist(q7, cents7).topk(3, dim=1, largest=False).indices
+    ivf_case("ivf_large_d_1M_d768_nlist1000_np3_b1024_k10", q7, x7, sq7, alive, lay7, kp,
+             p7, main=True, reps=5, plain_reps=2, comp=True, kind="ivf_large_d")
+    sq8_case("sq8_large_d_1M_d768_nlist1000_np3_b1024_k10", q7, x7, alive, lay7, kp, p7,
+             main=True, reps=5, plain_reps=2, comp=True, kind="sq8_large_d", cents=cents7)
+    del x7, sq7
     say("3 kernels", cells=repr(" | ".join(cells)))
     return rec
 
@@ -653,8 +786,26 @@ def phase_narrow(dev) -> None:
     r = recall_at_k(id_lists_to_rows(ix.resolve_rows(rows.cpu().numpy()), K), truth, K)
     require(abs(r - 0.9972) <= 0.005, f"recall@10 {r} not within 0.005 of 0.9972")
     srv = serve(ix, q_dev, iters=50)
+    # selection="pallas" at k 200: the list scan's wide mode, as the JAX
+    # package answers there; hits held against the list scan's plain version
+    # on the same probes
+    ix.selection = "pallas"
+    wide_route = ix.describe_scan(1024, top_k=200)
+    require(wide_route == "dense-pallas", f"pallas k200 route is {wide_route}")
+    q1024 = q_dev[0][:1024].contiguous()
+    launches = fs.LAUNCHES["ivf_scan_wide"]
+    wide = ix.device_search(q1024, 200)
+    require(fs.LAUNCHES["ivf_scan_wide"] > launches, "wide IVF list scan never launched")
+    ix.selection = "auto"
+    tdev = ix._sync()
+    probe = rank_probes(q1024, tdev["cents"], tdev["cvalid"], tdev["offsets"],
+                        tdev["lens"], 96, n, Metric.L2)[0]
+    plain = fs.fused_ivf_topk_plain(q1024, tdev["xperm"], tdev["sqnorm"], tdev["alive"],
+                                    tdev["crow"], probe, tdev["cents"].shape[0], 200)
+    err, swaps = compare(wide, plain, "narrow k200 pallas vs plain")
     say("5 narrow", route=route, n=n, batch=b, build_s=round(build_s, 2),
-        recall=r, **srv)
+        recall=r, **srv, pallas_k200_route=wide_route, pallas_k200_err=err,
+        pallas_k200_kth_ties=swaps)
 
 
 def uniform_1m() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -676,8 +827,17 @@ def phase_flat(dev, data) -> None:
     require(not_ties == 0, f"exact flat recall {rec}: {not_ties} misses beyond fp32 ties")
     q_dev = [torch.from_numpy(queries[i * b:(i + 1) * b]).to(dev) for i in range(4)]
     srv = serve(ix, q_dev, iters=50)
+    # k 200: the flat scan's wide mode on the same route
+    require(ix.describe_scan(b, top_k=200) == "flat-pallas", "flat k200 route")
+    launches = fs.LAUNCHES["flat_scan_wide"]
+    wide = ix.device_search(q_dev[0], 200)
+    require(fs.LAUNCHES["flat_scan_wide"] > launches, "wide flat scan never launched")
+    dev_ = ix._sync()
+    plain = fs.fused_flat_topk_plain(q_dev[0], dev_["vecs"], dev_["sqnorm"], dev_["alive"],
+                                     n, 200, chunk_rows=65536)
+    err, swaps = compare(wide, plain, "flat k200 vs plain")
     say("6 flat", route="flat-pallas", n=n, batch=b, recall=rec,
-        misses_beyond_fp32_ties=not_ties, **srv)
+        misses_beyond_fp32_ties=not_ties, **srv, k200_err=err, k200_kth_ties=swaps)
 
 
 def phase_pq(dev, data) -> None:
@@ -765,6 +925,17 @@ def phase_pq_narrow(dev) -> None:
     require(fs.LAUNCHES["sq8_scan"] > launches, "SQ8 kernel never launched")
     require(r >= 0.9783, f"recall@10 {r} < 0.9783")
     srv = serve(ix, q_dev, iters=50)
+    # k 200: the SQ8 list scan's wide mode on the same route, against the
+    # plain route's hits (a max_scans budget takes dense-sq8-xla)
+    require(ix.describe_scan(b, top_k=200) == "dense-sq8-pallas", "sq8res k200 route")
+    launches = fs.LAUNCHES["sq8_scan_wide"]
+    wide = ix.device_search(q_dev[0], 200)
+    require(fs.LAUNCHES["sq8_scan_wide"] > launches, "wide SQ8 list scan never launched")
+    budget = SearchOptions(max_scans=n - 1)
+    require(ix.describe_scan(b, max_scans=n - 1, top_k=200) == "dense-sq8-xla",
+            "sq8res budget route")
+    err200, swaps200 = compare(wide, ix.device_search(q_dev[0], 200, budget),
+                               "sq8res k200 vs plain route", SQ8_RTOL)
     ix.scan_mode = "probe"        # the ADC shortlist, reranked off the SQ8 slab
     probe_route = ix.describe_scan(b)
     require(probe_route == "probe-adc+rerank-sq8", f"probe route is {probe_route}")
@@ -772,7 +943,9 @@ def phase_pq_narrow(dev) -> None:
     s_probe = serve(ix, q_dev, iters=10)
     say("8 pq narrow", route=route, n=n, batch=b, build_s=round(build_s, 2),
         recall=r, **srv, probe_route=probe_route, probe_recall=r_probe,
-        probe_qps=s_probe["qps"], probe_p50_ms=s_probe["p50_ms"])
+        probe_qps=s_probe["qps"], probe_p50_ms=s_probe["p50_ms"],
+        k200_route="dense-sq8-pallas", k200_err_vs_plain_route=err200,
+        k200_kth_ties=swaps200)
 
     twin, _ = _pq_narrow_index(dev, base, refine_storage="sq8res")
     same = {
@@ -846,22 +1019,25 @@ def phase_flat_hybrid(dev, data) -> None:
         reference="recall 1.0 (flat1m_hybrid, flat1m_hybrid_b256)", **fields)
 
 
-def _hybrid_against_fp32(dev, ix, queries, truth, name, route):
+def _hybrid_against_fp32(dev, ix, queries, truth, name, route, k=K, iters=200):
     """The b256 hybrid route's hits against the fp32 list scan's on the same
-    queries (sent as the first 256 of a b1024 batch); recall and QPS."""
-    require(ix.describe_scan(256) == route, f"{name} b256 route {ix.describe_scan(256)}")
-    require(ix.describe_scan(1024) == route[:-len("-hybrid")],
-            f"{name} b1024 route {ix.describe_scan(1024)}")
+    queries (sent as the first 256 of a b1024 batch); recall@k and QPS."""
+    require(ix.describe_scan(256, top_k=k) == route,
+            f"{name} b256 route {ix.describe_scan(256, top_k=k)}")
+    require(ix.describe_scan(1024, top_k=k) == route[:-len("-hybrid")],
+            f"{name} b1024 route {ix.describe_scan(1024, top_k=k)}")
     q1024 = torch.from_numpy(queries[:1024]).to(dev)
     q256 = q1024[:256].contiguous()
-    hybrid = ix.device_search(q256, K)
-    fp32 = ix.device_search(q1024, K)
+    hybrid = ix.device_search(q256, k)
+    fp32 = ix.device_search(q1024, k)
     err, swaps = compare(hybrid, tuple(t[:256] for t in fp32), f"{name} hybrid vs fp32")
-    rows = id_lists_to_rows(ix.resolve_rows(hybrid[1].cpu().numpy()), K)
-    srv = serve(ix, [q1024[i * 256:(i + 1) * 256].contiguous() for i in range(4)], iters=200)
+    rows = id_lists_to_rows(ix.resolve_rows(hybrid[1].cpu().numpy()), k)
+    srv = serve(ix, [q1024[i * 256:(i + 1) * 256].contiguous() for i in range(4)],
+                iters=iters, k=k)
     return {f"{name}_route": route, f"{name}_max_abs_err_vs_fp32": err,
-            f"{name}_kth_ties": swaps, f"{name}_recall_b256": recall_at_k(rows, truth[:256], K),
-            **{f"{name}_b256_{k}": v for k, v in srv.items()}}
+            f"{name}_kth_ties": swaps,
+            f"{name}_recall_b256": recall_at_k(rows, truth[:256, :k], k),
+            **{f"{name}_b256_{key}": v for key, v in srv.items()}}
 
 
 def phase_ivf_hybrid(dev, data) -> None:
@@ -872,9 +1048,17 @@ def phase_ivf_hybrid(dev, data) -> None:
     narrow = IvfFlatIndex(d, "L2", device=dev, nlist=100, nprobe=96, selection="hybrid")
     narrow.add_batch([str(i) for i in range(len(small))], small)
     narrow.build()
-    fields = _hybrid_against_fp32(dev, narrow, small_q,
-                                  ground_truth(small, small_q[:256], K, block=16384),
-                                  "ivf100k_np96", "dense-pallas-hybrid")
+    truth100 = ground_truth(small, small_q[:256], 100, block=16384)
+    fields = _hybrid_against_fp32(dev, narrow, small_q, truth100, "ivf100k_np96",
+                                  "dense-pallas-hybrid")
+    # k 100: R 512, the list scan's wide bf16 mode, against the fp32 list
+    # scan at k 100 (narrow) on the same queries
+    launches = fs.LAUNCHES["ivf_scan_bf16_wide"]
+    fields.update(_hybrid_against_fp32(dev, narrow, small_q, truth100, "ivf100k_np96_k100",
+                                       "dense-pallas-hybrid", k=100, iters=100))
+    require(fs.LAUNCHES["ivf_scan_bf16_wide"] > launches,
+            "the IVF hybrid at k 100 never launched the wide bf16 list scan")
+    fields["ivf100k_np96_k100_R"] = narrow._shortlist(narrow._sync(), 100)
     del narrow
     wide = IvfFlatIndex(d, "L2", device=dev, nlist=1000, nprobe=256,
                         train_dtype="bfloat16", selection="hybrid")
@@ -925,19 +1109,108 @@ def phase_pq_bf16(dev, data) -> None:
     r = recall_at_k(id_lists_to_rows(ix.resolve_rows(rows), K), truth, K)
     require(abs(r - 0.725) <= 0.03, f"bf16-slab recall@10 {r} not within 0.03 of 0.725")
     srv = serve(ix, q64, iters=400)
+    # k 200: the bf16 list scan's wide mode with promote, against its plain
+    # version on the same probes
+    require(tail.describe_scan(64, top_k=200) == "dense-exact-pallas-win", "k200 route")
+    launches = fs.LAUNCHES["ivf_scan_bf16_wide"]
+    wide = ix.device_search(q64[0], 200)
+    require(fs.LAUNCHES["ivf_scan_bf16_wide"] > launches, "wide bf16 list scan never launched")
+    tdev = tail._sync()
+    probe = rank_probes(q64[0], tdev["cents"], tdev["cvalid"], tdev["offsets"], tdev["lens"],
+                        tail.nprobe, n, Metric.L2)[0]
+    plain = fs.fused_ivf_topk_plain(q64[0], tdev["xraw"], tdev["xsqnorm"], tdev["alive"],
+                                    tdev["crow"], probe, tdev["cents"].shape[0], 200,
+                                    promote_fp32=True)
+    err200, swaps200 = compare(wide, plain, "bf16 slab k200 vs plain")
     say("12 pq bf16", route=route, n=n, build_s=round(build_s, 2), recall_1024_b64=r,
+        k200_route="dense-exact-pallas-win", k200_err_vs_plain=err200,
+        k200_kth_ties=swaps200,
         reference=0.725, slab_rows=npad, slab_bytes=slab_bytes,
         slab_bytes_unpadded=n * d * 2, build_allocated_bytes=build_alloc,
         memory_bytes_as_counted=repr(tail.memory_bytes()),
         **{f"b64_{k}": v for k, v in srv.items()})
 
 
+def truth_on_card(base: np.ndarray, queries: np.ndarray, k: int, dev) -> np.ndarray:
+    """Exact top-k rows (L2) of each query, float64 products on the card in
+    blocks of queries: plain torch, independent of the kernels under test."""
+    x = torch.from_numpy(base).to(dev, torch.float64)
+    sq = (x * x).sum(1)
+    out = []
+    for s in range(0, len(queries), 256):
+        qb = torch.from_numpy(queries[s:s + 256]).to(dev, torch.float64)
+        dist = sq[None, :] - 2.0 * (qb @ x.T)   # + |q|^2, the same for every row
+        out.append(torch.topk(dist, k, dim=1, largest=False).indices.cpu().numpy())
+    del x, sq
+    return np.concatenate(out)
+
+
+def phase_flat_hybrid_k100(dev, data) -> None:
+    """flat1m_hybrid_k100 (bench.py:305-306): the bf16 twin scanned for a
+    top-512 shortlist (the flat scan's wide bf16 mode), reranked off the
+    fp32 slab, b256, k 100."""
+    base, queries, _ = data
+    n, d = base.shape
+    b, k = 256, 100
+    ix = FlatIndex(d, "L2", device=dev, selection="hybrid")
+    ix.add_batch([str(i) for i in range(n)], base)
+    route, r = ix.describe_scan(b, top_k=k), ix._shortlist(k)
+    require(route == "flat-pallas-hybrid" and r == 512, f"flat hybrid k100: {route}, R {r}")
+    truth = truth_on_card(base, queries[:1024], k, dev)
+    rec, not_ties = exact_misses_are_ties(ix, base, queries[:1024], truth, batch=b, k=k)
+    require(not_ties == 0,
+            f"flat hybrid k100 recall@100 {rec}: {not_ties} misses beyond fp32 ties")
+    q_dev = [torch.from_numpy(queries[i * b:(i + 1) * b]).to(dev)
+             for i in range(len(queries) // b)]
+    srv = serve(ix, q_dev, iters=40, k=k)
+    say("13 flat hybrid k100", route=route, n=n, batch=b, k=k, R=r, recall_at_100=rec,
+        misses_beyond_fp32_ties=not_ties, reference="recall 1.0 (flat1m_hybrid_k100)",
+        **srv)
+
+
+def phase_ivf_d768(dev) -> None:
+    """ivf1m_d768_b1024 (bench.py:328-330): IVF-Flat on 1M x 768 clustered
+    rows (1000 centers), nlist 1000, bf16 training, the default nprobe,
+    b1024: the list scan with q streamed by depth."""
+    t0 = time.perf_counter()
+    n, d, b = 1_000_000, 768, 1024
+    base = synthetic_clustered(n, d, n_clusters=1000)
+    queries = synthetic_clustered_queries(2 * b, d, n_clusters=1000)
+    data_s = time.perf_counter() - t0
+    ix = IvfFlatIndex(d, "L2", device=dev, nlist=1000, train_dtype="bfloat16")
+    ix.add_batch([str(i) for i in range(n)], base)
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    ix.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    index_bytes = torch.cuda.memory_allocated(dev) - alloc0
+    route = ix.describe_scan(b)
+    require(route == "dense-pallas-win", f"1M x 768 nlist 1000 route is {route}")
+    truth = truth_on_card(base, queries[:b], K, dev)
+    q_dev = [torch.from_numpy(queries[i * b:(i + 1) * b]).to(dev) for i in range(2)]
+    launches = fs.LAUNCHES["ivf_scan"]
+    _, rows = ix.device_search(q_dev[0], K)
+    require(fs.LAUNCHES["ivf_scan"] > launches, "IVF kernel never launched at D 768")
+    rec = recall_at_k(id_lists_to_rows(ix.resolve_rows(rows.cpu().numpy()), K), truth, K)
+    require(rec >= 0.9894, f"ivf1m_d768_b1024 recall@10 {rec} < 0.9894")
+    srv = serve(ix, q_dev, iters=40)
+    say("14 ivf d768", route=route, n=n, d=d, batch=b, nprobe=ix.nprobe,
+        data_s=round(data_s, 2), build_s=round(build_s, 2), recall=rec,
+        reference="0.9994 self-recall, gate 0.9894", **srv,
+        index_device_bytes=index_bytes)
+    del ix, base
+
+
 def run_path(name: str, fn, kernels: tuple[str, ...]) -> dict:
     """One serving path: the launch counts zeroed before it and read after;
-    each of ``kernels`` must have run on it."""
+    each of ``kernels`` must have run on it. Prints its wall time."""
     fs.reset_launches()
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    say("time", path=name.replace(" ", "_"), seconds=round(time.perf_counter() - t0, 1))
     got = dict(fs.LAUNCHES)
     for kernel in kernels:
         require(got[kernel] > 0, f"kernel {kernel} was not launched on the {name} path")
@@ -949,15 +1222,20 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = phase_device()
     phase_build()
+    t0 = time.perf_counter()
     rec = phase_kernels(dev)
+    say("time", step="3_kernels", seconds=round(time.perf_counter() - t0, 1))
 
+    t0 = time.perf_counter()
     data, uniform = clustered_1m(), uniform_1m()
+    say("time", step="data", seconds=round(time.perf_counter() - t0, 1))
 
     def ivf_flat():  # phases 4-6
         phase_slice(dev, dict(fs.LAUNCHES), data)
@@ -969,21 +1247,29 @@ def main() -> int:
         phase_pq_narrow(dev)
 
     paths = {name: run_path(name, fn, kernels) for name, fn, kernels in (
-        ("IVF-Flat", ivf_flat, ("flat_scan", "ivf_scan", "merge")),
-        ("IVF-PQ", ivf_pq, ("sq8_scan", "ivf_scan", "merge")),
+        ("IVF-Flat", ivf_flat, ("flat_scan", "ivf_scan", "merge", "flat_scan_wide",
+                                "ivf_scan_wide", "merge_wide")),
+        ("IVF-PQ", ivf_pq, ("sq8_scan", "ivf_scan", "merge", "sq8_scan_wide", "merge_wide")),
         ("flat bf16", lambda: phase_flat_bf16(dev, uniform), ("flat_scan_bf16", "merge")),
         ("flat hybrid", lambda: phase_flat_hybrid(dev, uniform),
          ("flat_scan_bf16", "flat_scan", "merge")),
         ("IVF-Flat hybrid", lambda: phase_ivf_hybrid(dev, uniform),
-         ("ivf_scan_bf16", "ivf_scan", "merge")),
-        ("IVF-PQ bf16", lambda: phase_pq_bf16(dev, data), ("ivf_scan_bf16", "merge")),
+         ("ivf_scan_bf16", "ivf_scan", "merge", "ivf_scan_bf16_wide", "merge_wide")),
+        ("IVF-PQ bf16", lambda: phase_pq_bf16(dev, data),
+         ("ivf_scan_bf16", "merge", "ivf_scan_bf16_wide", "merge_wide")),
+        ("flat hybrid k100", lambda: phase_flat_hybrid_k100(dev, uniform),
+         ("flat_scan_bf16_wide", "merge_wide")),
+        ("IVF-Flat d768", lambda: phase_ivf_d768(dev), ("ivf_scan", "merge")),
     )}
     say("launches", **{name.replace(" ", "_"): repr(got) for name, got in paths.items()})
     launches = {name: sum(got[name] for got in paths.values()) for name in fs.LAUNCHES}
     # the list scan's bf16 mode runs without promote on the hybrid path only,
-    # with promote on the bf16-slab path only
+    # with promote on the bf16-slab path only; large D on the d768 path only
     bf16_plain = paths["IVF-Flat hybrid"]["ivf_scan_bf16"]
     bf16_promote = paths["IVF-PQ bf16"]["ivf_scan_bf16"]
+    bf16_plain_wide = paths["IVF-Flat hybrid"]["ivf_scan_bf16_wide"]
+    bf16_promote_wide = paths["IVF-PQ bf16"]["ivf_scan_bf16_wide"]
+    large_d = paths["IVF-Flat d768"]["ivf_scan"]
 
     def entry(name, kind, source, replaces, launched):
         r = rec[kind]
@@ -993,12 +1279,13 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": r["library_ms"], "composition_ms": r["composition_ms"]}
 
+    wide = f"{PALLAS}:372, {PALLAS}:192, {PALLAS}:200, {PALLAS}:496"
     kernels = [
         entry("fused_scan_kernel", "flat", SOURCE, f"{PALLAS}:672", launches["flat_scan"]),
         entry("fused_scan_kernel<bf16>", "flat_bf16", SOURCE, f"{PALLAS}:672, {PALLAS}:232",
               launches["flat_scan_bf16"]),
         entry("ivf_list_scan_kernel<IVF>", "ivf", LIST_SOURCE,
-              f"{PALLAS}:1035, {PALLAS}:992", launches["ivf_scan"]),
+              f"{PALLAS}:1035, {PALLAS}:992", launches["ivf_scan"] - large_d),
         entry("ivf_list_scan_kernel<BF16>", "ivf_bf16", LIST_SOURCE,
               f"{PALLAS}:1035, {PALLAS}:992, {PALLAS}:232", bf16_plain),
         entry("ivf_list_scan_kernel<BF16> promote_fp32", "ivf_bf16p", LIST_SOURCE,
@@ -1006,7 +1293,24 @@ def main() -> int:
         entry("ivf_list_scan_kernel<SQ8>", "sq8", LIST_SOURCE,
               f"{PALLAS}:1204, {PALLAS}:1341", launches["sq8_scan"]),
         entry("merge_partials_kernel", "merge", SOURCE, f"{PALLAS}:401", launches["merge"]),
+        entry("fused_scan_kernel<wide>", "flat_wide", SOURCE, f"{PALLAS}:672, {wide}",
+              launches["flat_scan_wide"]),
+        entry("fused_scan_kernel<bf16, wide>", "flat_bf16_wide", SOURCE,
+              f"{PALLAS}:672, {PALLAS}:232, {wide}", launches["flat_scan_bf16_wide"]),
+        entry("ivf_list_scan_kernel<IVF, wide>", "ivf_wide", LIST_SOURCE,
+              f"{PALLAS}:1035, {PALLAS}:992, {wide}", launches["ivf_scan_wide"]),
+        entry("ivf_list_scan_kernel<BF16, wide>", "ivf_bf16_wide", LIST_SOURCE,
+              f"{PALLAS}:1035, {PALLAS}:992, {PALLAS}:232, {wide}", bf16_plain_wide),
+        entry("ivf_list_scan_kernel<BF16, wide> promote_fp32", "ivf_bf16p_wide", LIST_SOURCE,
+              f"{PALLAS}:992, {PALLAS}:1035, {PALLAS}:232, {wide}", bf16_promote_wide),
+        entry("ivf_list_scan_kernel<SQ8, wide>", "sq8_wide", LIST_SOURCE,
+              f"{PALLAS}:1204, {PALLAS}:1341, {wide}", launches["sq8_scan_wide"]),
+        entry("ivf_list_scan_kernel<IVF> large D", "ivf_large_d", LIST_SOURCE,
+              f"{PALLAS}:1035, {PALLAS}:992, {PALLAS}:49", large_d),
+        entry("merge_wide_kernel", "merge_wide", SOURCE,
+              f"{PALLAS}:401, {PALLAS}:642, {wide}", launches["merge_wide"]),
     ]
+    say("time", total_seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

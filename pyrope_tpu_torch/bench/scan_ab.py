@@ -31,9 +31,16 @@ case: the library call, which keeps no row order at ties):
   ivf_bf16_promote_1M_nlist1000_np3_b64_k10 (IVF-PQ's bf16 rerank slab),
   matmul_bf16_1M_b1024 (q16 @ x16.T alone, bf16 sums), and the fp32 modes
   at those shapes: flat_fp32_1M_b64_k64, ivf_fp32_100k_nlist100_np96_b256_k64,
-  ivf_fp32_1M_nlist1000_np3_b64_k10
+  ivf_fp32_1M_nlist1000_np3_b64_k10, and where the tree has the wide modes
+  (k > 128): flat_wide_1M_b1024_k1000, flat_bf16_wide_1M_b256_k512 (the
+  k 100 hybrid's shortlist), flat_wide_1M_b64_k10000,
+  ivf_wide_1M_nlist1000_np3_b1024_k1000 (layout B),
+  ivf_wide_100k_nlist100_np96_b1024_k1000 (layout A),
+  ivf_bf16_wide_100k_nlist100_np96_b256_k512 (the IVF hybrid at k 100),
+  sq8_wide_100k_nlist100_np96_b1024_k200, merge_flat_splits_b1024_k1000
 
     --cases '_bf16_|_fp32_'    # the bf16 modes beside fp32 at their shapes
+    --cases '_wide_'           # the wide modes
 
 Prints one JSON object per worker and writes all of them to ``--out``;
 every record names the card and its power limit.
@@ -189,6 +196,34 @@ def _worker(reps: int, trace: bool, cases: str) -> dict:
         case("matmul_bf16_1M_b1024", lambda: q16 @ x16.T)
         del x16, x2s, x2_32
 
+    if "flat_scan_wide" in fs.LAUNCHES:   # trees with the wide modes (k > 128)
+        x16 = x.bfloat16()
+        q256 = q[:256].contiguous()
+        case("flat_wide_1M_b1024_k1000", lambda: fs.fused_flat_topk(q, x, sq, alive, n, 1000))
+        case("flat_bf16_wide_1M_b256_k512",
+             lambda: fs.fused_flat_topk(q256, x16, sq, alive, n, 512))
+        q64 = q[:64].contiguous()
+        case("flat_wide_1M_b64_k10000", lambda: fs.fused_flat_topk(q64, x, sq, alive, n, 10_000))
+        offs, lens, ml = lists(crow, 1000)
+        case("ivf_wide_1M_nlist1000_np3_b1024_k1000", lambda: fs.fused_ivf_topk(
+            q, x, sq, alive, crow, offs, lens, probe, 1000, 1000, max_len=ml))
+        x2w, sq2w, al2w = (t[:n2].contiguous() for t in (x, sq, alive))
+        offs2, lens2, ml2 = lists(crow2, 100)
+        q1k, p1k = q2[:1024].contiguous(), probe2[:1024].contiguous()
+        case("ivf_wide_100k_nlist100_np96_b1024_k1000", lambda: fs.fused_ivf_topk(
+            q1k, x2w, sq2w, al2w, crow2, offs2, lens2, p1k, 100, 1000, max_len=ml2))
+        x2w16 = x2w.bfloat16()
+        q3w, p3w = q2[:256].contiguous(), probe2[:256].contiguous()
+        case("ivf_bf16_wide_100k_nlist100_np96_b256_k512", lambda: fs.fused_ivf_topk(
+            q3w, x2w16, sq2w, al2w, crow2, offs2, lens2, p3w, 100, 512, max_len=ml2))
+        cents2 = x2w[torch.randint(0, n2, (100,), generator=g, device=dev)]
+        codes2, mins2, scales2, sq8n2 = sq8res_encode(x2w, cents2, crow2)
+        qc2 = q1k @ cents2.T
+        case("sq8_wide_100k_nlist100_np96_b1024_k200", lambda: fs.fused_ivf_sq8_topk(
+            q1k, codes2, mins2, scales2, sq8n2, al2w, crow2, offs2, lens2, p1k, qc2, 100,
+            200, max_len=ml2))
+        del x16, x2w16, codes2
+
     def merge_cases(name, lists, k):
         """``lists`` sorted lists a query, as [S, B, k] and as per-query
         slots, beside torch.topk over the same [B, lists * k] candidates."""
@@ -205,6 +240,8 @@ def _worker(reps: int, trace: bool, cases: str) -> dict:
     merge_cases("3lists_b1024_k10", 3, K)
     merge_cases("flat_splits_b1024_k10", 66, K)
     merge_cases("108lists_b1024_k128", 108, 128)
+    if "merge_wide" in fs.LAUNCHES:
+        merge_cases("flat_splits_b1024_k1000", 33, 1000)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()

@@ -121,6 +121,22 @@
 // widens on load (a 16-bit shift); q stays fp32. The slab's bytes halve,
 // the FMAs are the same: about as fast as fp32 here.
 //
+// The wide mode (k > MAXK = 128, up to WIDE_MAXK = 10,000;
+// fused_scan_kernel<64, IP, XT, true>, merge_wide_kernel) replaces the TPU
+// kernels' wide merges (_wide_params :372, _bitonic_merge_wide :192,
+// _merge_tile_wide :200, the dynamic rounds of _merge_tile :437-475 on
+// _extract_top :496). The k <= MAXK instantiations are compiled from the
+// same source with the wide code behind `if constexpr`, so theirs is the
+// code they had. A query's list is its [B, splits, k] partial row in
+// global memory; shared memory holds a FLAT_CAP-entry candidate buffer a
+// query (topk_wide.cuh: the buffer is sorted and merged into the list when
+// full), 182,784 B a block of 64 queries (199,168 B with bf16 rows), one
+// block an SM, so the wrapper's grid is one wave (ops/fused_scan._splits).
+// The epilogue, its vote, the threshold and the shared floor are the
+// narrow mode's: a split publishes its list's c-th entry once the list
+// holds c entries. The wide merge gives each query a warp whose list is
+// the query's output row.
+//
 // Not done here: a tensor-core path where exactness allows (a 3xbf16 split
 // product); a narrow query tile for batches of a few queries (a 64-query
 // tile at B = 1 is mostly padding: the scan is then bound by the FMAs of
@@ -131,6 +147,7 @@
 #include <limits.h>
 
 #include "topk_warp.cuh"
+#include "topk_wide.cuh"
 
 namespace {
 
@@ -142,6 +159,9 @@ constexpr int THREADS = 256;     // 8 warps, each owning BT / 8 of the queries
 constexpr int WARPS = THREADS / 32;
 constexpr int TR = 8;            // rows per thread
 constexpr int MERGE_IN_FLIGHT = 4;  // merge: batches of 32 loads in flight
+constexpr int WIDE_BT = 64;      // the wide mode's query tile
+constexpr int FLAT_CAP = 256;    // the wide mode's candidate buffer, a query
+constexpr int MERGE_CAP = 256;   // the wide merge's run buffer, a query
 
 // Depth elements a stage holds: one 128-byte row of the slab.
 __host__ __device__ constexpr int depth_chunk(int elem) { return 128 / elem; }
@@ -152,11 +172,14 @@ __host__ __device__ constexpr int stage_floats(int bt, int elem) {
   return RT * 32 + bt * depth_chunk(elem);
 }
 
+// k > MAXK (the wide mode): the lists lie in the partials, and shared memory
+// holds each query's candidate buffer and its WideState instead.
 size_t scan_smem_bytes(int k, int bt, int elem) {
   return sizeof(float) * ((size_t)NST * stage_floats(bt, elem)  // the ring
                           + NST * RT          // row sqnorm (+inf: dead), a tile a stage
                           + 4 * (size_t)bt    // |q|^2, threshold, score published
-                          + 2 * (size_t)bt * k);  // lists: values, rows
+                          + (k > MAXK ? (size_t)bt * (2 * FLAT_CAP + 2)  // buffers, state
+                                      : 2 * (size_t)bt * k));  // lists: values, rows
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -201,11 +224,6 @@ struct Rows<uint16_t> {
 // The insertion path, out of line: the epilogue's offer sites hold a call
 // each, not the insertion's code. Offers every lane's (v, r) to one list
 // whose threshold is (tv, ti), and returns the list's last entry.
-struct Entry {
-  float v;
-  int r;
-};
-
 __device__ __noinline__ Entry offer(float* lv, int* li, int k, float v, int r,
                                     float tv, int ti, int lane) {
   if (k <= 32) {
@@ -296,7 +314,7 @@ __device__ __noinline__ void take_floor(const float* pub, int S, int win0,
 // stage them (no overlap). qsq: null, or |q|^2 [B] to take in place of the
 // streamed q's own (the bf16 mode's q is rounded, its |q|^2 is not).
 // part_v, part_i: [B, S, k], S = gridDim.y.
-template <int BT, bool IP, typename XT>
+template <int BT, bool IP, typename XT, bool WIDE = false>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
                   const float* __restrict__ qsq,
@@ -325,8 +343,9 @@ fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
   float* thv = qq + BT;                        // [BT] threshold score
   int* thi = (int*)(thv + BT);                 // [BT] threshold row
   float* pubv = (float*)(thi + BT);            // [BT] score last published
-  float* lv = pubv + BT;                       // [BT][k]
-  int* li = (int*)(lv + (size_t)BT * k);       // [BT][k]
+  float* lv = pubv + BT;                       // [BT][k]; WIDE: buffers [BT][FLAT_CAP]
+  int* li = (int*)(lv + (size_t)BT * (WIDE ? FLAT_CAP : k));
+  WideState* wst = (WideState*)(li + (size_t)BT * FLAT_CAP);   // WIDE: [BT]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -402,11 +421,14 @@ fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
     store_rows();
   }
 
-  for (int e = tid; e < BT * k; e += THREADS) {
-    lv[e] = -INFINITY;
-    li[e] = -1;
+  if (!WIDE) {
+    for (int e = tid; e < BT * k; e += THREADS) {
+      lv[e] = -INFINITY;
+      li[e] = -1;
+    }
   }
   for (int i = tid; i < BT; i += THREADS) {
+    if (WIDE) wst[i] = {0, 0};
     // a query past B never takes a candidate: nothing beats (+inf, -1)
     thv[i] = q0 + i < B ? -INFINITY : INFINITY;
     thi[i] = -1;
@@ -500,9 +522,18 @@ fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
             const int qh = warp * WQ + h + QG * i;
             const float htv = __shfl_sync(FULL, tv, RG * h);
             const int hti = __shfl_sync(FULL, ti, RG * h);
-            const Entry t = offer(lv + (size_t)qh * k, li + (size_t)qh * k, k,
-                                  lq == h ? sc[j] : -INFINITY, row, htv, hti,
-                                  lane);
+            const float cv = lq == h ? sc[j] : -INFINITY;
+            Entry t;
+            if constexpr (WIDE) {   // the list is query qh's partial
+              const size_t o = ((size_t)(q0 + qh) * S + blockIdx.y) * k;
+              t = wide_offer<FLAT_CAP>(part_v + o, part_i + o, k,
+                                       lv + (size_t)qh * FLAT_CAP,
+                                       li + (size_t)qh * FLAT_CAP, wst + qh, cv, row,
+                                       htv, hti, lane);
+            } else {
+              t = offer(lv + (size_t)qh * k, li + (size_t)qh * k, k, cv, row, htv,
+                        hti, lane);
+            }
             // a full list of own rows raises the threshold
             if (beats(t.v, t.r, htv, hti) && lq == h) {
               tv = t.v;
@@ -513,8 +544,12 @@ fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
         if (lr == 0) {   // one lane a query: the threshold, and what to publish
           thv[qi] = tv;
           thi[qi] = ti;
-          publish(lv + (size_t)qi * k, pubv + qi,
-                  pub + (size_t)(q0 + qi) * S + blockIdx.y, pub_c);
+          if (!WIDE)
+            publish(lv + (size_t)qi * k, pubv + qi,
+                    pub + (size_t)(q0 + qi) * S + blockIdx.y, pub_c);
+          else if (wst[qi].fill >= pub_c)   // the list's first pub_c are real
+            publish(part_v + ((size_t)(q0 + qi) * S + blockIdx.y) * k, pubv + qi,
+                    pub + (size_t)(q0 + qi) * S + blockIdx.y, pub_c);
         }
       }
       __syncwarp();
@@ -531,6 +566,16 @@ fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
 
   cp_async_wait<0>();
   __syncthreads();
+  if constexpr (WIDE) {   // each warp: its queries' last buffers, then the pads
+    for (int qi = warp * WQ; qi < (warp + 1) * WQ && q0 + qi < B; ++qi) {
+      const size_t o = ((size_t)(q0 + qi) * S + blockIdx.y) * k;
+      wide_flush<FLAT_CAP>(part_v + o, part_i + o, k, lv + (size_t)qi * FLAT_CAP,
+                           li + (size_t)qi * FLAT_CAP, &wst[qi].cnt, &wst[qi].fill,
+                           lane);
+      wide_pad(part_v + o, part_i + o, k, wst[qi].fill, lane);
+    }
+    return;
+  }
   for (int e = tid; e < BT * k; e += THREADS) {
     const int b = q0 + e / k;
     if (b < B) {
@@ -612,7 +657,66 @@ merge_partials_kernel(const float* __restrict__ part_v,
   }
 }
 
-template <int BT, bool IP, typename XT>
+// The wide merge (k > MAXK), one warp a query: lists of width L <= k (the
+// list scan's slots hold at most min(k, seg, max_len) entries) into [B, k],
+// laid out as merge_partials_kernel's. The query's output row is the warp's
+// wide list (topk_wide.cuh). A list is sorted, so the entries of it that
+// beat the threshold are a prefix: they are copied MERGE_CAP at a time into
+// shared memory, already a sorted run, and merged into the output in place;
+// the first entry that fails ends the list. So a list under the k-th best
+// entry seen costs one load of 32 entries.
+__global__ void __launch_bounds__(THREADS)
+merge_wide_kernel(const float* __restrict__ part_v,
+                  const int32_t* __restrict__ part_i, int S, int B, int k, int L,
+                  const int32_t* __restrict__ qend, int P, long long qstride,
+                  long long lstride, float* __restrict__ out_v,
+                  int32_t* __restrict__ out_i) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * WARPS + warp;
+  if (b >= B) return;  // warp-uniform
+  float* bv = smem + (size_t)warp * 2 * MERGE_CAP;
+  int* bi = (int*)(bv + MERGE_CAP);
+  const int s0 = qend && b ? min(qend[(size_t)b * P - 1], S) : 0;
+  const int s1 = qend ? min(qend[(size_t)b * P + P - 1], S) : S;
+  const size_t base = qend ? (size_t)s0 * L : (size_t)b * qstride;
+  if (qend) lstride = L;
+  float* lv = out_v + (size_t)b * k;
+  int* li = (int*)out_i + (size_t)b * k;
+  float tv = -INFINITY;
+  int ti = -1;
+  int fill = 0;
+  for (int s = 0; s < s1 - s0; ++s) {
+    const float* pv = part_v + base + (size_t)s * lstride;
+    const int32_t* pi = part_i + base + (size_t)s * lstride;
+    for (int c0 = 0; c0 < L; c0 += MERGE_CAP) {
+      int m = 0;   // entries of this chunk that beat the threshold: a prefix
+      for (int u = 0; u < MERGE_CAP; u += 32) {
+        const int e = c0 + u + lane;
+        const float v = e < L ? pv[e] : -INFINITY;
+        const int r = e < L ? pi[e] : -1;
+        const bool pass = beats(v, r, tv, ti);
+        const unsigned mk = __ballot_sync(FULL, pass);
+        if (pass) {
+          bv[u + lane] = v;
+          bi[u + lane] = r;
+        }
+        m += __popc(mk);
+        if (mk != FULL) break;
+      }
+      __syncwarp();
+      if (m) {
+        fill = warp_merge_run<MERGE_CAP>(lv, li, k, fill, bv, bi, m, lane);
+        wide_threshold(lv, li, k, fill, tv, ti);
+      }
+      if (m < MERGE_CAP) break;
+    }
+  }
+  wide_pad(lv, li, k, fill, lane);
+}
+
+template <int BT, bool IP, typename XT, bool WIDE = false>
 int launch_scan(const void* q, const void* x, const void* qsq,
                 const void* sqnorm, const void* alive, int B, int N, int D,
                 int k, int max_scans, int rows_per_split, int n_splits,
@@ -620,11 +724,11 @@ int launch_scan(const void* q, const void* x, const void* qsq,
                 int pub_g, cudaStream_t stream) {
   const size_t smem = scan_smem_bytes(k, BT, sizeof(XT));
   cudaError_t err = cudaFuncSetAttribute(
-      fused_scan_kernel<BT, IP, XT>,
+      fused_scan_kernel<BT, IP, XT, WIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + BT - 1) / BT, n_splits);
-  fused_scan_kernel<BT, IP, XT><<<grid, THREADS, smem, stream>>>(
+  fused_scan_kernel<BT, IP, XT, WIDE><<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const XT*)x, (const float*)qsq, (const float*)sqnorm,
       (const uint8_t*)alive, B, N, D, k, max_scans, rows_per_split, vec,
       (float*)part_v, (int32_t*)part_i, (float*)pub, pub_c, pub_g);
@@ -646,9 +750,10 @@ const char* pyrope_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// FLAT mode: rows >= max_scans never hit. x: fp32 rows (elem 4) or bf16
-// rows (elem 2); qsq: null, or |q|^2 [B] (the bf16 mode: q rounded to bf16
-// by the caller, |q|^2 of the unrounded q). bt: the query tile, 64 or 128;
+// FLAT mode: rows >= max_scans never hit. k <= MAXK: the warp-register
+// lists, bt 64 or 128; MAXK < k <= WIDE_MAXK: the wide mode, bt 64. x: fp32
+// rows (elem 4) or bf16 rows (elem 2); qsq: null, or |q|^2 [B] (the bf16
+// mode: q rounded to bf16 by the caller, |q|^2 of the unrounded q).
 // partials [B, n_splits, k]; pub [B, n_splits] floats, -inf from the caller:
 // each split publishes its list's pub_c-th score there, and pub_g * pub_c >=
 // k with pub_g <= min(n_splits, 32).
@@ -658,13 +763,22 @@ int pyrope_fused_scan(const void* q, const void* x, const void* qsq,
                       int rows_per_split, int n_splits, int bt, int elem,
                       int vec, void* part_v, void* part_i, void* pub,
                       int pub_c, int pub_g, void* stream) {
-  if (k < 1 || k > MAXK || (bt != 64 && bt != 128) || (elem != 4 && elem != 2) ||
-      pub_c < 1 || pub_c > k || pub_g < 1 || pub_g > WIN || pub_g > n_splits ||
-      pub_g * pub_c < k)
+  const bool wide = k > MAXK;
+  if (k < 1 || k > WIDE_MAXK || (bt != 64 && bt != 128) || (wide && bt != WIDE_BT) ||
+      (elem != 4 && elem != 2) || pub_c < 1 || pub_c > k || pub_g < 1 || pub_g > WIN ||
+      pub_g > n_splits || pub_g * pub_c < k)
     return (int)cudaErrorInvalidValue;
   using Launch = int (*)(const void*, const void*, const void*, const void*,
                          const void*, int, int, int, int, int, int, int, int,
                          void*, void*, void*, int, int, cudaStream_t);
+  static const Launch wide_table[2][2] = {   // [bf16][ip]
+      {launch_scan<WIDE_BT, false, float, true>, launch_scan<WIDE_BT, true, float, true>},
+      {launch_scan<WIDE_BT, false, uint16_t, true>,
+       launch_scan<WIDE_BT, true, uint16_t, true>}};
+  if (wide)
+    return wide_table[elem == 2][metric_ip != 0](
+        q, x, qsq, sqnorm, alive, B, N, D, k, max_scans, rows_per_split,
+        n_splits, vec, part_v, part_i, pub, pub_c, pub_g, (cudaStream_t)stream);
   static const Launch table[2][2][2] = {   // [bf16][bt == 128][ip]
       {{launch_scan<64, false, float>, launch_scan<64, true, float>},
        {launch_scan<128, false, float>, launch_scan<128, true, float>}},
@@ -688,6 +802,23 @@ int pyrope_merge_partials(const void* part_v, const void* part_i, int S,
       (const float*)part_v, (const int32_t*)part_i, S, B, k,
       (const int32_t*)qend, P, qstride, lstride, (float*)out_v,
       (int32_t*)out_i);
+  return (int)cudaGetLastError();
+}
+
+// The wide merge: lists of width list_w (<= k) into [B, k], k <= WIDE_MAXK
+// (the wrapper takes it for k > MAXK, or lists narrower than k); the
+// layouts as pyrope_merge_partials.
+int pyrope_merge_partials_wide(const void* part_v, const void* part_i, int S,
+                               int B, int k, int list_w, const void* qend, int P,
+                               long long qstride, long long lstride,
+                               void* out_v, void* out_i, void* stream) {
+  if (k < 1 || k > WIDE_MAXK || list_w < 1 || list_w > k)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * 2 * (size_t)MERGE_CAP * WARPS;
+  const int blocks = (B + WARPS - 1) / WARPS;
+  merge_wide_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)part_v, (const int32_t*)part_i, S, B, k, list_w,
+      (const int32_t*)qend, P, qstride, lstride, (float*)out_v, (int32_t*)out_i);
   return (int)cudaGetLastError();
 }
 

@@ -62,13 +62,17 @@
 // this way are beaten by k rows another item writes, so the merged top k
 // is the same whatever order the items ran in; only the partials differ.
 //
-// One block per item. It gathers its chunk's queries into shared memory
-// ([D][QS_LD], query-major columns) with |q|^2, and in SQ8 mode sum(q) and
-// qc[b, c] (one scalar per query: the block's cluster is fixed). It walks
-// the segment's row tiles (RT rows) in depth chunks (DCH elements), staged
-// into a double buffer with cp.async, so the next chunk's copy overlaps this
-// chunk's FMAs. Every row it sees lies in a probed cluster: the row mask is
-// alive alone.
+// One block per item. It reads its chunk's |q|^2, and in SQ8 mode sum(q)
+// and qc[b, c] (one scalar per query: the block's cluster is fixed), from
+// global memory first. It walks the segment's row tiles (RT rows) in depth
+// chunks (DCH elements): each stage holds the chunk of the tile's rows and
+// the same depths of the chunk's queries ([BT][DCH + 4], a query's 16-byte
+// pieces as they lie, gathered by query id), a double buffer filled with
+// cp.async, so the next chunk's copy overlaps this chunk's FMAs. So shared
+// memory does not grow with D (the TPU kernels take any D: pick_row_tile
+// :49 shrinks their tile; here a query is never held whole, as in the flat
+// scan since q is streamed there). Every row it sees lies in a probed
+// cluster: the row mask is alive alone.
 //   Layout A (chunks of more than 8 queries): warp w owns queries 8w..8w+7
 //   and every lane 4 rows of the tile, an 8x4 register tile of FMAs; a warp
 //   offers its scores straight to its queries' lists (topk_warp.cuh,
@@ -81,6 +85,20 @@
 //   b1024, where a cluster is probed by about 3 queries): the warps split
 //   the rows instead, 16 rows a warp, each half-warp 4 of the queries; each
 //   warp keeps its own 8 lists, merged per query at the end of the block.
+//
+// The wide mode (k > MAXK, up to WIDE_MAXK; ivf_list_scan_kernel<MODE,
+// true>) replaces the TPU kernels' wide merges (_wide_params :372,
+// _bitonic_merge_wide :192, _merge_tile_wide :200, _extract_top :496): a
+// query's list is its partial slot in global memory, kw = min(k, seg, the
+// longest list) entries wide, since a segment cannot give more, and
+// candidates go through a buffer of LCAP entries in shared memory
+// (topk_wide.cuh). Layout A: the warp owning a query appends and flushes
+// its buffer on its own. Layout B: each warp appends to its own buffer of
+// each query behind the query's threshold in shared memory; after each
+// tile's epilogue a block barrier, then warp i flushes the buffers of query
+// i that could not take another tile into the list and raises the
+// threshold. The floor holds as in the narrow mode: it starts as the
+// threshold, and a list of k of the item's rows raises it.
 //
 // What bounds it on an H100. With the masked work gone the scan reads each
 // probed cluster's rows once per query chunk: at 1M x 128, nlist 1000,
@@ -101,6 +119,7 @@
 #include <type_traits>
 
 #include "topk_warp.cuh"
+#include "topk_wide.cuh"
 
 namespace {
 
@@ -112,10 +131,12 @@ constexpr int WARPS = THREADS / 32;
 constexpr int QPW = BT / WARPS;  // layout A: queries per warp = 8
 constexpr int RPL = RT / 32;     // layout A: rows per lane = 4
 constexpr int SMALL = 8;         // layout B takes chunks of <= 8 queries
-constexpr int GATHER = 8;        // float4 query loads in flight per thread
-constexpr int QS_LD = BT + 4;    // float4-aligned query columns
+constexpr int QLD = DCH + 4;     // query stage row stride (floats): 16-byte rows
 constexpr int XLD = DCH + 4;     // stage row stride (elements): conflict-free
                                  // float4 (fp32) and 32-bit (uint8) row reads
+constexpr int LCAP = 128;        // the wide mode's candidate buffer, a list
+constexpr int B_FLUSH = LCAP - 16;  // layout B: a buffer above this is flushed
+                                    // (a warp adds at most 16 a query a tile)
 
 enum Mode { MODE_IVF = 1, MODE_SQ8 = 2, MODE_BF16 = 3 };
 
@@ -125,13 +146,17 @@ __host__ __device__ constexpr int elem_bytes(int mode) {
   return mode == MODE_SQ8 ? 1 : mode == MODE_BF16 ? 2 : 4;
 }
 
-size_t list_scan_smem_bytes(int d, int k, int mode) {
+// Independent of D: q is streamed by depth chunk beside the rows. k > MAXK
+// (the wide mode): the lists lie in the partial slots, and shared memory
+// holds a candidate buffer, a WideState and a threshold a list.
+size_t list_scan_smem_bytes(int k, int mode) {
   const bool sq8 = mode == MODE_SQ8;
-  return sizeof(float) * (size_t)round4(d) * QS_LD        // qs
-         + (size_t)2 * RT * XLD * elem_bytes(mode)        // xs, two stages
-         + (size_t)2 * RT * 4 * (sq8 ? 4 : 2)             // row tables, two tiles
-         + (size_t)7 * BT * 4                        // per-query tables
-         + (size_t)8 * BT * k;                       // lists: values, rows
+  return sizeof(float) * (size_t)2 * BT * QLD                  // qs, two stages
+         + (size_t)2 * RT * XLD * elem_bytes(mode)         // xs, two stages
+         + (size_t)2 * RT * 4 * (sq8 ? 4 : 2)              // row tables, two tiles
+         + (size_t)7 * BT * 4                         // per-query tables
+         + (k > MAXK ? (size_t)BT * (8 * LCAP + 16)   // buffers, states, thresholds
+                     : (size_t)8 * BT * k);           // lists: values, rows
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -181,10 +206,6 @@ __device__ __forceinline__ float4 row4(const void* xs, int r, int qd) {
   }
 }
 
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
 // A query's floor as one 64-bit key whose unsigned order is the lists'
 // (score desc, row asc) order, so atomicMax keeps the best; 0 is no floor.
 __device__ __forceinline__ unsigned long long floor_key(float v, int r) {
@@ -205,11 +226,6 @@ __device__ __forceinline__ void floor_entry(unsigned long long key, float& v,
 // queries x 4 rows a lane in layout A); inlined there, the list insertion
 // would be copied 32 times into the scan loop's body. Called only when some
 // lane's score beats the list's threshold, it returns the new threshold.
-struct Entry {
-  float v;
-  int r;
-};
-
 __device__ __noinline__ Entry offer(float* lv, int* li, int k, float v, int r,
                                     float tv, int ti, int lane) {
   warp_offer_batch(lv, li, k, v, r, tv, ti, lane);
@@ -219,9 +235,10 @@ __device__ __noinline__ Entry offer(float* lv, int* li, int k, float v, int r,
 // slab: float [N, D] (IVF), uint8 [N, D] (SQ8) or bf16 bits [N, D] (BF16).
 // mins, scales, qc [B, kp] are read in SQ8 mode only. qsq: null, or |q|^2
 // [B] to take in place of the gathered q's own. vec: D % 4 == 0 and the
-// slab's and q's bases are aligned, so slab rows are staged with cp.async
-// and queries gathered as float4; else plain loads do both.
-template <int MODE>
+// slab's and q's bases are aligned, so slab rows and query rows are staged
+// with cp.async; else plain loads do both. kw: the width of a partial slot
+// (k; in the wide mode min(k, seg, the longest list)).
+template <int MODE, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
 ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
                      const float* __restrict__ qsq,
@@ -238,7 +255,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
                      const int32_t* __restrict__ slot_end,
                      const int32_t* __restrict__ offsets,
                      const int32_t* __restrict__ lens, int nclus, int B, int D,
-                     int k, int metric_ip, int seg, int nslots, int vec,
+                     int k, int kw, int metric_ip, int seg, int nslots, int vec,
                      float* __restrict__ part_v, int32_t* __restrict__ part_i,
                      unsigned long long* __restrict__ qfloor) {
   constexpr bool SQ8 = MODE == MODE_SQ8;
@@ -261,8 +278,8 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
   const int D4 = round4(D);
 
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                                   // [D4][QS_LD]
-  Elem* xs = (Elem*)(qs + (size_t)D4 * QS_LD);        // [2][RT][XLD]
+  float* qs = smem;                                   // [2][BT][QLD]
+  Elem* xs = (Elem*)(qs + 2 * BT * QLD);              // [2][RT][XLD]
   float* rsq = (float*)(xs + 2 * RT * XLD);           // [2][RT]
   int* rok = (int*)(rsq + 2 * RT);                    // [2][RT]
   float* rmn = (float*)(rok + 2 * RT);                // [2][RT] (SQ8)
@@ -274,8 +291,11 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
   int* qslot = qb + BT;                               // [BT] partial slot
   float* fv = (float*)(qslot + BT);                   // [BT] floor score
   int* fi = (int*)(fv + BT);                          // [BT] floor row
-  float* lv = (float*)(fi + BT);                      // [BT][k]
-  int* li = (int*)(lv + (size_t)BT * k);              // [BT][k]
+  float* lv = (float*)(fi + BT);                      // [BT][k]; WIDE: buffers [BT][LCAP]
+  int* li = (int*)(lv + (size_t)BT * (WIDE ? LCAP : k));
+  WideState* wst = (WideState*)(li + (size_t)BT * LCAP);  // WIDE: [BT]
+  float* wtv = (float*)(wst + BT);                    // WIDE: [BT] threshold (layout B)
+  int* wti = (int*)(wtv + BT);                        // WIDE: [BT]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -292,6 +312,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
   int p_ok = 0;
   float p_sq = 0.f, p_mn = 0.f, p_sc = 0.f;
 
+  // a stage: the depth chunk of the tile's rows and of the chunk's queries
   auto stage = [&](int st) {
     const int tile = st / nchunk, ch = st - tile * nchunk;
     const int row0 = r_lo + tile * RT, d0 = ch * DCH;
@@ -312,6 +333,20 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
 #pragma unroll
         for (int u = 0; u < 4; ++u)
           dst[u] = (ok && d0 + 4 * qd + u < D) ? src[u] : (Elem)0;
+      }
+    }
+    // the chunk's queries only: no score of a query past qn is ever read
+    float* qdst0 = qs + (st & 1) * BT * QLD;
+    for (int e = tid; e < qn * (DCH / 4); e += THREADS) {
+      const int i = e / (DCH / 4), qd = e - i * (DCH / 4);
+      if (qd >= nq) continue;
+      float* dst = qdst0 + i * QLD + 4 * qd;
+      const float* src = q + (size_t)qb[i] * D + d0 + 4 * qd;
+      if (vec) {
+        cp_async16(dst, src, 16);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) dst[u] = d0 + 4 * qd + u < D ? src[u] : 0.f;
       }
     }
     pend = ch == 0 && tid < RT;
@@ -337,14 +372,14 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
     }
   };
 
-  // the first stage's copy and row tables are in flight while the queries
-  // are gathered
-  stage(0);
-  cp_async_commit();
-
   for (int i = tid; i < BT; i += THREADS) {
     fv[i] = -INFINITY;
     fi[i] = -1;
+    if (WIDE) {
+      wst[i] = {0, 0};
+      wtv[i] = -INFINITY;
+      wti[i] = -1;
+    }
     if (i >= qn) continue;
     const int j = pairs[qlo + i];  // pair j = b * P + p
     const int b = j / P;
@@ -352,52 +387,36 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
     qslot[i] = slot_end[j] - ns + s;
     if (SQ8) qcv[i] = qc[(size_t)b * kp + c];
     floor_entry(__ldcg(qfloor + b), fv[i], fi[i]);
-  }
-  __syncthreads();
-  // every list starts as k copies of its query's floor (layout B: warp w's
-  // list of query i is list w * QPW + i)
-  for (int e = tid; e < BT * k; e += THREADS) {
-    const int i = small ? (e / k) % QPW : e / k;
-    lv[e] = fv[i];
-    li[e] = fi[i];
-  }
-  if (vec) {  // D % 4 == 0: float4 loads, GATHER in flight per thread;
-              // lanes take consecutive queries, so the column stores do not
-              // conflict
-    const int D4q = D >> 2;
-    for (int e0 = 0; e0 < BT * D4q; e0 += THREADS * GATHER) {
-      float4 v[GATHER];
-#pragma unroll
-      for (int u = 0; u < GATHER; ++u) {
-        const int e = e0 + u * THREADS + tid, i = e % BT, j = e / BT;
-        v[u] = (i < qn && j < D4q)
-                   ? __ldg(reinterpret_cast<const float4*>(q + (size_t)qb[i] * D) + j)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    if (WIDE) {
+      if (qslot[i] >= nslots) {   // no slot (a short max_len): takes nothing
+        fv[i] = INFINITY;
+        fi[i] = -1;
       }
-#pragma unroll
-      for (int u = 0; u < GATHER; ++u) {
-        const int e = e0 + u * THREADS + tid, i = e % BT, j = e / BT;
-        if (j >= D4q) continue;
-        float* col = qs + (size_t)4 * j * QS_LD + i;
-        col[0] = v[u].x;
-        col[QS_LD] = v[u].y;
-        col[2 * QS_LD] = v[u].z;
-        col[3 * QS_LD] = v[u].w;
-      }
-    }
-  } else {
-    for (int e = tid; e < BT * D4; e += THREADS) {
-      const int i = e / D4, d = e - i * D4;
-      qs[(size_t)d * QS_LD + i] =
-          (i < qn && d < D) ? q[(size_t)qb[i] * D + d] : 0.f;
+      wtv[i] = fv[i];
+      wti[i] = fi[i];
     }
   }
-  store_rows(0);
   __syncthreads();
+  // the first stage's copies and row tables are in flight while the lists
+  // start and the queries' norms are summed
+  stage(0);
+  cp_async_commit();
+  if (!WIDE) {
+    // every list starts as k copies of its query's floor (layout B: warp w's
+    // list of query i is list w * QPW + i)
+    for (int e = tid; e < BT * k; e += THREADS) {
+      const int i = small ? (e / k) % QPW : e / k;
+      lv[e] = fv[i];
+      li[e] = fi[i];
+    }
+  }
+  // |q|^2 and sum(q), read whole from global memory: a query is never held
+  // whole in shared memory
   for (int i = warp; i < qn; i += WARPS) {
     float s2 = 0.f, s1 = 0.f;
-    for (int d = lane; d < D4; d += 32) {
-      const float v = qs[(size_t)d * QS_LD + i];
+    const float* qr = q + (size_t)qb[i] * D;
+    for (int d = lane; d < D; d += 32) {
+      const float v = qr[d];
       s2 = fmaf(v, v, s2);
       s1 += v;
     }
@@ -411,7 +430,8 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
       qsum[i] = s1;
     }
   }
-
+  store_rows(0);
+  __syncthreads();
 
   float tv[QPW];
   int ti[QPW];
@@ -447,40 +467,38 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
     __syncthreads();
 
     const Elem* xb = xs + (st & 1) * RT * XLD;
+    const float* qsb = qs + (st & 1) * BT * QLD;
     const int d0 = ch * DCH;
     const int nq = min(DCH, D4 - d0) / 4;
     if (!small && busy) {
-      const float* qcol = qs + (size_t)d0 * QS_LD + warp * QPW;
+      const float* qrow = qsb + warp * QPW * QLD;
       for (int qd = 0; qd < nq; ++qd) {
         float4 xv[RPL];
 #pragma unroll
         for (int j = 0; j < RPL; ++j) xv[j] = row4<MODE>(xb, lane + 32 * j, qd);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float* qr = qcol + (4 * qd + u) * QS_LD;
-          const float4 a0 = *reinterpret_cast<const float4*>(qr);
-          const float4 a1 = *reinterpret_cast<const float4*>(qr + 4);
-          const float a[QPW] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        for (int i = 0; i < QPW; ++i) {
+          const float4 a = *reinterpret_cast<const float4*>(qrow + i * QLD + 4 * qd);
 #pragma unroll
-          for (int i = 0; i < QPW; ++i)
-#pragma unroll
-            for (int j = 0; j < RPL; ++j)
-              acc[i][j] = fmaf(a[i], comp(xv[j], u), acc[i][j]);
+          for (int j = 0; j < RPL; ++j) {
+            acc[i][j] = fmaf(a.x, xv[j].x, acc[i][j]);
+            acc[i][j] = fmaf(a.y, xv[j].y, acc[i][j]);
+            acc[i][j] = fmaf(a.z, xv[j].z, acc[i][j]);
+            acc[i][j] = fmaf(a.w, xv[j].w, acc[i][j]);
+          }
         }
       }
     } else if (small) {
-      const float* qcol = qs + (size_t)d0 * QS_LD + 4 * g;
+      const float* qrow = qsb + 4 * g * QLD;
       for (int qd = 0; qd < nq; ++qd) {
         const float4 xv = row4<MODE>(xb, rb, qd);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float4 a =
-              *reinterpret_cast<const float4*>(qcol + (4 * qd + u) * QS_LD);
-          const float xu = comp(xv, u);
-          acc[0][0] = fmaf(a.x, xu, acc[0][0]);
-          acc[1][0] = fmaf(a.y, xu, acc[1][0]);
-          acc[2][0] = fmaf(a.z, xu, acc[2][0]);
-          acc[3][0] = fmaf(a.w, xu, acc[3][0]);
+        for (int i = 0; i < 4; ++i) {
+          const float4 a = *reinterpret_cast<const float4*>(qrow + i * QLD + 4 * qd);
+          acc[i][0] = fmaf(a.x, xv.x, acc[i][0]);
+          acc[i][0] = fmaf(a.y, xv.y, acc[i][0]);
+          acc[i][0] = fmaf(a.z, xv.z, acc[i][0]);
+          acc[i][0] = fmaf(a.w, xv.w, acc[i][0]);
         }
       }
     }
@@ -511,10 +529,19 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
           for (int j = 0; j < RPL; ++j) {
             const int r = row0 + lane + 32 * j;
             if (!__any_sync(FULL, beats(sc[j], r, tv[i], ti[i]))) continue;
-            const Entry t = offer(lv + (size_t)b * k, li + (size_t)b * k, k,
-                                  sc[j], r, tv[i], ti[i], lane);
-            tv[i] = t.v;
-            ti[i] = t.r;
+            if constexpr (WIDE) {   // the list is query b's partial slot
+              const size_t o = (size_t)qslot[b] * kw;
+              const Entry t = wide_offer<LCAP>(part_v + o, part_i + o, kw,
+                                             lv + (size_t)b * LCAP, li + (size_t)b * LCAP,
+                                             wst + b, sc[j], r, tv[i], ti[i], lane);
+              tv[i] = t.v;
+              ti[i] = t.r;
+            } else {
+              const Entry t = offer(lv + (size_t)b * k, li + (size_t)b * k, k,
+                                    sc[j], r, tv[i], ti[i], lane);
+              tv[i] = t.v;
+              ti[i] = t.r;
+            }
           }
         }
       } else if (small) {
@@ -522,7 +549,6 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
 #pragma unroll
         for (int i = 0; i < QPW; ++i) {
           if (i >= qn) break;  // warp-uniform
-          const int w = (warp * QPW + i) * k;  // this warp's list of query i
           float dot = acc[i & 3][0];
           if constexpr (SQ8)
             dot = qcv[i] + dot * rsc[tb + rb] + qsum[i] * rmn[tb + rb];
@@ -531,15 +557,68 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
                                : -fmaxf(qq[i] - 2.f * dot + rsq[tb + rb], 0.f);
           const bool ok = rowok && g == (i >> 2);
           const float v = ok ? sc : -INFINITY;
-          if (!__any_sync(FULL, beats(v, row0 + rb, tv[i], ti[i]))) continue;
-          const Entry t = offer(lv + w, li + w, k, v, row0 + rb, tv[i], ti[i], lane);
-          tv[i] = t.v;
-          ti[i] = t.r;
+          if constexpr (WIDE) {   // into this warp's buffer of query i
+            const int w = warp * QPW + i;
+            wide_append(lv + (size_t)w * LCAP, li + (size_t)w * LCAP, &wst[w].cnt,
+                        beats(v, row0 + rb, wtv[i], wti[i]), v, row0 + rb, lane);
+          } else {
+            const int w = (warp * QPW + i) * k;  // this warp's list of query i
+            if (!__any_sync(FULL, beats(v, row0 + rb, tv[i], ti[i]))) continue;
+            const Entry t = offer(lv + w, li + w, k, v, row0 + rb, tv[i], ti[i], lane);
+            tv[i] = t.v;
+            ti[i] = t.r;
+          }
+        }
+        if constexpr (WIDE) {
+          // warp i flushes the buffers of query i that could not take
+          // another tile into the query's list, and raises its threshold
+          __syncthreads();
+          if (warp < qn && qslot[warp] < nslots) {
+            const int i = warp;
+            const size_t o = (size_t)qslot[i] * kw;
+            for (int w = 0; w < WARPS; ++w) {
+              const int bw = w * QPW + i;
+              if (wst[bw].cnt <= B_FLUSH) continue;
+              wide_flush<LCAP>(part_v + o, part_i + o, kw, lv + (size_t)bw * LCAP,
+                               li + (size_t)bw * LCAP, &wst[bw].cnt, &wst[i].fill, lane);
+            }
+            float t_v = wtv[i];
+            int t_i = wti[i];
+            wide_threshold(part_v + o, part_i + o, kw, wst[i].fill, t_v, t_i);
+            __syncwarp();
+            if (lane == 0) {
+              wtv[i] = t_v;
+              wti[i] = t_i;
+            }
+          }
         }
       }
     }
     store_rows(st + 1);
     __syncthreads();
+  }
+
+  if constexpr (WIDE) {
+    // the buffers left, then the slots' pads; list i's fill is wst[i].fill
+    // (layout B: every warp's buffer of query i feeds it)
+    for (int i = small ? warp : warp * QPW; i < (small ? qn : min(qn, (warp + 1) * QPW));
+         i += small ? WARPS : 1) {
+      if (qslot[i] >= nslots) continue;
+      const size_t o = (size_t)qslot[i] * kw;
+      for (int w = 0; w < (small ? WARPS : 1); ++w) {
+        const int bw = small ? w * QPW + i : i;
+        wide_flush<LCAP>(part_v + o, part_i + o, kw, lv + (size_t)bw * LCAP,
+                         li + (size_t)bw * LCAP, &wst[bw].cnt, &wst[i].fill, lane);
+      }
+      wide_pad(part_v + o, part_i + o, kw, wst[i].fill, lane);
+    }
+    __syncthreads();
+    if (tid < qn && kw == k && qslot[tid] < nslots && wst[tid].fill == k) {
+      // a full list of this item's rows raises the floor
+      const size_t o = (size_t)qslot[tid] * kw + k - 1;
+      atomicMax(qfloor + qb[tid], floor_key(part_v[o], part_i[o]));
+    }
+    return;
   }
 
   if (small && warp < qn) {
@@ -586,23 +665,27 @@ int launch_list_scan(const void* q, const void* slab, const void* qsq,
                      const void* item_end, const void* item_c,
                      const void* slot_end, const void* offsets,
                      const void* lens, int nclus, int grid, int B, int D, int k,
-                     int metric_ip, int seg, int nslots, int vec, void* part_v,
-                     void* part_i, void* qfloor, void* stream) {
-  if (k < 1 || k > MAXK || seg < 1 || P < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = list_scan_smem_bytes(D, k, MODE);
+                     int kw, int metric_ip, int seg, int nslots, int vec,
+                     void* part_v, void* part_i, void* qfloor, void* stream) {
+  const bool wide = k > MAXK;
+  // a slot holds k entries, or in the wide mode at most what a segment has
+  if (k < 1 || k > WIDE_MAXK || seg < 1 || P < 1 || kw < 1 ||
+      (wide ? kw > min(k, seg) : kw != k))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = list_scan_smem_bytes(k, MODE);
+  auto kernel = wide ? ivf_list_scan_kernel<MODE, true> : ivf_list_scan_kernel<MODE, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      ivf_list_scan_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   if (grid == 0) return 0;
-  ivf_list_scan_kernel<MODE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)q, slab, (const float*)qsq, (const float*)sqnorm,
       (const uint8_t*)alive,
       (const float*)mins, (const float*)scales, (const float*)qc, kp,
       (const int32_t*)pairs, P, (const int32_t*)cstart, (const int32_t*)ccnt,
       (const int32_t*)item_end, (const int32_t*)item_c,
       (const int32_t*)slot_end, (const int32_t*)offsets, (const int32_t*)lens,
-      nclus, B, D, k,
+      nclus, B, D, k, kw,
       metric_ip, seg, nslots, vec, (float*)part_v, (int32_t*)part_i,
       (unsigned long long*)qfloor);
   return (int)cudaGetLastError();
@@ -613,25 +696,26 @@ int launch_list_scan(const void* q, const void* slab, const void* qsq,
 extern "C" {
 
 // mode: 1 IVF (fp32 rows), 2 SQ8, 3 BF16; the wrapper's
-// list_scan_smem_bytes computes the same number.
-long long pyrope_list_scan_smem_bytes(int d, int k, int mode) {
-  return (long long)list_scan_smem_bytes(d, k, mode);
+// list_scan_smem_bytes computes the same number. It does not depend on D.
+long long pyrope_list_scan_smem_bytes(int k, int mode) {
+  return (long long)list_scan_smem_bytes(k, mode);
 }
 
 // IVF mode: x [N, D] f32. The work tables come from invert_probes
-// (ops/fused_scan.py); partials [nslots, k].
+// (ops/fused_scan.py); partials [nslots, kw]: kw = k for k <= MAXK, else
+// (the wide mode, k <= WIDE_MAXK) at most min(k, seg).
 int pyrope_ivf_list_scan(const void* q, const void* x, const void* sqnorm,
                          const void* alive, const void* pairs, int P,
                          const void* cstart, const void* ccnt,
                          const void* item_end, const void* item_c,
                          const void* slot_end, const void* offsets,
                          const void* lens, int nclus, int grid, int B, int D,
-                         int k, int metric_ip, int seg, int nslots, int vec,
+                         int k, int kw, int metric_ip, int seg, int nslots, int vec,
                          void* part_v, void* part_i, void* qfloor,
                          void* stream) {
   return launch_list_scan<MODE_IVF>(
       q, x, nullptr, sqnorm, alive, nullptr, nullptr, nullptr, 0, pairs, P, cstart,
-      ccnt, item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k,
+      ccnt, item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k, kw,
       metric_ip, seg, nslots, vec, part_v, part_i, qfloor, stream);
 }
 
@@ -644,12 +728,12 @@ int pyrope_ivf_list_scan_sq8(const void* q, const void* codes,
                              const void* item_end, const void* item_c,
                              const void* slot_end, const void* offsets,
                              const void* lens, int nclus, int grid, int B,
-                             int D, int k, int metric_ip, int seg, int nslots,
+                             int D, int k, int kw, int metric_ip, int seg, int nslots,
                              int vec, void* part_v, void* part_i,
                              void* qfloor, void* stream) {
   return launch_list_scan<MODE_SQ8>(
       q, codes, nullptr, sqnorm, alive, mins, scales, qc, kp, pairs, P, cstart, ccnt,
-      item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k, metric_ip,
+      item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k, kw, metric_ip,
       seg, nslots, vec, part_v, part_i, qfloor, stream);
 }
 
@@ -661,12 +745,12 @@ int pyrope_ivf_list_scan_bf16(const void* q, const void* x, const void* qsq,
                               const void* ccnt, const void* item_end,
                               const void* item_c, const void* slot_end,
                               const void* offsets, const void* lens, int nclus,
-                              int grid, int B, int D, int k, int metric_ip,
+                              int grid, int B, int D, int k, int kw, int metric_ip,
                               int seg, int nslots, int vec, void* part_v,
                               void* part_i, void* qfloor, void* stream) {
   return launch_list_scan<MODE_BF16>(
       q, x, qsq, sqnorm, alive, nullptr, nullptr, nullptr, 0, pairs, P, cstart,
-      ccnt, item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k,
+      ccnt, item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k, kw,
       metric_ip, seg, nslots, vec, part_v, part_i, qfloor, stream);
 }
 

@@ -16,16 +16,17 @@ Selection (routes by the JAX package's names, ``describe_scan``):
     rounded to it and summed in fp32.
   - ``pallas`` (``flat-pallas``): the fused scan kernel K1
     (ops/fused_scan.fused_flat_topk), no [B, cap] score matrix; off a bf16
-    slab its bf16 mode (bf16(q)·x, fp32 sums). Cosine runs the exact path,
-    as in the JAX package (the kernel takes pre-normalized IP only). k
-    above the kernel's MAX_K raises (ROADMAP.md queue 2 item B).
+    slab its bf16 mode (bf16(q)·x, fp32 sums); at k above 128 its wide
+    mode. Cosine runs the exact path, as in the JAX package (the kernel
+    takes pre-normalized IP only).
   - ``hybrid[:R]`` (``flat-pallas-hybrid``): a bf16 twin of the fp32 slab;
     the scan kernel's bf16 mode keeps each query's top R
-    (``hybrid_shortlist``) and ``rerank_exact`` rescores those rows off the
-    fp32 slab. Batches above HYBRID_MAX_BATCH, and shortlists wider than
-    the kernel holds (R > MAX_K: k > 32 or an explicit R > 128), take the
-    fp32 scan (``flat-pallas``): both sides of the route are exact; k above
-    MAX_K takes ``flat-exact``. Cosine takes ``flat-exact``.
+    (``hybrid_shortlist``, the wide mode above R 128) and ``rerank_exact``
+    rescores those rows off the fp32 slab. Batches above HYBRID_MAX_BATCH
+    take the fp32 scan (``flat-pallas``), as in the JAX package: both
+    sides of the route are exact. Cosine takes ``flat-exact``.
+  k above the kernels' MAX_K (10,000) raises on the kernel routes, naming
+  the limit; the JAX package's kernels have none.
   - ``approx[:recall]``: runs exact (see ops/topk.py).
 """
 
@@ -304,21 +305,20 @@ class FlatIndex(VectorIndex):
         """The route a batch (bucketed, as the JAX package routes it) of
         ``top_k`` queries runs: 'flat-pallas-hybrid', 'flat-pallas' or
         'flat-exact'. The single source of routing truth for searches and
-        describe_scan. Explicit 'pallas' at a k the kernel does not take
+        describe_scan. A kernel route at a k the kernels do not take
         raises."""
         if self.metric == Metric.COSINE:
             return "flat-exact"
         if self._hybrid:
-            if (batch <= HYBRID_MAX_BATCH
-                    and k_refusal(self._shortlist(top_k)) is None):
-                return "flat-pallas-hybrid"
-            return "flat-pallas" if k_refusal(top_k) is None else "flat-exact"
-        if self.selection != "pallas":
+            route = "flat-pallas-hybrid" if batch <= HYBRID_MAX_BATCH else "flat-pallas"
+        elif self.selection == "pallas":
+            route = "flat-pallas"
+        else:
             return "flat-exact"
         why = k_refusal(top_k)
         if why is not None:
-            raise ValueError(f"selection='pallas' needs the flat scan kernel: {why}")
-        return "flat-pallas"
+            raise ValueError(f"{route} needs the flat scan kernel: {why}")
+        return route
 
     def _search_device(self, q: torch.Tensor, top_k: int,
                        max_scans: Optional[int], batch: Optional[int] = None

@@ -18,16 +18,17 @@ Scan routes, by the same names as the JAX package, so a recorded
   - ``dense-pallas-hybrid`` / ``dense-pallas-win-hybrid``
     (``selection="hybrid[:R]"``, at a bucketed batch <= HYBRID_MAX_BATCH):
     the list scan's bf16 mode over a bf16 twin of the slab (``xperm16``)
-    keeps each query's top R, and ``rerank_exact`` rescores them off the
-    fp32 slab. Larger batches, and R above what the kernel holds, take the
-    fp32 list scan: both sides are exact.
+    keeps each query's top R (its wide mode above R 128), and
+    ``rerank_exact`` rescores them off the fp32 slab. Larger batches take
+    the fp32 list scan: both sides are exact.
   - ``dense-xla``: plain torch, a [B, N] score matrix masked by probe
     membership and the max_scans budget (the JAX package's XLA kernel),
-    walked in query blocks of at most DENSE_MAX_ELEMS scores. It also takes
-    the dense scans the list scan does not take (k above its MAX_K, or a D
-    whose queries overflow its shared memory: ``list_scan_refusal``), where
-    the JAX package's kernels answer; the mode (dense or probe) stays the
-    JAX package's.
+    walked in query blocks of at most DENSE_MAX_ELEMS scores. Only where
+    the JAX package takes it: a max_scans budget, cosine, a
+    ``compute_dtype``, ``selection="exact"``, a cluster table over
+    IVF_MAX_KPAD.
+The list scan takes any D and k up to its MAX_K (10,000); above it the kernel
+routes raise, naming the limit.
   - ``probe``: plain torch, a gather of each probed list + a running merge.
 ``compute_dtype`` (e.g. "bfloat16") rounds the search products' operands,
 as the JAX package does, and makes the kernel routes ineligible;
@@ -66,10 +67,8 @@ from pyrope_tpu_torch.index.flat import (
 from pyrope_tpu_torch.ops.distance import rerank_exact, rounded, row_sqnorms, score_matrix
 from pyrope_tpu_torch.ops.fused_scan import (
     IVF_MAX_KPAD,
-    LIST_BF16,
-    LIST_IVF,
     fused_ivf_topk,
-    list_scan_refusal,
+    k_refusal,
 )
 from pyrope_tpu_torch.ops.kmeans import kmeans_build
 from pyrope_tpu_torch.ops.topk import masked_topk, merge_topk, parse_selection, stable_topk
@@ -182,8 +181,7 @@ def pallas_dense_ok(selection: str, metric: Metric, compute, ms: int, n: int,
     tile-divisibility and window terms have no counterpart: the kernel masks
     ragged edges and takes any cluster layout. It also keeps the dense mode
     free of the DENSE_MAX_ELEMS guard (``pick_scan_mode``), as in the JAX
-    package. Whether the kernel takes the shape (k, D) is
-    ``list_scan_refusal``'s, decided after the mode."""
+    package. The kernel takes any D and k up to its MAX_K."""
     if selection == "exact":
         return False
     return (metric != Metric.COSINE and compute is None and ms >= n
@@ -516,8 +514,8 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
         """(batch, nprobe, max_scans, top_k) -> the route that will run:
         'probe', 'dense-xla', 'dense-pallas[-win]' or
         'dense-pallas[-win]-hybrid'. The single source of routing truth for
-        _run_scan and describe_scan. The mode (dense or probe) is the JAX
-        package's; which kernel takes a dense scan is decided from shapes."""
+        _run_scan and describe_scan, by the JAX package's rules; ``top_k``
+        only names the limit where a kernel route cannot take it."""
         kpad = dev["cents"].shape[0]
         p_ok = pallas_dense_ok(self.selection, self.metric, self.compute_dtype, ms,
                                self._main_n, kpad)
@@ -529,13 +527,12 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
             return "probe"
         if not p_ok:
             return "dense-xla"
+        why = k_refusal(top_k)
+        if why is not None:
+            raise ValueError(f"the dense kernel route needs the list scan: {why}")
         path = "dense-pallas-win" if kpad > WINDOWED_ROUTE_KPAD else "dense-pallas"
-        if (self.selection.partition(":")[0] == "hybrid" and batch <= HYBRID_MAX_BATCH
-                and list_scan_refusal(self.dim, self._shortlist(dev, top_k),
-                                      LIST_BF16) is None):
+        if self.selection.partition(":")[0] == "hybrid" and batch <= HYBRID_MAX_BATCH:
             return path + "-hybrid"
-        if list_scan_refusal(self.dim, top_k, LIST_IVF) is not None:
-            return "dense-xla"
         return path
 
     def _run_scan(self, dev: dict, q: torch.Tensor, top_k: int, nprobe: int,
@@ -547,12 +544,10 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
                 and path in ("probe", "dense-xla")):
             # a max_scans budget (ms < n) takes the plain kernels; anything
             # else under explicit 'pallas' is a config error, never a swap
-            why = list_scan_refusal(self.dim, top_k, LIST_IVF)
             raise ValueError(
                 "selection='pallas' requires the fused dense kernel but the "
                 f"scan resolved to {path!r} (needs dense mode, L2/IP, fp32 "
-                f"compute, at most {IVF_MAX_KPAD} clusters"
-                + (f"; {why})" if why else ")"))
+                f"compute, at most {IVF_MAX_KPAD} clusters)")
         probe, offs_p, eff = rank_probes(
             q, dev["cents"], dev["cvalid"], dev["offsets"], dev["lens"],
             nprobe, ms, self.metric, self.compute_dtype,

@@ -27,9 +27,9 @@ names the code that ran:
   - plain torch, as they are XLA in the JAX package: ``dense-sq8-xla``,
     ``dense-exact-xla``, ``dense-adc`` (refine 0), ``probe-adc``,
     ``probe-adc+rerank`` and ``probe-adc+rerank-sq8``. These carry the
-    ``max_scans`` budgets, and the ``dense-*-xla`` routes the dense scans
-    the list scan does not take (``list_scan_refusal``: k above its MAX_K,
-    or a D its shared memory does not hold), walked in query blocks.
+    ``max_scans`` budgets (the ``dense-*-xla`` routes walked in query
+    blocks), as in the JAX package. The list scan takes any D and k up to
+    its MAX_K (10,000); above it the kernel routes raise, naming the limit.
 The ``-win`` names follow the cluster-table width (> 512), as in the JAX
 package, though here one kernel serves both: the list scan takes any
 nlist (routes cap it at IVF_MAX_KPAD). So the eligibility test keeps only the JAX
@@ -77,12 +77,9 @@ from pyrope_tpu_torch.ops.distance import (
     score_matrix,
 )
 from pyrope_tpu_torch.ops.fused_scan import (
-    LIST_BF16,
-    LIST_IVF,
-    LIST_SQ8,
     fused_ivf_sq8_topk,
     fused_ivf_topk,
-    list_scan_refusal,
+    k_refusal,
     sq8_scores,
 )
 from pyrope_tpu_torch.ops.kmeans import kmeans_build
@@ -496,9 +493,8 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         the JAX package's rules: 'probe-adc', 'probe-adc+rerank[-sq8]',
         'dense-adc', 'dense-exact-{xla,pallas,pallas-win}' or
         'dense-sq8-{xla,pallas,pallas-win}'. The single source of routing
-        truth for _run_scan and describe_scan. The mode (dense or probe) is
-        the JAX package's; a dense scan whose shape the list scan does not
-        take (``list_scan_refusal``) takes the plain ``dense-*-xla``.
+        truth for _run_scan and describe_scan, by the JAX package's rules;
+        ``top_k`` only names the limit where a kernel route cannot take it.
 
         With ``refine`` > 0 dense and probe return different hit sets
         (dense exact-scans the rerank slab, probe reranks an ADC
@@ -526,10 +522,11 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
             return "probe-adc"
         if self.refine == 0:
             return "dense-adc"
-        mode = (LIST_SQ8 if sq8 else LIST_BF16 if self.refine_storage == "bf16"
-                else LIST_IVF)
-        if not p_ok or list_scan_refusal(self.dim, top_k, mode) is not None:
+        if not p_ok:
             return "dense-sq8-xla" if sq8 else "dense-exact-xla"
+        why = k_refusal(top_k)
+        if why is not None:
+            raise ValueError(f"the dense kernel route needs the list scan: {why}")
         win = "-win" if kpad > WINDOWED_ROUTE_KPAD else ""
         return ("dense-sq8-pallas" if sq8 else "dense-exact-pallas") + win
 

@@ -28,6 +28,15 @@ products, fp32 sums); ``fused_ivf_topk(promote_fp32=True)`` scores the fp32
 q against the widened rows. In both, ‖q‖² is that of the fp32 q and
 ``sqnorm`` that of the fp32 rows before the cast.
 
+k ranges from 1 to MAX_K = 10,000 and D is any: k <= NARROW_MAX_K (128)
+runs the warp-register lists; above it each kernel's wide mode (the TPU
+kernels' wide merges, ``_wide_params`` :372, ``_bitonic_merge_wide`` :192,
+``_merge_tile_wide`` :200, ``_extract_top`` :496; csrc/topk_wide.cuh) keeps
+each list in global memory (the partials, or the merge's output) behind a
+candidate buffer in shared memory. The list scan's wide slots hold
+``list_slot_width`` = min(k, seg, max_len) entries. ``LAUNCHES`` counts the
+wide modes under their own ``_wide`` keys.
+
 What bounds each kernel on an H100, and what its design does about it, is
 in the header of its CUDA source.
 
@@ -52,14 +61,19 @@ import torch
 from pyrope_tpu_torch.types import Metric
 from pyrope_tpu_torch.ops.distance import check_fp32_exact
 
-# MAXK, BT and RT of the CUDA sources; the kernels refuse any other k range
-MAX_K = 128              # list slots per query (4 per lane)
+# MAXK, WIDE_MAXK, BT and RT of the CUDA sources; the kernels refuse any
+# other k range
+NARROW_MAX_K = 128       # MAXK: warp-register lists (4 slots a lane) up to here
+MAX_K = 10_000           # WIDE_MAXK: the wide lists' limit, the kernels' k range
 QUERY_TILE = 64          # queries per list chunk; the flat scan's narrow tile
 FLAT_QUERY_TILES = (128, 64)  # the flat scan's instantiations, widest first
 ROW_TILE = 128           # corpus rows per tile
 FLAT_STAGES = 2          # NST of fused_scan.cu: stages in the copy ring
 FLAT_ROW_BYTES = 128     # bytes of a row a stage holds: 32 fp32 or 64 bf16 depths
 FLAT_FLOOR_WINDOW = 32   # WIN: splits whose published scores a warp reads
+FLAT_WIDE_TILE = 64      # WIDE_BT: the flat scan's query tile at k > NARROW_MAX_K
+FLAT_WIDE_CAP = 256      # FLAT_CAP: its candidate buffer, a query
+LIST_WIDE_CAP = 128      # LCAP: the list scan's candidate buffer, a list
 LIST_SEG = 2048          # rows of one cluster a list-scan block walks at most
 LIST_SEG_MIN = 256       # shortest segment list_seg cuts for parallelism
 SMEM_LIMIT = 232_448     # bytes of shared memory a block may use on sm_90
@@ -70,13 +84,16 @@ IVF_MAX_KPAD = 8192      # widest cluster table a route sends the list scan
 LIST_IVF, LIST_SQ8, LIST_BF16 = 1, 2, 3
 _LIST_ELEM = {LIST_IVF: 4, LIST_SQ8: 1, LIST_BF16: 2}
 LIST_DEPTH_CHUNK = 64    # DCH of ivf_list_scan.cu: depth elements a stage
-LIST_LD_PAD = 4          # QS_LD - BT and XLD - DCH: the padding of its rows
+LIST_LD_PAD = 4          # QLD - DCH and XLD - DCH: the padding of its stage rows
 _BLOCKS_PER_SM = 4       # list-scan grid target: blocks in flight per SM
 _FLAT_BLOCKS_PER_SM = 2  # flat grid target: one wave of two blocks an SM
 
-# launches of each kernel since the last reset_launches()
+# launches of each kernel since the last reset_launches(); the ``_wide``
+# keys count the wide mode (k > NARROW_MAX_K) of the same kernel
 LAUNCHES = {"flat_scan": 0, "flat_scan_bf16": 0, "ivf_scan": 0, "ivf_scan_bf16": 0,
-            "sq8_scan": 0, "merge": 0}
+            "sq8_scan": 0, "merge": 0, "flat_scan_wide": 0, "flat_scan_bf16_wide": 0,
+            "ivf_scan_wide": 0, "ivf_scan_bf16_wide": 0, "sq8_scan_wide": 0,
+            "merge_wide": 0}
 
 
 def reset_launches() -> None:
@@ -200,37 +217,40 @@ _FP_SLABS = (torch.float32, torch.bfloat16)
 
 
 def k_refusal(k: int) -> str | None:
-    """Why the kernels do not take ``k`` hits a query, or None."""
+    """Why the kernels do not take ``k`` hits a query, or None. The one
+    limit left: the wide lists hold at most MAX_K entries (the JAX
+    package's kernels take any k; the server parses k up to 10,000)."""
     if 1 <= k <= MAX_K:
         return None
     why = f"k must be in [1, {MAX_K}], got {k}"
     if k > MAX_K:
-        why += (f": the CUDA kernels hold {MAX_K} list slots a query "
-                "(wide k: ROADMAP.md queue 2 item B)")
+        why += f": the CUDA kernels' lists hold at most {MAX_K} entries a query"
     return why
 
 
-def list_scan_smem_bytes(d: int, k: int, mode: int) -> int:
+def list_scan_smem_bytes(k: int, mode: int) -> int:
     """Shared memory of a list-scan block, as ``list_scan_smem_bytes`` of
-    ivf_list_scan.cu computes it: a chunk's queries whole ([D][BT + 4]
-    floats), two stages of RT rows x (DCH + 4) slab elements, the row tables
-    of two tiles, the per-query tables and the lists."""
-    d4 = -(-d // 4) * 4
-    return (4 * d4 * (QUERY_TILE + LIST_LD_PAD)
-            + 2 * ROW_TILE * (LIST_DEPTH_CHUNK + LIST_LD_PAD) * _LIST_ELEM[mode]
+    ivf_list_scan.cu computes it: two stages of RT rows x (DCH + 4) slab
+    elements and of the chunk's BT queries x (DCH + 4) floats, the row
+    tables of two tiles, the per-query tables, and the lists (k <=
+    NARROW_MAX_K) or a candidate buffer, its state and a threshold a list
+    (the wide mode). It does not depend on D: q is streamed by depth."""
+    ld = LIST_DEPTH_CHUNK + LIST_LD_PAD
+    lists = (QUERY_TILE * (8 * LIST_WIDE_CAP + 16) if k > NARROW_MAX_K
+             else 8 * QUERY_TILE * k)
+    return (4 * 2 * QUERY_TILE * ld + 2 * ROW_TILE * ld * _LIST_ELEM[mode]
             + 2 * ROW_TILE * 4 * (4 if mode == LIST_SQ8 else 2)
-            + 7 * QUERY_TILE * 4 + 8 * QUERY_TILE * k)
+            + 7 * QUERY_TILE * 4 + lists)
 
 
-def list_scan_refusal(d: int, k: int, mode: int) -> str | None:
-    """Why the list scan does not take depth ``d`` and ``k`` hits in
-    ``mode``, or None when it does. Decided on the host from shapes alone:
-    the routes of the IVF indexes call it before any launch."""
+def list_scan_refusal(k: int, mode: int) -> str | None:
+    """Why the list scan does not take ``k`` hits in ``mode``, or None when
+    it does: the k range, or shared memory over what a block may use (which
+    no k in range reaches). Decided on the host from shapes alone."""
     why = k_refusal(k)
-    if why is None and list_scan_smem_bytes(d, k, mode) > SMEM_LIMIT:
-        why = (f"D {d} needs {list_scan_smem_bytes(d, k, mode)} B of shared memory "
-               f"in the list scan, over the {SMEM_LIMIT} B a block may use "
-               "(large D: ROADMAP.md queue 2 item C)")
+    if why is None and list_scan_smem_bytes(k, mode) > SMEM_LIMIT:
+        why = (f"k {k} needs {list_scan_smem_bytes(k, mode)} B of shared memory "
+               f"in the list scan, over the {SMEM_LIMIT} B a block may use")
     return why
 
 
@@ -276,11 +296,14 @@ def flat_scan_smem_bytes(k: int, query_tile: int, elem: int = 4) -> int:
     """Shared memory of a flat-scan block, as ``scan_smem_bytes`` of
     fused_scan.cu computes it: the ring of stages (each a depth chunk of
     the tile's rows, 128 bytes of each, and the same depths of its fp32
-    queries, and the rows' table), four words a query, and the lists. It
-    does not depend on D: q is streamed."""
+    queries, and the rows' table), four words a query, and the lists (k <=
+    NARROW_MAX_K) or a candidate buffer and its state a query (the wide
+    mode: the lists lie in the partials). It does not depend on D: q is
+    streamed."""
     stage = ROW_TILE * FLAT_ROW_BYTES // 4 + query_tile * (FLAT_ROW_BYTES // elem)
-    return 4 * (FLAT_STAGES * (stage + ROW_TILE) + 4 * query_tile
-                + 2 * query_tile * k)
+    lists = (query_tile * (2 * FLAT_WIDE_CAP + 2) if k > NARROW_MAX_K
+             else 2 * query_tile * k)
+    return 4 * (FLAT_STAGES * (stage + ROW_TILE) + 4 * query_tile + lists)
 
 
 def flat_tile(d: int, k: int, b: int, elem: int = 4) -> tuple[int, int]:
@@ -290,10 +313,12 @@ def flat_tile(d: int, k: int, b: int, elem: int = 4) -> tuple[int, int]:
     the 64-query one where a batch fits it (at B <= 64 a wider tile is
     padding). The first of which two blocks fit an SM wins (two blocks hide
     each other's list insertions: k <= 45 at 128 queries, k <= 125 at 64),
-    else the first that fits at all. Raises where none fits."""
+    else the first that fits at all. The wide mode (k > NARROW_MAX_K) has
+    one tile, FLAT_WIDE_TILE. Raises where none fits."""
     if d < 1 or not 1 <= k <= MAX_K:
         raise ValueError(f"flat scan takes D >= 1 and k in [1, {MAX_K}], got D={d}, k={k}")
-    fits = [(tile, flat_scan_smem_bytes(k, tile, elem)) for tile in FLAT_QUERY_TILES
+    tiles = (FLAT_WIDE_TILE,) if k > NARROW_MAX_K else FLAT_QUERY_TILES
+    fits = [(tile, flat_scan_smem_bytes(k, tile, elem)) for tile in tiles
             if b > QUERY_TILE or tile == QUERY_TILE]
     for limit in (SMEM_TWO_BLOCKS, SMEM_LIMIT):
         for tile, smem in fits:
@@ -314,29 +339,40 @@ def flat_floor(k: int, n_splits: int) -> tuple[int, int]:
 
 
 def scan_splits(b: int, n_rows: int, dev: torch.device,
-                query_tile: int = QUERY_TILE) -> tuple[int, int]:
+                query_tile: int = QUERY_TILE, k: int = 1) -> tuple[int, int]:
     """(rows_per_split, n_splits) of the scan grid: enough corpus splits
     that it holds about _FLAT_BLOCKS_PER_SM blocks per SM, each split a
-    whole number of row tiles."""
+    whole number of row tiles. The wide mode (k > NARROW_MAX_K) fits one
+    block an SM, so its grid is one wave of at most one block an SM:
+    measured on an H100 at 700 W against the two-block target (bench/
+    scan_ab.py, one call, ABBA), 31.4 against 62.5 ms at b1024 k1000, 7.3
+    against 12.8 ms at b256 k512 (bf16), 45.8 against 67.4 ms at b64 k10000."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _splits(b, n_rows, sms, query_tile)
+    return _splits(b, n_rows, sms, query_tile, k)
 
 
-def _splits(b: int, n_rows: int, sms: int, query_tile: int) -> tuple[int, int]:
+def _splits(b: int, n_rows: int, sms: int, query_tile: int,
+            k: int = 1) -> tuple[int, int]:
     q_tiles = -(-b // query_tile)
     tiles = max(-(-n_rows // ROW_TILE), 1)
-    want = min(max(-(-_FLAT_BLOCKS_PER_SM * sms // q_tiles), 1), tiles)
+    if k > NARROW_MAX_K:   # one block an SM: one wave, no block past it
+        want = max(sms // q_tiles, 1)
+    else:
+        want = max(-(-_FLAT_BLOCKS_PER_SM * sms // q_tiles), 1)
+    want = min(want, tiles)
     per = -(-tiles // want) * ROW_TILE
     return per, max(-(-n_rows // per), 1)
 
 
-def merge_partials_plain(part_v, part_i, qend=None):
+def merge_partials_plain(part_v, part_i, qend=None, k=None):
     """Plain version of ``merge_partials``: (score desc, row asc) over every
     list of a query, whatever order the lists come in (two stable sorts:
-    rows, then scores)."""
-    if qend is not None:  # per-query lists, padded to [most lists, B, k]
+    rows, then scores); ``k`` hits (default: the lists' width), -inf/-1
+    past the entries there are."""
+    k = part_v.shape[-1] if k is None else k
+    if qend is not None:  # per-query lists, padded to [most lists, B, width]
         qoff = torch.nn.functional.pad(qend[:, -1], (1, 0))
-        k, cnt = part_v.shape[1], qoff.diff()
+        cnt = qoff.diff()
         m = int(cnt.max()) if cnt.numel() else 0
         if m == 0:
             return _empty_hits(cnt.numel(), k, part_v.device)
@@ -345,58 +381,77 @@ def merge_partials_plain(part_v, part_i, qend=None):
         rows = torch.where(ok[..., 0], qoff[:-1, None] + j, 0).long()
         part_v = torch.where(ok, part_v[rows], float("-inf")).permute(1, 0, 2)
         part_i = torch.where(ok, part_i[rows], -1).permute(1, 0, 2)
-    s, b, k = part_v.shape
-    v = part_v.permute(1, 0, 2).reshape(b, s * k)
-    i = part_i.permute(1, 0, 2).reshape(b, s * k)
+    s, b, w = part_v.shape
+    v = part_v.permute(1, 0, 2).reshape(b, s * w)
+    i = part_i.permute(1, 0, 2).reshape(b, s * w)
     by_row = torch.sort(i, dim=1, stable=True).indices
     v, i = torch.gather(v, 1, by_row), torch.gather(i, 1, by_row)
     vals, pos = torch.sort(v, dim=1, descending=True, stable=True)
-    return vals[:, :k], torch.gather(i, 1, pos[:, :k])
+    vals, rows = vals[:, :k], torch.gather(i, 1, pos[:, :k])
+    if vals.shape[1] < k:  # fewer entries than k in all
+        pad_v, pad_i = _empty_hits(b, k - vals.shape[1], part_v.device)
+        vals, rows = torch.cat([vals, pad_v], 1), torch.cat([rows, pad_i], 1)
+    return vals, rows
 
 
-def merge_partials(part_v, part_i, qend=None):
+def merge_partials(part_v, part_i, qend=None, k=None):
     """Sorted lists (f32 scores, int32 rows, -inf/-1 empty) -> the [B, k]
     top-k of each query across its lists, (score desc, row asc): the merge
     kernel on CUDA tensors, the plain version on CPU ones. Lists are
-    [S, B, k] (S lists for every query), or with ``qend`` [B, P] int32
-    [slots, k] rows, query b's from qend[b-1, -1] (0 for b = 0) to
-    qend[b, -1] (the list scan's running slot counts, ``ListWork``)."""
+    [S, B, w] (S lists for every query), or with ``qend`` [B, P] int32
+    [slots, w] rows, query b's from qend[b-1, -1] (0 for b = 0) to
+    qend[b, -1] (the list scan's running slot counts, ``ListWork``). ``k``
+    defaults to the lists' width w; a wider k (the list scan's wide slots
+    hold min(k, seg, max_len)) takes the wide merge."""
     if part_v.device.type == "cpu":
-        return merge_partials_plain(part_v, part_i, qend)
+        return merge_partials_plain(part_v, part_i, qend, k)
     if part_v.dtype != torch.float32 or part_i.dtype != torch.int32:
         raise ValueError("partials must be float32 scores and int32 rows")
     tensors = (part_v, part_i) if qend is None else (part_v, part_i, qend)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the kernel takes contiguous tensors")
     if qend is None:
-        s, b, k = part_v.shape
+        s, b, w = part_v.shape
         nprobe = 0
     else:
         if qend.dtype != torch.int32 or qend.device != part_v.device:
             raise ValueError("qend must be int32 on the partials' device")
-        (s, k), (b, nprobe) = part_v.shape, qend.shape
-    if qend is None:  # [S, B, k]: list s of query b at (s·B + b)·k
-        return _merge_launch(part_v, part_i, s, b, k, None, 0, k, b * k)
-    return _merge_launch(part_v, part_i, s, b, k, qend, nprobe, 0, k)
+        (s, w), (b, nprobe) = part_v.shape, qend.shape
+    k = w if k is None else k
+    if qend is None:  # [S, B, w]: list s of query b at (s·B + b)·w
+        return _merge_launch(part_v, part_i, s, b, k, None, 0, w, b * w, w)
+    return _merge_launch(part_v, part_i, s, b, k, qend, nprobe, 0, w, w)
 
 
-def _merge_launch(part_v, part_i, s, b, k, qend, nprobe, qstride, lstride):
+def _merge_launch(part_v, part_i, s, b, k, qend, nprobe, qstride, lstride, width=None):
     """The merge kernel over partials whose list ``l`` of query ``q`` starts
-    at entry q·qstride + l·lstride (``qend`` None), or over [s, k] rows cut
-    by ``qend``. The one place the merge is launched and counted."""
+    at entry q·qstride + l·lstride (``qend`` None), or over [s, width] rows
+    cut by ``qend``; lists ``width`` entries wide (default k), k hits out.
+    k <= NARROW_MAX_K with lists of k: the warp-register merge; else the
+    wide merge. The one place the merge is launched and counted."""
     from pyrope_tpu_torch.kernels.build import check, load
 
+    width = k if width is None else width
+    if not 1 <= width <= k or k_refusal(k) is not None:
+        raise ValueError(f"merge takes lists of 1..k entries and k in [1, {MAX_K}], "
+                         f"got {width} and {k}")
     out_v = torch.empty((b, k), dtype=torch.float32, device=part_v.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=part_v.device)
     if b == 0:
         return out_v, out_i  # an empty grid is not a valid launch
-    check(load().pyrope_merge_partials(
-        part_v.data_ptr(), part_i.data_ptr(), s, b, k,
-        None if qend is None else qend.data_ptr(), nprobe, qstride, lstride,
-        out_v.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(part_v.device).cuda_stream,
-    ), "merge kernel")
-    LAUNCHES["merge"] += 1
+    stream = torch.cuda.current_stream(part_v.device).cuda_stream
+    qptr = None if qend is None else qend.data_ptr()
+    if k <= NARROW_MAX_K and width == k:
+        check(load().pyrope_merge_partials(
+            part_v.data_ptr(), part_i.data_ptr(), s, b, k, qptr, nprobe, qstride,
+            lstride, out_v.data_ptr(), out_i.data_ptr(), stream), "merge kernel")
+        LAUNCHES["merge"] += 1
+    else:
+        check(load().pyrope_merge_partials_wide(
+            part_v.data_ptr(), part_i.data_ptr(), s, b, k, width, qptr, nprobe,
+            qstride, lstride, out_v.data_ptr(), out_i.data_ptr(), stream),
+            "wide merge kernel")
+        LAUNCHES["merge_wide"] += 1
     return out_v, out_i
 
 
@@ -424,7 +479,7 @@ def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
         raise RuntimeError("flat_tile and fused_scan.cu disagree on shared memory")
     if b == 0:  # an empty grid is not a valid launch
         return _empty_hits(0, k, q.device)
-    per, n_splits = scan_splits(b, max_scans, q.device, tile)
+    per, n_splits = scan_splits(b, max_scans, q.device, tile, k)
     part_v = torch.empty((b, n_splits, k), dtype=torch.float32, device=q.device)
     part_i = torch.empty((b, n_splits, k), dtype=torch.int32, device=q.device)
     pub_c, pub_g = flat_floor(k, n_splits)
@@ -440,7 +495,8 @@ def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
         part_i.data_ptr(), pub.data_ptr(), pub_c, pub_g,
         torch.cuda.current_stream(q.device).cuda_stream,
     ), "fused scan kernel")
-    LAUNCHES["flat_scan_bf16" if elem == 2 else "flat_scan"] += 1
+    LAUNCHES[("flat_scan_bf16" if elem == 2 else "flat_scan")
+             + ("_wide" if k > NARROW_MAX_K else "")] += 1
     return _merge_launch(part_v, part_i, n_splits, b, k, None, 0, n_splits * k, k)
 
 
@@ -505,6 +561,13 @@ def list_slots(b: int, nprobe: int, segs: int, seg: int, n_rows: int) -> int:
     probes have at most P·S segments, and at most P + n_rows // seg, since
     their lists are disjoint and ceil(l/seg) <= l // seg + 1."""
     return b * min(nprobe * segs, nprobe + n_rows // seg)
+
+
+def list_slot_width(k: int, seg: int, max_len: int) -> int:
+    """Entries a list-scan partial slot holds: k, or in the wide mode (k >
+    NARROW_MAX_K) at most what one segment of a list can give, min(k, seg,
+    max_len). So the partials are slots x min(k, seg, max_len), not x k."""
+    return k if k <= NARROW_MAX_K else max(1, min(k, seg, max_len))
 
 
 def list_seg(b: int, nprobe: int, kp: int, max_len: int, sms: int) -> int:
@@ -583,9 +646,9 @@ def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
     b, d = q.shape
     mode = (LIST_SQ8 if sq8 is not None
             else LIST_BF16 if slab.dtype == torch.bfloat16 else LIST_IVF)
-    if lib.pyrope_list_scan_smem_bytes(d, k, mode) != list_scan_smem_bytes(d, k, mode):
+    if lib.pyrope_list_scan_smem_bytes(k, mode) != list_scan_smem_bytes(k, mode):
         raise RuntimeError("list_scan_smem_bytes and ivf_list_scan.cu disagree")
-    why = list_scan_refusal(d, k, mode)
+    why = list_scan_refusal(k, mode)
     if why is not None:
         raise ValueError(why)
     nprobe = probe.shape[1]
@@ -594,9 +657,10 @@ def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     seg = list_seg(b, nprobe, kp, max_len, sms)
     w = invert_probes(probe, lens, kp, max_len, seg, slab.shape[0])
+    kw = list_slot_width(k, seg, max_len)
     # every slot below slot_end[-1, -1] is written by the one item covering it
-    part_v = torch.empty((w.slots, k), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((w.slots, k), dtype=torch.int32, device=q.device)
+    part_v = torch.empty((w.slots, kw), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((w.slots, kw), dtype=torch.int32, device=q.device)
     qfloor = torch.zeros(b, dtype=torch.int64, device=q.device)  # 0: no floor yet
     qsq = None
     if mode == LIST_BF16 and not promote:
@@ -606,7 +670,7 @@ def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tables = (w.pairs.data_ptr(), nprobe, w.cstart.data_ptr(), w.ccnt.data_ptr(),
               w.item_end.data_ptr(), w.item_c.data_ptr(), w.slot_end.data_ptr(),
-              offsets.data_ptr(), lens.data_ptr(), kp, w.grid, b, d, k,
+              offsets.data_ptr(), lens.data_ptr(), kp, w.grid, b, d, k, kw,
               int(metric_ip), seg, w.slots, vec, part_v.data_ptr(), part_i.data_ptr(),
               qfloor.data_ptr(), stream)
     if sq8 is not None:
@@ -615,18 +679,19 @@ def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
             q.data_ptr(), slab.data_ptr(), mins.data_ptr(), scales.data_ptr(),
             sqnorm.data_ptr(), alive.data_ptr(), qc.data_ptr(), qc.shape[1],
             *tables), "IVF list scan kernel (SQ8)")
-        LAUNCHES["sq8_scan"] += 1
+        key = "sq8_scan"
     elif mode == LIST_BF16:
         check(lib.pyrope_ivf_list_scan_bf16(
             q.data_ptr(), slab.data_ptr(), None if qsq is None else qsq.data_ptr(),
             sqnorm.data_ptr(), alive.data_ptr(), *tables), "IVF list scan kernel (BF16)")
-        LAUNCHES["ivf_scan_bf16"] += 1
+        key = "ivf_scan_bf16"
     else:
         check(lib.pyrope_ivf_list_scan(
             q.data_ptr(), slab.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(),
             *tables), "IVF list scan kernel")
-        LAUNCHES["ivf_scan"] += 1
-    return merge_partials(part_v, part_i, w.slot_end)
+        key = "ivf_scan"
+    LAUNCHES[key + ("_wide" if k > NARROW_MAX_K else "")] += 1
+    return merge_partials(part_v, part_i, w.slot_end, k)
 
 
 def fused_ivf_topk(q, x, sqnorm, alive, crow, offsets, lens, probe, kp: int,

@@ -246,7 +246,7 @@ def list_item(work, item, lens, offsets, seg, chunk=fs.QUERY_TILE):
 
 
 def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_len,
-                           seg, chunk=fs.QUERY_TILE, order=None):
+                           seg, chunk=fs.QUERY_TILE, order=None, wide_cap=None):
     """Plain emulation of the list scan kernel's work layout: invert_probes,
     then every item's sorted lists into its queries' slots (``slot_of``)
     of the [slots, k] partials, as the kernel writes them. Returns
@@ -255,11 +255,15 @@ def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_
     s..e of cluster c. Items run in ``order`` (default: item order), one
     after another, with the kernel's per-query floor: an item keeps only
     the rows that beat its query's floor, and a full list of k such rows
-    raises the floor to its k-th entry."""
+    raises the floor to its k-th entry. A slot holds
+    ``fs.list_slot_width(k, seg, max_len)`` entries (min(k, seg, max_len)
+    above k 128); with ``wide_cap`` each list is a ``WideListEmulated`` of
+    that many slots and that buffer, fed the item's rows 32 at a time."""
     b, nprobe = probe.shape
     work = fs.invert_probes(probe, lens, kp, max_len, seg, int(lens.sum()), chunk)
-    part_v = torch.full((work.slots, k), float("nan"))
-    part_i = torch.full((work.slots, k), -2, dtype=torch.int32)
+    width = fs.list_slot_width(k, seg, max_len)
+    part_v = torch.full((work.slots, width), float("nan"))
+    part_i = torch.full((work.slots, width), -2, dtype=torch.int32)
     floor_v = torch.full((b,), float("-inf"))
     floor_i = torch.full((b,), -1, dtype=torch.int64)
     for item in (range(work.grid) if order is None else order):
@@ -273,9 +277,15 @@ def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_
         rows = torch.arange(lo, hi)[None, :]
         above = (sc > fv) | ((sc == fv) & (rows < fi))  # beats the floor
         sc = torch.where(above, sc, float("-inf"))
-        vals, pos = torch.sort(sc, dim=1, descending=True, stable=True)
-        kk = min(k, hi - lo)
-        vals, rows = vals[:, :kk], torch.where(torch.isfinite(vals), pos + lo, -1)[:, :kk]
+        kk = min(width, hi - lo)
+        if wide_cap is None:
+            vals, pos = torch.sort(sc, dim=1, descending=True, stable=True)
+            vals, rows = vals[:, :kk], torch.where(torch.isfinite(vals), pos + lo, -1)[:, :kk]
+        else:
+            got = [wide_stream_emulated(row, kk, cap=wide_cap) for row in sc.numpy()]
+            vals = torch.from_numpy(np.stack([v for v, _, _ in got]))
+            rows = torch.from_numpy(np.stack([r for _, r, _ in got])).long()
+            rows = torch.where(rows >= 0, rows + lo, -1)
         slot = slot_of(work, pairs, lens[c], seg) + s
         part_v[slot], part_i[slot] = float("-inf"), -1
         part_v[slot, :kk], part_i[slot, :kk] = vals, rows.int()
@@ -300,7 +310,7 @@ def query_offsets(work):
 def list_scan_emulated(*args, **kw):
     """``list_partials_emulated``, then the merge over each query's slots."""
     part_v, part_i, work = list_partials_emulated(*args, **kw)
-    return fs.merge_partials_plain(part_v, part_i, work.slot_end)
+    return fs.merge_partials_plain(part_v, part_i, work.slot_end, args[6])
 
 
 def _l2_or_ip(q, dots, sq, metric):
@@ -310,12 +320,14 @@ def _l2_or_ip(q, dots, sq, metric):
 
 
 def fused_ivf_topk_emulated(q, x, sqnorm, alive, offsets, lens, probe, kp, k,
-                            metric="L2", *, max_len=None, seg=fs.LIST_SEG, order=None):
+                            metric="L2", *, max_len=None, seg=fs.LIST_SEG, order=None,
+                            wide_cap=None):
     """``list_scan_emulated`` with the IVF scores (CPU tensors)."""
     return list_scan_emulated(
         lambda bq, c, s, e: _l2_or_ip(q[bq], q[bq] @ x[s:e].T, sqnorm[s:e], metric),
         alive, offsets, lens, probe, kp, k,
-        int(lens.max()) if max_len is None else max_len, seg, order=order)
+        int(lens.max()) if max_len is None else max_len, seg, order=order,
+        wide_cap=wide_cap)
 
 
 def fused_ivf_sq8_topk_emulated(q, codes, mins, scales, sqnorm, alive, offsets,
@@ -364,7 +376,7 @@ class _SortedList:
 
 
 def flat_scan_emulated(scores, row_ok, max_scans, k, *, query_tile, per, n_splits,
-                       batch=16, seed=0, refresh_every=None):
+                       batch=16, seed=0, refresh_every=None, make_list=None):
     """Plain emulation of the flat scan kernel's blocks on a [B, N] score
     matrix: grid (query tiles) x (``n_splits`` splits of ``per`` rows). A
     warp owns a query's list in its block. Per row tile it compares the
@@ -377,8 +389,10 @@ def flat_scan_emulated(scores, row_ok, max_scans, k, *, query_tile, per, n_split
     largest score t its window of splits has published and, where that is
     higher, (t, INT_MAX) as its threshold. The blocks of the grid advance a
     tile at a time in a seeded random order, as concurrent blocks might.
-    Returns the [B, S, k] partials the kernel writes (float32 scores, int32
-    rows)."""
+    ``make_list(k)`` builds a list (default ``_SortedList``; the wide mode's
+    ``WideListEmulated``). Returns the [B, S, k] partials the kernel writes
+    (float32 scores, int32 rows)."""
+    make_list = make_list or _SortedList
     b, n = scores.shape
     rng = np.random.default_rng(seed)
     sc, ok = scores.numpy(), row_ok.numpy()
@@ -395,7 +409,7 @@ def flat_scan_emulated(scores, row_ok, max_scans, k, *, query_tile, per, n_split
             blocks.append(dict(
                 q0=q0, s=s, limit=limit, t=0,
                 tiles=list(range(s * per, max(limit, s * per), fs.ROW_TILE)),
-                lists=[_SortedList(k) for _ in range(real)],
+                lists=[make_list(k) for _ in range(real)],
                 thr=[(float("-inf"), -1)] * real))
     active = [blk for blk in blocks if blk["tiles"]]
     while active:
@@ -460,3 +474,127 @@ def merge_emulated(part_v, part_i, batch=32):
         out_v[q] = [v for v, _ in ent]
         out_i[q] = [r for _, r in ent]
     return torch.from_numpy(out_v), torch.from_numpy(out_i)
+
+
+# ---- the wide lists (k > 128, csrc/topk_wide.cuh), emulated on the CPU --------
+
+
+def _next_pow2(n):
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+class WideListEmulated:
+    """The kernels' wide list step by step: kw slots (the first ``fill``
+    real) that only a flush of the CAP-entry candidate buffer changes.
+    ``offer_batch(cands, threshold)`` is ``wide_offer``: the candidates that
+    beat the threshold go into the buffer in lane order; when they do not
+    fit, the buffer is flushed first (``wide_flush``: bitonic sort, then the
+    in-place merge by rank, list entries moved from the end backwards 32 at
+    a time) and the candidates are filtered again by the raised threshold.
+    ``padded()`` flushes what is left and pads the slots past the fill.
+    ``mutant`` breaks one step: "row_desc" (ties by row desc), "drop_last"
+    (no last flush), "forward" (list entries moved from the front)."""
+
+    def __init__(self, kw, cap=fs.FLAT_WIDE_CAP, mutant=None):
+        self.kw, self.cap, self.mutant = kw, cap, mutant
+        self.lv = [float("nan")] * kw
+        self.li = [-2] * kw
+        self.fill, self.buf, self.flushes = 0, [], 0
+
+    def _beats(self, a, b):
+        if self.mutant == "row_desc":
+            return a[0] > b[0] or (a[0] == b[0] and a[1] > b[1])
+        return _beats(*a, *b)
+
+    def _rank(self, seq, n, x):
+        """Entries of seq[:n] that beat x: the kernels' binary search."""
+        lo, hi = 0, n
+        while lo < hi:
+            mid = (lo + hi) >> 1
+            if self._beats(seq[mid], x):
+                lo = mid + 1
+            else:
+                hi = mid
+        return lo
+
+    @property
+    def items(self):
+        return list(zip(self.lv[:self.fill], self.li[:self.fill]))
+
+    @property
+    def kth(self):
+        if self.fill < self.kw:
+            return (float("-inf"), -1)
+        return (self.lv[self.kw - 1], self.li[self.kw - 1])
+
+    def offer_batch(self, cands, threshold=None):
+        thr = self.kth if threshold is None else threshold
+        take = [c for c in cands if self._beats(c, thr)]
+        if len(self.buf) + len(take) > self.cap:
+            self.flush()
+            if self._beats(self.kth, thr):
+                thr = self.kth
+            take = [c for c in take if self._beats(c, thr)]
+        self.buf += take
+
+    def flush(self):
+        m = len(self.buf)
+        if not m:
+            return
+        self.flushes += 1
+        p = max(32, _next_pow2(m))
+        a = self.buf + [(float("-inf"), -1)] * (p - m)
+        size = 2
+        while size <= p:                       # warp_sort_buf
+            stride = size >> 1
+            while stride:
+                for t in range(p >> 1):
+                    i = ((t & ~(stride - 1)) << 1) | (t & (stride - 1))
+                    j = i + stride
+                    if self._beats(a[j], a[i]) == ((i & size) == 0):
+                        a[i], a[j] = a[j], a[i]
+                stride >>= 1
+            size <<= 1
+        run = a[:m]
+        lst = list(zip(self.lv, self.li))      # warp_merge_run
+        dst = [t + self._rank(lst, self.fill, run[t]) for t in range(m)]
+        r0, top = dst[0], min(self.fill, self.kw)
+        chunks = list(range(top, r0, -32))
+        if self.mutant == "forward":
+            chunks = chunks[::-1]
+        for hi in chunks:
+            got = [(j, (self.lv[j], self.li[j])) for j in range(max(r0, hi - 32), hi)]
+            for j, e in got:
+                dest = j + self._rank(run, m, e)
+                if dest < self.kw:
+                    self.lv[dest], self.li[dest] = e
+        for t, d in enumerate(dst):
+            if d < self.kw:
+                self.lv[d], self.li[d] = run[t]
+        self.fill, self.buf = min(self.fill + m, self.kw), []
+
+    def padded(self):
+        if self.mutant != "drop_last":
+            self.flush()
+        return self.items + [(float("-inf"), -1)] * (self.kw - self.fill)
+
+
+def wide_stream_emulated(vals, kw, *, cap=fs.LIST_WIDE_CAP, lanes=32, floor=None,
+                         mutant=None):
+    """One wide list fed rows 0..n-1 with scores ``vals`` (-inf: masked),
+    ``lanes`` rows an offer, behind the threshold (a full list's last entry,
+    or ``floor`` where that is higher), as a list-scan warp offers them.
+    Returns (values, rows) of the padded list and the list."""
+    lst = WideListEmulated(kw, cap, mutant)
+    thr = (float("-inf"), -1) if floor is None else floor
+    for r0 in range(0, len(vals), lanes):
+        cands = [(float(vals[r]), r) for r in range(r0, min(r0 + lanes, len(vals)))]
+        lst.offer_batch(cands, thr)
+        if _beats(*lst.kth, *thr):
+            thr = lst.kth
+    ent = lst.padded()
+    return (np.array([v for v, _ in ent], np.float32),
+            np.array([r for _, r in ent], np.int32), lst)

@@ -3,7 +3,7 @@ package, on the same writes and queries (Pallas in interpret mode):
 
   - FlatIndex ``storage="bf16"`` (pallas: the bf16 scan; exact: the
     widened slab), ``compute_dtype``, ``selection="hybrid[:R]"`` below and
-    above HYBRID_MAX_BATCH and above the kernels' MAX_K;
+    above HYBRID_MAX_BATCH and at R above 128 (the kernels' wide mode);
   - IvfFlatIndex ``selection="hybrid"`` at nlist <= 512 and > 512,
     ``compute_dtype``, ``train_dtype``;
   - IvfPqIndex ``refine_storage="bf16"`` on its dense and probe routes;
@@ -14,8 +14,8 @@ Scores: fp32 on both sides (the hybrid routes rerank in fp32) or exact
 products of bf16 values summed in fp32, in another order: rtol 1e-5 / atol
 1e-4. Hit sets equal, but for k-th place ties where scores are rounded to
 bf16 (``assert_hits_but_kth_ties``). Hybrid cases at k > 32 (R > 128) are
-held against the JAX package's exact selection, not its interpret-mode
-wide-k kernel.
+held against the JAX package's exact selection here, and against its own
+hybrid route in test_torch_wide_parity.py.
 """
 
 import jax.numpy as jnp
@@ -111,9 +111,10 @@ def test_flat_hybrid_matches_jax_below_and_above_the_batch_cap(metric, b):
 
 def test_flat_hybrid_shortlist_and_routes_above_max_k():
     """R = max(64, next_pow2(4k)) clamped to the JAX package's row tile; at
-    k > 32 (or 'hybrid:R' with R > 128) R is wider than the kernels hold and
-    the route is the exact fp32 scan, whose hits equal the JAX package's
-    exact selection; cosine takes the exact path."""
+    k > 32 (or 'hybrid:R' with R > 128) R is wider than the narrow lists
+    hold and the route stays the hybrid one (the scan's wide mode), as in
+    the JAX package, whose exact selection its hits equal; cosine takes the
+    exact path."""
     assert [hybrid_shortlist(k, 0, 4096) for k in (1, 10, 16, 17, 32, 33, 50)] == [
         64, 64, 64, 128, 128, 256, 256]
     assert hybrid_shortlist(10, 96, 4096) == 128 and hybrid_shortlist(10, 0, 32) == 32
@@ -125,8 +126,9 @@ def test_flat_hybrid_shortlist_and_routes_above_max_k():
     for sel, k in (("hybrid", 50), ("hybrid:256", 10), ("hybrid", 200)):
         tix = FlatIndex(16, "L2", device="cpu", selection=sel)
         tix.add_batch([str(i) for i in range(1500)], base)
-        want = "flat-exact" if k > 128 else "flat-pallas"
-        assert tix.describe_scan(8, top_k=k) == want
+        jix = jpt.FlatIndex(16, "L2", selection=sel)
+        assert tix.describe_scan(8, top_k=k) == jix.describe_scan(8) == "flat-pallas-hybrid"
+        assert tix.describe_scan(512, top_k=k) == jix.describe_scan(512) == "flat-pallas"
         assert_same_results(tix.search_batch(q, k), ref.search_batch(q, k))
     cos = FlatIndex(16, "COSINE", device="cpu", selection="hybrid")
     cos.add_batch(["a", "b"], base[:2])
@@ -134,11 +136,16 @@ def test_flat_hybrid_shortlist_and_routes_above_max_k():
 
 
 def test_flat_pallas_above_max_k_raises_naming_the_limit():
+    """k 200 runs the scan's wide mode; above the kernels' MAX_K (10,000)
+    the kernel routes raise, naming it."""
     ix = FlatIndex(8, "L2", device="cpu", selection="pallas")
     ix.add_batch(["a", "b"], np.eye(2, 8, dtype=np.float32))
-    with pytest.raises(ValueError, match=r"k must be in \[1, 128\].*queue 2 item B"):
-        ix.search_batch(np.zeros((1, 8), np.float32), 200)
-    assert ix.describe_scan(1, top_k=128) == "flat-pallas"
+    assert len(ix.search_batch(np.zeros((1, 8), np.float32), 200)[0]) == 2
+    assert ix.describe_scan(1, top_k=10_000) == "flat-pallas"
+    for sel in ("pallas", "hybrid"):
+        ix.selection = sel
+        with pytest.raises(ValueError, match=r"k must be in \[1, 10000\].*at most 10000"):
+            ix.search_batch(np.zeros((1, 8), np.float32), 10_001)
 
 
 def test_flat_hybrid_incremental_sync_updates_both_slabs():
@@ -216,10 +223,11 @@ def test_ivf_flat_hybrid_matches_jax(tmp_path, n, nlist, route):
     assert tix.describe_scan(512) == jix.describe_scan(512) == route[:-len("-hybrid")]
 
 
-def test_ivf_flat_hybrid_above_max_k_takes_the_fp32_scan(tmp_path):
+def test_ivf_flat_hybrid_above_k32_keeps_the_hybrid_route(tmp_path):
     jix, tix, rng = _ivf_pair(tmp_path, 3000, 16, 16, 4, 7, selection="hybrid")
     q = rng.normal(size=(8, 16)).astype(np.float32)
-    assert tix.describe_scan(8, top_k=50) == "dense-pallas"   # R 256 > MAX_K
+    assert tix.describe_scan(8, top_k=50) == jix.describe_scan(8) == "dense-pallas-hybrid"
+    assert tix._shortlist(tix._sync(), 50) == 256     # the list scan's wide mode
     jix.selection = "exact"
     jix._dirty = True
     assert_same_results(tix.search_batch(q, 50), jix.search_batch(q, 50))
@@ -287,21 +295,26 @@ def test_train_dtype_reaches_the_coarse_kmeans(kind):
         assert not np.array_equal(tix.pq.codebooks, fix.pq.codebooks)
 
 
-# ---- the route repairs: k above MAX_K, D above the list scan's shared memory --
+# ---- the kernel routes at wide k and large D; the plain dense scans ------------
 
 
 @pytest.mark.parametrize("d,k", [(16, 200), (768, 10)])
-def test_ivf_flat_auto_routes_shapes_the_kernel_refuses_to_dense_xla(tmp_path, d, k):
-    jix, tix, rng = _ivf_pair(tmp_path, 2000, d, 8, 3, 10)
+def test_ivf_flat_auto_routes_wide_k_and_large_d_to_the_list_scan(tmp_path, d, k):
+    """k above 128 and D above what the list scan once held whole take the
+    list scan (its wide or large-D mode), as the JAX package takes its
+    kernel; the hits equal its exact dense scan's; explicit 'pallas'
+    answers too."""
+    jix, tix, rng = _ivf_pair(tmp_path, 4096 if d == 768 else 2000, d, 8, 3, 10)
     q = rng.normal(size=(8, d)).astype(np.float32)
-    assert tix.describe_scan(8, top_k=k) == "dense-xla"
-    assert tix.describe_scan(8, top_k=5 if k > 128 else k) == (
-        "dense-pallas" if k > 128 else "dense-xla")
+    assert tix.describe_scan(8, top_k=k) == "dense-pallas"
+    assert tix.describe_scan(8, max_scans=100, top_k=k) == "dense-xla"  # a budget
     jix.selection = "exact"          # the JAX package's exact dense scan
-    assert_same_results(tix.search_batch(q, k), jix.search_batch(q, k))
+    want = jix.search_batch(q, k)
+    assert_same_results(tix.search_batch(q, k), want)
     tix.selection = "pallas"
-    with pytest.raises(ValueError, match="ROADMAP.md queue 2 item " + ("B" if k > 128 else "C")):
-        tix.search_batch(q, k)
+    assert_same_results(tix.search_batch(q, k), want)
+    with pytest.raises(ValueError, match="at most 10000"):
+        tix.search_batch(q, 10_001)
 
 
 def test_dense_xla_walks_the_queries_in_blocks(tmp_path, monkeypatch):
@@ -309,7 +322,8 @@ def test_dense_xla_walks_the_queries_in_blocks(tmp_path, monkeypatch):
 
     jix, tix, rng = _ivf_pair(tmp_path, 2000, 16, 8, 3, 11)
     q = rng.normal(size=(40, 16)).astype(np.float32)
-    want = tix.search_batch(q, 200)
+    opts = SearchOptions(max_scans=1999)             # a budget: the plain dense scan
+    want = tix.search_batch(q, 200, port_options(opts))
     seen = []
     real = tivf.masked_topk
 
@@ -320,30 +334,31 @@ def test_dense_xla_walks_the_queries_in_blocks(tmp_path, monkeypatch):
     npad = tix._sync()["xperm"].shape[0]
     monkeypatch.setattr(tivf, "DENSE_MAX_ELEMS", 7 * npad)
     monkeypatch.setattr(tivf, "masked_topk", spy)
-    assert tix.describe_scan(64, top_k=200) == "dense-xla"   # the mode stays dense
-    assert_same_results(tix.search_batch(q, 200), want)
+    assert tix.describe_scan(64, max_scans=1999, top_k=200) == "dense-xla"
+    assert_same_results(tix.search_batch(q, 200, port_options(opts)), want)
     assert len(seen) == 6 and max(seen) <= 7 * npad
 
 
 @pytest.mark.parametrize("d,k", [(16, 200), (768, 10)])
-def test_ivf_pq_auto_routes_shapes_the_kernel_refuses_to_dense_xla(tmp_path, d, k):
+def test_ivf_pq_dense_routes_wide_k_and_large_d_to_the_list_scan(tmp_path, d, k):
     rng = np.random.default_rng(12)
-    base = rng.normal(size=(2000, d)).astype(np.float32)
+    n = 4096 if d == 768 else 2000
+    base = rng.normal(size=(n, d)).astype(np.float32)
     q = rng.normal(size=(8, d)).astype(np.float32)
     built = jpt.IvfPqIndex(d, "L2", nlist=8, pq_m=4, ksub=64, nprobe=3,
                            train_init="sample")
-    built.add_batch([str(i) for i in range(2000)], base)
+    built.add_batch([str(i) for i in range(n)], base)
     built.build()
     built.snapshot(str(tmp_path / "pq.npz"))
     jix = jpt.IvfPqIndex(d, "L2")
     jix.load(str(tmp_path / "pq.npz"))
     with np.load(tmp_path / "pq.npz") as z:
         tix = convert.ivf_pq_from_arrays(z, "cpu")
-    assert tix.describe_scan(8, top_k=k) == "dense-exact-xla"
+    assert tix.describe_scan(8, top_k=k) == jix.describe_scan(8) == "dense-exact-pallas"
     # the JAX package's exact dense scan of the same slab: a max_scans
     # budget above the probed rows takes its XLA route, with equal hits
-    opts = SearchOptions(max_scans=1999)
-    assert jix.describe_scan(8, max_scans=1999) == "dense-exact-xla"
+    opts = SearchOptions(max_scans=n - 1)
+    assert jix.describe_scan(8, max_scans=n - 1) == "dense-exact-xla"
     assert_same_results(tix.search_batch(q, k), jix.search_batch(q, k, opts))
 
 

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import (
+    RTOL,
     SQ8_RTOL,
     as_tensor,
     assert_hits_but_kth_ties,
@@ -173,8 +174,8 @@ def test_sq8_wrapper_raises_on_bad_cuda_inputs(cuda_device):
         fs.fused_ivf_sq8_topk(q, codes, mn.cpu(), sc, sq, alive, crow, *ol, probe, qc,
                               50, 10, max_len=4096)
     with pytest.raises(ValueError, match="k must be"):
-        fs.fused_ivf_sq8_topk(q, codes, mn, sc, sq, alive, crow, *ol, probe, qc, 50, 129,
-                              max_len=4096)
+        fs.fused_ivf_sq8_topk(q, codes, mn, sc, sq, alive, crow, *ol, probe, qc, 50,
+                              fs.MAX_K + 1, max_len=4096)
     assert fs.LAUNCHES == before                 # nothing ran, nothing fell back
     v, i = fs.fused_ivf_sq8_topk(q[:0], codes, mn, sc, sq, alive, crow, *ol, probe[:0],
                                  qc[:0], 50, 10, max_len=4096)
@@ -540,58 +541,69 @@ def test_bf16_list_scan_batches_k_and_bit_equal_launches(cuda_device, b, k):
 
 @pytest.mark.cuda
 def test_smem_formulas_match_the_library(cuda_device):
-    """The routes decide from the Python formulas which shapes the kernels
-    take; they must equal the sources' own."""
+    """The wrappers size each launch from the Python formulas; they must
+    equal the sources' own, and the list scan's no longer grows with D."""
     from pyrope_tpu_torch.kernels.build import load
 
     lib = load()
-    for d in (1, 16, 30, 128, 384, 565, 566, 600, 768, 1024):
-        for k in (1, 10, 64, 128):
-            for mode in (fs.LIST_IVF, fs.LIST_SQ8, fs.LIST_BF16):
-                assert (lib.pyrope_list_scan_smem_bytes(d, k, mode)
-                        == fs.list_scan_smem_bytes(d, k, mode)), (d, k, mode)
-    for k in (1, 10, 64, 100, 128):
-        for tile in fs.FLAT_QUERY_TILES:
+    for k in (1, 10, 64, 128, 129, 512, 1000, 10_000):
+        for mode in (fs.LIST_IVF, fs.LIST_SQ8, fs.LIST_BF16):
+            assert (lib.pyrope_list_scan_smem_bytes(k, mode)
+                    == fs.list_scan_smem_bytes(k, mode) <= fs.SMEM_LIMIT), (k, mode)
+    for k in (1, 10, 64, 100, 128, 129, 512, 10_000):
+        for tile in (fs.FLAT_QUERY_TILES if k <= fs.NARROW_MAX_K else (fs.FLAT_WIDE_TILE,)):
             for elem in (4, 2):
                 assert (lib.pyrope_scan_smem_bytes(k, tile, elem)
                         == fs.flat_scan_smem_bytes(k, tile, elem)), (k, tile, elem)
-    assert fs.list_scan_smem_bytes(768, 10, fs.LIST_IVF) == 287_488
-    assert fs.list_scan_refusal(768, 10, fs.LIST_IVF) is not None
+    assert fs.list_scan_smem_bytes(10, fs.LIST_IVF) == 113_408   # two blocks an SM
+    assert fs.list_scan_refusal(10_000, fs.LIST_IVF) is None
+    assert fs.list_scan_refusal(10_001, fs.LIST_IVF) is not None
 
 
 @pytest.mark.cuda
 def test_k200_and_d768_routes_answer_on_the_card(cuda_device):
-    """Shapes the list scan does not take route to the plain dense scan
-    (decided on the host, shown by describe_scan), and answer as the
-    index's exact route does; explicit 'pallas' raises naming the limit."""
+    """Shapes the kernels used to refuse (k above 128, D above ~565 in the
+    list scan) run the kernel routes, as in the JAX package: describe_scan
+    names them, the wide and large-D modes launch, and the hits equal the
+    index's exact route's; explicit 'pallas' answers too."""
     from pyrope_tpu_torch.index.flat import FlatIndex
     from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex
     from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
 
     rng = np.random.default_rng(31)
     for d, k in ((768, 10), (32, 200)):
+        scan = "ivf_scan_wide" if k > 128 else "ivf_scan"
         base = rng.normal(size=(4_000, d)).astype(np.float32)
         q = rng.normal(size=(16, d)).astype(np.float32)
         ids = [str(i) for i in range(len(base))]
         ix = IvfFlatIndex(d, "L2", device=cuda_device, nlist=16, nprobe=4)
         ix.add_batch(ids, base)
         ix.build()
-        assert ix.describe_scan(16, top_k=k) == "dense-xla"
+        assert ix.describe_scan(16, top_k=k) == "dense-pallas"
+        before = fs.LAUNCHES[scan]
         got = ix.search_batch(q, k)
+        assert fs.LAUNCHES[scan] == before + 1
         ix.selection = "exact"
         assert_same_results(got, ix.search_batch(q, k))
         ix.selection = "pallas"
-        with pytest.raises(ValueError, match="ROADMAP.md queue 2 item"):
-            ix.search_batch(q, k)
+        assert_same_results(got, ix.search_batch(q, k))
         pq = IvfPqIndex(d, "L2", device=cuda_device, nlist=16, pq_m=4, nprobe=4)
         pq.add_batch(ids, base)
         pq.build()
-        assert pq.describe_scan(16, top_k=k) == "dense-exact-xla"
-        assert len(pq.search_batch(q, k)[0]) == k
+        assert pq.describe_scan(16, top_k=k) == "dense-exact-pallas"
+        got = pq.search_batch(q, k)
+        assert len(got[0]) == k
+        assert_same_results(got, pq.search_batch(q, k, SearchOptions(max_scans=3_999)))
     flat = FlatIndex(32, "L2", device=cuda_device, selection="pallas")
     flat.add_batch(ids, base)
-    with pytest.raises(ValueError, match="ROADMAP.md queue 2 item B"):
-        flat.search_batch(q, 200)
+    before = fs.LAUNCHES["flat_scan_wide"]
+    got = flat.search_batch(q, 200)
+    assert fs.LAUNCHES["flat_scan_wide"] == before + 1
+    flat.selection = "exact"
+    assert_same_results(got, flat.search_batch(q, 200))
+    flat.selection = "pallas"
+    with pytest.raises(ValueError, match="at most 10000 entries"):
+        flat.search_batch(q, 10_001)
 
 
 @pytest.mark.cuda
@@ -653,3 +665,174 @@ def _arrays(results):
     from _torch_parity import hits_to_arrays
 
     return hits_to_arrays(results)
+
+
+# ---- the wide modes (k > 128) and the list scan at large D ------------------
+
+WIDE_KS = [129, 256, 512, 1000, 4096, 10_000]
+
+
+def _compare(kv, ki, pv, pi, kth_ties, rtol=RTOL):
+    """Equal hits; with ``kth_ties`` a hit may differ as a k-th place tie
+    (the parity rule: bf16 scores tie often, and the SQ8 scores' scale
+    terms round in another order, so at k in the hundreds over a b1024
+    batch two rows within rounding of the k-th score do occur)."""
+    if kth_ties:
+        assert_hits_but_kth_ties(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu(), rtol=rtol)
+    else:
+        assert_same_hits(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu(), rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("b", [1, 70, 1024])
+@pytest.mark.parametrize("k", WIDE_KS)
+def test_flat_wide_vs_plain(cuda_device, k, b, elem):
+    n, d = 20_000, 40
+    q, x, sq, alive = _flat_inputs(cuda_device, 81, n, b, d, dead=0.05)
+    if elem == 2:
+        x = x.bfloat16()
+    key = "flat_scan_bf16_wide" if elem == 2 else "flat_scan_wide"
+    before, merges = fs.LAUNCHES[key], fs.LAUNCHES["merge_wide"]
+    kv, ki = fs.fused_flat_topk(q, x, sq, alive, n - 999, k)
+    assert fs.LAUNCHES[key] == before + 1 and fs.LAUNCHES["merge_wide"] == merges + 1
+    pv, pi = fs.fused_flat_topk_plain(q, x, sq, alive, n - 999, k)
+    torch.cuda.synchronize()
+    _compare(kv, ki, pv, pi, elem == 2)
+
+
+def _wide_list_run(dev, mode, case, k, kc=128, metric=Metric.L2):
+    """One list-scan launch in ``mode`` (ivf, bf16, bf16p, sq8) and its
+    plain version on ``case`` (a list_case)."""
+    x, q, sq, alive, crow, probe = (as_tensor(a).to(dev) for a in case)
+    offs, lens = (t.to(dev) for t in csr(case[4], kc))
+    ml = int(lens.max())
+    if mode == "sq8":
+        codes, mn, sc, sq8, _, qc = (as_tensor(a).to(dev) for a in sq8_of(case, kc))
+        return (fs.fused_ivf_sq8_topk(q, codes, mn, sc, sq8, alive, crow, offs, lens,
+                                      probe, qc, kc, k, metric, max_len=ml),
+                fs.fused_ivf_sq8_topk_plain(q, codes, mn, sc, sq8, alive, crow, probe,
+                                            qc, kc, k, metric))
+    xs = x.bfloat16() if mode.startswith("bf16") else x
+    promote = mode == "bf16p"
+    return (fs.fused_ivf_topk(q, xs, sq, alive, crow, offs, lens, probe, kc, k, metric,
+                              max_len=ml, promote_fp32=promote),
+            fs.fused_ivf_topk_plain(q, xs, sq, alive, crow, probe, kc, k, metric,
+                                    promote_fp32=promote))
+
+
+_LIST_KEYS = {"ivf": "ivf_scan", "bf16": "ivf_scan_bf16", "bf16p": "ivf_scan_bf16",
+              "sq8": "sq8_scan"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ivf", "bf16", "bf16p", "sq8"])
+@pytest.mark.parametrize("b", [1, 70, 1024])   # 1, 70: layout B; 1024: layout A
+@pytest.mark.parametrize("k", WIDE_KS)
+def test_list_scan_wide_vs_plain(cuda_device, k, b, mode):
+    case = list_case(83, 20_000, b, 32, 128, 12, big=3000, dead=0.1, dup=True)
+    key = _LIST_KEYS[mode] + "_wide"
+    before = fs.LAUNCHES[key]
+    (kv, ki), (pv, pi) = _wide_list_run(cuda_device, mode, case, k)
+    assert fs.LAUNCHES[key] == before + 1
+    torch.cuda.synchronize()
+    _compare(kv, ki, pv, pi, mode in ("bf16", "sq8"), SQ8_RTOL if mode == "sq8" else RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ivf", "bf16", "bf16p", "sq8"])
+@pytest.mark.parametrize("d", [566, 768, 770, 1024, 4096])
+def test_list_scan_large_d_vs_plain(cuda_device, d, mode):
+    """D above what the list scan once held whole (~565 at k 10), not a
+    multiple of 4 or of the depth chunk (770), at k 10 and wide k, both
+    layouts (b 3 and b 300 over 16 clusters). Rows and queries lie on a
+    grid of 1/8 (exact in bf16), so every product and sum of the IVF and
+    BF16 modes is exact in fp32 whatever its order, even over 4096 depths,
+    and the hits must be equal, ties by row included; the SQ8 scores add
+    rounded scale terms (k-th place ties allowed)."""
+    n = 3000 if d == 4096 else 6000
+    for b, k in ((3, 10), (300, 10), (300, 200)):
+        x, q, _, alive, crow, probe = list_case(85, n, b, d, 16, 4, dead=0.1)
+        x, q = np.floor(x * 8) / 8, np.floor(q * 8) / 8
+        sq = np.einsum("nd,nd->n", x, x).astype(np.float32)
+        case = (x.astype(np.float32), q.astype(np.float32), sq, alive, crow, probe)
+        (kv, ki), (pv, pi) = _wide_list_run(cuda_device, mode, case, k, kc=16)
+        torch.cuda.synchronize()
+        _compare(kv, ki, pv, pi, mode == "sq8", SQ8_RTOL if mode == "sq8" else RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [200, 1000])
+def test_wide_launches_are_bit_equal(cuda_device, k):
+    q, x, sq, alive = _flat_inputs(cuda_device, 87, 30_000, 70, 64)
+    x[129] = x[130] = x[25_000] = x[64]        # exact ties in a tile, across splits
+    sq = (x * x).sum(1)
+    runs = [fs.fused_flat_topk(q, x, sq, alive, 30_000, k) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    for mode in ("ivf", "sq8", "bf16"):
+        case = list_case(89, 20_000, 300, 32, 128, 20, big=3000, dup=True)
+        runs = [_wide_list_run(cuda_device, mode, case, k)[0] for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.cuda
+def test_wide_list_scan_partials_are_sized_by_segment(cuda_device):
+    """k 10,000 at 100k rows, nlist 100, nprobe 96, b1024: the partial slots
+    hold min(k, seg, max_len) entries, not k; the peak memory of the call
+    stays within those partials, the work tables and the [B, k] outputs."""
+    n, d, b, kc, nprobe, k = 100_000, 32, 1024, 100, 96, 10_000
+    case = list_case(91, n, b, d, kc, nprobe)
+    x, q, sq, alive, crow, probe = (as_tensor(a).to(cuda_device) for a in case)
+    offs, lens = (t.to(cuda_device) for t in csr(case[4], kc))
+    ml = int(lens.max())
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    seg = fs.list_seg(b, nprobe, kc, ml, sms)
+    segs = fs.list_grid(b, nprobe, kc, ml, seg)[1]
+    width = fs.list_slot_width(k, seg, ml)
+    assert width == min(k, seg, ml) < k
+    partials = fs.list_slots(b, nprobe, segs, seg, n) * width * 8
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    kv, ki = fs.fused_ivf_topk(q, x, sq, alive, crow, offs, lens, probe, kc, k, max_len=ml)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda_device) - base
+    extra = b * k * 8 + 64 * b * nprobe * 8 + (1 << 20)   # outputs, tables, slack
+    assert peak <= partials + extra, (peak, partials, extra)
+    assert peak < b * nprobe * k * 8 / 4   # a quarter of slots x k
+    pv, pi = fs.fused_ivf_topk_plain(q[:64], x, sq, alive, crow, probe[:64], kc, k)
+    assert_same_hits(kv[:64].cpu(), ki[:64].cpu(), pv.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,width", [(129, 129), (1000, 1000), (1000, 300), (10_000, 2048),
+                                     (64, 20)])
+@pytest.mark.parametrize("s", [1, 33, 96])
+def test_merge_wide_layouts_vs_plain(cuda_device, s, k, width):
+    """The wide merge over [S, B, w] and per-query slots, lists narrower
+    than k included: bit-equal to the plain version, ties included."""
+    b = 70
+    rng = np.random.default_rng(90 + s)
+    v = np.sort(rng.integers(0, 400, (s, b, width)).astype(np.float32), axis=2)[:, :, ::-1]
+    rows = np.stack([rng.permutation(s * width) for _ in range(b)], 1).reshape(s, width, b)
+    rows = np.ascontiguousarray(rows.transpose(0, 2, 1)).astype(np.int32)
+    order = np.lexsort((rows, -v), axis=2)
+    pv = torch.from_numpy(np.take_along_axis(np.ascontiguousarray(v), order, 2))
+    pi = torch.from_numpy(np.take_along_axis(rows, order, 2))
+    pv[s // 2, ::3, width // 2:] = float("-inf")               # lists half filled
+    pi[s // 2, ::3, width // 2:] = -1
+    mv, mi = fs.merge_partials_plain(pv, pi, k=k)
+    before = fs.LAUNCHES["merge_wide"]
+    kv, ki = fs.merge_partials(pv.to(cuda_device), pi.to(cuda_device), k=k)
+    assert fs.LAUNCHES["merge_wide"] == before + 1
+    np.testing.assert_array_equal(ki.cpu().numpy(), mi.numpy())
+    np.testing.assert_array_equal(kv.cpu().numpy(), mv.numpy())
+    sv = pv.permute(1, 0, 2).reshape(b * s, width).contiguous()
+    si = pi.permute(1, 0, 2).reshape(b * s, width).contiguous()
+    qend = (torch.arange(1, b + 1, dtype=torch.int32) * s).view(b, 1)
+    kv, ki = fs.merge_partials(sv.to(cuda_device), si.to(cuda_device), qend.to(cuda_device),
+                               k=k)
+    np.testing.assert_array_equal(ki.cpu().numpy(), mi.numpy())
+    np.testing.assert_array_equal(kv.cpu().numpy(), mv.numpy())
