@@ -39,7 +39,11 @@ non-zero. Each serving path's wall time and the total are printed:
                promote at 1M np3 b64 k 200, SQ8 at 100k np96 b1024 k 200; the
                wide merge on the flat path's [1024, 33, 1000] and on the list
                scan's slots; and the list scan at D 768 (1M clustered rows,
-               nlist 1000, np3, b1024, k 10), IVF and SQ8 modes
+               nlist 1000, np3, b1024, k 10), IVF and SQ8 modes. Each list
+               scan and merge row adds its device time from torch.profiler
+               (the list scans split into scan and merge, the merges beside
+               torch.topk's), and each wide list scan the mean real entries
+               a query's partial slots hold after the scan
   4. slice     create_index(IVF_FLAT, nlist 1000, nprobe 3, dense) on 1M x
                128 clustered rows through the registry's Delta(Flat,
                IVF_FLAT): add_batch, build (compaction -> k-means -> slab),
@@ -270,6 +274,38 @@ def device_shares(fn, iters: int) -> dict:
             "shares": {name: round(us / busy, 4) for name, us in top}}
 
 
+def device_split(fn, calls: int = 5) -> dict:
+    """Device time a call of ``fn`` (a torch.profiler trace of ``calls``
+    calls after one warm-up), in all and by kind: the list scan, the merges,
+    the rest. Empty where the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {"device_ms": 0.0, "scan_ms": 0.0, "merge_ms": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / calls / 1e3
+        split["device_ms"] += ms
+        if "list_scan" in e.name:
+            split["scan_ms"] += ms
+        elif "merge" in e.name:
+            split["merge_ms"] += ms
+    return split if split["device_ms"] > 0 else {}
+
+
+def slot_entries(partials) -> float:
+    """Mean real entries a query's partial slots hold after a list scan
+    (``fs.list_partials``' output)."""
+    part_v, _, slot_end = partials
+    return float(torch.isfinite(part_v[:int(slot_end[-1, -1])]).sum()) / slot_end.shape[0]
+
+
 def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -305,6 +341,34 @@ def bound(nbytes: float, flops: float, rate: float = FP32_FLOP_S) -> tuple[float
     fp32 sums: the tensor cores')."""
     tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def merge_wide_bytes(v, qend, k) -> int:
+    """Bytes the wide merge must move on these lists (``v``: [B, S, w]
+    scores, or [slots, w] rows cut by ``qend``): the entries at or above its
+    floor, which it gathers (the floor: over g = 1, 2, 4, ... up to the
+    first 256 lists, the g-th largest of their c-th entries, c = ceil(k /
+    g) at most w, as merge_wide_kernel takes it; scores compared alone,
+    which random scores allow), each level's c-th entries, and the [B, k]
+    output; each a score and a row."""
+    if qend is not None:   # per-query slots, padded with -inf to [B, most, w]
+        qoff = torch.nn.functional.pad(qend[:, -1].long(), (1, 0))
+        cnt = qoff.diff()
+        j = torch.arange(int(cnt.max()), device=v.device)
+        rows = (qoff[:-1, None] + j).clamp(max=v.shape[0] - 1)
+        v = torch.where((j < cnt[:, None])[..., None], v[rows], float("-inf"))
+    b, s, w = v.shape
+    lists = v[:, :256]
+    floor = torch.full((b,), float("-inf"), device=v.device)
+    reads, g = 0, 1
+    while g <= lists.shape[1]:
+        c = -(-k // g)
+        if c <= w:
+            floor = torch.maximum(floor, lists[:, :, c - 1].topk(g, dim=1).values[:, -1])
+            reads += b * lists.shape[1]
+        g *= 2
+    gathered = int((v >= floor[:, None, None]).logical_and_(v > float("-inf")).sum())
+    return 8 * (gathered + reads + b * k)
 
 
 def l2_or_ip(q, dots, sq, ip):
@@ -373,7 +437,9 @@ def phase_kernels(dev) -> dict:
     cells = []
 
     def case(kind, name, kern, plain, reps=10, plain_reps=3, main=False, comp=None,
-             bnd=None, lib=None):
+             bnd=None, lib=None, slots=None):
+        """``slots``: the list scan alone (``fs.list_partials``) on the same
+        inputs, for the real entries its slots hold."""
         err, swaps = compare(kern(), plain(), name,
                              SQ8_RTOL if kind.startswith("sq8") else RTOL)
         rec[kind]["err"] = max(rec[kind]["err"], err)
@@ -389,6 +455,22 @@ def phase_kernels(dev) -> dict:
             cell += f"/library {lms:.3f}ms"
         if bnd is not None:
             cell += f"/bound {bnd[0]:.4f}ms {bnd[1]}"
+        if kind.startswith(("ivf", "sq8", "merge")):
+            # device time from the profiler beside the wrapper's: the list
+            # scans and merges are short enough that the host's share shows
+            split = device_split(kern)
+            if split:
+                cell += f"/device {split['device_ms']:.4f}ms"
+                if not kind.startswith("merge"):
+                    cell += f" (scan {split['scan_ms']:.4f} merge {split['merge_ms']:.4f})"
+            if kind.startswith("merge") and comp is not None:
+                csplit = device_split(comp)
+                if csplit:
+                    cell += f"/composition device {csplit['device_ms']:.4f}ms"
+            if main:
+                rec[kind]["device_ms"] = split.get("device_ms")
+        if slots is not None:
+            cell += f"/slot entries {slot_entries(slots()):.1f}"
         cells.append(cell)
 
     rows = torch.arange(n, device=dev)
@@ -433,7 +515,9 @@ def phase_kernels(dev) -> dict:
              reps=reps, plain_reps=plain_reps, main=main, comp=(lambda: composition_topk(
                  l2_or_ip(qv, qv @ xv.T, sqv, False),
                  fs.probe_table(probe, kp)[:, crow.long()] & alv[None, :], k))
-             if main or comp else None, bnd=bnd)
+             if main or comp else None, bnd=bnd,
+             slots=(lambda: fs.list_partials(qv, xv, sqv, alv, offs, lens, probe, kp, k,
+                                             False, ml)) if k > fs.NARROW_MAX_K else None)
         if main:
             rec[kind]["bound"] = bnd
 
@@ -456,7 +540,10 @@ def phase_kernels(dev) -> dict:
              reps=reps, plain_reps=plain_reps, main=main, comp=(lambda: composition_topk(
                  fs.sq8_scores(qv, qc, codes, mins, scales, sq8, crow, ip),
                  fs.probe_table(probe, kp)[:, crow.long()] & alv[None, :], k))
-             if main or comp else None, bnd=bnd)
+             if main or comp else None, bnd=bnd,
+             slots=(lambda: fs.list_partials(qv, codes, sq8, alv, offs, lens, probe, kp, k,
+                                             ip, ml, sq8=(mins, scales, qc)))
+             if k > fs.NARROW_MAX_K else None)
         if main:
             rec[kind]["bound"] = bnd
 
@@ -605,7 +692,9 @@ def phase_kernels(dev) -> dict:
          main=True, bnd=bnd, reps=5,
          comp=lambda: composition_topk(
              l2_or_ip(q3, q3_16.float() @ x2_16.float().T, sq2, False),
-             fs.probe_table(p3, kp2)[:, lay2[0].long()] & alive2[None, :], 512))
+             fs.probe_table(p3, kp2)[:, lay2[0].long()] & alive2[None, :], 512),
+         slots=lambda: fs.list_partials(q3, x2_16, sq2, alive2, lay2[1], lay2[2], p3, kp2,
+                                        512, False, lay2[3]))
     # with promote at k 200: IVF-PQ's bf16 rerank slab scanned exactly
     bnd = list_bound(d * 2 + 5, q4, p4, lay[2], alive, lay[0], kp, 200)
     rec["ivf_bf16p_wide"]["bound"] = bnd
@@ -617,7 +706,9 @@ def phase_kernels(dev) -> dict:
          main=True, bnd=bnd, reps=5,
          comp=lambda: composition_topk(
              l2_or_ip(q4, q4 @ x16.float().T, sq, False),
-             fs.probe_table(p4, kp)[:, lay[0].long()] & alive[None, :], 200))
+             fs.probe_table(p4, kp)[:, lay[0].long()] & alive[None, :], 200),
+         slots=lambda: fs.list_partials(q4, x16, sq, alive, lay[1], lay[2], p4, kp, 200,
+                                        False, lay[3], promote=True))
     sq8_case("sq8_wide_100k_nlist100_np96_b1024_k200", q5, x2, alive2, lay2, kp2, p5,
              k=200, main=True, reps=5, comp=True, kind="sq8_wide")
     del x16, x2_16
@@ -655,7 +746,7 @@ def phase_kernels(dev) -> dict:
     splits = fs.scan_splits(b, n, dev, fs.FLAT_WIDE_TILE, kw)[1]
     fv = torch.rand((b, splits, kw), generator=g, device=dev).sort(2, descending=True).values
     fi = torch.randint(0, n, (b, splits, kw), generator=g, device=dev).int()
-    bnd = bound(b * splits * kw * 8 + b * kw * 8, 0.0)
+    bnd = bound(merge_wide_bytes(fv, None, kw), 0.0)   # what its floor leaves to read
     rec["merge_wide"]["bound"] = bnd
     case("merge_wide", f"merge_wide_flat_{splits}splits_b1024_k{kw}",
          lambda: fs._merge_launch(fv, fi, splits, b, kw, None, 0, splits * kw, kw),
@@ -672,7 +763,7 @@ def phase_kernels(dev) -> dict:
     case("merge_wide", f"merge_wide_{lists}slots_w{width}_b1024_k{kw}",
          lambda: fs.merge_partials(pv, pi, qend, kw),
          lambda: fs.merge_partials_plain(pv, pi, qend, kw), reps=5, plain_reps=2,
-         bnd=bound(lists * width * 8 + (1024 + 1) * 4 + 1024 * kw * 8, 0.0),
+         bnd=bound(merge_wide_bytes(pv, qend, kw) + 1024 * 4, 0.0),
          comp=lambda: torch.topk(pv[:lists // 1024 * 1024].reshape(1024, -1), kw, dim=1))
     del pv, pi
 
@@ -1277,7 +1368,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launched, "max_abs_err": r["err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": r["library_ms"], "composition_ms": r["composition_ms"]}
+                "library_ms": r["library_ms"], "composition_ms": r["composition_ms"],
+                "device_ms": r.get("device_ms")}
 
     wide = f"{PALLAS}:372, {PALLAS}:192, {PALLAS}:200, {PALLAS}:496"
     kernels = [

@@ -37,10 +37,19 @@ case: the library call, which keeps no row order at ties):
   ivf_wide_1M_nlist1000_np3_b1024_k1000 (layout B),
   ivf_wide_100k_nlist100_np96_b1024_k1000 (layout A),
   ivf_bf16_wide_100k_nlist100_np96_b256_k512 (the IVF hybrid at k 100),
-  sq8_wide_100k_nlist100_np96_b1024_k200, merge_flat_splits_b1024_k1000
+  sq8_wide_100k_nlist100_np96_b1024_k200, ivf_d768_1M_nlist1000_np3_b1024
+  (large D), merge_flat_splits_b1024_k1000, merge_flat8_b1024_k1000 (the
+  wide flat scan's 8 splits),
+  merge_wide_slots_b1024_k1000 (the list scan's layout at nprobe 96: 96 slots
+  a query, 1000 entries a slot) beside topk_wide_slots_b1024_k1000
 
     --cases '_bf16_|_fp32_'    # the bf16 modes beside fp32 at their shapes
     --cases '_wide_'           # the wide modes
+
+With ``--trace`` each case's record also splits its device time by kind
+(``split``: the list scan, the merges, the flat scan, the rest), and each
+list-scan case reports ``slot_entries``: the mean real entries a query's
+partial slots hold after the scan (read off one more call).
 
 Prints one JSON object per worker and writes all of them to ``--out``;
 every record names the card and its power limit.
@@ -77,7 +86,12 @@ def _kernel_shares(fn, calls: int = 5) -> dict:
             by_name[e.name[:50]] = by_name.get(e.name[:50], 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    split: dict[str, float] = {}
+    for name, us in by_name.items():
+        kind = next((k for k in ("list_scan", "merge", "fused_scan") if k in name), "other")
+        split[kind] = split.get(kind, 0.0) + us / calls / 1e3
     return {"device_ms_per_call": round(busy / calls / 1e3, 4),
+            "split": {kind: round(ms, 5) for kind, ms in split.items()},
             "kernels": len(by_name),
             "shares": {n: round(us / busy, 3) for n, us in top} if busy else {},
             "kernel_ms_per_call": {n: round(us / calls / 1e3, 5) for n, us in top}}
@@ -113,12 +127,31 @@ def _worker(reps: int, trace: bool, cases: str) -> dict:
             out.append(statistics.median(times))
         return out
 
+    # the partial slots each list-scan call hands the merge (qend given)
+    filled: dict[str, float] = {}
+    merge = fs.merge_partials
+    counting = [None]
+
+    def merge_counting(part_v, part_i, qend=None, k=None):
+        if counting[0] is not None and qend is not None:
+            used = int(qend[-1, -1])
+            filled[counting[0]] = round(
+                float(torch.isfinite(part_v[:used]).sum()) / max(qend.shape[0], 1), 1)
+        return merge(part_v, part_i, qend, k)
+
+    fs.merge_partials = merge_counting
+
     def case(name, fn):
         if not re.search(cases, name):
             return
         res[name] = timed(fn)
         if trace:
             traces[name] = _kernel_shares(fn)
+            if name.startswith(("ivf_", "sq8_")):
+                counting[0] = name
+                fn()
+                counting[0] = None
+                traces[name]["slot_entries"] = filled.get(name)
 
     def lists(crow, kp):
         offs, lens = fs.list_csr(crow, kp)
@@ -223,6 +256,13 @@ def _worker(reps: int, trace: bool, cases: str) -> dict:
             q1k, codes2, mins2, scales2, sq8n2, al2w, crow2, offs2, lens2, p1k, qc2, 100,
             200, max_len=ml2))
         del x16, x2w16, codes2
+        # large D: 1M x 768 rows (ivf1m_d768_b1024's list scan), nlist 1000, np3
+        x7 = torch.rand((n, 768), generator=g, device=dev)
+        sq7 = (x7 * x7).sum(1)
+        q7 = torch.rand((b, 768), generator=g, device=dev)
+        case("ivf_d768_1M_nlist1000_np3_b1024", lambda: fs.fused_ivf_topk(
+            q7, x7, sq7, alive, crow, offs, lens, probe, 1000, K, max_len=ml))
+        del x7
 
     def merge_cases(name, lists, k):
         """``lists`` sorted lists a query, as [S, B, k] and as per-query
@@ -242,6 +282,18 @@ def _worker(reps: int, trace: bool, cases: str) -> dict:
     merge_cases("108lists_b1024_k128", 108, 128)
     if "merge_wide" in fs.LAUNCHES:
         merge_cases("flat_splits_b1024_k1000", 33, 1000)
+        merge_cases("flat8_b1024_k1000", 8, 1000)   # the wide flat scan's 8 splits
+        # the list scan's slots at nprobe 96, k 1000: 96 sorted slots of 1000
+        # a query, as [slots, 1000] rows cut by qend
+        slots, kw = 96, 1000
+        sv = torch.rand((b * slots, kw), generator=g, device=dev).sort(
+            1, descending=True).values
+        si = torch.randint(0, n, (b * slots, kw), generator=g, device=dev).int()
+        qend = (torch.arange(1, b + 1, device=dev, dtype=torch.int32) * slots).view(b, 1)
+        case("merge_wide_slots_b1024_k1000", lambda: fs.merge_partials(sv, si, qend, kw))
+        case("topk_wide_slots_b1024_k1000",
+             lambda: torch.topk(sv.view(b, slots * kw), kw, dim=1))
+        del sv, si
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()

@@ -121,21 +121,23 @@
 // widens on load (a 16-bit shift); q stays fp32. The slab's bytes halve,
 // the FMAs are the same: about as fast as fp32 here.
 //
-// The wide mode (k > MAXK = 128, up to WIDE_MAXK = 10,000;
+// The wide mode (k > MAXK = 128, any k;
 // fused_scan_kernel<64, IP, XT, true>, merge_wide_kernel) replaces the TPU
 // kernels' wide merges (_wide_params :372, _bitonic_merge_wide :192,
 // _merge_tile_wide :200, the dynamic rounds of _merge_tile :437-475 on
 // _extract_top :496). The k <= MAXK instantiations are compiled from the
 // same source with the wide code behind `if constexpr`, so theirs is the
-// code they had. A query's list is its [B, splits, k] partial row in
-// global memory; shared memory holds a FLAT_CAP-entry candidate buffer a
+// code they had. A query's list is its [B, splits, kw] partial row in
+// global memory, kw = min(k, rows a split): a split cannot give more, so
+// any k runs; shared memory holds a FLAT_CAP-entry candidate buffer a
 // query (topk_wide.cuh: the buffer is sorted and merged into the list when
 // full), 182,784 B a block of 64 queries (199,168 B with bf16 rows), one
 // block an SM, so the wrapper's grid is one wave (ops/fused_scan._splits).
 // The epilogue, its vote, the threshold and the shared floor are the
 // narrow mode's: a split publishes its list's c-th entry once the list
-// holds c entries. The wide merge gives each query a warp whose list is
-// the query's output row.
+// holds c entries. The wide merge (merge_wide_kernel, below) reads a
+// floor off the lists' c-th entries, gathers the prefixes above it and
+// sorts them once, a block a query.
 //
 // Not done here: a tensor-core path where exactness allows (a 3xbf16 split
 // product); a narrow query tile for batches of a few queries (a 64-query
@@ -161,7 +163,12 @@ constexpr int TR = 8;            // rows per thread
 constexpr int MERGE_IN_FLIGHT = 4;  // merge: batches of 32 loads in flight
 constexpr int WIDE_BT = 64;      // the wide mode's query tile
 constexpr int FLAT_CAP = 256;    // the wide mode's candidate buffer, a query
-constexpr int MERGE_CAP = 256;   // the wide merge's run buffer, a query
+constexpr int MERGE_CAP = 256;   // the wide merge's in-place path: a run, a query
+constexpr int MW_THREADS = 256;  // the wide merge's block, one a query
+constexpr int MW_KEYS = MW_THREADS;  // lists whose c-th entries make its floor
+constexpr int MW_LEVELS = 9;         // its floor's levels: g = 1, 2, 4, ..., MW_KEYS
+constexpr int MW_MIN_CAP = 1024;     // its run buffer, entries: at least
+constexpr int MW_MAX_CAP = 16384;    // and at most (128 KB)
 
 // Depth elements a stage holds: one 128-byte row of the slab.
 __host__ __device__ constexpr int depth_chunk(int elem) { return 128 / elem; }
@@ -313,14 +320,15 @@ __device__ __noinline__ void take_floor(const float* pub, int S, int win0,
 // aligned, so rows are staged with cp.async; else plain loads and stores
 // stage them (no overlap). qsq: null, or |q|^2 [B] to take in place of the
 // streamed q's own (the bf16 mode's q is rounded, its |q|^2 is not).
-// part_v, part_i: [B, S, k], S = gridDim.y.
+// part_v, part_i: [B, S, kw], S = gridDim.y; kw = k, or in the wide mode
+// min(k, rows_per_split): a split cannot give more.
 template <int BT, bool IP, typename XT, bool WIDE = false>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
                   const float* __restrict__ qsq,
                   const float* __restrict__ sqnorm,
                   const uint8_t* __restrict__ alive, int B, int N, int D,
-                  int k, int max_scans, int rows_per_split, int vec,
+                  int k, int kw, int max_scans, int rows_per_split, int vec,
                   float* __restrict__ part_v,
                   int32_t* __restrict__ part_i, float* __restrict__ pub,
                   int pub_c, int pub_g) {
@@ -525,8 +533,8 @@ fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
             const float cv = lq == h ? sc[j] : -INFINITY;
             Entry t;
             if constexpr (WIDE) {   // the list is query qh's partial
-              const size_t o = ((size_t)(q0 + qh) * S + blockIdx.y) * k;
-              t = wide_offer<FLAT_CAP>(part_v + o, part_i + o, k,
+              const size_t o = ((size_t)(q0 + qh) * S + blockIdx.y) * kw;
+              t = wide_offer<FLAT_CAP>(part_v + o, part_i + o, kw,
                                        lv + (size_t)qh * FLAT_CAP,
                                        li + (size_t)qh * FLAT_CAP, wst + qh, cv, row,
                                        htv, hti, lane);
@@ -548,7 +556,7 @@ fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
             publish(lv + (size_t)qi * k, pubv + qi,
                     pub + (size_t)(q0 + qi) * S + blockIdx.y, pub_c);
           else if (wst[qi].fill >= pub_c)   // the list's first pub_c are real
-            publish(part_v + ((size_t)(q0 + qi) * S + blockIdx.y) * k, pubv + qi,
+            publish(part_v + ((size_t)(q0 + qi) * S + blockIdx.y) * kw, pubv + qi,
                     pub + (size_t)(q0 + qi) * S + blockIdx.y, pub_c);
         }
       }
@@ -568,11 +576,11 @@ fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
   __syncthreads();
   if constexpr (WIDE) {   // each warp: its queries' last buffers, then the pads
     for (int qi = warp * WQ; qi < (warp + 1) * WQ && q0 + qi < B; ++qi) {
-      const size_t o = ((size_t)(q0 + qi) * S + blockIdx.y) * k;
-      wide_flush<FLAT_CAP>(part_v + o, part_i + o, k, lv + (size_t)qi * FLAT_CAP,
+      const size_t o = ((size_t)(q0 + qi) * S + blockIdx.y) * kw;
+      wide_flush<FLAT_CAP>(part_v + o, part_i + o, kw, lv + (size_t)qi * FLAT_CAP,
                            li + (size_t)qi * FLAT_CAP, &wst[qi].cnt, &wst[qi].fill,
                            lane);
-      wide_pad(part_v + o, part_i + o, k, wst[qi].fill, lane);
+      wide_pad(part_v + o, part_i + o, kw, wst[qi].fill, lane);
     }
     return;
   }
@@ -657,41 +665,209 @@ merge_partials_kernel(const float* __restrict__ part_v,
   }
 }
 
-// The wide merge (k > MAXK), one warp a query: lists of width L <= k (the
-// list scan's slots hold at most min(k, seg, max_len) entries) into [B, k],
-// laid out as merge_partials_kernel's. The query's output row is the warp's
-// wide list (topk_wide.cuh). A list is sorted, so the entries of it that
-// beat the threshold are a prefix: they are copied MERGE_CAP at a time into
-// shared memory, already a sorted run, and merged into the output in place;
-// the first entry that fails ends the list. So a list under the k-th best
-// entry seen costs one load of 32 entries.
-__global__ void __launch_bounds__(THREADS)
+// The wide merge (k > MAXK, or lists narrower than k): lists of width L <=
+// k (a list-scan slot holds min(k, seg, max_len) entries, a wide flat
+// split min(k, rows_per_split)) into [B, k], laid out as
+// merge_partials_kernel's; one block a query.
+//   1. The floor. A list is sorted, so its entry c-1 is a c-th entry the
+//      merge can read at once: thread t reads those of list t (the first
+//      MW_KEYS lists, m of them, every load in flight). For g = 1, 2, 4, ...
+//      up to m and c = ceil(k / g) (at most L), the g-th largest of the
+//      lists' c-th entries has g * c >= k entries at or above it, so no
+//      entry it beats is a hit; the floor F is the largest of those. A list
+//      shorter than c, or padded there with (-inf, -1), gives no key at
+//      that level; with no level found there is no floor. Several levels,
+//      because a list scan's slots come cut short by its own floor: a
+//      single c (ceil(k / m)) found too few slots that long at nprobe 96,
+//      k 512, and its merge fell to the in-place path (0.64 ms).
+//   2. The gather. Thread t finds the prefix of list t at or above F (a
+//      binary search; every entry without a floor), a block scan places the
+//      prefixes, and the block copies them into shared memory, MW_THREADS
+//      lists a round.
+//   3. One bitonic sort of the gathered entries in the lists' order (score
+//      desc, row asc); the first k go out, (-inf, -1) past the entries
+//      there are.
+// Where the gathered entries outgrow the run buffer (cap entries, from k),
+// warp 0 merges each list's prefix above the floor into the output row in
+// place instead (topk_wide.cuh warp_merge_run, MERGE_CAP at a time): the
+// same function, one list after another. cap = clamp(next power of two of
+// 4k, MW_MIN_CAP, MW_MAX_CAP): 4096 entries (32 KB) at k 1000.
+// an entry at or above the floor key f (every real entry where f is 0)
+__device__ __forceinline__ bool at_or_above(float v, int r, unsigned long long f) {
+  return f ? floor_key(v, r) >= f : (r >= 0 && v > -INFINITY);
+}
+
+// Exclusive prefix sum of one int a thread over the block; *total gets the
+// sum. scratch: MW_THREADS / 32 ints.
+__device__ __forceinline__ int block_scan(int x, int* scratch, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = x;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(FULL, inc, off);
+    if (lane >= off) inc += y;
+  }
+  if (lane == 31) scratch[warp] = inc;
+  __syncthreads();
+  int before = 0, sum = 0;
+#pragma unroll
+  for (int w = 0; w < MW_THREADS / 32; ++w) {
+    const int t = scratch[w];
+    before += w < warp ? t : 0;
+    sum += t;
+  }
+  __syncthreads();
+  *total = sum;
+  return before + inc - x;
+}
+
+__global__ void __launch_bounds__(MW_THREADS)
 merge_wide_kernel(const float* __restrict__ part_v,
                   const int32_t* __restrict__ part_i, int S, int B, int k, int L,
                   const int32_t* __restrict__ qend, int P, long long qstride,
-                  long long lstride, float* __restrict__ out_v,
+                  long long lstride, int cap, float* __restrict__ out_v,
                   int32_t* __restrict__ out_i) {
   extern __shared__ __align__(16) float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * WARPS + warp;
-  if (b >= B) return;  // warp-uniform
-  float* bv = smem + (size_t)warp * 2 * MERGE_CAP;
-  int* bi = (int*)(bv + MERGE_CAP);
+  unsigned long long* keys = (unsigned long long*)smem;    // [MW_KEYS]
+  unsigned long long* floor_s = keys + MW_KEYS;            // [1]
+  int* offs = (int*)(floor_s + 1);                         // [MW_THREADS + 1]
+  int* scratch = offs + MW_THREADS + 1;                    // [MW_THREADS / 32]
+  float* bv = (float*)(scratch + MW_THREADS / 32 + 1);     // [cap]
+  int* bi = (int*)(bv + cap);                              // [cap]
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int b = blockIdx.x;
   const int s0 = qend && b ? min(qend[(size_t)b * P - 1], S) : 0;
   const int s1 = qend ? min(qend[(size_t)b * P + P - 1], S) : S;
+  const int nl = max(s1 - s0, 0);
   const size_t base = qend ? (size_t)s0 * L : (size_t)b * qstride;
   if (qend) lstride = L;
-  float* lv = out_v + (size_t)b * k;
-  int* li = (int*)out_i + (size_t)b * k;
+  float* ov = out_v + (size_t)b * k;
+  int32_t* oi = out_i + (size_t)b * k;
+
+  // 1. the floor: for g = 1, 2, 4, ... up to the m lists read, the g-th
+  // largest of their c-th entries, c = ceil(k / g) (a level whose c is
+  // above L is skipped), and the largest of those floors. Every load is in
+  // flight before the first level is counted.
+  const int m = min(nl, MW_KEYS);
+  unsigned long long lvl[MW_LEVELS];
+#pragma unroll
+  for (int j = 0; j < MW_LEVELS; ++j) {
+    const int g = 1 << j;
+    const long long c = ((long long)k + g - 1) / g;
+    lvl[j] = 0ull;
+    if (tid < m && g <= m && c <= L) {
+      const size_t o = base + (size_t)tid * lstride + c - 1;
+      const float v = part_v[o];
+      const int r = part_i[o];
+      lvl[j] = (r >= 0 && v > -INFINITY) ? floor_key(v, r) : 0ull;
+    }
+  }
+  if (tid == 0) *floor_s = 0ull;
+#pragma unroll
+  for (int j = 0; j < MW_LEVELS; ++j) {
+    const int g = 1 << j;
+    if (g > m) break;   // block-uniform
+    if (tid < MW_KEYS) keys[tid] = lvl[j];
+    __syncthreads();
+    const unsigned long long key = lvl[j];
+    if (key > *floor_s) {   // only a key above the floor so far can raise it
+      int ge = 0;   // keys at or above this thread's
+      for (int t = 0; t < m && ge < g; ++t) ge += keys[t] >= key;
+      if (ge >= g) atomicMax(floor_s, key);
+    }
+    __syncthreads();
+  }
+  const unsigned long long f = *floor_s;
+
+  // 2. each list's prefix at or above the floor, gathered into bv/bi
+  int total = 0;
+  bool fits = true;
+  for (int r0 = 0; r0 < nl; r0 += MW_THREADS) {
+    const int l = r0 + tid;
+    int n = 0;
+    if (l < nl) {
+      const float* pv = part_v + base + (size_t)l * lstride;
+      const int32_t* pi = part_i + base + (size_t)l * lstride;
+      int hi = L;
+      while (n < hi) {
+        const int mid = (n + hi) >> 1;
+        if (at_or_above(pv[mid], pi[mid], f)) n = mid + 1;
+        else hi = mid;
+      }
+    }
+    int got;
+    const int before = block_scan(n, scratch, &got);
+    offs[tid] = before;
+    if (tid == 0) offs[MW_THREADS] = got;
+    __syncthreads();
+    if (total + got > cap) {
+      fits = false;   // block-uniform
+      break;
+    }
+    for (int e = tid; e < got; e += MW_THREADS) {
+      int lo = 0, hi2 = MW_THREADS;   // the list: the last offs[] at or below e
+      while (hi2 - lo > 1) {
+        const int mid = (lo + hi2) >> 1;
+        if (offs[mid] <= e) lo = mid;
+        else hi2 = mid;
+      }
+      const size_t o = base + (size_t)(r0 + lo) * lstride + (e - offs[lo]);
+      bv[total + e] = part_v[o];
+      bi[total + e] = part_i[o];
+    }
+    total += got;
+    __syncthreads();
+  }
+
+  if (fits) {
+    // 3. one bitonic sort, best first, then the first k
+    int p = 32;
+    while (p < total) p <<= 1;
+    for (int t = total + tid; t < p; t += MW_THREADS) {
+      bv[t] = -INFINITY;
+      bi[t] = -1;
+    }
+    __syncthreads();
+    for (int size = 2; size <= p; size <<= 1) {
+      for (int stride = size >> 1; stride; stride >>= 1) {
+        for (int t = tid; t < (p >> 1); t += MW_THREADS) {
+          const int i = ((t & ~(stride - 1)) << 1) | (t & (stride - 1));
+          const int j = i + stride;
+          const bool down = (i & size) == 0;   // this run ends best first
+          const float vi = bv[i], vj = bv[j];
+          const int ri = bi[i], rj = bi[j];
+          if (beats(vj, rj, vi, ri) == down) {
+            bv[i] = vj;
+            bi[i] = rj;
+            bv[j] = vi;
+            bi[j] = ri;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    for (int j = tid; j < k; j += MW_THREADS) {
+      ov[j] = j < total ? bv[j] : -INFINITY;
+      oi[j] = j < total ? bi[j] : -1;
+    }
+    return;
+  }
+
+  // the prefixes outgrow the run buffer: warp 0 merges them into the output
+  // row in place, list by list, behind the floor
+  if (tid >= 32) return;
   float tv = -INFINITY;
   int ti = -1;
+  if (f) {   // rows at or above F stay: they beat (F's score, F's row + 1)
+    floor_entry(f, tv, ti);
+    ++ti;
+  }
   int fill = 0;
-  for (int s = 0; s < s1 - s0; ++s) {
+  for (int s = 0; s < nl; ++s) {
     const float* pv = part_v + base + (size_t)s * lstride;
     const int32_t* pi = part_i + base + (size_t)s * lstride;
     for (int c0 = 0; c0 < L; c0 += MERGE_CAP) {
-      int m = 0;   // entries of this chunk that beat the threshold: a prefix
+      int mm = 0;   // entries of this chunk that beat the threshold: a prefix
       for (int u = 0; u < MERGE_CAP; u += 32) {
         const int e = c0 + u + lane;
         const float v = e < L ? pv[e] : -INFINITY;
@@ -702,24 +878,24 @@ merge_wide_kernel(const float* __restrict__ part_v,
           bv[u + lane] = v;
           bi[u + lane] = r;
         }
-        m += __popc(mk);
+        mm += __popc(mk);
         if (mk != FULL) break;
       }
       __syncwarp();
-      if (m) {
-        fill = warp_merge_run<MERGE_CAP>(lv, li, k, fill, bv, bi, m, lane);
-        wide_threshold(lv, li, k, fill, tv, ti);
+      if (mm) {
+        fill = warp_merge_run<MERGE_CAP>(ov, oi, k, fill, bv, bi, mm, lane);
+        wide_threshold(ov, oi, k, fill, tv, ti);
       }
-      if (m < MERGE_CAP) break;
+      if (mm < MERGE_CAP) break;
     }
   }
-  wide_pad(lv, li, k, fill, lane);
+  wide_pad(ov, oi, k, fill, lane);
 }
 
 template <int BT, bool IP, typename XT, bool WIDE = false>
 int launch_scan(const void* q, const void* x, const void* qsq,
                 const void* sqnorm, const void* alive, int B, int N, int D,
-                int k, int max_scans, int rows_per_split, int n_splits,
+                int k, int kw, int max_scans, int rows_per_split, int n_splits,
                 int vec, void* part_v, void* part_i, void* pub, int pub_c,
                 int pub_g, cudaStream_t stream) {
   const size_t smem = scan_smem_bytes(k, BT, sizeof(XT));
@@ -730,7 +906,7 @@ int launch_scan(const void* q, const void* x, const void* qsq,
   const dim3 grid((B + BT - 1) / BT, n_splits);
   fused_scan_kernel<BT, IP, XT, WIDE><<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const XT*)x, (const float*)qsq, (const float*)sqnorm,
-      (const uint8_t*)alive, B, N, D, k, max_scans, rows_per_split, vec,
+      (const uint8_t*)alive, B, N, D, k, kw, max_scans, rows_per_split, vec,
       (float*)part_v, (int32_t*)part_i, (float*)pub, pub_c, pub_g);
   return (int)cudaGetLastError();
 }
@@ -751,25 +927,26 @@ const char* pyrope_error_string(int code) {
 }
 
 // FLAT mode: rows >= max_scans never hit. k <= MAXK: the warp-register
-// lists, bt 64 or 128; MAXK < k <= WIDE_MAXK: the wide mode, bt 64. x: fp32
-// rows (elem 4) or bf16 rows (elem 2); qsq: null, or |q|^2 [B] (the bf16
-// mode: q rounded to bf16 by the caller, |q|^2 of the unrounded q).
-// partials [B, n_splits, k]; pub [B, n_splits] floats, -inf from the caller:
-// each split publishes its list's pub_c-th score there, and pub_g * pub_c >=
-// k with pub_g <= min(n_splits, 32).
+// lists, bt 64 or 128, kw = k; k > MAXK: the wide mode, bt 64, lists kw <= k
+// entries wide. x: fp32 rows (elem 4) or bf16 rows (elem 2); qsq: null, or
+// |q|^2 [B] (the bf16 mode: q rounded to bf16 by the caller, |q|^2 of the
+// unrounded q). partials [B, n_splits, kw]; pub [B, n_splits] floats, -inf
+// from the caller: each split publishes its list's pub_c-th score there
+// (pub_c <= kw), and pub_g * pub_c >= k (a pub_g above min(n_splits, 32)
+// is never reached: no floor).
 int pyrope_fused_scan(const void* q, const void* x, const void* qsq,
                       const void* sqnorm, const void* alive, int B, int N,
-                      int D, int k, int metric_ip, int max_scans,
+                      int D, int k, int kw, int metric_ip, int max_scans,
                       int rows_per_split, int n_splits, int bt, int elem,
                       int vec, void* part_v, void* part_i, void* pub,
                       int pub_c, int pub_g, void* stream) {
   const bool wide = k > MAXK;
-  if (k < 1 || k > WIDE_MAXK || (bt != 64 && bt != 128) || (wide && bt != WIDE_BT) ||
-      (elem != 4 && elem != 2) || pub_c < 1 || pub_c > k || pub_g < 1 || pub_g > WIN ||
-      pub_g > n_splits || pub_g * pub_c < k)
+  if (k < 1 || (wide ? kw < 1 || kw > k : kw != k) || (bt != 64 && bt != 128) ||
+      (wide && bt != WIDE_BT) || (elem != 4 && elem != 2) || pub_c < 1 || pub_c > kw ||
+      pub_g < 1 || (long long)pub_g * pub_c < k)
     return (int)cudaErrorInvalidValue;
   using Launch = int (*)(const void*, const void*, const void*, const void*,
-                         const void*, int, int, int, int, int, int, int, int,
+                         const void*, int, int, int, int, int, int, int, int, int,
                          void*, void*, void*, int, int, cudaStream_t);
   static const Launch wide_table[2][2] = {   // [bf16][ip]
       {launch_scan<WIDE_BT, false, float, true>, launch_scan<WIDE_BT, true, float, true>},
@@ -777,7 +954,7 @@ int pyrope_fused_scan(const void* q, const void* x, const void* qsq,
        launch_scan<WIDE_BT, true, uint16_t, true>}};
   if (wide)
     return wide_table[elem == 2][metric_ip != 0](
-        q, x, qsq, sqnorm, alive, B, N, D, k, max_scans, rows_per_split,
+        q, x, qsq, sqnorm, alive, B, N, D, k, kw, max_scans, rows_per_split,
         n_splits, vec, part_v, part_i, pub, pub_c, pub_g, (cudaStream_t)stream);
   static const Launch table[2][2][2] = {   // [bf16][bt == 128][ip]
       {{launch_scan<64, false, float>, launch_scan<64, true, float>},
@@ -785,7 +962,7 @@ int pyrope_fused_scan(const void* q, const void* x, const void* qsq,
       {{launch_scan<64, false, uint16_t>, launch_scan<64, true, uint16_t>},
        {launch_scan<128, false, uint16_t>, launch_scan<128, true, uint16_t>}}};
   return table[elem == 2][bt == 128][metric_ip != 0](
-      q, x, qsq, sqnorm, alive, B, N, D, k, max_scans, rows_per_split,
+      q, x, qsq, sqnorm, alive, B, N, D, k, kw, max_scans, rows_per_split,
       n_splits, vec, part_v, part_i, pub, pub_c, pub_g, (cudaStream_t)stream);
 }
 
@@ -805,20 +982,26 @@ int pyrope_merge_partials(const void* part_v, const void* part_i, int S,
   return (int)cudaGetLastError();
 }
 
-// The wide merge: lists of width list_w (<= k) into [B, k], k <= WIDE_MAXK
-// (the wrapper takes it for k > MAXK, or lists narrower than k); the
-// layouts as pyrope_merge_partials.
+// The wide merge: lists of width list_w (<= k) into [B, k], any k (the
+// wrapper takes it for k > MAXK, or lists narrower than k); the layouts as
+// pyrope_merge_partials. One block a query; its run buffer holds cap entries.
 int pyrope_merge_partials_wide(const void* part_v, const void* part_i, int S,
                                int B, int k, int list_w, const void* qend, int P,
                                long long qstride, long long lstride,
                                void* out_v, void* out_i, void* stream) {
-  if (k < 1 || k > WIDE_MAXK || list_w < 1 || list_w > k)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * 2 * (size_t)MERGE_CAP * WARPS;
-  const int blocks = (B + WARPS - 1) / WARPS;
-  merge_wide_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  if (k < 1 || list_w < 1 || list_w > k) return (int)cudaErrorInvalidValue;
+  int cap = MW_MIN_CAP;
+  while (cap < MW_MAX_CAP && cap < 4LL * k) cap <<= 1;
+  const size_t smem = sizeof(unsigned long long) * (MW_KEYS + 1) +
+                      sizeof(int) * (MW_THREADS + 1 + MW_THREADS / 32 + 1) +
+                      (sizeof(float) + sizeof(int)) * (size_t)cap;
+  cudaError_t err = cudaFuncSetAttribute(
+      merge_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (B == 0) return 0;
+  merge_wide_kernel<<<B, MW_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)part_v, (const int32_t*)part_i, S, B, k, list_w,
-      (const int32_t*)qend, P, qstride, lstride, (float*)out_v, (int32_t*)out_i);
+      (const int32_t*)qend, P, qstride, lstride, cap, (float*)out_v, (int32_t*)out_i);
   return (int)cudaGetLastError();
 }
 

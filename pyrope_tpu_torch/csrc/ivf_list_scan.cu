@@ -51,16 +51,41 @@
 // k entries of each of its queries' slots; each slot has one writer, and
 // every slot a query has is written.
 //
-// The floor. An item's lists start empty, and a list that covers only one
-// segment (~1000 rows at the main shapes) spends much of its life filling:
-// at nprobe 96 each query's list would be refilled 96 times, k insertions
-// or more each time. So each query keeps a floor in global memory
-// (qfloor[b], one 64-bit key in the lists' order, raised with atomicMax):
-// an item whose list of query b holds k of its own rows raises b's floor to
-// the k-th of them, and an item starts its lists as k copies of the floor
-// it reads, so only rows that beat it are offered. The rows an item drops
-// this way are beaten by k rows another item writes, so the merged top k
-// is the same whatever order the items ran in; only the partials differ.
+// The floor, published across a query's slots. An item's lists start
+// empty, and a list that covers only one segment (~1000 rows at the main
+// shapes) spends much of its life filling: at nprobe 96 each query's list
+// would be refilled 96 times, k insertions or more each time, and one
+// cluster's k-th row lies far below the query's k-th of ~96,000. So each
+// partial slot has one 64-bit key in global memory (pub[slot], the lists'
+// order as floor_key gives it; 0: nothing published), written only by the
+// item that owns the slot: once the slot's list holds c of the item's own
+// rows, the item stores the list's c-th entry there, after each tile's
+// epilogue where the list changed (layout A and the wide layout B; the
+// narrow layout B, whose eight per-warp lists meet only at the end, at the
+// end), and again as the entry rises. When an item ends, a warp reads a
+// window of FWIN of each of its queries' slots (they are contiguous:
+// slot_end), one a lane, takes the g-th largest key published there (the
+// host's list_floor picks c and g, g * c >= k) and raises the query's
+// floor key (qfloor[b], after the slots' keys, atomicMax) to it; with g = 1
+// (c = k) a slot's own key is such a floor, raised into the floor key as it
+// is published, and no window is read. An item
+// starts from its queries' floor keys and, in layout A and the wide layout
+// B, copies them in again (cp.async, beside the row stage) at tiles 1, 2,
+// 4, 8, ...; the narrow layout B (a few queries, a few tiles) reads them
+// at its start only. Computing the window inside the scan loop stalled the
+// block at its barriers (the IVF cell at nprobe 96, b4096 ran 6.3 against
+// 4.6 ms of device time; list_floor's g = 32 then also never formed a
+// floor at k 1000, whose 32 window slots all had to end). Why no hit is
+// dropped: slots hold disjoint rows, and a slot's c-th entry only rises,
+// so if g slots each published a key at or above F, at least g * c >= k
+// distinct rows lie at or above F, and no row that F beats is a hit. Rows
+// must beat the floor to be offered; the merged top k is the same whatever
+// order the items ran in, and only the partials differ. The narrow lists
+// start as k copies of the floor the item read first (fv/fi); a rising
+// floor raises the threshold and leaves the copies as they are, so a copy
+// is still marked by that first floor's row (which lies in another slot)
+// when the lists are written out or published. Without a floor (fewer than
+// g keys, or g above FWIN) nothing is dropped.
 //
 // One block per item. It reads its chunk's |q|^2, and in SQ8 mode sum(q)
 // and qc[b, c] (one scalar per query: the block's cluster is fixed), from
@@ -86,8 +111,8 @@
 //   the rows instead, 16 rows a warp, each half-warp 4 of the queries; each
 //   warp keeps its own 8 lists, merged per query at the end of the block.
 //
-// The wide mode (k > MAXK, up to WIDE_MAXK; ivf_list_scan_kernel<MODE,
-// true>) replaces the TPU kernels' wide merges (_wide_params :372,
+// The wide mode (k > MAXK, any k; ivf_list_scan_kernel<MODE, true>)
+// replaces the TPU kernels' wide merges (_wide_params :372,
 // _bitonic_merge_wide :192, _merge_tile_wide :200, _extract_top :496): a
 // query's list is its partial slot in global memory, kw = min(k, seg, the
 // longest list) entries wide, since a segment cannot give more, and
@@ -98,7 +123,9 @@
 // tile's epilogue a block barrier, then warp i flushes the buffers of query
 // i that could not take another tile into the list and raises the
 // threshold. The floor holds as in the narrow mode: it starts as the
-// threshold, and a list of k of the item's rows raises it.
+// threshold and raises it on the same schedule, and a slot publishes its
+// list's c-th entry once the list holds c entries (a wide list holds only
+// the item's rows).
 //
 // What bounds it on an H100. With the masked work gone the scan reads each
 // probed cluster's rows once per query chunk: at 1M x 128, nlist 1000,
@@ -137,6 +164,9 @@ constexpr int XLD = DCH + 4;     // stage row stride (elements): conflict-free
 constexpr int LCAP = 128;        // the wide mode's candidate buffer, a list
 constexpr int B_FLUSH = LCAP - 16;  // layout B: a buffer above this is flushed
                                     // (a warp adds at most 16 a query a tile)
+constexpr int FWIN = 128;        // slots whose published keys a warp reads
+constexpr int FPL = FWIN / 32;   // of them a lane
+constexpr int FBATCH = 4;        // queries whose keys load together
 
 enum Mode { MODE_IVF = 1, MODE_SQ8 = 2, MODE_BF16 = 3 };
 
@@ -154,7 +184,7 @@ size_t list_scan_smem_bytes(int k, int mode) {
   return sizeof(float) * (size_t)2 * BT * QLD                  // qs, two stages
          + (size_t)2 * RT * XLD * elem_bytes(mode)         // xs, two stages
          + (size_t)2 * RT * 4 * (sq8 ? 4 : 2)              // row tables, two tiles
-         + (size_t)7 * BT * 4                         // per-query tables
+         + (size_t)13 * BT * 4                        // per-query tables
          + (k > MAXK ? (size_t)BT * (8 * LCAP + 16)   // buffers, states, thresholds
                      : (size_t)8 * BT * k);           // lists: values, rows
 }
@@ -206,30 +236,111 @@ __device__ __forceinline__ float4 row4(const void* xs, int r, int qd) {
   }
 }
 
-// A query's floor as one 64-bit key whose unsigned order is the lists'
-// (score desc, row asc) order, so atomicMax keeps the best; 0 is no floor.
-__device__ __forceinline__ unsigned long long floor_key(float v, int r) {
-  const unsigned u = __float_as_uint(v + 0.f);  // -0 -> +0, as beats() sees it
-  const unsigned hi = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)hi << 32) | (0xffffffffu - (unsigned)r);
-}
-
-__device__ __forceinline__ void floor_entry(unsigned long long key, float& v,
-                                            int& r) {
-  const unsigned hi = (unsigned)(key >> 32);
-  v = key ? __uint_as_float((hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi)
-          : -INFINITY;
-  r = key ? (int)(0xffffffffu - (unsigned)key) : -1;
-}
-
 // The insertion path, out of line. The epilogue offers from 32 sites (8
 // queries x 4 rows a lane in layout A); inlined there, the list insertion
 // would be copied 32 times into the scan loop's body. Called only when some
-// lane's score beats the list's threshold, it returns the new threshold.
+// lane's score beats the list's threshold, it returns the new threshold:
+// the list's last entry, or the threshold it was given (a floor) where that
+// is higher.
 __device__ __noinline__ Entry offer(float* lv, int* li, int k, float v, int r,
                                     float tv, int ti, int lane) {
+  const float fv0 = tv;
+  const int fi0 = ti;
   warp_offer_batch(lv, li, k, v, r, tv, ti, lane);
-  return {tv, ti};
+  return beats(fv0, fi0, tv, ti) ? Entry{fv0, fi0} : Entry{tv, ti};
+}
+
+// A slot's list entry (v, r) is published when it is one of the item's
+// own rows (not a copy of the floor, whose row is fr; not empty) and above
+// what the slot published last (*last): stored to the slot's key (dst; the
+// slot has one writer) or, where g = 1 (c = k: the entry is a floor by
+// itself), raised into the query's floor key (qdst) at once. One lane calls
+// it.
+__device__ __noinline__ void publish(float v, int r, int fr, unsigned long long* last,
+                                     unsigned long long* dst, unsigned long long* qdst) {
+  if (r < 0 || r == fr || !(v > -INFINITY)) return;
+  const unsigned long long key = floor_key(v, r);
+  if (key > *last) {
+    *last = key;
+    if (qdst) atomicMax(qdst, key);
+    else __stcg(dst, key);
+  }
+}
+
+// The floors of n queries from i0 on (n <= QPW): for each, the g-th largest
+// key its slots fw0[i] .. fw1[i] (at most FWIN, FPL a lane) have published,
+// into fkey[i] (0: fewer than g keys). The warp together, the loads of
+// FBATCH queries in flight at once; the g largest keys are taken out one at
+// a time (a warp max, then the lane holding it drops it): keys are
+// distinct, since slots hold distinct rows.
+__device__ __noinline__ void take_floors(const unsigned long long* pub, const int* fw0,
+                                         const int* fw1, int i0, int n, int g,
+                                         unsigned long long* fkey, int lane) {
+  for (int u0 = 0; u0 < n; u0 += FBATCH) {
+    unsigned long long key[FBATCH][FPL];
+#pragma unroll
+    for (int u = 0; u < FBATCH; ++u) {
+      const bool in = u0 + u < n;
+#pragma unroll
+      for (int e = 0; e < FPL; ++e) {
+        const int s = in ? fw0[i0 + u0 + u] + lane + 32 * e : 0;
+        key[u][e] = (in && s < fw1[i0 + u0 + u]) ? __ldcg(pub + s) : 0ull;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < FBATCH; ++u) {
+      if (u0 + u >= n) break;
+      unsigned long long t = 0ull;
+      int taken = 0;
+      for (; taken < g; ++taken) {
+        unsigned long long m = 0ull;
+#pragma unroll
+        for (int e = 0; e < FPL; ++e) m = key[u][e] > m ? key[u][e] : m;
+#pragma unroll
+        for (int off = 16; off; off >>= 1) {
+          const unsigned long long o = __shfl_xor_sync(FULL, m, off);
+          m = o > m ? o : m;
+        }
+        if (!m) break;   // warp-uniform: fewer than g keys
+        t = m;
+#pragma unroll
+        for (int e = 0; e < FPL; ++e)
+          if (key[u][e] == m) key[u][e] = 0ull;
+      }
+      if (lane == 0) fkey[i0 + u0 + u] = taken == g ? t : 0ull;
+    }
+  }
+  __syncwarp();
+}
+
+// At an item's end, once its slots have published: each query's floor
+// from its window, kept as the query's floor key (qfloor[b], raised with
+// atomicMax) for the items that start or read it later. The block's warps
+// together, QPW queries a warp at a time.
+__device__ __forceinline__ void share_floors(const unsigned long long* pub,
+                                             unsigned long long* qfloor, const int* qb,
+                                             const int* fw0, const int* fw1, int qn,
+                                             int g, unsigned long long* fkey, int warp,
+                                             int lane) {
+  if (g == 1) return;   // each publication raised the floor key already
+  __syncthreads();      // every slot of the block has published
+  for (int i0 = warp * QPW; i0 < qn; i0 += WARPS * QPW) {
+    const int n = min(QPW, qn - i0);
+    take_floors(pub, fw0, fw1, i0, n, g, fkey, lane);
+    if (lane < n && fkey[i0 + lane]) atomicMax(qfloor + qb[i0 + lane], fkey[i0 + lane]);
+  }
+}
+
+// Raise the threshold (tv, ti) to the floor key where that is higher.
+__device__ __forceinline__ void raise_to(unsigned long long key, float& tv, int& ti) {
+  if (!key) return;
+  float v;
+  int r;
+  floor_entry(key, v, r);
+  if (beats(v, r, tv, ti)) {
+    tv = v;
+    ti = r;
+  }
 }
 
 // slab: float [N, D] (IVF), uint8 [N, D] (SQ8) or bf16 bits [N, D] (BF16).
@@ -237,7 +348,9 @@ __device__ __noinline__ Entry offer(float* lv, int* li, int k, float v, int r,
 // [B] to take in place of the gathered q's own. vec: D % 4 == 0 and the
 // slab's and q's bases are aligned, so slab rows and query rows are staged
 // with cp.async; else plain loads do both. kw: the width of a partial slot
-// (k; in the wide mode min(k, seg, the longest list)).
+// (k; in the wide mode min(k, seg, the longest list)). pub [nslots + B],
+// 0 from the caller: the slots' published keys, then the queries' floor
+// keys; pub_c, pub_g: the floor's c and g (list_floor), pub_c <= kw.
 template <int MODE, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
 ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
@@ -257,8 +370,9 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
                      const int32_t* __restrict__ lens, int nclus, int B, int D,
                      int k, int kw, int metric_ip, int seg, int nslots, int vec,
                      float* __restrict__ part_v, int32_t* __restrict__ part_i,
-                     unsigned long long* __restrict__ qfloor) {
+                     unsigned long long* __restrict__ pub, int pub_c, int pub_g) {
   constexpr bool SQ8 = MODE == MODE_SQ8;
+  unsigned long long* qfloor = pub + nslots;   // [B] the queries' floor keys
   using Elem = typename std::conditional<
       SQ8, uint8_t,
       typename std::conditional<MODE == MODE_BF16, uint16_t, float>::type>::type;
@@ -284,14 +398,20 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
   int* rok = (int*)(rsq + 2 * RT);                    // [2][RT]
   float* rmn = (float*)(rok + 2 * RT);                // [2][RT] (SQ8)
   float* rsc = rmn + (SQ8 ? 2 * RT : 0);              // [2][RT] (SQ8)
-  float* qq = rsc + (SQ8 ? 2 * RT : 0);               // [BT]
+  // 8-byte aligned: every table above is a multiple of 8 bytes
+  unsigned long long* pubk = (unsigned long long*)(rsc + (SQ8 ? 2 * RT : 0));  // [BT]
+                                                      // key the slot published last
+  unsigned long long* fkey = pubk + BT;               // [BT] floor key copied in
+  float* qq = (float*)(fkey + BT);                    // [BT]
   float* qsum = qq + BT;                              // [BT] (SQ8)
   float* qcv = qsum + BT;                             // [BT] (SQ8)
   int* qb = (int*)(qcv + BT);                         // [BT] query id
   int* qslot = qb + BT;                               // [BT] partial slot
-  float* fv = (float*)(qslot + BT);                   // [BT] floor score
-  int* fi = (int*)(fv + BT);                          // [BT] floor row
-  float* lv = (float*)(fi + BT);                      // [BT][k]; WIDE: buffers [BT][LCAP]
+  float* fv = (float*)(qslot + BT);                   // [BT] floor score at the start
+  int* fi = (int*)(fv + BT);                          // [BT] floor row at the start
+  int* fw0 = fi + BT;                                 // [BT] the floor's slot window
+  int* fw1 = fw0 + BT;                                // [BT]
+  float* lv = (float*)(fw1 + BT);                     // [BT][k]; WIDE: buffers [BT][LCAP]
   int* li = (int*)(lv + (size_t)BT * (WIDE ? LCAP : k));
   WideState* wst = (WideState*)(li + (size_t)BT * LCAP);  // WIDE: [BT]
   float* wtv = (float*)(wst + BT);                    // WIDE: [BT] threshold (layout B)
@@ -300,6 +420,8 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  // where a publication of query i's slot goes straight to its floor key (g = 1)
+  auto qdst = [&](int i) { return pub_g == 1 ? qfloor + qb[i] : nullptr; };
 
   const int nchunk = (D4 + DCH - 1) / DCH;
   const int ntile = (r_hi - r_lo + RT - 1) / RT;
@@ -349,6 +471,10 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
         for (int u = 0; u < 4; ++u) dst[u] = d0 + 4 * qd + u < D ? src[u] : 0.f;
       }
     }
+    // after tiles 0, 1, 3, 7, ...: the queries' floor keys, read at the
+    // epilogue of the tile this stage starts (tiles 1, 2, 4, 8, ...)
+    if (ch == 0 && tile && ((tile - 1) & tile) == 0 && tid < qn && (WIDE || !small))
+      cp_async8(fkey + tid, qfloor + qb[tid], 8);
     pend = ch == 0 && tid < RT;
     if (pend) {  // independent loads: nothing waits on them until stored
       const int row = row0 + tid;
@@ -375,6 +501,9 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
   for (int i = tid; i < BT; i += THREADS) {
     fv[i] = -INFINITY;
     fi[i] = -1;
+    pubk[i] = 0ull;
+    fkey[i] = 0ull;
+    fw0[i] = fw1[i] = 0;
     if (WIDE) {
       wst[i] = {0, 0};
       wtv[i] = -INFINITY;
@@ -384,16 +513,24 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
     const int j = pairs[qlo + i];  // pair j = b * P + p
     const int b = j / P;
     qb[i] = b;
-    qslot[i] = slot_end[j] - ns + s;
+    const int slot = slot_end[j] - ns + s;
+    qslot[i] = slot;
     if (SQ8) qcv[i] = qc[(size_t)b * kp + c];
-    floor_entry(__ldcg(qfloor + b), fv[i], fi[i]);
+    floor_entry(__ldcg(qfloor + b), fv[i], fi[i]);   // the floor it starts from
     if (WIDE) {
-      if (qslot[i] >= nslots) {   // no slot (a short max_len): takes nothing
+      if (slot >= nslots) {   // no slot (a short max_len): takes nothing
         fv[i] = INFINITY;
         fi[i] = -1;
       }
       wtv[i] = fv[i];
       wti[i] = fi[i];
+    }
+    if (pub_g > 1) {   // the window of the query's slots lo .. hi that holds its own
+      const int lo = b ? slot_end[(size_t)b * P - 1] : 0;
+      const int hi = min(slot_end[(size_t)b * P + P - 1], nslots);
+      const int w0 = max(lo, min(lo + ((slot - lo) & ~(FWIN - 1)), hi - FWIN));
+      fw0[i] = w0;
+      fw1[i] = min(w0 + FWIN, hi);
     }
   }
   __syncthreads();
@@ -506,7 +643,13 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
     if (ch == nchunk - 1) {  // epilogue: metric, row mask, the warp's lists
       const int row0 = r_lo + tile * RT;
       const int tb = (tile & 1) * RT;
+      const bool fresh = tile && ((tile - 1) & tile) == 0;   // floor keys copied in
       if (!small && busy) {
+        if (fresh) {
+#pragma unroll
+          for (int i = 0; i < QPW; ++i) raise_to(fkey[warp * QPW + i], tv[i], ti[i]);
+        }
+        unsigned changed = 0;   // queries whose lists took an offer this tile
 #pragma unroll
         for (int i = 0; i < QPW; ++i) {
           const int b = warp * QPW + i;
@@ -543,6 +686,20 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
               ti[i] = t.r;
             }
           }
+          changed |= 1u << i;
+        }
+        // lane i: the c-th entry of query i's list, if the list changed and
+        // the entry rose, for the query's other items (one call site)
+        const int b = warp * QPW + lane;
+        if (lane < QPW && (changed >> lane & 1u) && qslot[b] < nslots) {
+          if constexpr (WIDE) {
+            const size_t o = (size_t)qslot[b] * kw + pub_c - 1;
+            if (wst[b].fill >= pub_c)
+              publish(part_v[o], part_i[o], -1, pubk + b, pub + qslot[b], qdst(b));
+          } else {
+            const size_t o = (size_t)b * k + pub_c - 1;
+            publish(lv[o], li[o], fi[b], pubk + b, pub + qslot[b], qdst(b));
+          }
         }
       } else if (small) {
         const bool rowok = rok[tb + rb];
@@ -571,7 +728,8 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
         }
         if constexpr (WIDE) {
           // warp i flushes the buffers of query i that could not take
-          // another tile into the query's list, and raises its threshold
+          // another tile into the query's list, publishes the list's c-th
+          // entry, and raises its threshold (the list's last, the floor)
           __syncthreads();
           if (warp < qn && qslot[warp] < nslots) {
             const int i = warp;
@@ -585,6 +743,10 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
             float t_v = wtv[i];
             int t_i = wti[i];
             wide_threshold(part_v + o, part_i + o, kw, wst[i].fill, t_v, t_i);
+            if (lane == 0 && wst[i].fill >= pub_c)
+              publish(part_v[o + pub_c - 1], part_i[o + pub_c - 1], -1, pubk + i,
+                      pub + qslot[i], qdst(i));
+            if (fresh) raise_to(fkey[i], t_v, t_i);
             __syncwarp();
             if (lane == 0) {
               wtv[i] = t_v;
@@ -613,11 +775,12 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
       wide_pad(part_v + o, part_i + o, kw, wst[i].fill, lane);
     }
     __syncthreads();
-    if (tid < qn && kw == k && qslot[tid] < nslots && wst[tid].fill == k) {
-      // a full list of this item's rows raises the floor
-      const size_t o = (size_t)qslot[tid] * kw + k - 1;
-      atomicMax(qfloor + qb[tid], floor_key(part_v[o], part_i[o]));
+    if (tid < qn && qslot[tid] < nslots && wst[tid].fill >= pub_c) {
+      // the final list's c-th entry, for the query's items still running
+      const size_t o = (size_t)qslot[tid] * kw + pub_c - 1;
+      publish(part_v[o], part_i[o], -1, pubk + tid, pub + qslot[tid], qdst(tid));
     }
+    share_floors(pub, qfloor, qb, fw0, fw1, qn, pub_g, fkey, warp, lane);
     return;
   }
 
@@ -648,12 +811,11 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
     part_v[o] = mine ? lv[(size_t)i * k + j] : -INFINITY;
     part_i[o] = mine ? r : -1;
   }
-  if (tid < qn) {  // a full list of this item's rows raises the floor
-    const float v = lv[(size_t)tid * k + k - 1];
-    const int r = li[(size_t)tid * k + k - 1];
-    if (r >= 0 && r != fi[tid] && v > -INFINITY)
-      atomicMax(qfloor + qb[tid], floor_key(v, r));
+  if (tid < qn && qslot[tid] < nslots) {  // the final list's c-th entry
+    const size_t o = (size_t)tid * k + pub_c - 1;
+    publish(lv[o], li[o], fi[tid], pubk + tid, pub + qslot[tid], qdst(tid));
   }
+  share_floors(pub, qfloor, qb, fw0, fw1, qn, pub_g, fkey, warp, lane);
 }
 
 template <int MODE>
@@ -666,11 +828,13 @@ int launch_list_scan(const void* q, const void* slab, const void* qsq,
                      const void* slot_end, const void* offsets,
                      const void* lens, int nclus, int grid, int B, int D, int k,
                      int kw, int metric_ip, int seg, int nslots, int vec,
-                     void* part_v, void* part_i, void* qfloor, void* stream) {
+                     void* part_v, void* part_i, void* pub, int pub_c, int pub_g,
+                     void* stream) {
   const bool wide = k > MAXK;
-  // a slot holds k entries, or in the wide mode at most what a segment has
-  if (k < 1 || k > WIDE_MAXK || seg < 1 || P < 1 || kw < 1 ||
-      (wide ? kw > min(k, seg) : kw != k))
+  // a slot holds k entries, or in the wide mode at most what a segment has;
+  // a slot publishes its c-th entry, and g * c rows lie at or above a floor
+  if (k < 1 || seg < 1 || P < 1 || kw < 1 || (wide ? kw > min(k, seg) : kw != k) ||
+      pub_c < 1 || pub_c > kw || pub_g < 1 || (long long)pub_g * pub_c < k)
     return (int)cudaErrorInvalidValue;
   const size_t smem = list_scan_smem_bytes(k, MODE);
   auto kernel = wide ? ivf_list_scan_kernel<MODE, true> : ivf_list_scan_kernel<MODE, false>;
@@ -687,7 +851,7 @@ int launch_list_scan(const void* q, const void* slab, const void* qsq,
       (const int32_t*)slot_end, (const int32_t*)offsets, (const int32_t*)lens,
       nclus, B, D, k, kw,
       metric_ip, seg, nslots, vec, (float*)part_v, (int32_t*)part_i,
-      (unsigned long long*)qfloor);
+      (unsigned long long*)pub, pub_c, pub_g);
   return (int)cudaGetLastError();
 }
 
@@ -703,7 +867,8 @@ long long pyrope_list_scan_smem_bytes(int k, int mode) {
 
 // IVF mode: x [N, D] f32. The work tables come from invert_probes
 // (ops/fused_scan.py); partials [nslots, kw]: kw = k for k <= MAXK, else
-// (the wide mode, k <= WIDE_MAXK) at most min(k, seg).
+// (the wide mode) at most min(k, seg); pub [nslots] 64-bit keys, 0 from the
+// caller, and the floor's pub_c <= kw and pub_g (list_floor).
 int pyrope_ivf_list_scan(const void* q, const void* x, const void* sqnorm,
                          const void* alive, const void* pairs, int P,
                          const void* cstart, const void* ccnt,
@@ -711,12 +876,12 @@ int pyrope_ivf_list_scan(const void* q, const void* x, const void* sqnorm,
                          const void* slot_end, const void* offsets,
                          const void* lens, int nclus, int grid, int B, int D,
                          int k, int kw, int metric_ip, int seg, int nslots, int vec,
-                         void* part_v, void* part_i, void* qfloor,
-                         void* stream) {
+                         void* part_v, void* part_i, void* pub, int pub_c,
+                         int pub_g, void* stream) {
   return launch_list_scan<MODE_IVF>(
       q, x, nullptr, sqnorm, alive, nullptr, nullptr, nullptr, 0, pairs, P, cstart,
       ccnt, item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k, kw,
-      metric_ip, seg, nslots, vec, part_v, part_i, qfloor, stream);
+      metric_ip, seg, nslots, vec, part_v, part_i, pub, pub_c, pub_g, stream);
 }
 
 // SQ8 mode: codes [N, D] uint8; mins, scales, sqnorm [N] f32; qc [B, kp] f32.
@@ -729,12 +894,12 @@ int pyrope_ivf_list_scan_sq8(const void* q, const void* codes,
                              const void* slot_end, const void* offsets,
                              const void* lens, int nclus, int grid, int B,
                              int D, int k, int kw, int metric_ip, int seg, int nslots,
-                             int vec, void* part_v, void* part_i,
-                             void* qfloor, void* stream) {
+                             int vec, void* part_v, void* part_i, void* pub,
+                             int pub_c, int pub_g, void* stream) {
   return launch_list_scan<MODE_SQ8>(
       q, codes, nullptr, sqnorm, alive, mins, scales, qc, kp, pairs, P, cstart, ccnt,
       item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k, kw, metric_ip,
-      seg, nslots, vec, part_v, part_i, qfloor, stream);
+      seg, nslots, vec, part_v, part_i, pub, pub_c, pub_g, stream);
 }
 
 // BF16 mode: x [N, D] bf16; qsq null (promote_fp32: q as it is) or |q|^2
@@ -747,11 +912,12 @@ int pyrope_ivf_list_scan_bf16(const void* q, const void* x, const void* qsq,
                               const void* offsets, const void* lens, int nclus,
                               int grid, int B, int D, int k, int kw, int metric_ip,
                               int seg, int nslots, int vec, void* part_v,
-                              void* part_i, void* qfloor, void* stream) {
+                              void* part_i, void* pub, int pub_c, int pub_g,
+                              void* stream) {
   return launch_list_scan<MODE_BF16>(
       q, x, qsq, sqnorm, alive, nullptr, nullptr, nullptr, 0, pairs, P, cstart,
       ccnt, item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k, kw,
-      metric_ip, seg, nslots, vec, part_v, part_i, qfloor, stream);
+      metric_ip, seg, nslots, vec, part_v, part_i, pub, pub_c, pub_g, stream);
 }
 
 }  // extern "C"

@@ -26,6 +26,22 @@ __device__ __forceinline__ bool beats(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
+// A list entry as one 64-bit key whose unsigned order is the lists'
+// (score desc, row asc) order; 0 is no key.
+__device__ __forceinline__ unsigned long long floor_key(float v, int r) {
+  const unsigned u = __float_as_uint(v + 0.f);  // -0 -> +0, as beats() sees it
+  const unsigned hi = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)hi << 32) | (0xffffffffu - (unsigned)r);
+}
+
+__device__ __forceinline__ void floor_entry(unsigned long long key, float& v,
+                                            int& r) {
+  const unsigned hi = (unsigned)(key >> 32);
+  v = key ? __uint_as_float((hi & 0x80000000u) ? (hi & 0x7fffffffu) : ~hi)
+          : -INFINITY;
+  r = key ? (int)(0xffffffffu - (unsigned)key) : -1;
+}
+
 // Insert (cv, cr) into the sorted list (lv, li) of k entries; the whole warp
 // calls it with the same arguments, and (cv, cr) beats the list's last entry.
 __device__ __forceinline__ void warp_insert(float* lv, int* li, int k,

@@ -1,6 +1,6 @@
-// Wide sorted top-k lists (k above MAXK = 128 of topk_warp.cuh, up to
-// 10,000), shared by the scan kernels' wide instantiations and the wide
-// merge kernel.
+// Wide sorted top-k lists (k above MAXK = 128 of topk_warp.cuh, any k),
+// shared by the scan kernels' wide instantiations and the wide merge
+// kernel's in-place path.
 //
 // Replaces, of pyrope_tpu/ops/pallas_scan.py, the running top-k of every
 // scan kernel above RANK_MERGE_MAX_K: _wide_params (:372), the bitonic tile
@@ -38,8 +38,6 @@
 #include "topk_warp.cuh"
 
 namespace {
-
-constexpr int WIDE_MAXK = 10000;   // the widest list a kernel takes
 
 // Sort buf[0..m) in the lists' order, the warp together; m <= CAP. Slots m ..
 // the next power of two (at least 32) are padded with (-inf, -1).

@@ -25,8 +25,8 @@ Selection (routes by the JAX package's names, ``describe_scan``):
     rescores those rows off the fp32 slab. Batches above HYBRID_MAX_BATCH
     take the fp32 scan (``flat-pallas``), as in the JAX package: both
     sides of the route are exact. Cosine takes ``flat-exact``.
-  k above the kernels' MAX_K (10,000) raises on the kernel routes, naming
-  the limit; the JAX package's kernels have none.
+  The kernel routes take any k >= 1, as the JAX package's kernels do;
+  above the rows present the hits are padded (missing hits).
   - ``approx[:recall]``: runs exact (see ops/topk.py).
 """
 

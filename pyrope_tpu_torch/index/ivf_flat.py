@@ -25,10 +25,8 @@ Scan routes, by the same names as the JAX package, so a recorded
     membership and the max_scans budget (the JAX package's XLA kernel),
     walked in query blocks of at most DENSE_MAX_ELEMS scores. Only where
     the JAX package takes it: a max_scans budget, cosine, a
-    ``compute_dtype``, ``selection="exact"``, a cluster table over
-    IVF_MAX_KPAD.
-The list scan takes any D and k up to its MAX_K (10,000); above it the kernel
-routes raise, naming the limit.
+    ``compute_dtype``, ``selection="exact"``.
+The list scan takes any D, any k and any cluster-table width.
   - ``probe``: plain torch, a gather of each probed list + a running merge.
 ``compute_dtype`` (e.g. "bfloat16") rounds the search products' operands,
 as the JAX package does, and makes the kernel routes ineligible;
@@ -65,11 +63,7 @@ from pyrope_tpu_torch.index.flat import (
     to_device,
 )
 from pyrope_tpu_torch.ops.distance import rerank_exact, rounded, row_sqnorms, score_matrix
-from pyrope_tpu_torch.ops.fused_scan import (
-    IVF_MAX_KPAD,
-    fused_ivf_topk,
-    k_refusal,
-)
+from pyrope_tpu_torch.ops.fused_scan import fused_ivf_topk, k_refusal
 from pyrope_tpu_torch.ops.kmeans import kmeans_build
 from pyrope_tpu_torch.ops.topk import masked_topk, merge_topk, parse_selection, stable_topk
 
@@ -172,20 +166,17 @@ def dense_probe_mask(probe, eff, crow, pos, alive, kpad):
     return (pos[None, :] < allowed[:, crow.long()]) & alive[None, :]
 
 
-def pallas_dense_ok(selection: str, metric: Metric, compute, ms: int, n: int,
-                    kpad: int) -> bool:
+def pallas_dense_ok(selection: str, metric: Metric, compute, ms: int, n: int) -> bool:
     """Eligibility of a dense scan for the kernel, by the JAX package's
     semantic terms: full scan only (no max_scans budget), L2/IP, fp32
-    compute, and at most IVF_MAX_KPAD clusters (a routing cap kept from the
-    dense-mask kernel; the list scan takes any width). The JAX package's
+    compute; the list scan takes a cluster table of any width. The JAX package's
     tile-divisibility and window terms have no counterpart: the kernel masks
     ragged edges and takes any cluster layout. It also keeps the dense mode
     free of the DENSE_MAX_ELEMS guard (``pick_scan_mode``), as in the JAX
-    package. The kernel takes any D and k up to its MAX_K."""
+    package. The kernel takes any D and any k."""
     if selection == "exact":
         return False
-    return (metric != Metric.COSINE and compute is None and ms >= n
-            and kpad <= IVF_MAX_KPAD)
+    return metric != Metric.COSINE and compute is None and ms >= n
 
 
 def blocked_dense_topk(b: int, n_rows: int, scores_of, mask_of, k: int):
@@ -518,7 +509,7 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
         only names the limit where a kernel route cannot take it."""
         kpad = dev["cents"].shape[0]
         p_ok = pallas_dense_ok(self.selection, self.metric, self.compute_dtype, ms,
-                               self._main_n, kpad)
+                               self._main_n)
         mode = pick_scan_mode(
             self.scan_mode, dev["xperm"].shape[0], nprobe, dev["l_pad"],
             batch=batch, pallas_ok=p_ok,
@@ -547,7 +538,7 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
             raise ValueError(
                 "selection='pallas' requires the fused dense kernel but the "
                 f"scan resolved to {path!r} (needs dense mode, L2/IP, fp32 "
-                f"compute, at most {IVF_MAX_KPAD} clusters)")
+                "compute)")
         probe, offs_p, eff = rank_probes(
             q, dev["cents"], dev["cvalid"], dev["offsets"], dev["lens"],
             nprobe, ms, self.metric, self.compute_dtype,

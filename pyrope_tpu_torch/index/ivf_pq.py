@@ -28,11 +28,10 @@ names the code that ran:
     ``dense-exact-xla``, ``dense-adc`` (refine 0), ``probe-adc``,
     ``probe-adc+rerank`` and ``probe-adc+rerank-sq8``. These carry the
     ``max_scans`` budgets (the ``dense-*-xla`` routes walked in query
-    blocks), as in the JAX package. The list scan takes any D and k up to
-    its MAX_K (10,000); above it the kernel routes raise, naming the limit.
+    blocks), as in the JAX package. The list scan takes any D and any k.
 The ``-win`` names follow the cluster-table width (> 512), as in the JAX
 package, though here one kernel serves both: the list scan takes any
-nlist (routes cap it at IVF_MAX_KPAD). So the eligibility test keeps only the JAX
+nlist. So the eligibility test keeps only the JAX
 package's semantic terms (L2/IP, full scan, fp32) and drops its tile and
 window terms (``pick_row_tile``, ``tile_cluster_windows``/``win_ok``):
 where a JAX index's slab does not fit the windowed kernel (``win_ok``
@@ -505,7 +504,7 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         kpad = dev["cents"].shape[0]
         n = self._codes.shape[0]
         p_ok = self.refine > 0 and pallas_dense_ok(
-            "auto", self._search_metric(), None, ms, n, kpad)
+            "auto", self._search_metric(), None, ms, n)
         if self.scan_mode == "auto" and self.refine > 0:
             # the fused kernel holds no [B, npad] transient: eligible slabs
             # stay dense at any size

@@ -37,23 +37,24 @@ _build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LIST_TABLES = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                _I, _I, _I, _P, _P, _P, _P]
+                _I, _I, _I, _P, _P, _P, _I, _I, _P]
 _SIGNATURES = {
     # k, query tile, element bytes of the slab
     "pyrope_scan_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     # k, mode (1 IVF, 2 SQ8, 3 BF16)
     "pyrope_list_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "pyrope_error_string": (ctypes.c_char_p, [_I]),
-    # q, x, qsq (or null), sqnorm, alive, B, N, D, k, metric_ip, max_scans,
-    # rows_per_split, n_splits, query tile, element bytes, vec, part_v,
-    # part_i, pub, pub_c, pub_g, stream
+    # q, x, qsq (or null), sqnorm, alive, B, N, D, k, list width kw,
+    # metric_ip, max_scans, rows_per_split, n_splits, query tile, element
+    # bytes, vec, part_v, part_i, pub, pub_c, pub_g, stream
     "pyrope_fused_scan": (
-        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-             _P, _P, _I, _I, _P],
+        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+             _P, _P, _P, _I, _I, _P],
     ),
     # q, x, sqnorm, alive, then the tables: pairs, P, cstart, ccnt, item_end,
     # item_c, slot_end, offsets, lens, nclus, grid, B, D, k, slot width kw,
-    # metric_ip, seg, nslots, vec, part_v, part_i, qfloor, stream
+    # metric_ip, seg, nslots, vec, part_v, part_i, pub (the slots' published
+    # keys), pub_c, pub_g, stream
     "pyrope_ivf_list_scan": (_I, [_P, _P, _P, _P, *_LIST_TABLES]),
     # q, x (bf16), qsq (or null), sqnorm, alive, the tables
     "pyrope_ivf_list_scan_bf16": (_I, [_P, _P, _P, _P, _P, *_LIST_TABLES]),

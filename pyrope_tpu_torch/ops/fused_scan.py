@@ -28,14 +28,16 @@ products, fp32 sums); ``fused_ivf_topk(promote_fp32=True)`` scores the fp32
 q against the widened rows. In both, ‖q‖² is that of the fp32 q and
 ``sqnorm`` that of the fp32 rows before the cast.
 
-k ranges from 1 to MAX_K = 10,000 and D is any: k <= NARROW_MAX_K (128)
-runs the warp-register lists; above it each kernel's wide mode (the TPU
-kernels' wide merges, ``_wide_params`` :372, ``_bitonic_merge_wide`` :192,
+k is any k >= 1 and D is any: k <= NARROW_MAX_K (128) runs the
+warp-register lists; above it each kernel's wide mode (the TPU kernels'
+wide merges, ``_wide_params`` :372, ``_bitonic_merge_wide`` :192,
 ``_merge_tile_wide`` :200, ``_extract_top`` :496; csrc/topk_wide.cuh) keeps
-each list in global memory (the partials, or the merge's output) behind a
-candidate buffer in shared memory. The list scan's wide slots hold
-``list_slot_width`` = min(k, seg, max_len) entries. ``LAUNCHES`` counts the
-wide modes under their own ``_wide`` keys.
+each list in global memory (the partials) behind a candidate buffer in
+shared memory. A list holds no more than its part of the rows can give:
+the list scan's wide slots ``list_slot_width`` = min(k, seg, max_len)
+entries, the flat scan's wide splits min(k, rows a split). Above the rows
+present, the answer is padded with -inf/-1, as ``_finish_topk`` pads.
+``LAUNCHES`` counts the wide modes under their own ``_wide`` keys.
 
 What bounds each kernel on an H100, and what its design does about it, is
 in the header of its CUDA source.
@@ -61,10 +63,8 @@ import torch
 from pyrope_tpu_torch.types import Metric
 from pyrope_tpu_torch.ops.distance import check_fp32_exact
 
-# MAXK, WIDE_MAXK, BT and RT of the CUDA sources; the kernels refuse any
-# other k range
+# MAXK, BT and RT of the CUDA sources
 NARROW_MAX_K = 128       # MAXK: warp-register lists (4 slots a lane) up to here
-MAX_K = 10_000           # WIDE_MAXK: the wide lists' limit, the kernels' k range
 QUERY_TILE = 64          # queries per list chunk; the flat scan's narrow tile
 FLAT_QUERY_TILES = (128, 64)  # the flat scan's instantiations, widest first
 ROW_TILE = 128           # corpus rows per tile
@@ -74,12 +74,14 @@ FLAT_FLOOR_WINDOW = 32   # WIN: splits whose published scores a warp reads
 FLAT_WIDE_TILE = 64      # WIDE_BT: the flat scan's query tile at k > NARROW_MAX_K
 FLAT_WIDE_CAP = 256      # FLAT_CAP: its candidate buffer, a query
 LIST_WIDE_CAP = 128      # LCAP: the list scan's candidate buffer, a list
+LIST_FLOOR_WINDOW = 128  # FWIN: slots whose published keys a list-scan warp reads
+LIST_FLOOR_SLOTS = 8     # the most slots list_floor waits for before a floor forms
+LIST_FLOOR_MIN_K = 32    # below it list_floor takes g = 1: a list's own k-th entry
 LIST_SEG = 2048          # rows of one cluster a list-scan block walks at most
 LIST_SEG_MIN = 256       # shortest segment list_seg cuts for parallelism
 SMEM_LIMIT = 232_448     # bytes of shared memory a block may use on sm_90
 SMEM_TWO_BLOCKS = 115_712  # the most a block may use for two to share an SM
                            # (233,472 B an SM, 1,024 B a block reserved)
-IVF_MAX_KPAD = 8192      # widest cluster table a route sends the list scan
 # the list scan's modes (ivf_list_scan.cu Mode) and their slab element bytes
 LIST_IVF, LIST_SQ8, LIST_BF16 = 1, 2, 3
 _LIST_ELEM = {LIST_IVF: 4, LIST_SQ8: 1, LIST_BF16: 2}
@@ -217,15 +219,9 @@ _FP_SLABS = (torch.float32, torch.bfloat16)
 
 
 def k_refusal(k: int) -> str | None:
-    """Why the kernels do not take ``k`` hits a query, or None. The one
-    limit left: the wide lists hold at most MAX_K entries (the JAX
-    package's kernels take any k; the server parses k up to 10,000)."""
-    if 1 <= k <= MAX_K:
-        return None
-    why = f"k must be in [1, {MAX_K}], got {k}"
-    if k > MAX_K:
-        why += f": the CUDA kernels' lists hold at most {MAX_K} entries a query"
-    return why
+    """Why the kernels do not take ``k`` hits a query, or None: they take
+    any k >= 1, as the JAX package's kernels do."""
+    return None if k >= 1 else f"k must be at least 1, got {k}"
 
 
 def list_scan_smem_bytes(k: int, mode: int) -> int:
@@ -240,13 +236,13 @@ def list_scan_smem_bytes(k: int, mode: int) -> int:
              else 8 * QUERY_TILE * k)
     return (4 * 2 * QUERY_TILE * ld + 2 * ROW_TILE * ld * _LIST_ELEM[mode]
             + 2 * ROW_TILE * 4 * (4 if mode == LIST_SQ8 else 2)
-            + 7 * QUERY_TILE * 4 + lists)
+            + 13 * QUERY_TILE * 4 + lists)
 
 
 def list_scan_refusal(k: int, mode: int) -> str | None:
     """Why the list scan does not take ``k`` hits in ``mode``, or None when
-    it does: the k range, or shared memory over what a block may use (which
-    no k in range reaches). Decided on the host from shapes alone."""
+    it does: k < 1, or shared memory over what a block may use (which no k
+    reaches). Decided on the host from shapes alone."""
     why = k_refusal(k)
     if why is None and list_scan_smem_bytes(k, mode) > SMEM_LIMIT:
         why = (f"k {k} needs {list_scan_smem_bytes(k, mode)} B of shared memory "
@@ -315,8 +311,8 @@ def flat_tile(d: int, k: int, b: int, elem: int = 4) -> tuple[int, int]:
     each other's list insertions: k <= 45 at 128 queries, k <= 125 at 64),
     else the first that fits at all. The wide mode (k > NARROW_MAX_K) has
     one tile, FLAT_WIDE_TILE. Raises where none fits."""
-    if d < 1 or not 1 <= k <= MAX_K:
-        raise ValueError(f"flat scan takes D >= 1 and k in [1, {MAX_K}], got D={d}, k={k}")
+    if d < 1 or k < 1:
+        raise ValueError(f"flat scan takes D >= 1 and k >= 1, got D={d}, k={k}")
     tiles = (FLAT_WIDE_TILE,) if k > NARROW_MAX_K else FLAT_QUERY_TILES
     fits = [(tile, flat_scan_smem_bytes(k, tile, elem)) for tile in tiles
             if b > QUERY_TILE or tile == QUERY_TILE]
@@ -329,12 +325,40 @@ def flat_tile(d: int, k: int, b: int, elem: int = 4) -> tuple[int, int]:
         f"(D={d}, k={k}), over the {SMEM_LIMIT} B a block may use")
 
 
-def flat_floor(k: int, n_splits: int) -> tuple[int, int]:
+def flat_floor(k: int, n_splits: int, width: int | None = None) -> tuple[int, int]:
     """(c, g) of the flat scan's shared floor: each of a query's splits
     publishes the c-th score of its list, and a warp drops rows under the
     g-th largest of up to FLAT_FLOOR_WINDOW published scores; g·c >= k
-    rows lie at or above it, so no dropped row is a hit."""
-    c = -(-k // min(n_splits, FLAT_FLOOR_WINDOW))
+    rows lie at or above it, so no dropped row is a hit. A list holds
+    ``width`` entries (default k), so c is at most that; a g above the
+    window is never reached, and then nothing is dropped."""
+    c = min(-(-k // min(n_splits, FLAT_FLOOR_WINDOW)), k if width is None else width)
+    return c, -(-k // c)
+
+
+def list_floor(k: int, nprobe: int, width: int) -> tuple[int, int]:
+    """(c, g) of the list scan's floor, from k, nprobe and the slots'
+    ``width``. Each slot of a query (one a probed list's segment)
+    publishes its list's c-th entry once the list holds c of the item's
+    own rows; an item that ends takes the g-th largest key published in a
+    window of up to LIST_FLOOR_WINDOW of the query's slots as the query's
+    floor, and later rows that it beats are dropped. Slots hold disjoint
+    rows and a list's c-th entry only rises, so g·c >= k distinct rows lie
+    at or above that key, and no dropped row is a hit.
+
+    g is the number of slots that must have published before a floor
+    forms: nprobe / 4 (a quarter of a query's slots where nprobe lists
+    fill the window), at most LIST_FLOOR_SLOTS, at least 1; and 1 below k
+    LIST_FLOOR_MIN_K,
+    where a list's insertions are cheap and reading the window does not
+    pay (measured on an H100 at nprobe 96: g 5 at k 10, b4096 ran 7%
+    slower than g 1; g 8 at k 64, b256 17% faster). g = 1 means c = k: a
+    finished list's k-th entry, raised into the query's floor as it is
+    published. c = ceil(k / g), at most the width (a list of fewer
+    entries never publishes; a g then above the window is never reached,
+    and nothing is dropped)."""
+    want = 1 if k < LIST_FLOOR_MIN_K else min(LIST_FLOOR_SLOTS, max(1, nprobe // 4))
+    c = min(-(-k // want), width)
     return c, -(-k // c)
 
 
@@ -432,8 +456,8 @@ def _merge_launch(part_v, part_i, s, b, k, qend, nprobe, qstride, lstride, width
     from pyrope_tpu_torch.kernels.build import check, load
 
     width = k if width is None else width
-    if not 1 <= width <= k or k_refusal(k) is not None:
-        raise ValueError(f"merge takes lists of 1..k entries and k in [1, {MAX_K}], "
+    if not 1 <= width <= k:
+        raise ValueError(f"merge takes lists of 1..k entries and k >= 1, "
                          f"got {width} and {k}")
     out_v = torch.empty((b, k), dtype=torch.float32, device=part_v.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=part_v.device)
@@ -480,9 +504,10 @@ def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
     if b == 0:  # an empty grid is not a valid launch
         return _empty_hits(0, k, q.device)
     per, n_splits = scan_splits(b, max_scans, q.device, tile, k)
-    part_v = torch.empty((b, n_splits, k), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((b, n_splits, k), dtype=torch.int32, device=q.device)
-    pub_c, pub_g = flat_floor(k, n_splits)
+    kw = k if k <= NARROW_MAX_K else min(k, per)   # a split gives at most per rows
+    part_v = torch.empty((b, n_splits, kw), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((b, n_splits, kw), dtype=torch.int32, device=q.device)
+    pub_c, pub_g = flat_floor(k, n_splits, kw)
     pub = torch.full((b, n_splits), float("-inf"), device=q.device)
     qsq = None
     if elem == 2:
@@ -490,14 +515,14 @@ def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
     vec = int(d % (16 // elem) == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
     check(lib.pyrope_fused_scan(
         q.data_ptr(), x.data_ptr(), None if qsq is None else qsq.data_ptr(),
-        sqnorm.data_ptr(), alive.data_ptr(), b, x.shape[0], d, k, int(metric_ip),
+        sqnorm.data_ptr(), alive.data_ptr(), b, x.shape[0], d, k, kw, int(metric_ip),
         max_scans, per, n_splits, tile, elem, vec, part_v.data_ptr(),
         part_i.data_ptr(), pub.data_ptr(), pub_c, pub_g,
         torch.cuda.current_stream(q.device).cuda_stream,
     ), "fused scan kernel")
     LAUNCHES[("flat_scan_bf16" if elem == 2 else "flat_scan")
              + ("_wide" if k > NARROW_MAX_K else "")] += 1
-    return _merge_launch(part_v, part_i, n_splits, b, k, None, 0, n_splits * k, k)
+    return _merge_launch(part_v, part_i, n_splits, b, k, None, 0, n_splits * kw, kw, kw)
 
 
 def fused_flat_topk(q, x, sqnorm, alive, max_scans: int, k: int,
@@ -637,7 +662,20 @@ def _check_list_preconditions(probe, lens, max_len):
 
 def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
                  max_len, sq8=None, promote=False):
-    """The list scan kernel into per-query partial slots, then the merge.
+    """The list scan kernel into per-query partial slots, then the merge."""
+    b = q.shape[0]
+    if b == 0 or probe.shape[1] == 0:
+        return _empty_hits(b, k, q.device)
+    part_v, part_i, slot_end = list_partials(q, slab, sqnorm, alive, offsets, lens, probe,
+                                             kp, k, metric_ip, max_len, sq8, promote)
+    return merge_partials(part_v, part_i, slot_end, k)
+
+
+def list_partials(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
+                  max_len, sq8=None, promote=False):
+    """The list scan kernel alone (CUDA tensors, B and nprobe >= 1):
+    (part_v, part_i, slot_end), the [slots, width] partials and the running
+    slot counts the merge reads; slots past slot_end[-1, -1] are unused.
     IVF mode over an fp32 slab, BF16 mode over a bf16 one (q rounded unless
     ``promote``); SQ8 mode when ``sq8`` = (mins, scales, qc)."""
     from pyrope_tpu_torch.kernels.build import check, load
@@ -652,8 +690,6 @@ def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
     if why is not None:
         raise ValueError(why)
     nprobe = probe.shape[1]
-    if b == 0 or nprobe == 0:
-        return _empty_hits(b, k, q.device)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     seg = list_seg(b, nprobe, kp, max_len, sms)
     w = invert_probes(probe, lens, kp, max_len, seg, slab.shape[0])
@@ -661,7 +697,9 @@ def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
     # every slot below slot_end[-1, -1] is written by the one item covering it
     part_v = torch.empty((w.slots, kw), dtype=torch.float32, device=q.device)
     part_i = torch.empty((w.slots, kw), dtype=torch.int32, device=q.device)
-    qfloor = torch.zeros(b, dtype=torch.int64, device=q.device)  # 0: no floor yet
+    # the slots' published keys, then the queries' floor keys; 0: none yet
+    pub = torch.zeros(w.slots + b, dtype=torch.int64, device=q.device)
+    pub_c, pub_g = list_floor(k, nprobe, kw)
     qsq = None
     if mode == LIST_BF16 and not promote:
         q, qsq = _bf16_query(q)
@@ -672,7 +710,7 @@ def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
               w.item_end.data_ptr(), w.item_c.data_ptr(), w.slot_end.data_ptr(),
               offsets.data_ptr(), lens.data_ptr(), kp, w.grid, b, d, k, kw,
               int(metric_ip), seg, w.slots, vec, part_v.data_ptr(), part_i.data_ptr(),
-              qfloor.data_ptr(), stream)
+              pub.data_ptr(), pub_c, pub_g, stream)
     if sq8 is not None:
         mins, scales, qc = sq8
         check(lib.pyrope_ivf_list_scan_sq8(
@@ -691,7 +729,7 @@ def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
             *tables), "IVF list scan kernel")
         key = "ivf_scan"
     LAUNCHES[key + ("_wide" if k > NARROW_MAX_K else "")] += 1
-    return merge_partials(part_v, part_i, w.slot_end, k)
+    return part_v, part_i, w.slot_end
 
 
 def fused_ivf_topk(q, x, sqnorm, alive, crow, offsets, lens, probe, kp: int,

@@ -245,54 +245,169 @@ def list_item(work, item, lens, offsets, seg, chunk=fs.QUERY_TILE):
     return c, pairs, s, lo, int(offsets[c]) + min(n, (s + 1) * seg)
 
 
+def _key(e):
+    """A list entry's place in the lists' order as a sortable tuple (larger
+    is better): the kernels' floor_key."""
+    return (e[0] + 0.0, -e[1])
+
+
+def _best(a, b):
+    """The better of two entries (either may be None)."""
+    if a is None or b is None:
+        return a if b is None else b
+    return a if _key(a) >= _key(b) else b
+
+
+def list_window(work, b, slot, nslots, win=fs.LIST_FLOOR_WINDOW):
+    """The window of query b's slots whose keys its floor is read from, as
+    the kernel computes it: ``win`` slots of qoff[b] .. qoff[b+1] that hold
+    ``slot``."""
+    se = work.slot_end.reshape(-1)
+    nprobe = work.slot_end.shape[1]
+    lo = int(se[b * nprobe - 1]) if b else 0
+    hi = min(int(se[b * nprobe + nprobe - 1]), nslots)
+    w0 = max(lo, min(lo + ((slot - lo) & ~(win - 1)), hi - win))
+    return w0, min(w0 + win, hi)
+
+
 def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_len,
-                           seg, chunk=fs.QUERY_TILE, order=None, wide_cap=None):
+                           seg, chunk=fs.QUERY_TILE, order=None, wide_cap=None,
+                           floor="slots", concurrent=1, stats=None):
     """Plain emulation of the list scan kernel's work layout: invert_probes,
     then every item's sorted lists into its queries' slots (``slot_of``)
-    of the [slots, k] partials, as the kernel writes them. Returns
+    of the [slots, width] partials, as the kernel writes them. Returns
     (part_v, part_i, work); slots no item wrote hold NaN / -2.
     ``item_scores(b_ids, c, s, e)`` -> [len(b_ids), e-s] scores of rows
-    s..e of cluster c. Items run in ``order`` (default: item order), one
-    after another, with the kernel's per-query floor: an item keeps only
-    the rows that beat its query's floor, and a full list of k such rows
-    raises the floor to its k-th entry. A slot holds
-    ``fs.list_slot_width(k, seg, max_len)`` entries (min(k, seg, max_len)
-    above k 128); with ``wide_cap`` each list is a ``WideListEmulated`` of
-    that many slots and that buffer, fed the item's rows 32 at a time."""
+    s..e of cluster c. Items start in ``order`` (default: item order),
+    ``concurrent`` at a time, each advancing a row tile in turn.
+
+    ``floor`` is the kernel's floor: "slots" (published across a query's
+    slots, ``fs.list_floor``'s (c, g)): after each tile an item's list
+    publishes its c-th entry to the slot once it holds c entries (the
+    narrow few-query layout, whose lists meet at the end, at the end); an
+    item that ends takes the g-th largest key of its window of the query's
+    slots (``list_window``) as the query's floor where that is higher (g =
+    1: each published entry raises the floor at once); an item starts from its queries' floors and reads them again at tiles 1,
+    2, 4, 8, ...; rows must beat the threshold (the floor, or a full list's
+    last entry) to be offered. "query": the per-query floor it replaced (a
+    full list of k of an item's rows raises its query's floor to the k-th,
+    read when an item starts). None: no floor. A slot holds
+    ``fs.list_slot_width(k, seg, max_len)`` entries; with ``wide_cap`` each
+    list is a ``WideListEmulated`` of that many slots and that buffer, fed
+    the item's rows 32 at a time; else, as in the kernel, a list starts as
+    ``width`` copies of the floor the item started from, and the copies
+    (that floor's row) are left out when the list is written or published.
+    ``stats``, a dict, gets the rows offered to lists ("offered") and the
+    thresholds a floor raised during an item's walk ("raised")."""
     b, nprobe = probe.shape
     work = fs.invert_probes(probe, lens, kp, max_len, seg, int(lens.sum()), chunk)
     width = fs.list_slot_width(k, seg, max_len)
     part_v = torch.full((work.slots, width), float("nan"))
     part_i = torch.full((work.slots, width), -2, dtype=torch.int32)
-    floor_v = torch.full((b,), float("-inf"))
-    floor_i = torch.full((b,), -1, dtype=torch.int64)
-    for item in (range(work.grid) if order is None else order):
+    c_pub, g_pub = fs.list_floor(k, nprobe, width)
+    pub = [None] * work.slots            # the slots' published entries
+    qfloor = [None] * b                  # the queries' floors
+    offered = raised = 0
+    no_thr = (float("-inf"), -1)
+
+    def start(item):
         got = list_item(work, item, lens, offsets, seg, chunk)
         if got is None:
-            continue
+            return None
         c, pairs, s, lo, hi = got
-        bq = pairs // nprobe
-        sc = torch.where(alive[None, lo:hi], item_scores(bq, c, lo, hi), float("-inf"))
-        fv, fi = floor_v[bq, None], floor_i[bq, None]
-        rows = torch.arange(lo, hi)[None, :]
-        above = (sc > fv) | ((sc == fv) & (rows < fi))  # beats the floor
-        sc = torch.where(above, sc, float("-inf"))
-        kk = min(width, hi - lo)
-        if wide_cap is None:
-            vals, pos = torch.sort(sc, dim=1, descending=True, stable=True)
-            vals, rows = vals[:, :kk], torch.where(torch.isfinite(vals), pos + lo, -1)[:, :kk]
-        else:
-            got = [wide_stream_emulated(row, kk, cap=wide_cap) for row in sc.numpy()]
-            vals = torch.from_numpy(np.stack([v for v, _, _ in got]))
-            rows = torch.from_numpy(np.stack([r for _, r, _ in got])).long()
-            rows = torch.where(rows >= 0, rows + lo, -1)
-        slot = slot_of(work, pairs, lens[c], seg) + s
-        part_v[slot], part_i[slot] = float("-inf"), -1
-        part_v[slot, :kk], part_i[slot, :kk] = vals, rows.int()
-        if kk == k:  # a full list: its k-th entry beats the floor it started from
-            full = torch.isfinite(vals[:, -1])
-            floor_v[bq[full]] = vals[full, -1]
-            floor_i[bq[full]] = rows[full, -1]
+        bq = (pairs // nprobe).tolist()
+        slots = (slot_of(work, pairs, lens[c], seg) + s).tolist()
+        sc = torch.where(alive[None, lo:hi], item_scores(pairs // nprobe, c, lo, hi),
+                         float("-inf"))
+        small = len(bq) <= 8 and wide_cap is None
+        thr = [(qfloor[q] or no_thr) if floor else no_thr for q in bq]
+        lists = [WideListEmulated(width, wide_cap) if wide_cap else [f0] * width
+                 for f0 in thr]
+        return dict(lo=lo, hi=hi, bq=bq, slots=slots, sc=sc, small=small, lists=lists,
+                    thr=thr, f0=list(thr), tile=0)
+
+    def entries(it, i):
+        """The list's own entries: not the copies of the first floor."""
+        lst = it["lists"][i]
+        if wide_cap:
+            return lst.items
+        return [e for e in lst if e[1] != it["f0"][i][1]]
+
+    def publish(it, i):
+        ent = entries(it, i)
+        if len(ent) >= c_pub and it["slots"][i] < work.slots:
+            pub[it["slots"][i]] = _best(pub[it["slots"][i]], ent[c_pub - 1])
+            if g_pub == 1:   # c = k: the entry is a floor by itself
+                q = it["bq"][i]
+                qfloor[q] = _best(qfloor[q], ent[c_pub - 1])
+
+    def step(it):
+        nonlocal offered, raised
+        t = it["tile"]
+        r0 = it["lo"] + t * fs.ROW_TILE
+        r1 = min(r0 + fs.ROW_TILE, it["hi"])
+        fresh = floor == "slots" and t and ((t - 1) & t) == 0
+        for i, q in enumerate(it["bq"]):
+            if fresh and _best(it["thr"][i], qfloor[q]) != it["thr"][i]:
+                it["thr"][i] = qfloor[q]
+                raised += 1
+            row = it["sc"][i, r0 - it["lo"]:r1 - it["lo"]].tolist()
+            lst = it["lists"][i]
+            for g0 in range(0, r1 - r0, 32):            # a warp's offer: 32 rows
+                tv, ti = it["thr"][i]
+                cands = [(v, r0 + g0 + j) for j, v in enumerate(row[g0:g0 + 32])
+                         if _beats(v, r0 + g0 + j, tv, ti)]
+                offered += len(cands)
+                if wide_cap:
+                    lst.offer_batch(cands, it["thr"][i])
+                    it["thr"][i] = _best(it["thr"][i], lst.kth if lst.fill >= width
+                                         else None)
+                elif cands:
+                    lst[:] = sorted(lst + cands, key=lambda e: (-e[0], e[1]))[:width]
+                    it["thr"][i] = _best(it["thr"][i], lst[-1])
+            if floor == "slots" and not it["small"]:
+                publish(it, i)
+        it["tile"] += 1
+        return r1 >= it["hi"]
+
+    def finish(it):
+        for i, q in enumerate(it["bq"]):
+            lst = it["lists"][i]
+            if wide_cap:
+                lst.padded()
+            ent = entries(it, i)
+            slot = it["slots"][i]
+            if slot < work.slots:
+                part_v[slot], part_i[slot] = float("-inf"), -1
+                if ent:
+                    part_v[slot, :len(ent)] = torch.tensor([v for v, _ in ent])
+                    part_i[slot, :len(ent)] = torch.tensor([r for _, r in ent],
+                                                           dtype=torch.int32)
+            if floor == "slots":
+                publish(it, i)
+            elif floor == "query" and len(ent) == k:
+                qfloor[q] = _best(qfloor[q], ent[-1])
+        if floor == "slots" and g_pub > 1:
+            for i, q in enumerate(it["bq"]):
+                w0, w1 = list_window(work, q, it["slots"][i], work.slots)
+                seen = sorted((e for e in pub[w0:w1] if e is not None), key=_key,
+                              reverse=True)
+                if g_pub <= len(seen):
+                    qfloor[q] = _best(qfloor[q], seen[g_pub - 1])
+
+    pending = list(range(work.grid) if order is None else order)
+    running = []
+    while pending or running:
+        while pending and len(running) < concurrent:
+            it = start(pending.pop(0))
+            if it is not None:
+                running.append(it)
+        for it in list(running):
+            if step(it):
+                finish(it)
+                running.remove(it)
+    if stats is not None:
+        stats.update(offered=offered, raised=raised)
     return part_v, part_i, work
 
 
@@ -319,15 +434,18 @@ def _l2_or_ip(q, dots, sq, metric):
     return -torch.clamp((q * q).sum(1, keepdim=True) - 2.0 * dots + sq[None, :], min=0.0)
 
 
+def ivf_item_scores(q, x, sqnorm, metric="L2"):
+    """``item_scores`` of the IVF list scan (CPU tensors)."""
+    return lambda bq, c, s, e: _l2_or_ip(q[bq], q[bq] @ x[s:e].T, sqnorm[s:e], metric)
+
+
 def fused_ivf_topk_emulated(q, x, sqnorm, alive, offsets, lens, probe, kp, k,
-                            metric="L2", *, max_len=None, seg=fs.LIST_SEG, order=None,
-                            wide_cap=None):
-    """``list_scan_emulated`` with the IVF scores (CPU tensors)."""
+                            metric="L2", *, max_len=None, seg=fs.LIST_SEG, **kw):
+    """``list_scan_emulated`` with the IVF scores (CPU tensors); ``kw`` as
+    ``list_partials_emulated`` takes them (order, wide_cap, floor, ...)."""
     return list_scan_emulated(
-        lambda bq, c, s, e: _l2_or_ip(q[bq], q[bq] @ x[s:e].T, sqnorm[s:e], metric),
-        alive, offsets, lens, probe, kp, k,
-        int(lens.max()) if max_len is None else max_len, seg, order=order,
-        wide_cap=wide_cap)
+        ivf_item_scores(q, x, sqnorm, metric), alive, offsets, lens, probe, kp, k,
+        int(lens.max()) if max_len is None else max_len, seg, **kw)
 
 
 def fused_ivf_sq8_topk_emulated(q, codes, mins, scales, sqnorm, alive, offsets,
@@ -598,3 +716,74 @@ def wide_stream_emulated(vals, kw, *, cap=fs.LIST_WIDE_CAP, lanes=32, floor=None
     ent = lst.padded()
     return (np.array([v for v, _ in ent], np.float32),
             np.array([r for _, r in ent], np.int32), lst)
+
+
+# ---- the wide merge (merge_wide_kernel of fused_scan.cu), emulated on the CPU --
+
+MERGE_WIDE_KEYS = 256                  # MW_KEYS: lists whose c-th entries make the floor
+MERGE_WIDE_CAPS = (1024, 16384)        # MW_MIN_CAP, MW_MAX_CAP: the run buffer's bounds
+
+
+def merge_wide_cap(k):
+    """The wide merge's run buffer, entries: the next power of two of 4k
+    within MERGE_WIDE_CAPS, as pyrope_merge_partials_wide sizes it."""
+    cap = MERGE_WIDE_CAPS[0]
+    while cap < MERGE_WIDE_CAPS[1] and cap < 4 * k:
+        cap <<= 1
+    return cap
+
+
+def merge_wide_emulated(part_v, part_i, qend=None, k=None, cap=None, stats=None):
+    """Plain emulation of the wide merge kernel, a query at a time, on
+    merge_partials' layouts ([S, B, w], or [slots, w] rows cut by ``qend``):
+    the floor F is the largest, over g = 1, 2, 4, ... up to the lists read
+    (the query's first MERGE_WIDE_KEYS), of the g-th largest of their c-th
+    entries, c = ceil(k / g) at most w (a list without a real c-th entry
+    gives none at that level; no level found: no floor);
+    each list's prefix at or above F (every real entry without a floor) is
+    gathered and sorted once, and the first k go out. Where the gathered
+    entries outgrow ``cap`` (default ``merge_wide_cap(k)``), the prefixes
+    are merged into the output list by list instead (the in-place path):
+    the same entries. ``stats``, a dict, gets per query the entries
+    gathered ("gathered") and whether the in-place path ran ("in_place")."""
+    w = part_v.shape[-1]
+    k = w if k is None else k
+    cap = merge_wide_cap(k) if cap is None else cap
+    pv, pi = part_v.numpy(), part_i.numpy()
+    if qend is None:
+        s, b, _ = pv.shape
+        lists = [[(pv[l, q], pi[l, q]) for l in range(s)] for q in range(b)]
+    else:
+        qoff = [0] + qend[:, -1].tolist()
+        b = qend.shape[0]
+        lists = [[(pv[l], pi[l]) for l in range(qoff[q], qoff[q + 1])] for q in range(b)]
+    out_v = np.full((b, k), -np.inf, np.float32)
+    out_i = np.full((b, k), -1, np.int32)
+    gathered, in_place = [], []
+    for q, ls in enumerate(lists):
+        m = min(len(ls), MERGE_WIDE_KEYS)
+        f = None
+        g = 1
+        while g <= m:
+            c = -(-k // g)
+            if c <= w:
+                keys = sorted((_key((float(v[c - 1]), int(r[c - 1]))) for v, r in ls[:m]
+                               if r[c - 1] >= 0 and v[c - 1] > -np.inf), reverse=True)
+                if g <= len(keys) and (f is None or keys[g - 1] > f):
+                    f = keys[g - 1]
+            g <<= 1
+        got = []
+        for v, r in ls:
+            n = 0
+            while n < w and r[n] >= 0 and v[n] > -np.inf and (
+                    f is None or _key((float(v[n]), int(r[n]))) >= f):
+                n += 1
+            got += [(float(v[j]), int(r[j])) for j in range(n)]
+        gathered.append(len(got))
+        in_place.append(len(got) > cap)
+        top = sorted(got, key=lambda e: (-e[0], e[1]))[:k]
+        out_v[q, :len(top)] = [e[0] for e in top]
+        out_i[q, :len(top)] = [e[1] for e in top]
+    if stats is not None:
+        stats.update(gathered=gathered, in_place=in_place)
+    return torch.from_numpy(out_v), torch.from_numpy(out_i)

@@ -136,16 +136,23 @@ def test_flat_hybrid_shortlist_and_routes_above_max_k():
 
 
 def test_flat_pallas_above_max_k_raises_naming_the_limit():
-    """k 200 runs the scan's wide mode; above the kernels' MAX_K (10,000)
-    the kernel routes raise, naming it."""
+    """k 200 runs the scan's wide mode; the kernels have no upper limit on
+    k any more (it was 10,000), so k 10,001 and 20,000 take the kernel
+    routes and answer, padded past the rows present; only k < 1 raises,
+    naming the limit."""
     ix = FlatIndex(8, "L2", device="cpu", selection="pallas")
     ix.add_batch(["a", "b"], np.eye(2, 8, dtype=np.float32))
     assert len(ix.search_batch(np.zeros((1, 8), np.float32), 200)[0]) == 2
     assert ix.describe_scan(1, top_k=10_000) == "flat-pallas"
     for sel in ("pallas", "hybrid"):
         ix.selection = sel
-        with pytest.raises(ValueError, match=r"k must be in \[1, 10000\].*at most 10000"):
-            ix.search_batch(np.zeros((1, 8), np.float32), 10_001)
+        want = "flat-pallas-hybrid" if sel == "hybrid" else "flat-pallas"
+        for k in (10_001, 20_000):
+            assert ix.describe_scan(1, top_k=k) == want
+            if sel == "pallas":
+                assert len(ix.search_batch(np.zeros((1, 8), np.float32), k)[0]) == 2
+        with pytest.raises(ValueError, match=r"k must be at least 1"):
+            ix.describe_scan(1, top_k=0)
 
 
 def test_flat_hybrid_incremental_sync_updates_both_slabs():
@@ -303,7 +310,9 @@ def test_ivf_flat_auto_routes_wide_k_and_large_d_to_the_list_scan(tmp_path, d, k
     """k above 128 and D above what the list scan once held whole take the
     list scan (its wide or large-D mode), as the JAX package takes its
     kernel; the hits equal its exact dense scan's; explicit 'pallas'
-    answers too."""
+    answers too, also at k 10,001 and 20,000 (above the rows probed: every
+    probed row, as the JAX package returns them; the kernels once refused
+    k above 10,000)."""
     jix, tix, rng = _ivf_pair(tmp_path, 4096 if d == 768 else 2000, d, 8, 3, 10)
     q = rng.normal(size=(8, d)).astype(np.float32)
     assert tix.describe_scan(8, top_k=k) == "dense-pallas"
@@ -313,8 +322,9 @@ def test_ivf_flat_auto_routes_wide_k_and_large_d_to_the_list_scan(tmp_path, d, k
     assert_same_results(tix.search_batch(q, k), want)
     tix.selection = "pallas"
     assert_same_results(tix.search_batch(q, k), want)
-    with pytest.raises(ValueError, match="at most 10000"):
-        tix.search_batch(q, 10_001)
+    for big in (10_001, 20_000):
+        assert tix.describe_scan(8, top_k=big) == "dense-pallas"
+        assert_same_results(tix.search_batch(q, big), jix.search_batch(q, big))
 
 
 def test_dense_xla_walks_the_queries_in_blocks(tmp_path, monkeypatch):

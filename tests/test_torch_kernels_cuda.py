@@ -175,7 +175,7 @@ def test_sq8_wrapper_raises_on_bad_cuda_inputs(cuda_device):
                               50, 10, max_len=4096)
     with pytest.raises(ValueError, match="k must be"):
         fs.fused_ivf_sq8_topk(q, codes, mn, sc, sq, alive, crow, *ol, probe, qc, 50,
-                              fs.MAX_K + 1, max_len=4096)
+                              0, max_len=4096)
     assert fs.LAUNCHES == before                 # nothing ran, nothing fell back
     v, i = fs.fused_ivf_sq8_topk(q[:0], codes, mn, sc, sq, alive, crow, *ol, probe[:0],
                                  qc[:0], 50, 10, max_len=4096)
@@ -546,18 +546,18 @@ def test_smem_formulas_match_the_library(cuda_device):
     from pyrope_tpu_torch.kernels.build import load
 
     lib = load()
-    for k in (1, 10, 64, 128, 129, 512, 1000, 10_000):
+    for k in (1, 10, 64, 128, 129, 512, 1000, 10_000, 20_000):
         for mode in (fs.LIST_IVF, fs.LIST_SQ8, fs.LIST_BF16):
             assert (lib.pyrope_list_scan_smem_bytes(k, mode)
                     == fs.list_scan_smem_bytes(k, mode) <= fs.SMEM_LIMIT), (k, mode)
-    for k in (1, 10, 64, 100, 128, 129, 512, 10_000):
+    for k in (1, 10, 64, 100, 128, 129, 512, 10_000, 20_000):
         for tile in (fs.FLAT_QUERY_TILES if k <= fs.NARROW_MAX_K else (fs.FLAT_WIDE_TILE,)):
             for elem in (4, 2):
                 assert (lib.pyrope_scan_smem_bytes(k, tile, elem)
                         == fs.flat_scan_smem_bytes(k, tile, elem)), (k, tile, elem)
-    assert fs.list_scan_smem_bytes(10, fs.LIST_IVF) == 113_408   # two blocks an SM
-    assert fs.list_scan_refusal(10_000, fs.LIST_IVF) is None
-    assert fs.list_scan_refusal(10_001, fs.LIST_IVF) is not None
+    assert fs.list_scan_smem_bytes(10, fs.LIST_IVF) == 114_944   # two blocks an SM
+    assert fs.list_scan_refusal(20_000, fs.LIST_IVF) is None
+    assert fs.list_scan_refusal(0, fs.LIST_IVF) is not None
 
 
 @pytest.mark.cuda
@@ -602,8 +602,10 @@ def test_k200_and_d768_routes_answer_on_the_card(cuda_device):
     flat.selection = "exact"
     assert_same_results(got, flat.search_batch(q, 200))
     flat.selection = "pallas"
-    with pytest.raises(ValueError, match="at most 10000 entries"):
-        flat.search_batch(q, 10_001)
+    got = flat.search_batch(q, 20_000)   # above the rows there are: every row
+    assert fs.LAUNCHES["flat_scan_wide"] == before + 2
+    flat.selection = "exact"
+    assert_same_results(got, flat.search_batch(q, 20_000))
 
 
 @pytest.mark.cuda
@@ -834,5 +836,141 @@ def test_merge_wide_layouts_vs_plain(cuda_device, s, k, width):
     qend = (torch.arange(1, b + 1, dtype=torch.int32) * s).view(b, 1)
     kv, ki = fs.merge_partials(sv.to(cuda_device), si.to(cuda_device), qend.to(cuda_device),
                                k=k)
+    np.testing.assert_array_equal(ki.cpu().numpy(), mi.numpy())
+    np.testing.assert_array_equal(kv.cpu().numpy(), mv.numpy())
+
+
+# ---- the published floor and the wide merge's gather ------------------------
+
+_FLOOR_MODES = ["ivf", "bf16", "bf16p", "sq8"]
+
+
+def _grid_case(seed, n, b, d, kc, nprobe, **kw):
+    """A list_case on a grid of 1/8 (exact in bf16 and in every fp32 sum), so
+    the IVF and BF16 modes must return the plain version's hits exactly,
+    ties by row included."""
+    x, q, _, alive, crow, probe = list_case(seed, n, b, d, kc, nprobe, **kw)
+    x, q = (np.floor(a * 8) / 8 for a in (x, q))
+    sq = np.einsum("nd,nd->n", x, x).astype(np.float32)
+    return x.astype(np.float32), q.astype(np.float32), sq, alive, crow, probe
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", _FLOOR_MODES)
+@pytest.mark.parametrize("b", [3, 300])          # layout B, layout A
+@pytest.mark.parametrize("k", [1, 10, 64, 128, 1000, 20_000])
+def test_list_scan_floor_every_mode_and_layout_vs_plain(cuda_device, k, b, mode):
+    """The list scan with the floor published across a query's slots, in
+    every mode and both layouts, narrow and wide (k 20,000: above the rows a
+    query probes, padded with -inf/-1), on skewed lists with a row copied
+    into two lists (exact ties): the plain version's hits."""
+    case = _grid_case(93, 12_000, b, 32, 64, 24, big=2500, dup=True, dead=0.05)
+    key = _LIST_KEYS[mode] + ("_wide" if k > fs.NARROW_MAX_K else "")
+    before = fs.LAUNCHES[key]
+    (kv, ki), (pv, pi) = _wide_list_run(cuda_device, mode, case, k, kc=64)
+    assert fs.LAUNCHES[key] == before + 1
+    torch.cuda.synchronize()
+    assert kv.shape == (b, k)
+    _compare(kv, ki, pv, pi, mode == "sq8", SQ8_RTOL if mode == "sq8" else RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", _FLOOR_MODES)
+def test_list_scan_query_with_only_empty_probes(cuda_device, mode):
+    """Queries whose probes name only empty lists have no slot at all:
+    their rows are all missing hits, and the other queries' are right."""
+    x, q, sq, alive, crow, probe = _grid_case(95, 8_000, 200, 32, 64, 4, empty=8)
+    probe[::5] = np.arange(4, dtype=np.int32)          # clusters 0..3: empty
+    case = (x, q, sq, alive, crow, probe)
+    for k in (10, 300):
+        (kv, ki), (pv, pi) = _wide_list_run(cuda_device, mode, case, k, kc=64)
+        torch.cuda.synchronize()
+        assert (ki[::5] == -1).all() and torch.isinf(kv[::5]).all()
+        _compare(kv, ki, pv, pi, mode == "sq8", SQ8_RTOL if mode == "sq8" else RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", _FLOOR_MODES)
+def test_list_scan_at_nlist_16384(cuda_device, mode):
+    """A cluster table of 16,384 lists (once sent to the plain dense route
+    on the card): the list scan takes it, in both layouts."""
+    kc = 16_384
+    for b, nprobe, k in ((64, 8, 10), (1024, 64, 10), (256, 32, 500)):
+        case = _grid_case(97, 60_000, b, 16, kc, nprobe)
+        (kv, ki), (pv, pi) = _wide_list_run(cuda_device, mode, case, k, kc=kc)
+        torch.cuda.synchronize()
+        _compare(kv, ki, pv, pi, mode == "sq8", SQ8_RTOL if mode == "sq8" else RTOL)
+
+
+@pytest.mark.cuda
+def test_k20000_and_nlist16384_routes_run_the_kernels(cuda_device):
+    """k 20,000 and nlist 16,384 take the kernel routes of Flat, IVF-Flat and
+    IVF-PQ on the card (no plain route on a CUDA tensor), and answer as the
+    exact routes do; selection='pallas' no longer raises for either."""
+    from pyrope_tpu_torch.index.flat import FlatIndex
+    from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex
+    from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
+
+    rng = np.random.default_rng(99)
+    base = rng.normal(size=(40_000, 16)).astype(np.float32)
+    q = rng.normal(size=(8, 16)).astype(np.float32)
+    ids = [str(i) for i in range(len(base))]
+    k = 20_000
+    flat = FlatIndex(16, "L2", device=cuda_device, selection="pallas")
+    flat.add_batch(ids, base)
+    assert flat.describe_scan(8, top_k=k) == "flat-pallas"
+    before = fs.LAUNCHES["flat_scan_wide"]
+    got = flat.search_batch(q, k)
+    assert fs.LAUNCHES["flat_scan_wide"] == before + 1 and len(got[0]) == k
+    flat.selection = "exact"
+    assert_same_results(got, flat.search_batch(q, k))
+    for nlist, route in ((16, "dense-pallas"), (16_384, "dense-pallas-win")):
+        ix = IvfFlatIndex(16, "L2", device=cuda_device, nlist=nlist, nprobe=nlist // 2,
+                          scan_mode="dense", selection="pallas")
+        ix.add_batch(ids, base)
+        ix.build()
+        assert ix.describe_scan(8, top_k=k) == route
+        before = fs.LAUNCHES["ivf_scan_wide"]
+        got = ix.search_batch(q, k)
+        assert fs.LAUNCHES["ivf_scan_wide"] == before + 1
+        ix.selection = "exact"
+        assert ix.describe_scan(8, top_k=k) == "dense-xla"
+        assert_same_results(got, ix.search_batch(q, k))
+    pq = IvfPqIndex(16, "L2", device=cuda_device, nlist=16_384, pq_m=4, nprobe=8_192)
+    pq.add_batch(ids, base)
+    pq.build()
+    assert pq.describe_scan(8, top_k=k) == "dense-exact-pallas-win"
+    before = fs.LAUNCHES["ivf_scan_wide"]
+    got = pq.search_batch(q, k)
+    assert fs.LAUNCHES["ivf_scan_wide"] == before + 1
+    assert_same_results(got, pq.search_batch(q, k, SearchOptions(max_scans=len(base) - 1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,width,s", [(20_000, 8_000, 3), (12_000, 600, 33),
+                                       (300, 300, 400), (5, 3, 40)])
+def test_merge_wide_gather_and_in_place_paths_vs_plain(cuda_device, k, width, s):
+    """The wide merge's two paths: the gathered prefixes sorted once, and,
+    where they outgrow the run buffer (k 20,000 over three 8,000-entry
+    lists), the in-place rank merge behind the floor; more lists than the
+    floor reads (400); lists shorter than c; all-padding lists; ties
+    across lists; k above the entries present. Bit-equal to the plain
+    version."""
+    b = 6
+    rng = np.random.default_rng(s + width)
+    v = np.sort(rng.integers(0, 50, (s, b, width)).astype(np.float32), axis=2)[:, :, ::-1]
+    rows = np.stack([rng.permutation(s * width) for _ in range(b)], 1).reshape(s, width, b)
+    rows = np.ascontiguousarray(rows.transpose(0, 2, 1)).astype(np.int32)
+    order = np.lexsort((rows, -v), axis=2)
+    pv = torch.from_numpy(np.take_along_axis(np.ascontiguousarray(v), order, 2))
+    pi = torch.from_numpy(np.take_along_axis(rows, order, 2))
+    pv[::2, 1, width // 3:] = float("-inf")               # short lists
+    pi[::2, 1, width // 3:] = -1
+    pv[:, 2], pi[:, 2] = float("-inf"), -1                # a query with no entry
+    pv[1, 3], pi[1, 3] = float("-inf"), -1                # an all-padding list
+    mv, mi = fs.merge_partials_plain(pv, pi, k=k)
+    before = fs.LAUNCHES["merge_wide"]
+    kv, ki = fs.merge_partials(pv.to(cuda_device), pi.to(cuda_device), k=k)
+    assert fs.LAUNCHES["merge_wide"] == before + 1
     np.testing.assert_array_equal(ki.cpu().numpy(), mi.numpy())
     np.testing.assert_array_equal(kv.cpu().numpy(), mv.numpy())
