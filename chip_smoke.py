@@ -8,7 +8,8 @@ fourteen phases, one line each (phase 8 two); any failed check exits
 non-zero. Each serving path's wall time and the total are printed:
 
   1. device    torch/CUDA versions, the card's name and power limit
-  2. build     nvcc build time, registers and spills per kernel
+  2. build     nvcc build time, registers and spills per kernel, and the
+               HGMMA instructions (cuobjdump -sass) of the bf16 flat scan
   3. kernels   each kernel against its plain PyTorch version on the card at
                the main paths' shapes: equal hit sets, scores within
                |a-b| <= 1e-4 + 1e-5|b| (fp32 both sides, other summation
@@ -25,7 +26,8 @@ non-zero. Each serving path's wall time and the total are printed:
                (at nprobe 3, and at nprobe 96 with k 128), nprobe >= the
                non-empty lists, probed empty lists, B 1000, k 128, a row
                copied into two lists, 30% tombstones; the bf16 slab modes:
-               the flat scan at 1M x 128 (b1024 and b64 at k 10, b64 at the
+               the flat scan on the tensor cores (flat_scan_tc.cu) at 1M x
+               128 (b1024 at k 10 in L2 and IP, b64 at k 10, b64 at the
                hybrid's k 64), the list scan without promote (100k, nlist
                100, nprobe 96, b256, k 64) and with it (1M, nlist 1000,
                nprobe 3, b64, k 10), each beside the composition, the bare
@@ -39,11 +41,15 @@ non-zero. Each serving path's wall time and the total are printed:
                promote at 1M np3 b64 k 200, SQ8 at 100k np96 b1024 k 200; the
                wide merge on the flat path's [1024, 33, 1000] and on the list
                scan's slots; and the list scan at D 768 (1M clustered rows,
-               nlist 1000, np3, b1024, k 10), IVF and SQ8 modes. Each list
-               scan and merge row adds its device time from torch.profiler
-               (the list scans split into scan and merge, the merges beside
-               torch.topk's), and each wide list scan the mean real entries
-               a query's partial slots hold after the scan
+               nlist 1000, np3, b1024, k 10), IVF and SQ8 modes. Each row
+               adds its device time from torch.profiler (the scans split
+               into scan and merge, the merges beside torch.topk's), and
+               each wide list scan the mean real entries a query's partial
+               slots hold after the scan; the library call (the bare
+               product, q @ x.T or q16 @ x16.T) beside every flat and
+               fp32 or bf16 list-scan row that has one. Last, k-means++
+               (jax.random's draws, ops/jrandom.py) on the card and on the
+               CPU from one seed: the rows both pick, printed
   4. slice     create_index(IVF_FLAT, nlist 1000, nprobe 3, dense) on 1M x
                128 clustered rows through the registry's Delta(Flat,
                IVF_FLAT): add_batch, build (compaction -> k-means -> slab),
@@ -146,6 +152,7 @@ RTOL, ATOL = 1e-5, 1e-4
 SQ8_RTOL = 1e-4   # the JAX package's SQ8 kernel tolerance
 K = 10
 SOURCE = "pyrope_tpu_torch/csrc/fused_scan.cu"
+TC_SOURCE = "pyrope_tpu_torch/csrc/flat_scan_tc.cu"
 LIST_SOURCE = "pyrope_tpu_torch/csrc/ivf_list_scan.cu"
 PALLAS = "pyrope_tpu/ops/pallas_scan.py"
 
@@ -292,7 +299,7 @@ def device_split(fn, calls: int = 5) -> dict:
             continue
         ms = e.time_range.elapsed_us() / calls / 1e3
         split["device_ms"] += ms
-        if "list_scan" in e.name:
+        if "scan" in e.name:   # list_scan, fused_scan, flat_scan_tc
             split["scan_ms"] += ms
         elif "merge" in e.name:
             split["merge_ms"] += ms
@@ -325,7 +332,14 @@ def phase_build() -> None:
     regs = [ln.replace("ptxas info", "").strip(" :")
             for ln in kbuild.build_log().splitlines()
             if "registers" in ln or "spill" in ln]
-    say("2 build", seconds=round(secs, 2), lib=kbuild.library_path().name,
+    # the bf16 flat scan's wgmma instructions in the built library's SASS
+    sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
+                           str(kbuild.library_path())], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    funcs = sass.split("Function : ")[1:]
+    hgmma = sum(f.count("HGMMA") for f in funcs if "flat_scan_tc_kernel" in f.split()[0])
+    require(hgmma > 0, "the bf16 flat scan's SASS has no HGMMA")
+    say("2 build", seconds=round(secs, 2), lib=kbuild.library_path().name, hgmma=hgmma,
         ptxas=repr("; ".join(regs)))
 
 
@@ -455,20 +469,19 @@ def phase_kernels(dev) -> dict:
             cell += f"/library {lms:.3f}ms"
         if bnd is not None:
             cell += f"/bound {bnd[0]:.4f}ms {bnd[1]}"
-        if kind.startswith(("ivf", "sq8", "merge")):
-            # device time from the profiler beside the wrapper's: the list
-            # scans and merges are short enough that the host's share shows
-            split = device_split(kern)
-            if split:
-                cell += f"/device {split['device_ms']:.4f}ms"
-                if not kind.startswith("merge"):
-                    cell += f" (scan {split['scan_ms']:.4f} merge {split['merge_ms']:.4f})"
-            if kind.startswith("merge") and comp is not None:
-                csplit = device_split(comp)
-                if csplit:
-                    cell += f"/composition device {csplit['device_ms']:.4f}ms"
-            if main:
-                rec[kind]["device_ms"] = split.get("device_ms")
+        # device time from the profiler beside the wrapper's: the list scans
+        # and merges are short enough that the host's share shows
+        split = device_split(kern)
+        if split:
+            cell += f"/device {split['device_ms']:.4f}ms"
+            if not kind.startswith("merge"):
+                cell += f" (scan {split['scan_ms']:.4f} merge {split['merge_ms']:.4f})"
+        if kind.startswith("merge") and comp is not None:
+            csplit = device_split(comp)
+            if csplit:
+                cell += f"/composition device {csplit['device_ms']:.4f}ms"
+        if main:
+            rec[kind]["device_ms"] = split.get("device_ms")
         if slots is not None:
             cell += f"/slot entries {slot_entries(slots()):.1f}"
         cells.append(cell)
@@ -504,7 +517,7 @@ def phase_kernels(dev) -> dict:
         del xv, sqv, alv
 
     def ivf_case(name, qv, xv, sqv, alv, lay, kp, probe, k=K, main=False, reps=10,
-                 comp=False, kind="ivf", plain_reps=3):
+                 comp=False, kind="ivf", plain_reps=3, lib=None):
         crow, offs, lens, ml = lay
         bnd = list_bound(xv.shape[1] * 4 + 5, qv, probe, lens, alv, crow, kp, k)
         case(kind, name,
@@ -515,7 +528,7 @@ def phase_kernels(dev) -> dict:
              reps=reps, plain_reps=plain_reps, main=main, comp=(lambda: composition_topk(
                  l2_or_ip(qv, qv @ xv.T, sqv, False),
                  fs.probe_table(probe, kp)[:, crow.long()] & alv[None, :], k))
-             if main or comp else None, bnd=bnd,
+             if main or comp else None, bnd=bnd, lib=lib,
              slots=(lambda: fs.list_partials(qv, xv, sqv, alv, offs, lens, probe, kp, k,
                                              False, ml)) if k > fs.NARROW_MAX_K else None)
         if main:
@@ -551,7 +564,8 @@ def phase_kernels(dev) -> dict:
     lay = layout(n, kp, g, dev)
     for nprobe in (3, 32):
         ivf_case(f"ivf_1M_nlist1000_np{nprobe}_b1024", q, x, sq, alive, lay, kp,
-                 probes(b, kp, nprobe, g, dev), main=(nprobe == 3))
+                 probes(b, kp, nprobe, g, dev), main=(nprobe == 3),
+                 lib=(lambda: q @ x.T) if nprobe == 3 else None)
     n2, b2, kp2 = 100_000, 4096, 100
     x2, sq2, alive2 = x[:n2].contiguous(), sq[:n2].contiguous(), alive[:n2].contiguous()
     q2 = torch.rand((b2, d), generator=g, device=dev)
@@ -607,20 +621,22 @@ def phase_kernels(dev) -> dict:
     # bf16 product q16 @ x16.T (bf16 sums: not the function, a yardstick)
     x16 = x.bfloat16()
     q16 = q.bfloat16()
-    for name, bv, k, main in (("flat_bf16_1M_b1024_k10", b, K, True),
-                              ("flat_bf16_1M_b64_k10", 64, K, False),
-                              ("flat_bf16_1M_b64_k64", 64, 64, False)):
+    for name, bv, k, main, metric in (("flat_bf16_1M_b1024_k10", b, K, True, "L2"),
+                                      ("flat_bf16_1M_b1024_k10_IP", b, K, False, "IP"),
+                                      ("flat_bf16_1M_b64_k10", 64, K, False, "L2"),
+                                      ("flat_bf16_1M_b64_k64", 64, 64, False, "L2")):
         qv, qv16 = q[:bv].contiguous(), q16[:bv].contiguous()
         bnd = bound(n * (d * 2 + 5) + bv * d * 4 + bv * k * 8, 2.0 * bv * live * d,
                     BF16_FLOP_S)
         if main:
             rec["flat_bf16"]["bound"] = bnd
         case("flat_bf16", name,
-             lambda: fs.fused_flat_topk(qv, x16, sq, alive, n, k),
-             lambda: fs.fused_flat_topk_plain(qv, x16, sq, alive, n, k, chunk_rows=65536),
+             lambda: fs.fused_flat_topk(qv, x16, sq, alive, n, k, metric),
+             lambda: fs.fused_flat_topk_plain(qv, x16, sq, alive, n, k, metric,
+                                              chunk_rows=65536),
              main=main,
-             comp=lambda: composition_topk(l2_or_ip(qv, qv16.float() @ x16.float().T, sq, False),
-                                           alive[None, :], k),
+             comp=lambda: composition_topk(l2_or_ip(qv, qv16.float() @ x16.float().T, sq,
+                                                    metric == "IP"), alive[None, :], k),
              lib=lambda: qv16 @ x16.T, bnd=bnd)
     # without promote: the IVF-Flat hybrid's shortlist scan (100k, nprobe 96, k 64)
     x2_16 = x2.bfloat16()
@@ -667,16 +683,17 @@ def phase_kernels(dev) -> dict:
                     2.0 * bv * live * d, BF16_FLOP_S if bf else FP32_FLOP_S)
         if main:
             rec[kind]["bound"] = bnd
+        qlib = qv.bfloat16() if bf else qv
         case(kind, name,
              lambda: fs.fused_flat_topk(qv, xs, sq, alive, n, k),
              lambda: fs.fused_flat_topk_plain(qv, xs, sq, alive, n, k, chunk_rows=65536),
-             reps=5, plain_reps=2, main=main, bnd=bnd,
+             reps=5, plain_reps=2, main=main, bnd=bnd, lib=lambda: qlib @ xs.T,
              comp=lambda: composition_topk(l2_or_ip(
                  qv, (qv.bfloat16().float() @ xs.float().T) if bf else qv @ xs.T, sq, False),
                  alive[None, :], k))
     # layout B (about 3 queries a cluster) and layout A (~980 a cluster) at k 1000
     ivf_case("ivf_wide_1M_nlist1000_np3_b1024_k1000", q, x, sq, alive, lay, kp, p_main,
-             k=1000, main=True, reps=5, comp=True, kind="ivf_wide")
+             k=1000, main=True, reps=5, comp=True, kind="ivf_wide", lib=lambda: q @ x.T)
     q5 = q2[:1024].contiguous()
     p5 = probes(1024, kp2, 96, g, dev)
     ivf_case("ivf_wide_100k_nlist100_np96_b1024_k1000", q5, x2, sq2, alive2, lay2, kp2, p5,
@@ -689,7 +706,7 @@ def phase_kernels(dev) -> dict:
                                    kp2, 512, max_len=lay2[3]),
          lambda: fs.fused_ivf_topk_plain(q3, x2_16, sq2, alive2, lay2[0], p3, kp2, 512,
                                          chunk_rows=65536),
-         main=True, bnd=bnd, reps=5,
+         main=True, bnd=bnd, reps=5, lib=lambda: q3_16 @ x2_16.T,
          comp=lambda: composition_topk(
              l2_or_ip(q3, q3_16.float() @ x2_16.float().T, sq2, False),
              fs.probe_table(p3, kp2)[:, lay2[0].long()] & alive2[None, :], 512),
@@ -703,7 +720,7 @@ def phase_kernels(dev) -> dict:
                                    max_len=lay[3], promote_fp32=True),
          lambda: fs.fused_ivf_topk_plain(q4, x16, sq, alive, lay[0], p4, kp, 200,
                                          promote_fp32=True, chunk_rows=65536),
-         main=True, bnd=bnd, reps=5,
+         main=True, bnd=bnd, reps=5, lib=lambda: q4_16 @ x16.T,
          comp=lambda: composition_topk(
              l2_or_ip(q4, q4 @ x16.float().T, sq, False),
              fs.probe_table(p4, kp)[:, lay[0].long()] & alive[None, :], 200),
@@ -783,12 +800,34 @@ def phase_kernels(dev) -> dict:
     lay7 = (crow7, offs7, lens7, int(lens7.max()))
     p7 = torch.cdist(q7, cents7).topk(3, dim=1, largest=False).indices
     ivf_case("ivf_large_d_1M_d768_nlist1000_np3_b1024_k10", q7, x7, sq7, alive, lay7, kp,
-             p7, main=True, reps=5, plain_reps=2, comp=True, kind="ivf_large_d")
+             p7, main=True, reps=5, plain_reps=2, comp=True, kind="ivf_large_d",
+             lib=lambda: q7 @ x7.T)
     sq8_case("sq8_large_d_1M_d768_nlist1000_np3_b1024_k10", q7, x7, alive, lay7, kp, p7,
              main=True, reps=5, plain_reps=2, comp=True, kind="sq8_large_d", cents=cents7)
     del x7, sq7
     say("3 kernels", cells=repr(" | ".join(cells)))
+    phase_kpp(dev)
     return rec
+
+
+def phase_kpp(dev) -> None:
+    """k-means++ seeding (jax.random's draws) on the card and on the CPU
+    from one seed, on 100k clustered rows, k 100: the rows both pick. The
+    draw compares log D² plus Gumbel noise; where the card rounds D² (its
+    matvec sums in another order) or log otherwise than the CPU, a pick
+    can differ, and every later pick with it. Printed, not a gate."""
+    from pyrope_tpu_torch.ops.kmeans import _kpp_init
+
+    data = synthetic_clustered(100_000, 128, n_clusters=100)
+    x_cpu = torch.from_numpy(data)
+    t0 = time.perf_counter()
+    on_card = _kpp_init(x_cpu.to(dev), 100, 42).cpu()
+    card_s = time.perf_counter() - t0
+    on_cpu = _kpp_init(x_cpu, 100, 42)
+    same = (on_card == on_cpu).all(dim=1)
+    first = int((~same).nonzero()[0]) if not bool(same.all()) else None
+    say("3 kmeans++", rows=100_000, k=100, seed=42, same_picks=int(same.sum()),
+        first_differing_pick=first, card_seconds=round(card_s, 3))
 
 
 def clustered_1m() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -1374,7 +1413,7 @@ def main() -> int:
     wide = f"{PALLAS}:372, {PALLAS}:192, {PALLAS}:200, {PALLAS}:496"
     kernels = [
         entry("fused_scan_kernel", "flat", SOURCE, f"{PALLAS}:672", launches["flat_scan"]),
-        entry("fused_scan_kernel<bf16>", "flat_bf16", SOURCE, f"{PALLAS}:672, {PALLAS}:232",
+        entry("flat_scan_tc_kernel", "flat_bf16", TC_SOURCE, f"{PALLAS}:672, {PALLAS}:232",
               launches["flat_scan_bf16"]),
         entry("ivf_list_scan_kernel<IVF>", "ivf", LIST_SOURCE,
               f"{PALLAS}:1035, {PALLAS}:992", launches["ivf_scan"] - large_d),
@@ -1387,7 +1426,7 @@ def main() -> int:
         entry("merge_partials_kernel", "merge", SOURCE, f"{PALLAS}:401", launches["merge"]),
         entry("fused_scan_kernel<wide>", "flat_wide", SOURCE, f"{PALLAS}:672, {wide}",
               launches["flat_scan_wide"]),
-        entry("fused_scan_kernel<bf16, wide>", "flat_bf16_wide", SOURCE,
+        entry("flat_scan_tc_kernel<wide>", "flat_bf16_wide", TC_SOURCE,
               f"{PALLAS}:672, {PALLAS}:232, {wide}", launches["flat_scan_bf16_wide"]),
         entry("ivf_list_scan_kernel<IVF, wide>", "ivf_wide", LIST_SOURCE,
               f"{PALLAS}:1035, {PALLAS}:992, {wide}", launches["ivf_scan_wide"]),

@@ -25,8 +25,8 @@ case: the library call, which keeps no row order at ties):
   merge_3lists_b1024_k10 (the slice: per-query slots),
   merge_flat_splits_b1024_k10 (66 lists a query, the flat path's splits at
   b1024), merge_108lists_b1024_k128 (a skewed list at nprobe 96),
-  and where the tree has the bf16 slab modes: flat_bf16_1M_b1024_k10,
-  flat_bf16_1M_b64_k10, flat_bf16_1M_b64_k64 (the hybrid's shortlist),
+  and where the tree has the bf16 slab modes: flat_bf16_1M_b1024_k10 (and
+  its IP twin flat_bf16_1M_b1024_k10_IP), flat_bf16_1M_b64_k10, flat_bf16_1M_b64_k64 (the hybrid's shortlist),
   ivf_bf16_100k_nlist100_np96_b256_k64 (no promote: the IVF hybrid),
   ivf_bf16_promote_1M_nlist1000_np3_b64_k10 (IVF-PQ's bf16 rerank slab),
   matmul_bf16_1M_b1024 (q16 @ x16.T alone, bf16 sums), and the fp32 modes
@@ -212,6 +212,8 @@ def _worker(reps: int, trace: bool, cases: str) -> dict:
             qs = q[:bs].contiguous()
             case(f"flat_bf16_1M_b{bs}_k{k}",
                  lambda: fs.fused_flat_topk(qs, x16, sq, alive, n, k))
+        case("flat_bf16_1M_b1024_k10_IP",
+             lambda: fs.fused_flat_topk(q, x16, sq, alive, n, K, "IP"))
         q3 = q2[:256].contiguous()
         offs3, lens3, ml3 = lists(crow2, 100)
         x2_32 = x[:n2].contiguous()

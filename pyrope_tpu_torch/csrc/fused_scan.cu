@@ -104,25 +104,11 @@
 // in. Nothing depends on a previous list's data, so there is no chain of
 // global-memory latencies; at the shapes it sees it is bound by its launch.
 //
-// The bf16 slab mode (fused_scan_kernel<BT, IP, uint16_t>) replaces the
-// branch x.dtype == bfloat16 of the TPU kernels' _tile_scores (:232-264):
-// the MXU multiplies bf16(q) by the bf16 rows and sums in fp32. A product
-// of two bf16 values is exact in fp32, so fp32 FMAs on values widened from
-// bf16 give the MXU's products exactly; only the order of the sum differs.
-// The wrapper rounds q to bf16 (an fp32 tensor of bf16 values) and passes
-// |q|^2 of the unrounded q beside it (qsq), as _tile_scores takes it; the
-// rows' sqnorm are those of the fp32 rows. A bf16 stage is 64 depths deep:
-// a row is 128 bytes again, so the fp32 swizzle holds (the 16 rows a warp
-// reads 8 bytes of at once fall in 8 bank pairs, two wavefronts, as a
-// float4 load of fp32 rows takes), and the q stage is 64 floats deep. Half
-// the chunks of 32-depth stages (64-byte rows, swizzle c ^ ((r >> 1) & 3)):
-// measured on an H100 at 700 W, 8.08-8.27 against 8.58-8.65 ms device time
-// at 1M x 128, b1024, k10 (bench/scan_ab.py, one call, ABBA). The FMA loop
-// widens on load (a 16-bit shift); q stays fp32. The slab's bytes halve,
-// the FMAs are the same: about as fast as fp32 here.
+// The bf16 slab mode is a kernel of its own, on the tensor cores:
+// flat_scan_tc.cu. It shares this kernel's epilogue (flat_epilogue.cuh).
 //
 // The wide mode (k > MAXK = 128, any k;
-// fused_scan_kernel<64, IP, XT, true>, merge_wide_kernel) replaces the TPU
+// fused_scan_kernel<64, IP, true>, merge_wide_kernel) replaces the TPU
 // kernels' wide merges (_wide_params :372, _bitonic_merge_wide :192,
 // _merge_tile_wide :200, the dynamic rounds of _merge_tile :437-475 on
 // _extract_top :496). The k <= MAXK instantiations are compiled from the
@@ -131,7 +117,7 @@
 // global memory, kw = min(k, rows a split): a split cannot give more, so
 // any k runs; shared memory holds a FLAT_CAP-entry candidate buffer a
 // query (topk_wide.cuh: the buffer is sorted and merged into the list when
-// full), 182,784 B a block of 64 queries (199,168 B with bf16 rows), one
+// full), 182,784 B a block of 64 queries, one
 // block an SM, so the wrapper's grid is one wave (ops/fused_scan._splits).
 // The epilogue, its vote, the threshold and the shared floor are the
 // narrow mode's: a split publishes its list's c-th entry once the list
@@ -140,29 +126,22 @@
 // sorts them once, a block a query.
 //
 // Not done here: a tensor-core path where exactness allows (a 3xbf16 split
-// product); a narrow query tile for batches of a few queries (a 64-query
+// product, beside flat_scan_tc.cu's bf16 one); a narrow query tile for batches of a few queries (a 64-query
 // tile at B = 1 is mostly padding: the scan is then bound by the FMAs of
 // the padding, not by the slab's bytes); a cheaper first tile at wide k
 // (at k 100 the lists' filling and the dense offers of a split's first
 // dozen tiles cost as much as its FMAs).
 
-#include <limits.h>
-
-#include "topk_warp.cuh"
-#include "topk_wide.cuh"
+#include "flat_epilogue.cuh"
 
 namespace {
 
 constexpr int RT = 128;          // corpus rows per tile
 constexpr int NST = 2;           // stages in the ring
-constexpr int FLOOR_BATCH = 4;   // queries whose published scores load together
-constexpr int WIN = 32;          // splits whose published entries a warp reads
 constexpr int THREADS = 256;     // 8 warps, each owning BT / 8 of the queries
 constexpr int WARPS = THREADS / 32;
 constexpr int TR = 8;            // rows per thread
 constexpr int MERGE_IN_FLIGHT = 4;  // merge: batches of 32 loads in flight
-constexpr int WIDE_BT = 64;      // the wide mode's query tile
-constexpr int FLAT_CAP = 256;    // the wide mode's candidate buffer, a query
 constexpr int MERGE_CAP = 256;   // the wide merge's in-place path: a run, a query
 constexpr int MW_THREADS = 256;  // the wide merge's block, one a query
 constexpr int MW_KEYS = MW_THREADS;  // lists whose c-th entries make its floor
@@ -170,19 +149,16 @@ constexpr int MW_LEVELS = 9;         // its floor's levels: g = 1, 2, 4, ..., MW
 constexpr int MW_MIN_CAP = 1024;     // its run buffer, entries: at least
 constexpr int MW_MAX_CAP = 16384;    // and at most (128 KB)
 
-// Depth elements a stage holds: one 128-byte row of the slab.
-__host__ __device__ constexpr int depth_chunk(int elem) { return 128 / elem; }
+constexpr int DC = 32;           // depth elements a stage holds: a 128-byte row
 
 // A stage: the rows' depth chunk (RT rows of 128 bytes) and the queries'
-// (bt x depth_chunk floats), in floats.
-__host__ __device__ constexpr int stage_floats(int bt, int elem) {
-  return RT * 32 + bt * depth_chunk(elem);
-}
+// (bt x DC floats), in floats.
+__host__ __device__ constexpr int stage_floats(int bt) { return RT * 32 + bt * DC; }
 
 // k > MAXK (the wide mode): the lists lie in the partials, and shared memory
 // holds each query's candidate buffer and its WideState instead.
-size_t scan_smem_bytes(int k, int bt, int elem) {
-  return sizeof(float) * ((size_t)NST * stage_floats(bt, elem)  // the ring
+size_t scan_smem_bytes(int k, int bt) {
+  return sizeof(float) * ((size_t)NST * stage_floats(bt)  // the ring
                           + NST * RT          // row sqnorm (+inf: dead), a tile a stage
                           + 4 * (size_t)bt    // |q|^2, threshold, score published
                           + (k > MAXK ? (size_t)bt * (2 * FLAT_CAP + 2)  // buffers, state
@@ -205,127 +181,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// A staged row of the slab: XT float (fp32 rows) or uint16_t (bf16 rows, as
-// their bits). A row of a stage is 128 bytes, eight 16-byte pieces, piece c
-// of row r at c ^ (r & 7); load4 returns depths 4 d4 .. 4 d4 + 3 as floats.
-template <typename XT>
-struct Rows;
-
-template <>
-struct Rows<float> {
-  __device__ static float4 load4(const char* xs, int r, int d4) {
-    return *reinterpret_cast<const float4*>(xs + r * 128 + ((d4 ^ (r & 7)) << 4));
-  }
-};
-
-template <>
-struct Rows<uint16_t> {
-  __device__ static float4 load4(const char* xs, int r, int d4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(
-        xs + r * 128 + (((d4 >> 1) ^ (r & 7)) << 4) + ((d4 & 1) << 3));
-    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-  }
-};
-
-// The insertion path, out of line: the epilogue's offer sites hold a call
-// each, not the insertion's code. Offers every lane's (v, r) to one list
-// whose threshold is (tv, ti), and returns the list's last entry.
-__device__ __noinline__ Entry offer(float* lv, int* li, int k, float v, int r,
-                                    float tv, int ti, int lane) {
-  if (k <= 32) {
-    // one list entry a lane, the list in registers while candidates go in;
-    // after each insertion one vote drops every candidate the new last
-    // entry has passed
-    float ev = lane < k ? lv[lane] : -INFINITY;
-    int ei = lane < k ? li[lane] : -1;
-    unsigned m = __ballot_sync(FULL, beats(v, r, tv, ti));
-    while (m) {
-      const int src = __ffs(m) - 1;
-      const float cv = __shfl_sync(FULL, v, src);
-      const int cr = __shfl_sync(FULL, r, src);
-      const int pos = __popc(__ballot_sync(FULL, lane < k && beats(ev, ei, cv, cr)));
-      const float pv = __shfl_up_sync(FULL, ev, 1);
-      const int pi = __shfl_up_sync(FULL, ei, 1);
-      if (lane == pos) {
-        ev = cv;
-        ei = cr;
-      } else if (lane > pos) {
-        ev = pv;
-        ei = pi;
-      }
-      const float kv = __shfl_sync(FULL, ev, k - 1);
-      const int kr = __shfl_sync(FULL, ei, k - 1);
-      m &= ~(1u << src) & __ballot_sync(FULL, beats(v, r, kv, kr));
-    }
-    if (lane < k) {
-      lv[lane] = ev;
-      li[lane] = ei;
-    }
-    __syncwarp();
-    return {__shfl_sync(FULL, ev, k - 1), __shfl_sync(FULL, ei, k - 1)};
-  }
-  warp_offer_batch(lv, li, k, v, r, tv, ti, lane);
-  return {tv, ti};
+// Depths 4 d4 .. 4 d4 + 3 of staged row r: a row of a stage is 128 bytes,
+// eight 16-byte pieces, piece c of row r at c ^ (r & 7).
+__device__ __forceinline__ float4 load_row4(const char* xs, int r, int d4) {
+  return *reinterpret_cast<const float4*>(xs + r * 128 + ((d4 ^ (r & 7)) << 4));
 }
 
-// A list's pub_c-th score, when it has risen, goes to the query's row of pub
-// for the other splits to read. One lane calls it.
-__device__ __noinline__ void publish(const float* lv, float* pubv, float* dst,
-                                     int pub_c) {
-  const float pv = lv[pub_c - 1];
-  if (pv > *pubv) {
-    *pubv = pv;
-    __stcg(dst, pv);
-  }
-}
-
-// The floor, from what a query's splits have published: each list publishes
-// its pub_c-th score, and the pub_g-th largest of those has pub_g * pub_c >= k
-// rows at or above it, so no row under it is a hit. The warp reads a window
-// of WIN lists around its own (win0 ..), one a lane, for each of its nq
-// queries (rows of pub from b0 on, below B), a few queries' loads in flight,
-// and raises the thresholds thv/thi that lie under it.
-__device__ __noinline__ void take_floor(const float* pub, int S, int win0,
-                                        int b0, int B, int nq, int pub_g,
-                                        float* thv, int* thi, int lane) {
-  for (int o0 = 0; o0 < nq && b0 + o0 < B; o0 += FLOOR_BATCH) {
-    float fk[FLOOR_BATCH];
-#pragma unroll
-    for (int u = 0; u < FLOOR_BATCH; ++u)
-      fk[u] = (b0 + o0 + u < B && win0 + lane < S)
-                  ? __ldcg(pub + (size_t)(b0 + o0 + u) * S + win0 + lane)
-                  : -INFINITY;
-#pragma unroll
-    for (int u = 0; u < FLOOR_BATCH; ++u) {
-      int ge = 0;   // window entries at or above this lane's
-      for (int m = 0; m < WIN; ++m)
-        ge += __shfl_sync(FULL, fk[u], m) >= fk[u];
-      float t = ge >= pub_g ? fk[u] : -INFINITY;   // the pub_g-th largest
-#pragma unroll
-      for (int off = 16; off; off >>= 1)
-        t = fmaxf(t, __shfl_xor_sync(FULL, t, off));
-      // rows scoring t or more stay: (t, INT_MAX) ranks after them all
-      if (lane == 0 && t > thv[o0 + u]) {
-        thv[o0 + u] = t;
-        thi[o0 + u] = INT_MAX;
-      }
-    }
-  }
-  __syncwarp();
-}
-
-// vec: a row of x and of q is a whole number of 16-byte pieces (D % 4 == 0
-// for fp32 rows, D % 8 == 0 for bf16) and q's and x's bases are 16-byte
-// aligned, so rows are staged with cp.async; else plain loads and stores
-// stage them (no overlap). qsq: null, or |q|^2 [B] to take in place of the
-// streamed q's own (the bf16 mode's q is rounded, its |q|^2 is not).
+// vec: a row of x and of q is a whole number of 16-byte pieces (D % 4 ==
+// 0) and q's and x's bases are 16-byte aligned, so rows are staged with
+// cp.async; else plain loads and stores stage them (no overlap).
 // part_v, part_i: [B, S, kw], S = gridDim.y; kw = k, or in the wide mode
 // min(k, rows_per_split): a split cannot give more.
-template <int BT, bool IP, typename XT, bool WIDE = false>
+template <int BT, bool IP, bool WIDE = false>
 __global__ void __launch_bounds__(THREADS, 2)
-fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
-                  const float* __restrict__ qsq,
+fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
                   const float* __restrict__ sqnorm,
                   const uint8_t* __restrict__ alive, int B, int N, int D,
                   int k, int kw, int max_scans, int rows_per_split, int vec,
@@ -336,13 +205,11 @@ fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
   constexpr int RG = 32 / QG;       // row groups: rows lr + RG j, j < TR
   constexpr int TQ = BT / 16;       // queries per thread
   constexpr int WQ = QG * TQ;       // queries a warp owns
-  constexpr int STAGE = stage_floats(BT, sizeof(XT));
-  constexpr int DC = depth_chunk(sizeof(XT));  // depth elements a stage
+  constexpr int STAGE = stage_floats(BT);
   constexpr int QP = DC / 4;                   // float4 pieces of a query row
-  constexpr int QSH = QP == 16 ? 4 : 3;        // log2(QP)
+  constexpr int QSH = 3;                       // log2(QP)
   constexpr int XBYTES = RT * 128;             // a stage's rows
-  constexpr int XE = 16 / sizeof(XT);          // elements a 16-byte piece
-  using R = Rows<XT>;
+  constexpr int XE = 4;                        // elements a 16-byte piece
   extern __shared__ __align__(16) float smem[];
   float* stages = smem;                        // [NST]: rows [RT][128 bytes],
                                                // then queries [BT][DC], swizzled
@@ -383,15 +250,15 @@ fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
     for (int e = tid; e < RT * 8; e += THREADS) {
       const int rr = e >> 3, c = e & 7;
       if (c * XE >= nd) continue;
-      XT* dst = reinterpret_cast<XT*>(sb + rr * 128 + ((c ^ (rr & 7)) << 4));
+      float* dst = reinterpret_cast<float*>(sb + rr * 128 + ((c ^ (rr & 7)) << 4));
       const bool ok = row0 + rr < limit;
-      const XT* src = x + (size_t)(row0 + rr) * D + d0 + XE * c;
+      const float* src = x + (size_t)(row0 + rr) * D + d0 + XE * c;
       if (vec) {
         cp_async16(dst, ok ? src : x, ok ? 16 : 0);
       } else {
 #pragma unroll
         for (int u = 0; u < XE; ++u)
-          dst[u] = (ok && d0 + XE * c + u < D) ? src[u] : XT(0);
+          dst[u] = (ok && d0 + XE * c + u < D) ? src[u] : 0.f;
       }
     }
     float* qsb = reinterpret_cast<float*>(sb + XBYTES);
@@ -443,10 +310,6 @@ fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
     pubv[i] = -INFINITY;
   }
   for (int i = warp; i < BT; i += WARPS) {
-    if (qsq) {   // warp-uniform
-      if (lane == 0) qq[i] = q0 + i < B ? qsq[q0 + i] : 0.f;
-      continue;
-    }
     float s = 0.f;
     if (q0 + i < B) {
       for (int d = lane; d < D; d += 32) {
@@ -480,7 +343,7 @@ fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
     for (int d4 = 0; d4 < nq4; ++d4) {
       float4 xv[TR];
 #pragma unroll
-      for (int j = 0; j < TR; ++j) xv[j] = R::load4(xs, lr + RG * j, d4);
+      for (int j = 0; j < TR; ++j) xv[j] = load_row4(xs, lr + RG * j, d4);
 #pragma unroll
       for (int i = 0; i < TQ; ++i) {
         const float4 a = *reinterpret_cast<const float4*>(
@@ -565,7 +428,7 @@ fused_scan_kernel(const float* __restrict__ q, const XT* __restrict__ x,
       // published raises the thresholds: the published scores rise as the
       // logarithm of the rows seen
       if ((tile & (tile + 1)) == 0)
-        take_floor(pub, S, max(0, min((int)blockIdx.y & ~(WIN - 1), S - WIN)),
+        take_floor(pub, S, floor_window(blockIdx.y, S),
                    q0 + warp * WQ, B, WQ, pub_g, thv + warp * WQ,
                    thi + warp * WQ, lane);
     }
@@ -892,20 +755,20 @@ merge_wide_kernel(const float* __restrict__ part_v,
   wide_pad(ov, oi, k, fill, lane);
 }
 
-template <int BT, bool IP, typename XT, bool WIDE = false>
-int launch_scan(const void* q, const void* x, const void* qsq,
-                const void* sqnorm, const void* alive, int B, int N, int D,
-                int k, int kw, int max_scans, int rows_per_split, int n_splits,
-                int vec, void* part_v, void* part_i, void* pub, int pub_c,
-                int pub_g, cudaStream_t stream) {
-  const size_t smem = scan_smem_bytes(k, BT, sizeof(XT));
+template <int BT, bool IP, bool WIDE = false>
+int launch_scan(const void* q, const void* x, const void* sqnorm,
+                const void* alive, int B, int N, int D, int k, int kw,
+                int max_scans, int rows_per_split, int n_splits, int vec,
+                void* part_v, void* part_i, void* pub, int pub_c, int pub_g,
+                cudaStream_t stream) {
+  const size_t smem = scan_smem_bytes(k, BT);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_scan_kernel<BT, IP, XT, WIDE>,
+      fused_scan_kernel<BT, IP, WIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + BT - 1) / BT, n_splits);
-  fused_scan_kernel<BT, IP, XT, WIDE><<<grid, THREADS, smem, stream>>>(
-      (const float*)q, (const XT*)x, (const float*)qsq, (const float*)sqnorm,
+  fused_scan_kernel<BT, IP, WIDE><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)x, (const float*)sqnorm,
       (const uint8_t*)alive, B, N, D, k, kw, max_scans, rows_per_split, vec,
       (float*)part_v, (int32_t*)part_i, (float*)pub, pub_c, pub_g);
   return (int)cudaGetLastError();
@@ -916,54 +779,46 @@ int launch_scan(const void* q, const void* x, const void* qsq,
 extern "C" {
 
 // Shared memory of a flat-scan block with a bt-query tile (64 or 128) over
-// rows of elem bytes an element (4: fp32, 2: bf16); the wrapper's
-// flat_scan_smem_bytes computes the same number.
-long long pyrope_scan_smem_bytes(int k, int bt, int elem) {
-  return (long long)scan_smem_bytes(k, bt, elem);
+// fp32 rows; the wrapper's flat_scan_smem_bytes computes the same number.
+long long pyrope_scan_smem_bytes(int k, int bt) {
+  return (long long)scan_smem_bytes(k, bt);
 }
 
 const char* pyrope_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// FLAT mode: rows >= max_scans never hit. k <= MAXK: the warp-register
-// lists, bt 64 or 128, kw = k; k > MAXK: the wide mode, bt 64, lists kw <= k
-// entries wide. x: fp32 rows (elem 4) or bf16 rows (elem 2); qsq: null, or
-// |q|^2 [B] (the bf16 mode: q rounded to bf16 by the caller, |q|^2 of the
-// unrounded q). partials [B, n_splits, kw]; pub [B, n_splits] floats, -inf
-// from the caller: each split publishes its list's pub_c-th score there
-// (pub_c <= kw), and pub_g * pub_c >= k (a pub_g above min(n_splits, 32)
-// is never reached: no floor).
-int pyrope_fused_scan(const void* q, const void* x, const void* qsq,
-                      const void* sqnorm, const void* alive, int B, int N,
-                      int D, int k, int kw, int metric_ip, int max_scans,
-                      int rows_per_split, int n_splits, int bt, int elem,
-                      int vec, void* part_v, void* part_i, void* pub,
-                      int pub_c, int pub_g, void* stream) {
+// FLAT mode over fp32 rows: rows >= max_scans never hit. k <= MAXK: the
+// warp-register lists, bt 64 or 128, kw = k; k > MAXK: the wide mode, bt
+// 64, lists kw <= k entries wide. partials [B, n_splits, kw]; pub [B,
+// n_splits] floats, -inf from the caller: each split publishes its list's
+// pub_c-th score there (pub_c <= kw), and pub_g * pub_c >= k (a pub_g above
+// min(n_splits, 32) is never reached: no floor).
+int pyrope_fused_scan(const void* q, const void* x, const void* sqnorm,
+                      const void* alive, int B, int N, int D, int k, int kw,
+                      int metric_ip, int max_scans, int rows_per_split,
+                      int n_splits, int bt, int vec, void* part_v, void* part_i,
+                      void* pub, int pub_c, int pub_g, void* stream) {
   const bool wide = k > MAXK;
   if (k < 1 || (wide ? kw < 1 || kw > k : kw != k) || (bt != 64 && bt != 128) ||
-      (wide && bt != WIDE_BT) || (elem != 4 && elem != 2) || pub_c < 1 || pub_c > kw ||
-      pub_g < 1 || (long long)pub_g * pub_c < k)
+      (wide && bt != WIDE_BT) || pub_c < 1 || pub_c > kw || pub_g < 1 ||
+      (long long)pub_g * pub_c < k)
     return (int)cudaErrorInvalidValue;
-  using Launch = int (*)(const void*, const void*, const void*, const void*,
-                         const void*, int, int, int, int, int, int, int, int, int,
-                         void*, void*, void*, int, int, cudaStream_t);
-  static const Launch wide_table[2][2] = {   // [bf16][ip]
-      {launch_scan<WIDE_BT, false, float, true>, launch_scan<WIDE_BT, true, float, true>},
-      {launch_scan<WIDE_BT, false, uint16_t, true>,
-       launch_scan<WIDE_BT, true, uint16_t, true>}};
+  using Launch = int (*)(const void*, const void*, const void*, const void*, int,
+                         int, int, int, int, int, int, int, int, void*, void*,
+                         void*, int, int, cudaStream_t);
+  static const Launch wide_table[2] = {launch_scan<WIDE_BT, false, true>,
+                                       launch_scan<WIDE_BT, true, true>};   // [ip]
   if (wide)
-    return wide_table[elem == 2][metric_ip != 0](
-        q, x, qsq, sqnorm, alive, B, N, D, k, kw, max_scans, rows_per_split,
-        n_splits, vec, part_v, part_i, pub, pub_c, pub_g, (cudaStream_t)stream);
-  static const Launch table[2][2][2] = {   // [bf16][bt == 128][ip]
-      {{launch_scan<64, false, float>, launch_scan<64, true, float>},
-       {launch_scan<128, false, float>, launch_scan<128, true, float>}},
-      {{launch_scan<64, false, uint16_t>, launch_scan<64, true, uint16_t>},
-       {launch_scan<128, false, uint16_t>, launch_scan<128, true, uint16_t>}}};
-  return table[elem == 2][bt == 128][metric_ip != 0](
-      q, x, qsq, sqnorm, alive, B, N, D, k, kw, max_scans, rows_per_split,
-      n_splits, vec, part_v, part_i, pub, pub_c, pub_g, (cudaStream_t)stream);
+    return wide_table[metric_ip != 0](
+        q, x, sqnorm, alive, B, N, D, k, kw, max_scans, rows_per_split, n_splits,
+        vec, part_v, part_i, pub, pub_c, pub_g, (cudaStream_t)stream);
+  static const Launch table[2][2] = {   // [bt == 128][ip]
+      {launch_scan<64, false>, launch_scan<64, true>},
+      {launch_scan<128, false>, launch_scan<128, true>}};
+  return table[bt == 128][metric_ip != 0](
+      q, x, sqnorm, alive, B, N, D, k, kw, max_scans, rows_per_split, n_splits,
+      vec, part_v, part_i, pub, pub_c, pub_g, (cudaStream_t)stream);
 }
 
 // qend: null for S lists a query at strides (qstride, lstride), else int32

@@ -39,16 +39,23 @@ _I = ctypes.c_int
 _LIST_TABLES = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                 _I, _I, _I, _P, _P, _P, _I, _I, _P]
 _SIGNATURES = {
-    # k, query tile, element bytes of the slab
-    "pyrope_scan_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    # k, query tile
+    "pyrope_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    # k, query tile, D
+    "pyrope_flat_tc_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     # k, mode (1 IVF, 2 SQ8, 3 BF16)
     "pyrope_list_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "pyrope_error_string": (ctypes.c_char_p, [_I]),
-    # q, x, qsq (or null), sqnorm, alive, B, N, D, k, list width kw,
-    # metric_ip, max_scans, rows_per_split, n_splits, query tile, element
-    # bytes, vec, part_v, part_i, pub, pub_c, pub_g, stream
+    # q, x, sqnorm, alive, B, N, D, k, list width kw, metric_ip, max_scans,
+    # rows_per_split, n_splits, query tile, vec, part_v, part_i, pub, pub_c,
+    # pub_g, stream
     "pyrope_fused_scan": (
-        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+             _P, _P, _P, _I, _I, _P],
+    ),
+    # q (bf16), x (bf16), qsq, sqnorm, alive, then as pyrope_fused_scan
+    "pyrope_flat_scan_tc": (
+        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
              _P, _P, _P, _I, _I, _P],
     ),
     # q, x, sqnorm, alive, then the tables: pairs, P, cstart, ccnt, item_end,

@@ -3,7 +3,8 @@
 
 Replaces ``pyrope_tpu/ops/pallas_scan.py``:
   - ``fused_flat_topk``  <- ``pallas_flat_topk`` (K1, :672): the flat scan
-    kernel (csrc/fused_scan.cu), corpus splits into [B, splits, k] partials;
+    kernel (csrc/fused_scan.cu; over a bf16 slab the tensor-core kernel of
+    csrc/flat_scan_tc.cu), corpus splits into [B, splits, k] partials;
     ``flat_tile`` picks its query tile, ``scan_splits`` its grid.
   - ``fused_ivf_topk``   <- ``pallas_ivf_topk`` (K2, :1035) and
     ``pallas_ivf_topk_windowed`` (K3, :992), and
@@ -69,7 +70,11 @@ QUERY_TILE = 64          # queries per list chunk; the flat scan's narrow tile
 FLAT_QUERY_TILES = (128, 64)  # the flat scan's instantiations, widest first
 ROW_TILE = 128           # corpus rows per tile
 FLAT_STAGES = 2          # NST of fused_scan.cu: stages in the copy ring
-FLAT_ROW_BYTES = 128     # bytes of a row a stage holds: 32 fp32 or 64 bf16 depths
+FLAT_DEPTH_CHUNK = 32    # DC of fused_scan.cu: fp32 depths a stage holds (128 bytes)
+TC_DEPTH_CHUNK = 64      # TC_DC of flat_scan_tc.cu: bf16 depths a stage holds (128 bytes)
+TC_STAGES = (4, 3, 2)    # its ring's stages, the most that fit first (tc_stages)
+TC_QRES_MAX_D = 256      # q resident in its shared memory up to this D, streamed above
+TC_FLUSH_MIN = 32        # its wide mode: buffers of this many flush at the floor's tiles
 FLAT_FLOOR_WINDOW = 32   # WIN: splits whose published scores a warp reads
 FLAT_WIDE_TILE = 64      # WIDE_BT: the flat scan's query tile at k > NARROW_MAX_K
 FLAT_WIDE_CAP = 256      # FLAT_CAP: its candidate buffer, a query
@@ -288,18 +293,62 @@ def _check_probe(q, x, crow, probe):
         raise ValueError("probe must be [B, nprobe] on the queries' device")
 
 
-def flat_scan_smem_bytes(k: int, query_tile: int, elem: int = 4) -> int:
-    """Shared memory of a flat-scan block, as ``scan_smem_bytes`` of
-    fused_scan.cu computes it: the ring of stages (each a depth chunk of
-    the tile's rows, 128 bytes of each, and the same depths of its fp32
-    queries, and the rows' table), four words a query, and the lists (k <=
-    NARROW_MAX_K) or a candidate buffer and its state a query (the wide
-    mode: the lists lie in the partials). It does not depend on D: q is
-    streamed."""
-    stage = ROW_TILE * FLAT_ROW_BYTES // 4 + query_tile * (FLAT_ROW_BYTES // elem)
+def flat_scan_smem_bytes(k: int, query_tile: int, elem: int = 4, d: int = 0) -> int:
+    """Shared memory of a flat-scan block. fp32 rows (``elem`` 4), as
+    ``scan_smem_bytes`` of fused_scan.cu computes it: the ring of stages
+    (each a depth chunk of the tile's rows, 128 bytes of each, the same
+    depths of its queries, and the rows' table), four words a query, and
+    the lists (k <= NARROW_MAX_K) or a candidate buffer and its state a
+    query (the wide mode: the lists lie in the partials); it does not
+    depend on D, q is streamed. bf16 rows (``elem`` 2), as
+    ``pyrope_flat_tc_smem_bytes`` of flat_scan_tc.cu computes it at depth
+    ``d``, with ``tc_stages`` stages."""
+    if elem == 2:
+        return _tc_smem_bytes(k, query_tile, d, tc_stages(k, query_tile, d))
+    stage = ROW_TILE * FLAT_DEPTH_CHUNK + query_tile * FLAT_DEPTH_CHUNK
     lists = (query_tile * (2 * FLAT_WIDE_CAP + 2) if k > NARROW_MAX_K
              else 2 * query_tile * k)
     return 4 * (FLAT_STAGES * (stage + ROW_TILE) + 4 * query_tile + lists)
+
+
+def _tc_smem_bytes(k: int, bt: int, d: int, stages: int) -> int:
+    """``tc_layout(k, bt, d, stages).total`` of flat_scan_tc.cu: the ring
+    (a 128-row x 128-byte tile of the slab a stage, and the queries' chunk
+    where q streams), resident q (ceil(d / 64) chunks of bt x 128 bytes up
+    to TC_QRES_MAX_D), the row table a stage, the mbarriers, four words a
+    query, a warp's staged scores, the lists or the wide buffers and their
+    states, and 1024 bytes to align the base for the swizzle."""
+    if d < 1:
+        raise ValueError(f"the bf16 flat scan's shared memory depends on D, got {d}")
+    stream = d > TC_QRES_MAX_D
+    stage = ROW_TILE * 128 + (bt * 128 if stream else 0)
+    resident = 0 if stream else -(-d // TC_DEPTH_CHUNK) * bt * 128
+    lists = (bt * (8 * FLAT_WIDE_CAP + 8) if k > NARROW_MAX_K else 8 * bt * k)
+    return (stages * (stage + 4 * ROW_TILE) + resident + 8 * (2 * stages + 1)
+            + 16 * bt + 4 * ROW_TILE * (bt // 16) + lists + 1024)
+
+
+def tc_stages(k: int, bt: int, d: int) -> int:
+    """Stages of the bf16 flat scan's ring, as ``tc_stages`` of
+    flat_scan_tc.cu picks them: the most (4, 3, 2) with which the block
+    fits its target, two blocks an SM for the narrow 64-query tile and one
+    otherwise; failing that, the most that fit one block an SM."""
+    target = SMEM_TWO_BLOCKS if bt == QUERY_TILE and k <= NARROW_MAX_K else SMEM_LIMIT
+    for limit in (target, SMEM_LIMIT):
+        for n in TC_STAGES:
+            if _tc_smem_bytes(k, bt, d, n) <= limit:
+                return n
+    return TC_STAGES[-1]
+
+
+def flat_blocks_per_sm(tile: int, smem: int, k: int, elem: int = 4) -> int | None:
+    """Blocks of the flat scan an SM holds, for its grid (``_splits``):
+    the bf16 scan's 128-query block (three warpgroups at 168 registers) and
+    its wide block hold one, its narrow 64-query block two where shared
+    memory allows. None for the fp32 scan, whose grid keeps its own target."""
+    if elem != 2:
+        return None
+    return 2 if tile == QUERY_TILE and k <= NARROW_MAX_K and smem <= SMEM_TWO_BLOCKS else 1
 
 
 def flat_tile(d: int, k: int, b: int, elem: int = 4) -> tuple[int, int]:
@@ -307,16 +356,18 @@ def flat_tile(d: int, k: int, b: int, elem: int = 4) -> tuple[int, int]:
     for depth ``d``, ``k`` hits, ``b`` queries and rows of ``elem`` bytes an
     element (4 fp32, 2 bf16): the 128-query tile, or
     the 64-query one where a batch fits it (at B <= 64 a wider tile is
-    padding). The first of which two blocks fit an SM wins (two blocks hide
-    each other's list insertions: k <= 45 at 128 queries, k <= 125 at 64),
-    else the first that fits at all. The wide mode (k > NARROW_MAX_K) has
+    padding). fp32: the first of which two blocks fit an SM wins (two
+    blocks hide each other's list insertions: k <= 45 at 128 queries, k <=
+    125 at 64), else the first that fits at all. bf16: the first that fits
+    (its 128-query block, two consumer warpgroups on one stage, is one an
+    SM whatever its shared memory). The wide mode (k > NARROW_MAX_K) has
     one tile, FLAT_WIDE_TILE. Raises where none fits."""
     if d < 1 or k < 1:
         raise ValueError(f"flat scan takes D >= 1 and k >= 1, got D={d}, k={k}")
     tiles = (FLAT_WIDE_TILE,) if k > NARROW_MAX_K else FLAT_QUERY_TILES
-    fits = [(tile, flat_scan_smem_bytes(k, tile, elem)) for tile in tiles
+    fits = [(tile, flat_scan_smem_bytes(k, tile, elem, d)) for tile in tiles
             if b > QUERY_TILE or tile == QUERY_TILE]
-    for limit in (SMEM_TWO_BLOCKS, SMEM_LIMIT):
+    for limit in ((SMEM_LIMIT,) if elem == 2 else (SMEM_TWO_BLOCKS, SMEM_LIMIT)):
         for tile, smem in fits:
             if smem <= limit:
                 return tile, smem
@@ -363,23 +414,28 @@ def list_floor(k: int, nprobe: int, width: int) -> tuple[int, int]:
 
 
 def scan_splits(b: int, n_rows: int, dev: torch.device,
-                query_tile: int = QUERY_TILE, k: int = 1) -> tuple[int, int]:
+                query_tile: int = QUERY_TILE, k: int = 1,
+                per_sm: int | None = None) -> tuple[int, int]:
     """(rows_per_split, n_splits) of the scan grid: enough corpus splits
     that it holds about _FLAT_BLOCKS_PER_SM blocks per SM, each split a
     whole number of row tiles. The wide mode (k > NARROW_MAX_K) fits one
     block an SM, so its grid is one wave of at most one block an SM:
     measured on an H100 at 700 W against the two-block target (bench/
     scan_ab.py, one call, ABBA), 31.4 against 62.5 ms at b1024 k1000, 7.3
-    against 12.8 ms at b256 k512 (bf16), 45.8 against 67.4 ms at b64 k10000."""
+    against 12.8 ms at b256 k512 (bf16), 45.8 against 67.4 ms at b64 k10000.
+    ``per_sm`` (the bf16 scan, ``flat_blocks_per_sm``): one wave of that
+    many blocks an SM."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _splits(b, n_rows, sms, query_tile, k)
+    return _splits(b, n_rows, sms, query_tile, k, per_sm)
 
 
 def _splits(b: int, n_rows: int, sms: int, query_tile: int,
-            k: int = 1) -> tuple[int, int]:
+            k: int = 1, per_sm: int | None = None) -> tuple[int, int]:
     q_tiles = -(-b // query_tile)
     tiles = max(-(-n_rows // ROW_TILE), 1)
-    if k > NARROW_MAX_K:   # one block an SM: one wave, no block past it
+    if per_sm is not None:
+        want = max(per_sm * sms // q_tiles, 1)
+    elif k > NARROW_MAX_K:   # one block an SM: one wave, no block past it
         want = max(sms // q_tiles, 1)
     else:
         want = max(-(-_FLAT_BLOCKS_PER_SM * sms // q_tiles), 1)
@@ -492,34 +548,41 @@ def _bf16_query(q):
 
 def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
     """The flat scan kernel into [B, splits, k] partials, then the merge;
-    bf16 mode over a bf16 ``x``."""
+    over a bf16 ``x`` the tensor-core kernel, on bf16(q) and ‖q‖² of the
+    fp32 q."""
     from pyrope_tpu_torch.kernels.build import check, load
 
     lib = load()
     b, d = q.shape
     elem = x.element_size()
     tile, smem = flat_tile(d, k, b, elem)
-    if lib.pyrope_scan_smem_bytes(k, tile, elem) != smem:
-        raise RuntimeError("flat_tile and fused_scan.cu disagree on shared memory")
+    lib_smem = (lib.pyrope_flat_tc_smem_bytes(k, tile, d) if elem == 2
+                else lib.pyrope_scan_smem_bytes(k, tile))
+    if lib_smem != smem:
+        raise RuntimeError("flat_tile and the flat scan's source disagree on shared memory")
     if b == 0:  # an empty grid is not a valid launch
         return _empty_hits(0, k, q.device)
-    per, n_splits = scan_splits(b, max_scans, q.device, tile, k)
+    per, n_splits = scan_splits(b, max_scans, q.device, tile, k,
+                                flat_blocks_per_sm(tile, smem, k, elem))
     kw = k if k <= NARROW_MAX_K else min(k, per)   # a split gives at most per rows
     part_v = torch.empty((b, n_splits, kw), dtype=torch.float32, device=q.device)
     part_i = torch.empty((b, n_splits, kw), dtype=torch.int32, device=q.device)
     pub_c, pub_g = flat_floor(k, n_splits, kw)
     pub = torch.full((b, n_splits), float("-inf"), device=q.device)
-    qsq = None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tail = (b, x.shape[0], d, k, kw, int(metric_ip), max_scans, per, n_splits, tile)
+    outs = (part_v.data_ptr(), part_i.data_ptr(), pub.data_ptr(), pub_c, pub_g, stream)
     if elem == 2:
-        q, qsq = _bf16_query(q)
-    vec = int(d % (16 // elem) == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
-    check(lib.pyrope_fused_scan(
-        q.data_ptr(), x.data_ptr(), None if qsq is None else qsq.data_ptr(),
-        sqnorm.data_ptr(), alive.data_ptr(), b, x.shape[0], d, k, kw, int(metric_ip),
-        max_scans, per, n_splits, tile, elem, vec, part_v.data_ptr(),
-        part_i.data_ptr(), pub.data_ptr(), pub_c, pub_g,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    ), "fused scan kernel")
+        q16, qsq = q.bfloat16(), (q * q).sum(dim=1)   # bf16(q) is exact in bf16
+        vec = int(d % 8 == 0 and q16.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+        check(lib.pyrope_flat_scan_tc(
+            q16.data_ptr(), x.data_ptr(), qsq.data_ptr(), sqnorm.data_ptr(),
+            alive.data_ptr(), *tail, vec, *outs), "bf16 flat scan kernel")
+    else:
+        vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+        check(lib.pyrope_fused_scan(
+            q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), *tail,
+            vec, *outs), "fused scan kernel")
     LAUNCHES[("flat_scan_bf16" if elem == 2 else "flat_scan")
              + ("_wide" if k > NARROW_MAX_K else "")] += 1
     return _merge_launch(part_v, part_i, n_splits, b, k, None, 0, n_splits * kw, kw, kw)

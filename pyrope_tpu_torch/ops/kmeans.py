@@ -15,9 +15,11 @@ the first maximum, as ``jnp.argmax`` does).
 
 Seeding: ``init="sample"`` draws the initial rows with the same numpy call
 as the JAX package, so both start from equal centroids. ``init="kmeans++"``
-samples each next centroid ∝ D²(x) with a ``torch.Generator`` seeded from
-``seed``; it cannot reproduce ``jax.random``'s draws, so the two packages
-build different (equally valid) partitions from it.
+samples each next centroid ∝ D²(x) as the JAX package does, step for step,
+with ``jax.random``'s own draws (``ops/jrandom.py``: threefry keys split
+from ``PRNGKey(seed)``, a categorical draw over log D²), so both pick the
+same rows from the same seed but where rounding of D² or of ``log`` moves a
+draw by an ulp.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from pyrope_tpu_torch.types import Metric
 from pyrope_tpu_torch.device import resolve_device
+from pyrope_tpu_torch.ops import jrandom
 from pyrope_tpu_torch.ops.distance import row_sqnorms, score_matrix
 
 DEFAULT_ITERS = 10
@@ -41,27 +44,32 @@ def _upload(data: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _kpp_init(x: torch.Tensor, k: int, seed: int) -> torch.Tensor:
-    """k-means++ seeding on the device: each next centroid is sampled
-    ∝ D²(x); all-zero D² (a corpus of duplicates) degenerates to uniform.
-    Stays on the device: no host sync per step. ``torch.multinomial``
-    takes at most 2**24 rows."""
+    """k-means++ seeding on the device, the JAX package's ``_kpp_init``
+    step for step: keys = split(PRNGKey(seed), k); the first row a
+    categorical draw over uniform logits, each next one over log D²(x) of
+    the rows with D² > 0; all-zero D² (a corpus of duplicates) degenerates
+    to uniform. The JAX package pads x to a block multiple and masks the
+    padding (``valid``); the port has no padding, and a row's draw depends
+    only on its index, so every row draws what it draws there. Stays on
+    the device: no host sync per step."""
     n, d = x.shape
-    g = torch.Generator(device=x.device)
-    g.manual_seed(seed)
+    keys = jrandom.split(jrandom.prng_key(seed, x.device), k)
     xx = row_sqnorms(x)
     cents = torch.empty((k, d), dtype=torch.float32, device=x.device)
+    uniform_logits = torch.zeros(n, dtype=torch.float32, device=x.device)
+    neg_inf = torch.tensor(float("-inf"), device=x.device)
 
     def d2_to(c):  # ‖x−c‖² via the dot trick: one [N] matvec
         return torch.clamp(xx - 2.0 * (x @ c) + (c * c).sum(), min=0.0)
 
-    idx = torch.randint(n, (1,), generator=g, device=x.device)
-    cents[0] = x.index_select(0, idx)[0]
+    idx = jrandom.categorical(keys[0], uniform_logits)
+    cents[0] = x.index_select(0, idx.view(1))[0]
     d2 = d2_to(cents[0])
     for i in range(1, k):
-        w = torch.clamp(d2, min=0.0)
-        w = torch.where(w.sum() > 0, w, torch.ones_like(w))
-        idx = torch.multinomial(w, 1, generator=g)
-        cents[i] = x.index_select(0, idx)[0]
+        logits = torch.where(d2 > 0, torch.log(torch.clamp(d2, min=1e-30)), neg_inf)
+        logits = torch.where((logits > neg_inf).any(), logits, uniform_logits)
+        idx = jrandom.categorical(keys[i], logits)
+        cents[i] = x.index_select(0, idx.view(1))[0]
         d2 = torch.minimum(d2, d2_to(cents[i]))
     return cents
 

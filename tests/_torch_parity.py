@@ -494,7 +494,8 @@ class _SortedList:
 
 
 def flat_scan_emulated(scores, row_ok, max_scans, k, *, query_tile, per, n_splits,
-                       batch=16, seed=0, refresh_every=None, make_list=None):
+                       batch=16, seed=0, refresh_every=None, make_list=None,
+                       flush_min=None, pub_short=0, stats=None):
     """Plain emulation of the flat scan kernel's blocks on a [B, N] score
     matrix: grid (query tiles) x (``n_splits`` splits of ``per`` rows). A
     warp owns a query's list in its block. Per row tile it compares the
@@ -508,8 +509,13 @@ def flat_scan_emulated(scores, row_ok, max_scans, k, *, query_tile, per, n_split
     higher, (t, INT_MAX) as its threshold. The blocks of the grid advance a
     tile at a time in a seeded random order, as concurrent blocks might.
     ``make_list(k)`` builds a list (default ``_SortedList``; the wide mode's
-    ``WideListEmulated``). Returns the [B, S, k] partials the kernel writes
-    (float32 scores, int32 rows)."""
+    ``WideListEmulated``). ``flush_min`` (the bf16 scan's wide mode): at
+    those same tiles, before the floor is read, a list whose buffer holds
+    that many entries or more flushes, raises its threshold and publishes.
+    ``pub_short`` (a mutant): publish the (c - pub_short)-th entry.
+    ``stats`` (a dict) gets the candidates offered, summed in "offered".
+    Returns the [B, S, k] partials the kernel writes (float32 scores, int32
+    rows)."""
     make_list = make_list or _SortedList
     b, n = scores.shape
     rng = np.random.default_rng(seed)
@@ -546,15 +552,28 @@ def flat_scan_emulated(scores, row_ok, max_scans, k, *, query_tile, per, n_split
                              if _beats(v, r, *blk["thr"][i])]
                     if not cands:
                         continue
+                    if stats is not None:
+                        stats["offered"] = stats.get("offered", 0) + len(cands)
                     lst.offer_batch(cands, blk["thr"][i])
                     if _beats(*lst.kth, *blk["thr"][i]):
                         blk["thr"][i] = lst.kth
                     if len(lst.items) >= c:
-                        pub[q, blk["s"]] = max(pub[q, blk["s"]], lst.items[c - 1][0])
+                        pub[q, blk["s"]] = max(pub[q, blk["s"]],
+                                               lst.items[c - 1 - pub_short][0])
             t = blk["t"]
             blk["t"] += 1
             due = ((t & (t + 1)) == 0 or (t & 31) == 31 if refresh_every is None
                    else (t + 1) % refresh_every == 0)
+            if due and flush_min is not None:
+                for i, lst in enumerate(blk["lists"]):
+                    if len(lst.buf) >= flush_min:
+                        lst.flush()
+                        if _beats(*lst.kth, *blk["thr"][i]):
+                            blk["thr"][i] = lst.kth
+                        if len(lst.items) >= c:
+                            q = blk["q0"] + i
+                            pub[q, blk["s"]] = max(pub[q, blk["s"]],
+                                                   lst.items[c - 1 - pub_short][0])
             if due:
                 w0 = max(0, min(blk["s"] // win * win, n_splits - win))
                 for i in range(len(blk["lists"])):

@@ -13,9 +13,14 @@ the JAX package's SQ8 tolerance, rtol 1e-4 / atol 1e-4; see _torch_parity).
 The builds on the card are deterministic: two from one seed give bit-equal
 centroids, codebooks and codes. The bf16 slab modes are held to the same
 tolerance against their plain versions (exact products of bf16 values,
-fp32 sums in another order); scores rounded to bf16 tie more often, so a
-hit may differ there only as a k-th place tie.
+fp32 sums in another order; the flat scan's on the tensor cores, wgmma
+with fp32 accumulation); scores rounded to bf16 tie more often, so a hit
+may differ there only as a k-th place tie.
 """
+
+import re
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -552,9 +557,11 @@ def test_smem_formulas_match_the_library(cuda_device):
                     == fs.list_scan_smem_bytes(k, mode) <= fs.SMEM_LIMIT), (k, mode)
     for k in (1, 10, 64, 100, 128, 129, 512, 10_000, 20_000):
         for tile in (fs.FLAT_QUERY_TILES if k <= fs.NARROW_MAX_K else (fs.FLAT_WIDE_TILE,)):
-            for elem in (4, 2):
-                assert (lib.pyrope_scan_smem_bytes(k, tile, elem)
-                        == fs.flat_scan_smem_bytes(k, tile, elem)), (k, tile, elem)
+            assert (lib.pyrope_scan_smem_bytes(k, tile)
+                    == fs.flat_scan_smem_bytes(k, tile)), (k, tile)
+            for d in (8, 24, 72, 128, 136, 256, 384, 768):   # the bf16 scan's: by D
+                assert (lib.pyrope_flat_tc_smem_bytes(k, tile, d)
+                        == fs.flat_scan_smem_bytes(k, tile, 2, d)), (k, tile, d)
     assert fs.list_scan_smem_bytes(10, fs.LIST_IVF) == 114_944   # two blocks an SM
     assert fs.list_scan_refusal(20_000, fs.LIST_IVF) is None
     assert fs.list_scan_refusal(0, fs.LIST_IVF) is not None
@@ -974,3 +981,70 @@ def test_merge_wide_gather_and_in_place_paths_vs_plain(cuda_device, k, width, s)
     assert fs.LAUNCHES["merge_wide"] == before + 1
     np.testing.assert_array_equal(ki.cpu().numpy(), mi.numpy())
     np.testing.assert_array_equal(kv.cpu().numpy(), mv.numpy())
+
+
+# ---- the bf16 flat scan on the tensor cores (csrc/flat_scan_tc.cu) ----------
+
+TC_DS = [8, 24, 72, 128, 136, 768]   # TMA (D % 8 == 0) with a depth tail; q streamed at 768
+TC_BS = [1, 63, 64, 65, 1000]        # the 64-query block, the 128-query one, padding queries
+TC_KS = [1, 10, 32, 128, 129, 512]   # register lists (<= 32), shared-memory lists, wide
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", TC_DS)
+@pytest.mark.parametrize("b", TC_BS)
+def test_flat_tc_shapes_vs_plain(cuda_device, d, b):
+    """Every k of TC_KS in both metrics, 10% dead rows, max_scans cut
+    inside a row tile: the plain version's hits but for k-th place ties."""
+    n = 6_001
+    q, x, sq, alive = _bf16_flat_inputs(cuda_device, 300 + d, n, b, d, dead=0.1)
+    ms = n - 77
+    for k in TC_KS:
+        key = "flat_scan_bf16_wide" if k > fs.NARROW_MAX_K else "flat_scan_bf16"
+        for metric in (Metric.L2, Metric.INNER_PRODUCT):
+            before = fs.LAUNCHES[key]
+            kv, ki = fs.fused_flat_topk(q, x, sq, alive, ms, k, metric)
+            assert fs.LAUNCHES[key] == before + 1
+            pv, pi = fs.fused_flat_topk_plain(q, x, sq, alive, ms, k, metric)
+            torch.cuda.synchronize()
+            assert_hits_but_kth_ties(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+            assert (ki[:, :min(k, ms)] < ms).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 136, 768])
+@pytest.mark.parametrize("k", [10, 512])
+def test_flat_tc_unaligned_base_and_bit_equal_launches(cuda_device, d, k):
+    """A slab whose base is not 16-byte aligned is staged by plain loads
+    into the layout TMA writes: the same products in the same order, so the
+    same hits bit for bit; and repeated launches of either are bit-equal."""
+    n, b = 9_000, 130
+    q, x, sq, alive = _bf16_flat_inputs(cuda_device, 61, n, b, d, dead=0.05)
+    xo = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
+    xo = xo.view_as(x).copy_(x)
+    assert xo.data_ptr() % 16 != 0 and xo.is_contiguous()
+    runs = [fs.fused_flat_topk(q, slab, sq, alive, n, k) for slab in (x, x, xo, xo)]
+    torch.cuda.synchronize()
+    for v, i in runs[1:]:
+        assert torch.equal(v, runs[0][0]) and torch.equal(i, runs[0][1])
+    pv, pi = fs.fused_flat_topk_plain(q, x, sq, alive, n, k)
+    assert_hits_but_kth_ties(runs[0][0].cpu(), runs[0][1].cpu(), pv.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+def test_bf16_flat_scan_runs_on_wgmma(cuda_device):
+    """The built library's SASS: every instantiation of the bf16 flat scan
+    issues HGMMA, and the fp32 scan's fused_scan_kernel has no bf16 (or any
+    type-parameterised) instantiation left."""
+    from pyrope_tpu_torch.kernels.build import library_path, load
+
+    load()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = {part.split()[0]: part for part in re.split(r"Function : ", sass)[1:]}
+    tc = [body for name, body in funcs.items() if "flat_scan_tc_kernel" in name]
+    assert len(tc) == 6 and all("HGMMA.64x128x16.F32.BF16" in body for body in tc)
+    fused = [name for name in funcs if "fused_scan_kernel" in name]
+    assert len(fused) == 6   # <64|128, IP> and the wide <64, IP>, fp32 only
+    assert all(re.search(r"fused_scan_kernelI(?:L[a-z]+\d+E)+E", name) for name in fused)

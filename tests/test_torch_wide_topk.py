@@ -105,6 +105,58 @@ def test_flat_scan_wide_blocks_merge_to_the_plain_top_k(k):
     np.testing.assert_array_equal(mi.numpy(), pos[:, :k].int().numpy())
 
 
+def _flat_wide_run(scores, ok, k, per, n_splits, **kw):
+    """The flat scan's wide blocks as the bf16 scan runs them (32
+    candidates an offer, buffers of TC_FLUSH_MIN flushed at the floor's
+    tiles), merged; and the plain top-k."""
+    pv, pi = flat_scan_emulated(scores, ok, scores.shape[1], k, query_tile=fs.FLAT_WIDE_TILE,
+                                per=per, n_splits=n_splits, batch=32,
+                                make_list=lambda kw_: WideListEmulated(kw_, fs.FLAT_WIDE_CAP),
+                                **kw)
+    mv, mi = fs.merge_partials_plain(pv.permute(1, 0, 2), pi.permute(1, 0, 2))
+    sc = torch.where(ok[None, :], scores, float("-inf"))
+    wv, pos = torch.sort(sc, dim=1, descending=True, stable=True)
+    return (mv.numpy(), mi.numpy()), (wv[:, :k].numpy(), pos[:, :k].int().numpy())
+
+
+@pytest.mark.parametrize("k", [129, 200, 500])
+def test_flat_tc_wide_flushes_at_the_floor_tiles(k):
+    """Flushing the buffers at the floor's tiles so each split publishes a
+    fresh c-th entry keeps the plain top-k, and offers fewer candidates."""
+    rng = np.random.default_rng(k)
+    scores = torch.from_numpy(rng.integers(0, 60, (4, 9000)).astype(np.float32))
+    ok = torch.from_numpy(rng.random(9000) > 0.05)
+    offered = []
+    for flush_min in (fs.TC_FLUSH_MIN, None):
+        stats = {}
+        got, want = _flat_wide_run(scores, ok, k, 1024, 9, seed=k, flush_min=flush_min,
+                                   stats=stats)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        offered.append(stats["offered"])
+    assert offered[0] < offered[1]
+
+
+def test_flat_tc_wide_floor_one_short_drops_a_hit():
+    """The mutant that publishes each split's (c-1)-th entry: every split
+    holds 16 of the 144 hits, its 16th late in the split, and a floor of
+    9 splits' 15th entries drops it."""
+    per, n_splits, k = 1024, 9, 144
+    assert fs.flat_floor(k, n_splits, k) == (16, 9)
+    rng = np.random.default_rng(3)
+    sc = rng.random((2, per * n_splits)) * 100
+    for s in range(n_splits):
+        sc[:, s * per:s * per + 15] = 1001 + rng.random((2, 15)) * 10
+        sc[:, s * per + 1000] = 1000.5 + 0.01 * s
+    scores = torch.from_numpy(sc.astype(np.float32))
+    ok = torch.ones(scores.shape[1], dtype=torch.bool)
+    got, want = _flat_wide_run(scores, ok, k, per, n_splits, flush_min=fs.TC_FLUSH_MIN)
+    np.testing.assert_array_equal(got[1], want[1])
+    got, want = _flat_wide_run(scores, ok, k, per, n_splits, flush_min=fs.TC_FLUSH_MIN,
+                               pub_short=1)
+    assert not np.array_equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("k,seg", [(200, 256), (1000, 256), (300, 2048)])
 def test_list_scan_wide_slots_merge_to_the_plain_scan(k, seg):
     """Slots of min(k, seg, max_len) entries, each filled by a wide list,
@@ -133,10 +185,11 @@ def test_flat_tile_fits_every_k():
         for b in (1, 64, 65, 1024):
             for elem in (4, 2):
                 tile, smem = fs.flat_tile(128, k, b, elem)
-                assert smem == fs.flat_scan_smem_bytes(k, tile, elem) <= fs.SMEM_LIMIT
+                assert smem == fs.flat_scan_smem_bytes(k, tile, elem, 128) <= fs.SMEM_LIMIT
                 assert tile == fs.FLAT_WIDE_TILE if k > fs.NARROW_MAX_K else tile in (64, 128)
     assert fs.flat_tile(128, 129, 1024) == (64, 182_784)
-    assert fs.flat_tile(128, 10_000, 1024, 2) == (64, 199_168)
+    # the bf16 scan's wide block: a 4-stage ring of 16 KB tiles, q resident
+    assert fs.flat_tile(128, 10_000, 1024, 2) == (64, 219_720)
 
 
 @pytest.mark.parametrize("mode", [fs.LIST_IVF, fs.LIST_SQ8, fs.LIST_BF16])
