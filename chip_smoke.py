@@ -40,14 +40,24 @@ non-zero. Each serving path's wall time and the total are printed:
                b1024), bf16 without promote at 100k np96 b256 k 512, with
                promote at 1M np3 b64 k 200, SQ8 at 100k np96 b1024 k 200; the
                wide merge on the flat path's [1024, 33, 1000] and on the list
-               scan's slots; and the list scan at D 768 (1M clustered rows,
+               scan's slots; the wide modes' first pass alone against its
+               plain version (the fp32 flat scan's at b1024 k 1000 and b64
+               k 10,000, the list scan's at 100k np96 b1024 k 1000 and bf16
+               b256 k 512; floors' scores to the fp32 tolerance) and the
+               floor select (bit-equal, beside torch.kthvalue); each wide
+               case's device time split into first pass, floor select,
+               second pass and merge where the first pass ran, and the real
+               entries a query's splits hold (the wide flat scan); and the
+               list scan at D 768 (1M clustered rows,
                nlist 1000, np3, b1024, k 10), IVF and SQ8 modes. Each row
                adds its device time from torch.profiler (the scans split
                into scan and merge, the merges beside torch.topk's), and
                each wide list scan the mean real entries a query's partial
                slots hold after the scan; the library call (the bare
                product, q @ x.T or q16 @ x16.T) beside every flat and
-               fp32 or bf16 list-scan row that has one. Last, k-means++
+               fp32 or bf16 list-scan row that has one, and torch.topk
+               alone on the masked scores beside the wide list scan's
+               layout A (100k, np96, b1024, k 1000). Last, k-means++
                (jax.random's draws, ops/jrandom.py) on the card and on the
                CPU from one seed: the rows both pick, printed
   4. slice     create_index(IVF_FLAT, nlist 1000, nprobe 3, dense) on 1M x
@@ -113,7 +123,10 @@ The kernels' launch counters are zeroed before each serving path (phases
 4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-14, one path
 each) and read after it: every kernel of a path must have run on it, the
 wide modes (the ``_wide`` counters) on the paths that ask for k > 128 or
-R > 128. The last three lines are the
+R > 128, and the wide modes' first pass and floor select
+(``flat_scan_prefloor``, ``list_scan_prefloor``, ``floor_select``) on the
+IVF-Flat path (phase 5 at k 200, nprobe 96; phase 6 at k 200) and the IVF-Flat
+hybrid path (phase 11 at R 512, nprobe 96). The last three lines are the
 kernels' JSON record, the card as nvidia-smi names it, and
 {"ok": true, "device": {...}}.
 """
@@ -121,6 +134,7 @@ kernels' JSON record, the card as nvidia-smi names it, and
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -154,6 +168,7 @@ K = 10
 SOURCE = "pyrope_tpu_torch/csrc/fused_scan.cu"
 TC_SOURCE = "pyrope_tpu_torch/csrc/flat_scan_tc.cu"
 LIST_SOURCE = "pyrope_tpu_torch/csrc/ivf_list_scan.cu"
+PREFLOOR_SOURCE = "pyrope_tpu_torch/csrc/prefloor.cu"
 PALLAS = "pyrope_tpu/ops/pallas_scan.py"
 
 
@@ -283,8 +298,11 @@ def device_shares(fn, iters: int) -> dict:
 
 def device_split(fn, calls: int = 5) -> dict:
     """Device time a call of ``fn`` (a torch.profiler trace of ``calls``
-    calls after one warm-up), in all and by kind: the list scan, the merges,
-    the rest. Empty where the profiler records no device time."""
+    calls after one warm-up), in all and by kind: the scans, the merges,
+    the rest; where a call runs a wide scan and a narrow one, the narrow
+    launch is the wide mode's first pass (``pass1_ms``) and the floor
+    select (``select_ms``) is apart. Empty where the profiler records no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -293,17 +311,52 @@ def device_split(fn, calls: int = 5) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    split = {"device_ms": 0.0, "scan_ms": 0.0, "merge_ms": 0.0}
+    split = {"device_ms": 0.0, "scan_ms": 0.0, "merge_ms": 0.0, "pass1_ms": 0.0,
+             "select_ms": 0.0}
+    narrow = 0.0
+    wide = False
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = e.time_range.elapsed_us() / calls / 1e3
         split["device_ms"] += ms
-        if "scan" in e.name:   # list_scan, fused_scan, flat_scan_tc
-            split["scan_ms"] += ms
+        if "floor_select" in e.name:
+            split["select_ms"] += ms
+        elif "scan" in e.name:   # list_scan, fused_scan, flat_scan_tc
+            m = re.search(r"(list_scan|scan(?:_tc)?)_kernel<([^>]*)>", e.name)
+            args = m.group(2).replace(" ", "").split(",") if m else []
+            # <MODE, WIDE>; <BT, IP, WIDE[, CAP]>; <NC, IP, WIDE>
+            if m and args[1 if m.group(1) == "list_scan" else 2] == "false":
+                narrow += ms
+            else:
+                wide |= m is not None
+                split["scan_ms"] += ms
         elif "merge" in e.name:
             split["merge_ms"] += ms
+    split["pass1_ms" if wide else "scan_ms"] += narrow
     return split if split["device_ms"] > 0 else {}
+
+
+def flat_entries(fn) -> float:
+    """Mean real entries a query's splits hold after a wide flat scan (the
+    partials its merge reads: the fp32 lists' fill counts, the bf16 ones'
+    entries before their pads), off one call of ``fn``."""
+    seen = []
+    launch = fs._merge_launch
+
+    def counting(part_v, part_i, s, b, k, qend, *rest):
+        if qend is None:
+            fills = rest[-1] if len(rest) == 5 else None
+            real = fills.sum() if fills is not None else torch.isfinite(part_v).sum()
+            seen.append(float(real) / max(b, 1))
+        return launch(part_v, part_i, s, b, k, qend, *rest)
+
+    fs._merge_launch = counting
+    try:
+        fn()
+    finally:
+        fs._merge_launch = launch
+    return seen[-1] if seen else 0.0
 
 
 def slot_entries(partials) -> float:
@@ -433,6 +486,24 @@ def list_bound(x_bytes_per_row, q, probe, lens, alive, crow, kp, k, extra=0,
                  2.0 * d * pairs, rate)
 
 
+def sample_bound(x_bytes_per_row, q, probe, lay, alive, kp, seg, sample, rate):
+    """Bound of the list scan's first pass on these inputs: the first
+    ``sample`` rows of each ``seg``-row segment of each probed list read
+    once, the (query, sampled alive row) pairs' FMAs, the [B] keys out."""
+    crow, offs, lens, _ = lay
+    b, d = q.shape
+    local = torch.arange(crow.shape[0], device=q.device) - offs[crow.long()]
+    taken = (local % seg) < sample
+    rows_c = torch.zeros(kp, device=q.device).index_add_(0, crow.long(), taken.float())
+    alive_c = torch.zeros(kp, device=q.device).index_add_(0, crow.long(),
+                                                          (taken & alive).float())
+    used = torch.zeros(kp, dtype=torch.bool, device=q.device)
+    used[probe.reshape(-1).long()] = True
+    pairs = float(alive_c[probe.long()].sum())
+    return bound(float(rows_c[used].sum()) * x_bytes_per_row + b * d * 4 + probe.numel() * 8
+                 + b * 8, 2.0 * d * pairs, rate)
+
+
 def phase_kernels(dev) -> dict:
     """Kernel vs plain at the main path's shapes, and the list scan's edge
     cases. Returns the JSON record's measured fields per kernel."""
@@ -447,13 +518,14 @@ def phase_kernels(dev) -> dict:
            for kind in ("flat", "ivf", "sq8", "merge", "flat_bf16", "ivf_bf16", "ivf_bf16p",
                         "flat_wide", "flat_bf16_wide", "ivf_wide", "ivf_bf16_wide",
                         "ivf_bf16p_wide", "sq8_wide", "ivf_large_d", "sq8_large_d",
-                        "merge_wide")}
+                        "merge_wide", "flat_prefloor", "list_prefloor", "floor_select")}
     cells = []
 
     def case(kind, name, kern, plain, reps=10, plain_reps=3, main=False, comp=None,
-             bnd=None, lib=None, slots=None):
+             bnd=None, lib=None, slots=None, entries=None):
         """``slots``: the list scan alone (``fs.list_partials``) on the same
-        inputs, for the real entries its slots hold."""
+        inputs, for the real entries its slots hold; ``entries``: the same
+        count read another way (``flat_entries``)."""
         err, swaps = compare(kern(), plain(), name,
                              SQ8_RTOL if kind.startswith("sq8") else RTOL)
         rec[kind]["err"] = max(rec[kind]["err"], err)
@@ -474,7 +546,11 @@ def phase_kernels(dev) -> dict:
         split = device_split(kern)
         if split:
             cell += f"/device {split['device_ms']:.4f}ms"
-            if not kind.startswith("merge"):
+            if split["pass1_ms"]:
+                cell += (f" (first pass {split['pass1_ms']:.4f} floor select "
+                         f"{split['select_ms']:.4f} second pass {split['scan_ms']:.4f} "
+                         f"merge {split['merge_ms']:.4f})")
+            elif not kind.startswith("merge"):
                 cell += f" (scan {split['scan_ms']:.4f} merge {split['merge_ms']:.4f})"
         if kind.startswith("merge") and comp is not None:
             csplit = device_split(comp)
@@ -484,6 +560,8 @@ def phase_kernels(dev) -> dict:
             rec[kind]["device_ms"] = split.get("device_ms")
         if slots is not None:
             cell += f"/slot entries {slot_entries(slots()):.1f}"
+        if entries is not None:
+            cell += f"/split entries {entries():.1f}"
         cells.append(cell)
 
     rows = torch.arange(n, device=dev)
@@ -690,14 +768,20 @@ def phase_kernels(dev) -> dict:
              reps=5, plain_reps=2, main=main, bnd=bnd, lib=lambda: qlib @ xs.T,
              comp=lambda: composition_topk(l2_or_ip(
                  qv, (qv.bfloat16().float() @ xs.float().T) if bf else qv @ xs.T, sq, False),
-                 alive[None, :], k))
+                 alive[None, :], k),
+             entries=lambda: flat_entries(lambda: fs.fused_flat_topk(qv, xs, sq, alive, n, k)))
     # layout B (about 3 queries a cluster) and layout A (~980 a cluster) at k 1000
     ivf_case("ivf_wide_1M_nlist1000_np3_b1024_k1000", q, x, sq, alive, lay, kp, p_main,
              k=1000, main=True, reps=5, comp=True, kind="ivf_wide", lib=lambda: q @ x.T)
     q5 = q2[:1024].contiguous()
     p5 = probes(1024, kp2, 96, g, dev)
+    # torch.topk alone on the masked scores, computed once, beside it
+    masked5 = torch.where(fs.probe_table(p5, kp2)[:, lay2[0].long()] & alive2[None, :],
+                          l2_or_ip(q5, q5 @ x2.T, sq2, False), float("-inf"))
     ivf_case("ivf_wide_100k_nlist100_np96_b1024_k1000", q5, x2, sq2, alive2, lay2, kp2, p5,
-             k=1000, reps=5, comp=True, kind="ivf_wide")
+             k=1000, reps=5, comp=True, kind="ivf_wide",
+             lib=lambda: torch.topk(masked5, 1000, dim=1))
+    del masked5
     # the IVF-Flat hybrid's shortlist scan at k 100 (R 512), no promote
     bnd = list_bound(d * 2 + 5, q3, p3, lay2[2], alive2, lay2[0], kp2, 512, rate=BF16_FLOP_S)
     rec["ivf_bf16_wide"]["bound"] = bnd
@@ -728,7 +812,72 @@ def phase_kernels(dev) -> dict:
                                         False, lay[3], promote=True))
     sq8_case("sq8_wide_100k_nlist100_np96_b1024_k200", q5, x2, alive2, lay2, kp2, p5,
              k=200, main=True, reps=5, comp=True, kind="sq8_wide")
+
+    # the wide modes' first pass alone, each against its plain version (the
+    # floors' scores to the fp32 tolerance: the plain scores sum in another
+    # order), and the floor select: the fp32 flat scan's at b1024 k1000 and
+    # b64 k10,000, the list scan's at 100k np96 b1024 k1000 (layout A) and
+    # bf16 b256 k512 (the IVF hybrid's R 512)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    as_hits = lambda f: (f[:, None], torch.zeros((f.shape[0], 1), dtype=torch.int32,
+                                                 device=dev))
+    for bv, k in ((b, 1000), (64, 10_000)):
+        qv = q[:bv].contiguous()
+        plan = fs.flat_prefloor_plan(k, bv, d, n, sms)
+        require(plan is not None, f"no first pass at b{bv} k{k}")
+        sampled = torch.zeros(n, dtype=torch.bool, device=dev)
+        for s0 in range(plan.splits):
+            sampled[s0 * plan.per:s0 * plan.per + plan.rows] = True
+        bnd = bound(int(sampled.sum()) * (d * 4 + 5) + bv * d * 4 + bv * 4,
+                    2.0 * bv * int((sampled & alive).sum()) * d)
+        if bv == b:
+            rec["flat_prefloor"]["bound"] = bnd
+        case("flat_prefloor", f"flat_first_pass_1M_b{bv}_k{k}_c{plan.c}_g{plan.g}"
+             f"_rows{plan.rows}of{plan.per}",
+             lambda: as_hits(fs.flat_prefloor(qv, x, sq, alive, n, plan)),
+             lambda: as_hits(fs.flat_prefloor_plain(qv, x, sq, alive, n, plan)),
+             reps=5, plain_reps=2, main=bv == b, bnd=bnd)
+    seg5 = fs.list_seg(1024, 96, kp2, lay2[3], sms)
+    for name, qv, xv, k, bf in (("100k_np96_b1024_k1000", q5, x2, 1000, False),
+                                ("bf16_100k_np96_b256_k512", q3, x2_16, 512, True)):
+        pv_ = p5 if qv is q5 else p3
+        keys, plan = fs.list_prefloor(qv, xv, sq2, alive2, lay2[1], lay2[2], pv_, kp2, k,
+                                      False, lay2[3])
+        require(plan is not None, f"no list first pass at {name}")
+        qd = qv.bfloat16().float() if bf else qv
+        scores = l2_or_ip(qv, qd @ xv.float().T, sq2, False)
+        seg = fs.list_seg(qv.shape[0], 96, kp2, lay2[3], sms)
+        bnd = sample_bound(d * (2 if bf else 4) + 5, qv, pv_, lay2, alive2, kp2, seg,
+                           plan.sample, BF16_FLOP_S if bf else FP32_FLOP_S)
+        if not bf:
+            rec["list_prefloor"]["bound"] = bnd
+        case("list_prefloor", f"list_first_pass_{name}_c{plan.c}_g{plan.g}_rows{plan.sample}",
+             lambda: as_hits(fs.entry_of(fs.list_prefloor(
+                 qv, xv, sq2, alive2, lay2[1], lay2[2], pv_, kp2, k, False, lay2[3])[0])[0]),
+             lambda: as_hits(fs.entry_of(fs.list_prefloor_plain(
+                 scores, alive2, lay2[0], lay2[1], lay2[2], pv_, seg, plan))[0]),
+             reps=5, plain_reps=1, main=not bf, bnd=bnd)
+        del scores
     del x16, x2_16
+    # the floor select alone: the flat first pass's [1024, 33] published
+    # scores (g 28), and the list scan's 96 slot keys a query (g 72)
+    plan = fs.flat_prefloor_plan(1000, b, d, n, sms)
+    pubf = torch.rand((b, plan.splits), generator=g, device=dev)
+    pubf[:, ::7] = float("-inf")
+    bnd = bound(b * plan.splits * 4 + b * 4, 0.0)
+    rec["floor_select"]["bound"] = bnd
+    case("floor_select", f"floor_select_flat_b1024_{plan.splits}splits_g{plan.g}",
+         lambda: as_hits(fs.floor_select(pubf, plan.g)),
+         lambda: as_hits(fs.floor_select_plain(pubf, plan.g)), reps=20, plain_reps=10,
+         main=True, bnd=bnd,
+         lib=lambda: torch.kthvalue(pubf, plan.splits - plan.g + 1, dim=1))
+    keys5 = fs.key_of(torch.rand((b * 96,), generator=g, device=dev),
+                      torch.randperm(b * 96, device=dev).int())
+    qend5 = (torch.arange(1, b + 1, device=dev, dtype=torch.int32) * 96).view(b, 1)
+    case("floor_select", "floor_select_list_b1024_96slots_g72",
+         lambda: as_hits(fs.entry_of(fs.floor_select(keys5, 72, qend5))[0]),
+         lambda: as_hits(fs.entry_of(fs.floor_select_plain(keys5, 72, qend5))[0]),
+         reps=20, plain_reps=10, bnd=bound(b * 96 * 8 + b * 8, 0.0))
 
     # the merge alone, on partials of the slice's shape: each query's slots
     # (its lists' segments) from the list scan's inversion of the main probes
@@ -1378,13 +1527,15 @@ def main() -> int:
 
     paths = {name: run_path(name, fn, kernels) for name, fn, kernels in (
         ("IVF-Flat", ivf_flat, ("flat_scan", "ivf_scan", "merge", "flat_scan_wide",
-                                "ivf_scan_wide", "merge_wide")),
+                                "ivf_scan_wide", "merge_wide", "flat_scan_prefloor",
+                                "list_scan_prefloor", "floor_select")),
         ("IVF-PQ", ivf_pq, ("sq8_scan", "ivf_scan", "merge", "sq8_scan_wide", "merge_wide")),
         ("flat bf16", lambda: phase_flat_bf16(dev, uniform), ("flat_scan_bf16", "merge")),
         ("flat hybrid", lambda: phase_flat_hybrid(dev, uniform),
          ("flat_scan_bf16", "flat_scan", "merge")),
         ("IVF-Flat hybrid", lambda: phase_ivf_hybrid(dev, uniform),
-         ("ivf_scan_bf16", "ivf_scan", "merge", "ivf_scan_bf16_wide", "merge_wide")),
+         ("ivf_scan_bf16", "ivf_scan", "merge", "ivf_scan_bf16_wide", "merge_wide",
+          "list_scan_prefloor", "floor_select")),
         ("IVF-PQ bf16", lambda: phase_pq_bf16(dev, data),
          ("ivf_scan_bf16", "merge", "ivf_scan_bf16_wide", "merge_wide")),
         ("flat hybrid k100", lambda: phase_flat_hybrid_k100(dev, uniform),
@@ -1440,6 +1591,12 @@ def main() -> int:
               f"{PALLAS}:1035, {PALLAS}:992, {PALLAS}:49", large_d),
         entry("merge_wide_kernel", "merge_wide", SOURCE,
               f"{PALLAS}:401, {PALLAS}:642, {wide}", launches["merge_wide"]),
+        entry("fused_scan_kernel<narrow> first pass", "flat_prefloor", SOURCE,
+              f"{PALLAS}:672, {wide}", launches["flat_scan_prefloor"]),
+        entry("ivf_list_scan_kernel<narrow> first pass", "list_prefloor", LIST_SOURCE,
+              f"{PALLAS}:1035, {PALLAS}:1204, {wide}", launches["list_scan_prefloor"]),
+        entry("floor_select_kernel", "floor_select", PREFLOOR_SOURCE,
+              f"{PALLAS}:672, {PALLAS}:1035, {wide}", launches["floor_select"]),
     ]
     say("time", total_seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}))

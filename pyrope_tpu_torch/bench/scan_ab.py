@@ -41,15 +41,28 @@ case: the library call, which keeps no row order at ties):
   (large D), merge_flat_splits_b1024_k1000, merge_flat8_b1024_k1000 (the
   wide flat scan's 8 splits),
   merge_wide_slots_b1024_k1000 (the list scan's layout at nprobe 96: 96 slots
-  a query, 1000 entries a slot) beside topk_wide_slots_b1024_k1000
+  a query, 1000 entries a slot) beside topk_wide_slots_b1024_k1000, and two
+  serving paths end to end, one b256 device_search at k 100:
+  e2e_ivf100k_np96_hybrid_b256_k100 (chip_smoke phase 11's index) and
+  e2e_flat1m_hybrid_b256_k100 (phase 13's)
 
     --cases '_bf16_|_fp32_'    # the bf16 modes beside fp32 at their shapes
     --cases '_wide_'           # the wide modes
 
 With ``--trace`` each case's record also splits its device time by kind
-(``split``: the list scan, the merges, the flat scan, the rest), and each
-list-scan case reports ``slot_entries``: the mean real entries a query's
-partial slots hold after the scan (read off one more call).
+(``split``: the list scan, the merges, the flat scan, the rest; where the
+tree has the wide modes' first pass, the scans' narrow and wide launches
+apart, ``scan_narrow`` being the first pass in a wide case, and the floor
+select), and each list-scan and wide flat case reports ``slot_entries``:
+the mean real entries a query's partial slots (or the wide flat scan's
+splits) hold after the scan (read off one more call).
+
+``--sweep SPEC`` (trees with the first pass) adds, for each wide fp32 flat
+and wide list case, one run a variant of SPEC: variants are separated by
+``;``, each ``off`` (the first pass off) or settings of ``ops/fused_scan``
+constants joined by ``+`` (``FLAT_PREFLOOR_RATIO=5+FLAT_PREFLOOR_WAVES=1``),
+and the run is named ``<case>@<variant>``: the measurement the first
+pass's rules were chosen by.
 
 Prints one JSON object per worker and writes all of them to ``--out``;
 every record names the card and its power limit.
@@ -58,6 +71,7 @@ every record names the card and its power limit.
 from __future__ import annotations
 
 import argparse
+import ast
 import json
 import os
 import re
@@ -67,6 +81,21 @@ import sys
 from pathlib import Path
 
 K = 10
+
+
+def _kind(name: str) -> str:
+    """A kernel's kind for the device split: the scans' narrow and wide
+    launches apart (a wide scan's narrow launch is its first pass), the
+    floor select, the merges, the rest."""
+    m = re.search(r"(ivf_list_scan|fused_scan)_kernel<([^>]*)>", name)
+    if m:   # <MODE, WIDE> and <BT, IP, WIDE[, CAP]>
+        base = "list_scan" if m.group(1) == "ivf_list_scan" else "fused_scan"
+        wide = m.group(2).replace(" ", "").split(",")[1 if base == "list_scan" else 2]
+        return f"{base}_{'wide' if wide == 'true' else 'narrow'}"
+    for kind in ("floor_select", "merge", "list_scan", "fused_scan"):
+        if kind in name:
+            return kind
+    return "other"
 
 
 def _kernel_shares(fn, calls: int = 5) -> dict:
@@ -81,14 +110,16 @@ def _kernel_shares(fn, calls: int = 5) -> dict:
             fn()
         torch.cuda.synchronize()
     by_name: dict[str, float] = {}
+    full: dict[str, float] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name[:50]] = by_name.get(e.name[:50], 0.0) + e.time_range.elapsed_us()
+            full[e.name] = full.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     split: dict[str, float] = {}
-    for name, us in by_name.items():
-        kind = next((k for k in ("list_scan", "merge", "fused_scan") if k in name), "other")
+    for name, us in full.items():
+        kind = _kind(name)
         split[kind] = split.get(kind, 0.0) + us / calls / 1e3
     return {"device_ms_per_call": round(busy / calls / 1e3, 4),
             "split": {kind: round(ms, 5) for kind, ms in split.items()},
@@ -97,7 +128,22 @@ def _kernel_shares(fn, calls: int = 5) -> dict:
             "kernel_ms_per_call": {n: round(us / calls / 1e3, 5) for n, us in top}}
 
 
-def _worker(reps: int, trace: bool, cases: str) -> dict:
+def _variants(spec: str) -> list[tuple[str, dict | None]]:
+    """``--sweep``'s variants: (name, {constant: value}), None for off."""
+    out = []
+    for var in filter(None, (v.strip() for v in spec.split(";"))):
+        if var == "off":
+            out.append((var, None))
+            continue
+        sets = {}
+        for item in var.split("+"):
+            key, val = item.split("=")
+            sets[key.strip()] = ast.literal_eval(val.strip())
+        out.append((var, sets))
+    return out
+
+
+def _worker(reps: int, trace: bool, cases: str, sweep: str = "") -> dict:
     import torch
 
     from pyrope_tpu_torch.kernels import build as kbuild
@@ -140,14 +186,41 @@ def _worker(reps: int, trace: bool, cases: str) -> dict:
         return merge(part_v, part_i, qend, k)
 
     fs.merge_partials = merge_counting
+    merge_launch = fs._merge_launch
+
+    def merge_launch_counting(part_v, part_i, s, b, k, qend, *rest):
+        if counting[0] is not None and qend is None and k > fs.NARROW_MAX_K:
+            fills = rest[-1] if len(rest) == 5 else None   # trees that write fill counts
+            real = fills.sum() if fills is not None else torch.isfinite(part_v).sum()
+            filled[counting[0]] = round(float(real) / max(b, 1), 1)
+        return merge_launch(part_v, part_i, s, b, k, qend, *rest)
+
+    fs._merge_launch = merge_launch_counting
+    prefloor = hasattr(fs, "FLAT_PREFLOOR_RATIO")
 
     def case(name, fn):
         if not re.search(cases, name):
             return
+        run(name, fn)
+        if not (sweep and prefloor and re.search(r"^(flat|ivf|sq8)_(bf16_)?wide_", name)
+                and not name.startswith("flat_bf16")):
+            return
+        for var, sets in _variants(sweep):
+            names = ["flat_prefloor_plan", "list_prefloor_plan"] if sets is None else sets
+            saved = {key: getattr(fs, key) for key in names}
+            for key in names:
+                setattr(fs, key, (lambda *a: None) if sets is None else sets[key])
+            try:
+                run(f"{name}@{var}", fn)
+            finally:
+                for key, val in saved.items():
+                    setattr(fs, key, val)
+
+    def run(name, fn):
         res[name] = timed(fn)
         if trace:
             traces[name] = _kernel_shares(fn)
-            if name.startswith(("ivf_", "sq8_")):
+            if name.startswith(("ivf_", "sq8_")) or "_wide_" in name:
                 counting[0] = name
                 fn()
                 counting[0] = None
@@ -266,6 +339,28 @@ def _worker(reps: int, trace: bool, cases: str) -> dict:
             q7, x7, sq7, alive, crow, offs, lens, probe, 1000, K, max_len=ml))
         del x7
 
+    if "merge_wide" in fs.LAUNCHES:
+        # end to end: the serving paths that reach the wide modes, a batch
+        # of device_search (host work included: CUDA events around a call)
+        from pyrope_tpu_torch.index.flat import FlatIndex
+        from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex
+        from pyrope_tpu_torch.utils.datasets import synthetic, synthetic_queries
+
+        q256 = torch.from_numpy(synthetic_queries(256, d)).to(dev)
+        if re.search(cases, "e2e_ivf100k_np96_hybrid_b256_k100"):
+            small = synthetic(100_000, d)   # phase 11's ivf100k_np96_hybrid_b256
+            ix = IvfFlatIndex(d, "L2", device=dev, nlist=100, nprobe=96, selection="hybrid")
+            ix.add_batch([str(i) for i in range(len(small))], small)
+            ix.build()
+            case("e2e_ivf100k_np96_hybrid_b256_k100", lambda: ix.device_search(q256, 100))
+            del ix, small
+        if re.search(cases, "e2e_flat1m_hybrid_b256_k100"):
+            big = synthetic(1_000_000, d)   # phase 13's flat1m_hybrid_k100
+            fx = FlatIndex(d, "L2", device=dev, selection="hybrid")
+            fx.add_batch([str(i) for i in range(len(big))], big)
+            case("e2e_flat1m_hybrid_b256_k100", lambda: fx.device_search(q256, 100))
+            del fx, big
+
     def merge_cases(name, lists, k):
         """``lists`` sorted lists a query, as [S, B, k] and as per-query
         slots, beside torch.topk over the same [B, lists * k] candidates."""
@@ -312,10 +407,12 @@ def main() -> int:
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--cases", default="", help="regular expression over case names")
     ap.add_argument("--out", default="build/scan_ab.json")
+    ap.add_argument("--sweep", default="",
+                    help="variants of the first pass's constants for the wide cases")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(_worker(args.reps, args.trace, args.cases)))
+        print(json.dumps(_worker(args.reps, args.trace, args.cases, args.sweep)))
         return 0
     if len(args.tree) < 2:
         ap.error("give two or more --tree directories")
@@ -328,7 +425,8 @@ def main() -> int:
         env["PYTHONPATH"] = str(tree)
         cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
                "--reps", str(args.reps), "--cases", args.cases] + (
-                   ["--trace"] if args.trace else [])
+                   ["--trace"] if args.trace else []) + (
+                   ["--sweep", args.sweep] if args.sweep else [])
         proc = subprocess.run(cmd, cwd=tree, env=env, capture_output=True, text=True,
                               timeout=900)
         if proc.returncode != 0:

@@ -18,6 +18,8 @@ constexpr int FLOOR_BATCH = 4;   // queries whose published scores load together
 constexpr int WIN = 32;          // splits whose published entries a warp reads
 constexpr int WIDE_BT = 64;      // the wide mode's query tile
 constexpr int FLAT_CAP = 256;    // the wide mode's candidate buffer, a query
+constexpr int FLAT_SMALL_CAP = 64;  // the fp32 wide mode's, behind a first pass's
+                                    // floor: two blocks an SM
 
 // The insertion path, out of line: the epilogue's offer sites hold a call
 // each, not the insertion's code. Offers every lane's (v, r) to one list

@@ -121,9 +121,28 @@
 // block an SM, so the wrapper's grid is one wave (ops/fused_scan._splits).
 // The epilogue, its vote, the threshold and the shared floor are the
 // narrow mode's: a split publishes its list's c-th entry once the list
-// holds c entries. The wide merge (merge_wide_kernel, below) reads a
+// holds c entries. A list ends with a fill count ([B, splits] int32, the
+// wrapper's `fills`) where it had pads of (-inf, -1): at b64 k 10,000 the
+// pads were 519 MB written for ~60 entries a list. The wide merge
+// (merge_wide_kernel, below) reads the counts, and a
 // floor off the lists' c-th entries, gathers the prefixes above it and
 // sorts them once, a block a query.
+//
+// The wide mode's first pass (ops/fused_scan.flat_prefloor_plan decides
+// from shapes whether it runs). A split's list starts empty, so before the
+// shared floor forms every row goes through the buffer into the list in
+// global memory: at b64 k 10,000 a split's list could hold all its 7,680
+// rows, and the floor needs 32 splits' flushed c-th entries. So a narrow
+// launch of this same kernel (fused_scan_kernel<BT, IP, false>, k = c <=
+// 128) first scans the first rows_scan rows of each of its own splits and
+// publishes each split's c-th score (no partials: part_v null);
+// floor_select_kernel (prefloor.cu) takes each query's g-th largest, g =
+// ceil(k / c), and the wide launch starts every threshold there (floor0,
+// kept as (F, INT_MAX): rows scoring F or more stay, the floor's own row
+// among them). The splits hold disjoint real rows, so g * c >= k rows lie
+// at or above F. Both launches compute a score with the same FMAs in the
+// same order (the FMA loop and the score do not depend on BT or WIDE), so a
+// row's score in the second pass is bit-equal to the first's.
 //
 // Not done here: a tensor-core path where exactness allows (a 3xbf16 split
 // product, beside flat_scan_tc.cu's bf16 one); a narrow query tile for batches of a few queries (a 64-query
@@ -156,12 +175,13 @@ constexpr int DC = 32;           // depth elements a stage holds: a 128-byte row
 __host__ __device__ constexpr int stage_floats(int bt) { return RT * 32 + bt * DC; }
 
 // k > MAXK (the wide mode): the lists lie in the partials, and shared memory
-// holds each query's candidate buffer and its WideState instead.
-size_t scan_smem_bytes(int k, int bt) {
+// holds each query's candidate buffer of cap entries and its WideState
+// instead.
+size_t scan_smem_bytes(int k, int bt, int cap = FLAT_CAP) {
   return sizeof(float) * ((size_t)NST * stage_floats(bt)  // the ring
                           + NST * RT          // row sqnorm (+inf: dead), a tile a stage
                           + 4 * (size_t)bt    // |q|^2, threshold, score published
-                          + (k > MAXK ? (size_t)bt * (2 * FLAT_CAP + 2)  // buffers, state
+                          + (k > MAXK ? (size_t)bt * (2 * cap + 2)  // buffers, state
                                       : 2 * (size_t)bt * k));  // lists: values, rows
 }
 
@@ -191,16 +211,22 @@ __device__ __forceinline__ float4 load_row4(const char* xs, int r, int d4) {
 // 0) and q's and x's bases are 16-byte aligned, so rows are staged with
 // cp.async; else plain loads and stores stage them (no overlap).
 // part_v, part_i: [B, S, kw], S = gridDim.y; kw = k, or in the wide mode
-// min(k, rows_per_split): a split cannot give more.
-template <int BT, bool IP, bool WIDE = false>
+// min(k, rows_per_split): a split cannot give more. part_v null (k <= MAXK
+// only): nothing is written but pub, the first pass's case. A split scans
+// its first rows_scan (<= rows_per_split) rows. floor0 (the wide mode; null:
+// none): [B] scores each query's rows must reach, -inf where none. fills
+// (the wide mode; null: the lists are padded with (-inf, -1) instead):
+// [B, S], the real entries of each list.
+template <int BT, bool IP, bool WIDE = false, int CAP = FLAT_CAP>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
                   const float* __restrict__ sqnorm,
                   const uint8_t* __restrict__ alive, int B, int N, int D,
-                  int k, int kw, int max_scans, int rows_per_split, int vec,
-                  float* __restrict__ part_v,
+                  int k, int kw, int max_scans, int rows_per_split, int rows_scan,
+                  int vec, float* __restrict__ part_v,
                   int32_t* __restrict__ part_i, float* __restrict__ pub,
-                  int pub_c, int pub_g) {
+                  int pub_c, int pub_g, const float* __restrict__ floor0,
+                  int32_t* __restrict__ fills) {
   constexpr int QG = 2;             // query groups of a warp's lanes
   constexpr int RG = 32 / QG;       // row groups: rows lr + RG j, j < TR
   constexpr int TQ = BT / 16;       // queries per thread
@@ -218,9 +244,9 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
   float* thv = qq + BT;                        // [BT] threshold score
   int* thi = (int*)(thv + BT);                 // [BT] threshold row
   float* pubv = (float*)(thi + BT);            // [BT] score last published
-  float* lv = pubv + BT;                       // [BT][k]; WIDE: buffers [BT][FLAT_CAP]
-  int* li = (int*)(lv + (size_t)BT * (WIDE ? FLAT_CAP : k));
-  WideState* wst = (WideState*)(li + (size_t)BT * FLAT_CAP);   // WIDE: [BT]
+  float* lv = pubv + BT;                       // [BT][k]; WIDE: buffers [BT][CAP]
+  int* li = (int*)(lv + (size_t)BT * (WIDE ? CAP : k));
+  WideState* wst = (WideState*)(li + (size_t)BT * CAP);   // WIDE: [BT]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -229,7 +255,7 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const int qbase = warp * WQ + lq;             // queries qbase + QG i
   const int q0 = blockIdx.x * BT;
   const int r_begin = blockIdx.y * rows_per_split;
-  const int limit = min(min(r_begin + rows_per_split, N), max_scans);
+  const int limit = min(min(r_begin + rows_scan, N), max_scans);
   const int D4 = (D + 3) & ~3;
   const int nchunk = (D4 + DC - 1) / DC;
   const int ntile = limit > r_begin ? (limit - r_begin + RT - 1) / RT : 0;
@@ -308,6 +334,13 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
     thv[i] = q0 + i < B ? -INFINITY : INFINITY;
     thi[i] = -1;
     pubv[i] = -INFINITY;
+    if (WIDE && floor0 && q0 + i < B) {   // the first pass's floor: rows
+      const float f = floor0[q0 + i];     // scoring f or more stay
+      if (f > -INFINITY) {
+        thv[i] = f;
+        thi[i] = INT_MAX;
+      }
+    }
   }
   for (int i = warp; i < BT; i += WARPS) {
     float s = 0.f;
@@ -397,9 +430,9 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
             Entry t;
             if constexpr (WIDE) {   // the list is query qh's partial
               const size_t o = ((size_t)(q0 + qh) * S + blockIdx.y) * kw;
-              t = wide_offer<FLAT_CAP>(part_v + o, part_i + o, kw,
-                                       lv + (size_t)qh * FLAT_CAP,
-                                       li + (size_t)qh * FLAT_CAP, wst + qh, cv, row,
+              t = wide_offer<CAP>(part_v + o, part_i + o, kw,
+                                       lv + (size_t)qh * CAP,
+                                       li + (size_t)qh * CAP, wst + qh, cv, row,
                                        htv, hti, lane);
             } else {
               t = offer(lv + (size_t)qh * k, li + (size_t)qh * k, k, cv, row, htv,
@@ -440,13 +473,14 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
   if constexpr (WIDE) {   // each warp: its queries' last buffers, then the pads
     for (int qi = warp * WQ; qi < (warp + 1) * WQ && q0 + qi < B; ++qi) {
       const size_t o = ((size_t)(q0 + qi) * S + blockIdx.y) * kw;
-      wide_flush<FLAT_CAP>(part_v + o, part_i + o, kw, lv + (size_t)qi * FLAT_CAP,
-                           li + (size_t)qi * FLAT_CAP, &wst[qi].cnt, &wst[qi].fill,
-                           lane);
-      wide_pad(part_v + o, part_i + o, kw, wst[qi].fill, lane);
+      wide_flush<CAP>(part_v + o, part_i + o, kw, lv + (size_t)qi * CAP,
+                      li + (size_t)qi * CAP, &wst[qi].cnt, &wst[qi].fill, lane);
+      if (!fills) wide_pad(part_v + o, part_i + o, kw, wst[qi].fill, lane);
+      else if (lane == 0) fills[(size_t)(q0 + qi) * S + blockIdx.y] = wst[qi].fill;
     }
     return;
   }
+  if (!part_v) return;   // the first pass: pub is its output
   for (int e = tid; e < BT * k; e += THREADS) {
     const int b = q0 + e / k;
     if (b < B) {
@@ -550,14 +584,34 @@ merge_partials_kernel(const float* __restrict__ part_v,
 //   3. One bitonic sort of the gathered entries in the lists' order (score
 //      desc, row asc); the first k go out, (-inf, -1) past the entries
 //      there are.
-// Where the gathered entries outgrow the run buffer (cap entries, from k),
-// warp 0 merges each list's prefix above the floor into the output row in
-// place instead (topk_wide.cuh warp_merge_run, MERGE_CAP at a time): the
-// same function, one list after another. cap = clamp(next power of two of
-// 4k, MW_MIN_CAP, MW_MAX_CAP): 4096 entries (32 KB) at k 1000.
+// Where the entries at or above F outgrow the run buffer (cap entries, from
+// k) and k fits it, the floor is raised first: a bisection of the key range
+// above F, each step counting the lists' prefixes at or above its middle (a
+// binary search a list), until k <= that count <= cap (keys are distinct,
+// so the count falls by at most one from a key to the next, and such a key
+// exists). Every hit still lies at or above it, and the gather fits: the
+// wide flat scan behind its first pass's floor hands over ~1.35 k / f
+// entries a query, more than 16,384 at b64 k 10,000 with a small sample.
+// Where k itself outgrows the buffer (k > MW_MAX_CAP), warp 0 merges each
+// list's prefix above the floor into the output row in place instead
+// (topk_wide.cuh warp_merge_run, MERGE_CAP at a time): the same function,
+// one list after another. cap = clamp(next power of two of 4k, MW_MIN_CAP,
+// MW_MAX_CAP): 4096 entries (32 KB) at k 1000.
 // an entry at or above the floor key f (every real entry where f is 0)
 __device__ __forceinline__ bool at_or_above(float v, int r, unsigned long long f) {
   return f ? floor_key(v, r) >= f : (r >= 0 && v > -INFINITY);
+}
+
+// Entries of list l (L wide, sorted) at or above the floor key f: a prefix.
+__device__ __forceinline__ int prefix_at_or_above(const float* pv, const int32_t* pi,
+                                                  int L, unsigned long long f) {
+  int n = 0, hi = L;
+  while (n < hi) {
+    const int mid = (n + hi) >> 1;
+    if (at_or_above(pv[mid], pi[mid], f)) n = mid + 1;
+    else hi = mid;
+  }
+  return n;
 }
 
 // Exclusive prefix sum of one int a thread over the block; *total gets the
@@ -584,16 +638,58 @@ __device__ __forceinline__ int block_scan(int x, int* scratch, int* total) {
   return before + inc - x;
 }
 
+// 1b. Entries at or above f outgrow the run buffer (cap >= k): the least
+// floor found by bisecting the keys above f that leaves k .. cap entries at
+// or above it (count(lo) > cap, count(hi) < k throughout; keys are distinct,
+// so the count falls by at most one from a key to the next and the search
+// meets such a key before lo and hi close). The block together; top: a
+// shared 64-bit word.
+__device__ unsigned long long raise_floor(const float* part_v, const int32_t* part_i,
+                                          size_t base, long long lstride, int nl, int L,
+                                          const int32_t* lfill, int k, int cap,
+                                          unsigned long long f, unsigned long long* top,
+                                          int* scratch) {
+  const int tid = threadIdx.x;
+  auto count = [&](unsigned long long key) {
+    int n = 0;
+    for (int l = tid; l < nl; l += MW_THREADS)
+      n += prefix_at_or_above(part_v + base + (size_t)l * lstride,
+                              part_i + base + (size_t)l * lstride,
+                              lfill ? lfill[l] : L, key);
+    int sum;
+    block_scan(n, scratch, &sum);
+    return sum;
+  };
+  if (tid == 0) *top = 0ull;
+  __syncthreads();
+  for (int l = tid; l < nl; l += MW_THREADS) {   // the top key: a list's head
+    if (lfill && !lfill[l]) continue;
+    const float v = part_v[base + (size_t)l * lstride];
+    const int r = part_i[base + (size_t)l * lstride];
+    if (r >= 0 && v > -INFINITY) atomicMax(top, floor_key(v, r));
+  }
+  __syncthreads();
+  unsigned long long lo = f, hi = *top + 1;
+  for (int step = 0; step < 64 && hi - lo > 1; ++step) {
+    const unsigned long long mid = lo + (hi - lo) / 2;
+    const int n = count(mid);   // block-uniform
+    if (n >= k && n <= cap) return mid;
+    if (n > cap) lo = mid;
+    else hi = mid;
+  }
+  return lo;   // not reached; the gather then takes the in-place path
+}
+
 __global__ void __launch_bounds__(MW_THREADS)
 merge_wide_kernel(const float* __restrict__ part_v,
                   const int32_t* __restrict__ part_i, int S, int B, int k, int L,
                   const int32_t* __restrict__ qend, int P, long long qstride,
-                  long long lstride, int cap, float* __restrict__ out_v,
-                  int32_t* __restrict__ out_i) {
+                  long long lstride, const int32_t* __restrict__ fills, int cap,
+                  float* __restrict__ out_v, int32_t* __restrict__ out_i) {
   extern __shared__ __align__(16) float smem[];
   unsigned long long* keys = (unsigned long long*)smem;    // [MW_KEYS]
-  unsigned long long* floor_s = keys + MW_KEYS;            // [1]
-  int* offs = (int*)(floor_s + 1);                         // [MW_THREADS + 1]
+  unsigned long long* floor_s = keys + MW_KEYS;            // [2]: floor, top key
+  int* offs = (int*)(floor_s + 2);                         // [MW_THREADS + 1]
   int* scratch = offs + MW_THREADS + 1;                    // [MW_THREADS / 32]
   float* bv = (float*)(scratch + MW_THREADS / 32 + 1);     // [cap]
   int* bi = (int*)(bv + cap);                              // [cap]
@@ -606,19 +702,24 @@ merge_wide_kernel(const float* __restrict__ part_v,
   if (qend) lstride = L;
   float* ov = out_v + (size_t)b * k;
   int32_t* oi = out_i + (size_t)b * k;
+  // the real entries of list l: its fill count (S lists a query), or all L
+  // with (-inf, -1) past them
+  const int32_t* lfill = fills && !qend ? fills + (size_t)b * S : nullptr;
+  auto width = [&](int l) { return lfill ? lfill[l] : L; };
 
   // 1. the floor: for g = 1, 2, 4, ... up to the m lists read, the g-th
   // largest of their c-th entries, c = ceil(k / g) (a level whose c is
   // above L is skipped), and the largest of those floors. Every load is in
   // flight before the first level is counted.
   const int m = min(nl, MW_KEYS);
+  const int wl = tid < m ? width(tid) : 0;
   unsigned long long lvl[MW_LEVELS];
 #pragma unroll
   for (int j = 0; j < MW_LEVELS; ++j) {
     const int g = 1 << j;
     const long long c = ((long long)k + g - 1) / g;
     lvl[j] = 0ull;
-    if (tid < m && g <= m && c <= L) {
+    if (tid < m && g <= m && c <= wl) {
       const size_t o = base + (size_t)tid * lstride + c - 1;
       const float v = part_v[o];
       const int r = part_i[o];
@@ -640,46 +741,48 @@ merge_wide_kernel(const float* __restrict__ part_v,
     }
     __syncthreads();
   }
-  const unsigned long long f = *floor_s;
+  unsigned long long f = *floor_s;
 
-  // 2. each list's prefix at or above the floor, gathered into bv/bi
+  // 2. each list's prefix at or above the floor, gathered into bv/bi; where
+  // they outgrow the run buffer and k fits it, the floor is raised (1b) and
+  // the gather starts again
   int total = 0;
   bool fits = true;
-  for (int r0 = 0; r0 < nl; r0 += MW_THREADS) {
-    const int l = r0 + tid;
-    int n = 0;
-    if (l < nl) {
-      const float* pv = part_v + base + (size_t)l * lstride;
-      const int32_t* pi = part_i + base + (size_t)l * lstride;
-      int hi = L;
-      while (n < hi) {
-        const int mid = (n + hi) >> 1;
-        if (at_or_above(pv[mid], pi[mid], f)) n = mid + 1;
-        else hi = mid;
+  for (int attempt = 0; attempt < 2; ++attempt) {
+    total = 0;
+    fits = true;
+    for (int r0 = 0; r0 < nl; r0 += MW_THREADS) {
+      const int l = r0 + tid;
+      const int n = l < nl ? prefix_at_or_above(part_v + base + (size_t)l * lstride,
+                                                part_i + base + (size_t)l * lstride,
+                                                width(l), f)
+                           : 0;
+      int got;
+      const int before = block_scan(n, scratch, &got);
+      offs[tid] = before;
+      if (tid == 0) offs[MW_THREADS] = got;
+      __syncthreads();
+      if (total + got > cap) {
+        fits = false;   // block-uniform
+        break;
       }
-    }
-    int got;
-    const int before = block_scan(n, scratch, &got);
-    offs[tid] = before;
-    if (tid == 0) offs[MW_THREADS] = got;
-    __syncthreads();
-    if (total + got > cap) {
-      fits = false;   // block-uniform
-      break;
-    }
-    for (int e = tid; e < got; e += MW_THREADS) {
-      int lo = 0, hi2 = MW_THREADS;   // the list: the last offs[] at or below e
-      while (hi2 - lo > 1) {
-        const int mid = (lo + hi2) >> 1;
-        if (offs[mid] <= e) lo = mid;
-        else hi2 = mid;
+      for (int e = tid; e < got; e += MW_THREADS) {
+        int lo = 0, hi2 = MW_THREADS;   // the list: the last offs[] at or below e
+        while (hi2 - lo > 1) {
+          const int mid = (lo + hi2) >> 1;
+          if (offs[mid] <= e) lo = mid;
+          else hi2 = mid;
+        }
+        const size_t o = base + (size_t)(r0 + lo) * lstride + (e - offs[lo]);
+        bv[total + e] = part_v[o];
+        bi[total + e] = part_i[o];
       }
-      const size_t o = base + (size_t)(r0 + lo) * lstride + (e - offs[lo]);
-      bv[total + e] = part_v[o];
-      bi[total + e] = part_i[o];
+      total += got;
+      __syncthreads();
     }
-    total += got;
-    __syncthreads();
+    if (fits || k > cap || attempt) break;
+    f = raise_floor(part_v, part_i, base, lstride, nl, L, lfill, k, cap, f, floor_s + 1,
+                    scratch);
   }
 
   if (fits) {
@@ -729,12 +832,13 @@ merge_wide_kernel(const float* __restrict__ part_v,
   for (int s = 0; s < nl; ++s) {
     const float* pv = part_v + base + (size_t)s * lstride;
     const int32_t* pi = part_i + base + (size_t)s * lstride;
-    for (int c0 = 0; c0 < L; c0 += MERGE_CAP) {
+    const int ls = width(s);
+    for (int c0 = 0; c0 < ls; c0 += MERGE_CAP) {
       int mm = 0;   // entries of this chunk that beat the threshold: a prefix
       for (int u = 0; u < MERGE_CAP; u += 32) {
         const int e = c0 + u + lane;
-        const float v = e < L ? pv[e] : -INFINITY;
-        const int r = e < L ? pi[e] : -1;
+        const float v = e < ls ? pv[e] : -INFINITY;
+        const int r = e < ls ? pi[e] : -1;
         const bool pass = beats(v, r, tv, ti);
         const unsigned mk = __ballot_sync(FULL, pass);
         if (pass) {
@@ -755,22 +859,23 @@ merge_wide_kernel(const float* __restrict__ part_v,
   wide_pad(ov, oi, k, fill, lane);
 }
 
-template <int BT, bool IP, bool WIDE = false>
+template <int BT, bool IP, bool WIDE = false, int CAP = FLAT_CAP>
 int launch_scan(const void* q, const void* x, const void* sqnorm,
                 const void* alive, int B, int N, int D, int k, int kw,
-                int max_scans, int rows_per_split, int n_splits, int vec,
-                void* part_v, void* part_i, void* pub, int pub_c, int pub_g,
-                cudaStream_t stream) {
-  const size_t smem = scan_smem_bytes(k, BT);
+                int max_scans, int rows_per_split, int rows_scan, int n_splits,
+                int vec, void* part_v, void* part_i, void* pub, int pub_c,
+                int pub_g, const void* floor0, void* fills, cudaStream_t stream) {
+  const size_t smem = scan_smem_bytes(k, BT, CAP);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_scan_kernel<BT, IP, WIDE>,
+      fused_scan_kernel<BT, IP, WIDE, CAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + BT - 1) / BT, n_splits);
-  fused_scan_kernel<BT, IP, WIDE><<<grid, THREADS, smem, stream>>>(
+  fused_scan_kernel<BT, IP, WIDE, CAP><<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)x, (const float*)sqnorm,
-      (const uint8_t*)alive, B, N, D, k, kw, max_scans, rows_per_split, vec,
-      (float*)part_v, (int32_t*)part_i, (float*)pub, pub_c, pub_g);
+      (const uint8_t*)alive, B, N, D, k, kw, max_scans, rows_per_split, rows_scan,
+      vec, (float*)part_v, (int32_t*)part_i, (float*)pub, pub_c, pub_g,
+      (const float*)floor0, (int32_t*)fills);
   return (int)cudaGetLastError();
 }
 
@@ -784,41 +889,60 @@ long long pyrope_scan_smem_bytes(int k, int bt) {
   return (long long)scan_smem_bytes(k, bt);
 }
 
+// The same for the wide mode (k > MAXK) with a cap-entry candidate buffer a
+// query (FLAT_CAP, or FLAT_SMALL_CAP behind a first pass's floor).
+long long pyrope_scan_wide_smem_bytes(int k, int cap) {
+  return (long long)scan_smem_bytes(k, WIDE_BT, cap);
+}
+
 const char* pyrope_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
 // FLAT mode over fp32 rows: rows >= max_scans never hit. k <= MAXK: the
 // warp-register lists, bt 64 or 128, kw = k; k > MAXK: the wide mode, bt
-// 64, lists kw <= k entries wide. partials [B, n_splits, kw]; pub [B,
-// n_splits] floats, -inf from the caller: each split publishes its list's
-// pub_c-th score there (pub_c <= kw), and pub_g * pub_c >= k (a pub_g above
-// min(n_splits, 32) is never reached: no floor).
+// 64, lists kw <= k entries wide. partials [B, n_splits, kw] (part_v and
+// part_i null, k <= MAXK only: not written, the first pass); a split scans
+// its first rows_scan (1 .. rows_per_split) rows; pub [B, n_splits] floats,
+// -inf from the caller: each split publishes its list's pub_c-th score there
+// (pub_c <= kw), and pub_g * pub_c >= k (a pub_g above min(n_splits, 32) is
+// never reached: no floor). floor0: null, or (k > MAXK) [B] scores the
+// queries' rows must reach (-inf: none), the first pass's floors. cap (k >
+// MAXK): the candidate buffer a query, FLAT_CAP, or FLAT_SMALL_CAP behind a
+// first pass's floor (two blocks an SM). fills: null, or (k > MAXK) [B,
+// n_splits] int32, each list's real entries, written in place of the pads.
 int pyrope_fused_scan(const void* q, const void* x, const void* sqnorm,
                       const void* alive, int B, int N, int D, int k, int kw,
                       int metric_ip, int max_scans, int rows_per_split,
-                      int n_splits, int bt, int vec, void* part_v, void* part_i,
-                      void* pub, int pub_c, int pub_g, void* stream) {
+                      int rows_scan, int n_splits, int bt, int vec, void* part_v,
+                      void* part_i, void* pub, int pub_c, int pub_g,
+                      const void* floor0, int cap, void* fills, void* stream) {
   const bool wide = k > MAXK;
   if (k < 1 || (wide ? kw < 1 || kw > k : kw != k) || (bt != 64 && bt != 128) ||
       (wide && bt != WIDE_BT) || pub_c < 1 || pub_c > kw || pub_g < 1 ||
-      (long long)pub_g * pub_c < k)
+      (long long)pub_g * pub_c < k || rows_scan < 1 || rows_scan > rows_per_split ||
+      (wide && (!part_v || !part_i)) || (!wide && floor0) || (!part_v != !part_i) ||
+      (wide && cap != FLAT_CAP && cap != FLAT_SMALL_CAP) || (!wide && fills))
     return (int)cudaErrorInvalidValue;
   using Launch = int (*)(const void*, const void*, const void*, const void*, int,
-                         int, int, int, int, int, int, int, int, void*, void*,
-                         void*, int, int, cudaStream_t);
-  static const Launch wide_table[2] = {launch_scan<WIDE_BT, false, true>,
-                                       launch_scan<WIDE_BT, true, true>};   // [ip]
+                         int, int, int, int, int, int, int, int, int, void*, void*,
+                         void*, int, int, const void*, void*, cudaStream_t);
+  static const Launch wide_table[2][2] = {   // [cap == FLAT_SMALL_CAP][ip]
+      {launch_scan<WIDE_BT, false, true>, launch_scan<WIDE_BT, true, true>},
+      {launch_scan<WIDE_BT, false, true, FLAT_SMALL_CAP>,
+       launch_scan<WIDE_BT, true, true, FLAT_SMALL_CAP>}};
   if (wide)
-    return wide_table[metric_ip != 0](
-        q, x, sqnorm, alive, B, N, D, k, kw, max_scans, rows_per_split, n_splits,
-        vec, part_v, part_i, pub, pub_c, pub_g, (cudaStream_t)stream);
+    return wide_table[cap == FLAT_SMALL_CAP][metric_ip != 0](
+        q, x, sqnorm, alive, B, N, D, k, kw, max_scans, rows_per_split, rows_scan,
+        n_splits, vec, part_v, part_i, pub, pub_c, pub_g, floor0, fills,
+        (cudaStream_t)stream);
   static const Launch table[2][2] = {   // [bt == 128][ip]
       {launch_scan<64, false>, launch_scan<64, true>},
       {launch_scan<128, false>, launch_scan<128, true>}};
   return table[bt == 128][metric_ip != 0](
-      q, x, sqnorm, alive, B, N, D, k, kw, max_scans, rows_per_split, n_splits,
-      vec, part_v, part_i, pub, pub_c, pub_g, (cudaStream_t)stream);
+      q, x, sqnorm, alive, B, N, D, k, kw, max_scans, rows_per_split, rows_scan,
+      n_splits, vec, part_v, part_i, pub, pub_c, pub_g, floor0, nullptr,
+      (cudaStream_t)stream);
 }
 
 // qend: null for S lists a query at strides (qstride, lstride), else int32
@@ -840,14 +964,17 @@ int pyrope_merge_partials(const void* part_v, const void* part_i, int S,
 // The wide merge: lists of width list_w (<= k) into [B, k], any k (the
 // wrapper takes it for k > MAXK, or lists narrower than k); the layouts as
 // pyrope_merge_partials. One block a query; its run buffer holds cap entries.
+// fills: null (entries past a list's last are (-inf, -1)), or without qend
+// [B, S] int32, each list's real entries (past them the list is not read).
 int pyrope_merge_partials_wide(const void* part_v, const void* part_i, int S,
                                int B, int k, int list_w, const void* qend, int P,
-                               long long qstride, long long lstride,
+                               long long qstride, long long lstride, const void* fills,
                                void* out_v, void* out_i, void* stream) {
-  if (k < 1 || list_w < 1 || list_w > k) return (int)cudaErrorInvalidValue;
+  if (k < 1 || list_w < 1 || list_w > k || (fills && qend))
+    return (int)cudaErrorInvalidValue;
   int cap = MW_MIN_CAP;
   while (cap < MW_MAX_CAP && cap < 4LL * k) cap <<= 1;
-  const size_t smem = sizeof(unsigned long long) * (MW_KEYS + 1) +
+  const size_t smem = sizeof(unsigned long long) * (MW_KEYS + 2) +
                       sizeof(int) * (MW_THREADS + 1 + MW_THREADS / 32 + 1) +
                       (sizeof(float) + sizeof(int)) * (size_t)cap;
   cudaError_t err = cudaFuncSetAttribute(
@@ -856,7 +983,8 @@ int pyrope_merge_partials_wide(const void* part_v, const void* part_i, int S,
   if (B == 0) return 0;
   merge_wide_kernel<<<B, MW_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)part_v, (const int32_t*)part_i, S, B, k, list_w,
-      (const int32_t*)qend, P, qstride, lstride, cap, (float*)out_v, (int32_t*)out_i);
+      (const int32_t*)qend, P, qstride, lstride, (const int32_t*)fills, cap,
+      (float*)out_v, (int32_t*)out_i);
   return (int)cudaGetLastError();
 }
 

@@ -127,6 +127,24 @@
 // list's c-th entry once the list holds c entries (a wide list holds only
 // the item's rows).
 //
+// The wide mode's first pass (ops/fused_scan.list_prefloor_plan decides
+// from shapes whether it runs: at nprobe 96 a query has about 96 slots,
+// at nprobe 3 three). The items of a query that run before its floor key
+// forms keep every row of their segment: at 100k, nlist 100, nprobe 96,
+// k 512 a query's slots held 20,237 real entries for the 512 it needs. So
+// a narrow launch of this kernel (ivf_list_scan_kernel<MODE, false>, k = c
+// <= 128, the same items, slots and layouts) first scans the first `sample`
+// rows of each segment and publishes each slot's c-th key into a pub of
+// its own (no partials: part_v null); floor_select_kernel (prefloor.cu)
+// takes each query's g-th largest slot key, g = ceil(k / c), into the wide
+// launch's floor keys, which its items read at their start. Slots hold
+// disjoint real rows, so g * c >= k rows lie at or above that key; they
+// lie in no list of the wide launch, so the wide mode keeps rows at or
+// above a floor key (the floor's row itself stays a candidate), where the
+// narrow mode keeps rows that beat it. Both launches compute a score with
+// the same FMAs in the same order: layouts A and B order a score's depth
+// FMAs alike, and an item has the same queries in both launches.
+//
 // What bounds it on an H100. With the masked work gone the scan reads each
 // probed cluster's rows once per query chunk: at 1M x 128, nlist 1000,
 // nprobe 3, b1024 about 95% of the slab (~0.5 GB fp32, ~0.15 ms at 3.35
@@ -323,6 +341,7 @@ __device__ __forceinline__ void share_floors(const unsigned long long* pub,
                                              int g, unsigned long long* fkey, int warp,
                                              int lane) {
   if (g == 1) return;   // each publication raised the floor key already
+  if (g > FWIN) return;  // a window never holds g keys: no floor
   __syncthreads();      // every slot of the block has published
   for (int i0 = warp * QPW; i0 < qn; i0 += WARPS * QPW) {
     const int n = min(QPW, qn - i0);
@@ -331,12 +350,22 @@ __device__ __forceinline__ void share_floors(const unsigned long long* pub,
   }
 }
 
+// The entry a row must beat to lie at or above the floor key: the key's own
+// entry, or in the wide mode the entry just after it (row + 1), so that the
+// floor's row stays a candidate. (-inf, -1) for no key.
+template <bool WIDE>
+__device__ __forceinline__ void floor_threshold(unsigned long long key, float& v, int& r) {
+  floor_entry(key, v, r);
+  if (WIDE && key) ++r;
+}
+
 // Raise the threshold (tv, ti) to the floor key where that is higher.
+template <bool WIDE>
 __device__ __forceinline__ void raise_to(unsigned long long key, float& tv, int& ti) {
   if (!key) return;
   float v;
   int r;
-  floor_entry(key, v, r);
+  floor_threshold<WIDE>(key, v, r);
   if (beats(v, r, tv, ti)) {
     tv = v;
     ti = r;
@@ -350,7 +379,10 @@ __device__ __forceinline__ void raise_to(unsigned long long key, float& tv, int&
 // with cp.async; else plain loads do both. kw: the width of a partial slot
 // (k; in the wide mode min(k, seg, the longest list)). pub [nslots + B],
 // 0 from the caller: the slots' published keys, then the queries' floor
-// keys; pub_c, pub_g: the floor's c and g (list_floor), pub_c <= kw.
+// keys (the wide mode: possibly the first pass's); pub_c, pub_g: the
+// floor's c and g (list_floor), pub_c <= kw. An item scans the first
+// `sample` rows of its segment (seg: all). part_v null (k <= MAXK only): no
+// partials are written, the first pass's case.
 template <int MODE, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 2)
 ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
@@ -368,8 +400,8 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
                      const int32_t* __restrict__ slot_end,
                      const int32_t* __restrict__ offsets,
                      const int32_t* __restrict__ lens, int nclus, int B, int D,
-                     int k, int kw, int metric_ip, int seg, int nslots, int vec,
-                     float* __restrict__ part_v, int32_t* __restrict__ part_i,
+                     int k, int kw, int metric_ip, int seg, int sample, int nslots,
+                     int vec, float* __restrict__ part_v, int32_t* __restrict__ part_i,
                      unsigned long long* __restrict__ pub, int pub_c, int pub_g) {
   constexpr bool SQ8 = MODE == MODE_SQ8;
   unsigned long long* qfloor = pub + nslots;   // [B] the queries' floor keys
@@ -387,7 +419,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
   const int qlo = cstart[c] + chunk * BT;
   const int qn = min(BT, cnt - chunk * BT);
   const int r_lo = offsets[c] + s * seg;
-  const int r_hi = offsets[c] + min(len, (s + 1) * seg);
+  const int r_hi = offsets[c] + min(len, min((s + 1) * seg, s * seg + sample));
   const bool small = qn <= SMALL;
   const int D4 = round4(D);
 
@@ -516,7 +548,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
     const int slot = slot_end[j] - ns + s;
     qslot[i] = slot;
     if (SQ8) qcv[i] = qc[(size_t)b * kp + c];
-    floor_entry(__ldcg(qfloor + b), fv[i], fi[i]);   // the floor it starts from
+    floor_threshold<WIDE>(__ldcg(qfloor + b), fv[i], fi[i]);   // the floor it starts from
     if (WIDE) {
       if (slot >= nslots) {   // no slot (a short max_len): takes nothing
         fv[i] = INFINITY;
@@ -647,7 +679,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
       if (!small && busy) {
         if (fresh) {
 #pragma unroll
-          for (int i = 0; i < QPW; ++i) raise_to(fkey[warp * QPW + i], tv[i], ti[i]);
+          for (int i = 0; i < QPW; ++i) raise_to<WIDE>(fkey[warp * QPW + i], tv[i], ti[i]);
         }
         unsigned changed = 0;   // queries whose lists took an offer this tile
 #pragma unroll
@@ -746,7 +778,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
             if (lane == 0 && wst[i].fill >= pub_c)
               publish(part_v[o + pub_c - 1], part_i[o + pub_c - 1], -1, pubk + i,
                       pub + qslot[i], qdst(i));
-            if (fresh) raise_to(fkey[i], t_v, t_i);
+            if (fresh) raise_to<WIDE>(fkey[i], t_v, t_i);
             __syncwarp();
             if (lane == 0) {
               wtv[i] = t_v;
@@ -802,7 +834,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
     }
   }
   __syncthreads();
-  for (int e = tid; e < qn * k; e += THREADS) {
+  for (int e = tid; part_v && e < qn * k; e += THREADS) {   // none in the first pass
     const int i = e / k, j = e - i * k;
     if (qslot[i] >= nslots) continue;  // only if the caller's max_len was short
     const size_t o = (size_t)qslot[i] * k + j;
@@ -827,14 +859,16 @@ int launch_list_scan(const void* q, const void* slab, const void* qsq,
                      const void* item_end, const void* item_c,
                      const void* slot_end, const void* offsets,
                      const void* lens, int nclus, int grid, int B, int D, int k,
-                     int kw, int metric_ip, int seg, int nslots, int vec,
+                     int kw, int metric_ip, int seg, int sample, int nslots, int vec,
                      void* part_v, void* part_i, void* pub, int pub_c, int pub_g,
                      void* stream) {
   const bool wide = k > MAXK;
   // a slot holds k entries, or in the wide mode at most what a segment has;
-  // a slot publishes its c-th entry, and g * c rows lie at or above a floor
+  // a slot publishes its c-th entry, and g * c rows lie at or above a floor;
+  // only the narrow mode (the first pass) may go without partials
   if (k < 1 || seg < 1 || P < 1 || kw < 1 || (wide ? kw > min(k, seg) : kw != k) ||
-      pub_c < 1 || pub_c > kw || pub_g < 1 || (long long)pub_g * pub_c < k)
+      pub_c < 1 || pub_c > kw || pub_g < 1 || (long long)pub_g * pub_c < k ||
+      sample < 1 || sample > seg || (!part_v != !part_i) || (wide && !part_v))
     return (int)cudaErrorInvalidValue;
   const size_t smem = list_scan_smem_bytes(k, MODE);
   auto kernel = wide ? ivf_list_scan_kernel<MODE, true> : ivf_list_scan_kernel<MODE, false>;
@@ -850,7 +884,7 @@ int launch_list_scan(const void* q, const void* slab, const void* qsq,
       (const int32_t*)item_end, (const int32_t*)item_c,
       (const int32_t*)slot_end, (const int32_t*)offsets, (const int32_t*)lens,
       nclus, B, D, k, kw,
-      metric_ip, seg, nslots, vec, (float*)part_v, (int32_t*)part_i,
+      metric_ip, seg, sample, nslots, vec, (float*)part_v, (int32_t*)part_i,
       (unsigned long long*)pub, pub_c, pub_g);
   return (int)cudaGetLastError();
 }
@@ -868,20 +902,22 @@ long long pyrope_list_scan_smem_bytes(int k, int mode) {
 // IVF mode: x [N, D] f32. The work tables come from invert_probes
 // (ops/fused_scan.py); partials [nslots, kw]: kw = k for k <= MAXK, else
 // (the wide mode) at most min(k, seg); pub [nslots] 64-bit keys, 0 from the
-// caller, and the floor's pub_c <= kw and pub_g (list_floor).
+// caller, and the floor's pub_c <= kw and pub_g (list_floor); an item scans
+// the first sample (1 .. seg) rows of its segment; part_v and part_i null
+// (k <= MAXK only): no partials, pub alone is written (the first pass).
 int pyrope_ivf_list_scan(const void* q, const void* x, const void* sqnorm,
                          const void* alive, const void* pairs, int P,
                          const void* cstart, const void* ccnt,
                          const void* item_end, const void* item_c,
                          const void* slot_end, const void* offsets,
                          const void* lens, int nclus, int grid, int B, int D,
-                         int k, int kw, int metric_ip, int seg, int nslots, int vec,
-                         void* part_v, void* part_i, void* pub, int pub_c,
+                         int k, int kw, int metric_ip, int seg, int sample, int nslots,
+                         int vec, void* part_v, void* part_i, void* pub, int pub_c,
                          int pub_g, void* stream) {
   return launch_list_scan<MODE_IVF>(
       q, x, nullptr, sqnorm, alive, nullptr, nullptr, nullptr, 0, pairs, P, cstart,
       ccnt, item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k, kw,
-      metric_ip, seg, nslots, vec, part_v, part_i, pub, pub_c, pub_g, stream);
+      metric_ip, seg, sample, nslots, vec, part_v, part_i, pub, pub_c, pub_g, stream);
 }
 
 // SQ8 mode: codes [N, D] uint8; mins, scales, sqnorm [N] f32; qc [B, kp] f32.
@@ -893,13 +929,13 @@ int pyrope_ivf_list_scan_sq8(const void* q, const void* codes,
                              const void* item_end, const void* item_c,
                              const void* slot_end, const void* offsets,
                              const void* lens, int nclus, int grid, int B,
-                             int D, int k, int kw, int metric_ip, int seg, int nslots,
-                             int vec, void* part_v, void* part_i, void* pub,
+                             int D, int k, int kw, int metric_ip, int seg, int sample,
+                             int nslots, int vec, void* part_v, void* part_i, void* pub,
                              int pub_c, int pub_g, void* stream) {
   return launch_list_scan<MODE_SQ8>(
       q, codes, nullptr, sqnorm, alive, mins, scales, qc, kp, pairs, P, cstart, ccnt,
       item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k, kw, metric_ip,
-      seg, nslots, vec, part_v, part_i, pub, pub_c, pub_g, stream);
+      seg, sample, nslots, vec, part_v, part_i, pub, pub_c, pub_g, stream);
 }
 
 // BF16 mode: x [N, D] bf16; qsq null (promote_fp32: q as it is) or |q|^2
@@ -911,13 +947,13 @@ int pyrope_ivf_list_scan_bf16(const void* q, const void* x, const void* qsq,
                               const void* item_c, const void* slot_end,
                               const void* offsets, const void* lens, int nclus,
                               int grid, int B, int D, int k, int kw, int metric_ip,
-                              int seg, int nslots, int vec, void* part_v,
+                              int seg, int sample, int nslots, int vec, void* part_v,
                               void* part_i, void* pub, int pub_c, int pub_g,
                               void* stream) {
   return launch_list_scan<MODE_BF16>(
       q, x, qsq, sqnorm, alive, nullptr, nullptr, nullptr, 0, pairs, P, cstart,
       ccnt, item_end, item_c, slot_end, offsets, lens, nclus, grid, B, D, k, kw,
-      metric_ip, seg, nslots, vec, part_v, part_i, pub, pub_c, pub_g, stream);
+      metric_ip, seg, sample, nslots, vec, part_v, part_i, pub, pub_c, pub_g, stream);
 }
 
 }  // extern "C"

@@ -37,7 +37,7 @@ _build_log = ""
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LIST_TABLES = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                _I, _I, _I, _P, _P, _P, _I, _I, _P]
+                _I, _I, _I, _I, _P, _P, _P, _I, _I, _P]
 _SIGNATURES = {
     # k, query tile
     "pyrope_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
@@ -47,12 +47,14 @@ _SIGNATURES = {
     "pyrope_list_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "pyrope_error_string": (ctypes.c_char_p, [_I]),
     # q, x, sqnorm, alive, B, N, D, k, list width kw, metric_ip, max_scans,
-    # rows_per_split, n_splits, query tile, vec, part_v, part_i, pub, pub_c,
-    # pub_g, stream
+    # rows_per_split, rows_scan, n_splits, query tile, vec, part_v, part_i,
+    # pub, pub_c, pub_g, floor0, cap, fills, stream
     "pyrope_fused_scan": (
-        _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-             _P, _P, _P, _I, _I, _P],
+        _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+             _P, _P, _P, _I, _I, _P, _I, _P, _P],
     ),
+    # k, the wide candidate buffer's entries
+    "pyrope_scan_wide_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     # q (bf16), x (bf16), qsq, sqnorm, alive, then as pyrope_fused_scan
     "pyrope_flat_scan_tc": (
         _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -60,8 +62,8 @@ _SIGNATURES = {
     ),
     # q, x, sqnorm, alive, then the tables: pairs, P, cstart, ccnt, item_end,
     # item_c, slot_end, offsets, lens, nclus, grid, B, D, k, slot width kw,
-    # metric_ip, seg, nslots, vec, part_v, part_i, pub (the slots' published
-    # keys), pub_c, pub_g, stream
+    # metric_ip, seg, sample, nslots, vec, part_v, part_i, pub (the slots'
+    # published keys), pub_c, pub_g, stream
     "pyrope_ivf_list_scan": (_I, [_P, _P, _P, _P, *_LIST_TABLES]),
     # q, x (bf16), qsq (or null), sqnorm, alive, the tables
     "pyrope_ivf_list_scan_bf16": (_I, [_P, _P, _P, _P, _P, *_LIST_TABLES]),
@@ -73,12 +75,16 @@ _SIGNATURES = {
         _I, [_P, _P, _I, _I, _I, _P, _I, ctypes.c_longlong, ctypes.c_longlong,
              _P, _P, _P],
     ),
-    # part_v, part_i, S, B, k, list width, qend, P, qstride, lstride, out_v,
-    # out_i, stream
+    # part_v, part_i, S, B, k, list width, qend, P, qstride, lstride, fills
+    # (null, or the lists' real entries), out_v, out_i, stream
     "pyrope_merge_partials_wide": (
         _I, [_P, _P, _I, _I, _I, _I, _P, _I, ctypes.c_longlong, ctypes.c_longlong,
-             _P, _P, _P],
+             _P, _P, _P, _P],
     ),
+    # pub [B, S] float, B, S, g, out [B] float, stream
+    "pyrope_floor_select_flat": (_I, [_P, _I, _I, _I, _P, _P]),
+    # keys [nslots] u64, nslots, qend [B, P], B, P, g, base [B], out [B], stream
+    "pyrope_floor_select_list": (_I, [_P, _I, _P, _I, _I, _I, _P, _P, _P]),
 }
 
 

@@ -40,6 +40,16 @@ entries, the flat scan's wide splits min(k, rows a split). Above the rows
 present, the answer is padded with -inf/-1, as ``_finish_topk`` pads.
 ``LAUNCHES`` counts the wide modes under their own ``_wide`` keys.
 
+The wide fp32 flat scan and the wide list scan (every mode) may run a first
+pass that forms each query's floor before the wide pass keeps any row
+(``flat_prefloor_plan``, ``list_prefloor_plan``: decided on the host from
+shapes alone): a narrow launch of the same kernel at k = c <= NARROW_MAX_K
+over a sample of each split or segment publishes each split's or slot's
+c-th entry, and the floor select kernel (csrc/prefloor.cu) takes each
+query's g-th largest, g = ceil(k / c); the wide pass keeps rows at or above
+it. ``LAUNCHES`` counts them under ``flat_scan_prefloor``,
+``list_scan_prefloor`` and ``floor_select``.
+
 What bounds each kernel on an H100, and what its design does about it, is
 in the header of its CUDA source.
 
@@ -57,6 +67,7 @@ to ``LAUNCHES``.
 from __future__ import annotations
 
 import dataclasses
+import math
 import numbers
 
 import torch
@@ -78,6 +89,7 @@ TC_FLUSH_MIN = 32        # its wide mode: buffers of this many flush at the floo
 FLAT_FLOOR_WINDOW = 32   # WIN: splits whose published scores a warp reads
 FLAT_WIDE_TILE = 64      # WIDE_BT: the flat scan's query tile at k > NARROW_MAX_K
 FLAT_WIDE_CAP = 256      # FLAT_CAP: its candidate buffer, a query
+FLAT_WIDE_SMALL_CAP = 64  # FLAT_SMALL_CAP: the same behind a first pass's floor
 LIST_WIDE_CAP = 128      # LCAP: the list scan's candidate buffer, a list
 LIST_FLOOR_WINDOW = 128  # FWIN: slots whose published keys a list-scan warp reads
 LIST_FLOOR_SLOTS = 8     # the most slots list_floor waits for before a floor forms
@@ -94,13 +106,29 @@ LIST_DEPTH_CHUNK = 64    # DCH of ivf_list_scan.cu: depth elements a stage
 LIST_LD_PAD = 4          # QLD - DCH and XLD - DCH: the padding of its stage rows
 _BLOCKS_PER_SM = 4       # list-scan grid target: blocks in flight per SM
 _FLAT_BLOCKS_PER_SM = 2  # flat grid target: one wave of two blocks an SM
+# the wide modes' first pass (flat_prefloor_plan, list_prefloor_plan): the
+# share of a query's splits (slots) whose c-th entries the floor needs, the
+# fewest probes at which the list scan runs it, and the sample rule: a
+# share f = min(1, sqrt(ratio * k / rows a query)) of each split's
+# (segment's) rows, which balances the first pass's FMAs (~f) against the
+# rows the floor lets through (~k / f); the ratios and the flat first pass's
+# two waves were chosen on an H100 by bench/scan_ab.py --sweep (PERF.md, PR
+# 10): the list scan's first pass is dear a row, the flat scan's second
+# pass a kept row
+FLAT_PREFLOOR_SHARE = 7 / 8
+FLAT_PREFLOOR_WAVES = 2      # the flat first pass's grid: waves of two blocks an SM
+LIST_PREFLOOR_SHARE = 3 / 4
+LIST_PREFLOOR_MIN_PROBES = 16
+FLAT_PREFLOOR_RATIO = 20.0
+LIST_PREFLOOR_RATIO = 5.0
 
 # launches of each kernel since the last reset_launches(); the ``_wide``
 # keys count the wide mode (k > NARROW_MAX_K) of the same kernel
 LAUNCHES = {"flat_scan": 0, "flat_scan_bf16": 0, "ivf_scan": 0, "ivf_scan_bf16": 0,
             "sq8_scan": 0, "merge": 0, "flat_scan_wide": 0, "flat_scan_bf16_wide": 0,
             "ivf_scan_wide": 0, "ivf_scan_bf16_wide": 0, "sq8_scan_wide": 0,
-            "merge_wide": 0}
+            "merge_wide": 0, "flat_scan_prefloor": 0, "list_scan_prefloor": 0,
+            "floor_select": 0}
 
 
 def reset_launches() -> None:
@@ -293,7 +321,8 @@ def _check_probe(q, x, crow, probe):
         raise ValueError("probe must be [B, nprobe] on the queries' device")
 
 
-def flat_scan_smem_bytes(k: int, query_tile: int, elem: int = 4, d: int = 0) -> int:
+def flat_scan_smem_bytes(k: int, query_tile: int, elem: int = 4, d: int = 0,
+                         cap: int = FLAT_WIDE_CAP) -> int:
     """Shared memory of a flat-scan block. fp32 rows (``elem`` 4), as
     ``scan_smem_bytes`` of fused_scan.cu computes it: the ring of stages
     (each a depth chunk of the tile's rows, 128 bytes of each, the same
@@ -302,11 +331,12 @@ def flat_scan_smem_bytes(k: int, query_tile: int, elem: int = 4, d: int = 0) -> 
     query (the wide mode: the lists lie in the partials); it does not
     depend on D, q is streamed. bf16 rows (``elem`` 2), as
     ``pyrope_flat_tc_smem_bytes`` of flat_scan_tc.cu computes it at depth
-    ``d``, with ``tc_stages`` stages."""
+    ``d``, with ``tc_stages`` stages. ``cap``: the fp32 wide mode's buffer
+    (``pyrope_scan_wide_smem_bytes``)."""
     if elem == 2:
         return _tc_smem_bytes(k, query_tile, d, tc_stages(k, query_tile, d))
     stage = ROW_TILE * FLAT_DEPTH_CHUNK + query_tile * FLAT_DEPTH_CHUNK
-    lists = (query_tile * (2 * FLAT_WIDE_CAP + 2) if k > NARROW_MAX_K
+    lists = (query_tile * (2 * cap + 2) if k > NARROW_MAX_K
              else 2 * query_tile * k)
     return 4 * (FLAT_STAGES * (stage + ROW_TILE) + 4 * query_tile + lists)
 
@@ -444,6 +474,232 @@ def _splits(b: int, n_rows: int, sms: int, query_tile: int,
     return per, max(-(-n_rows // per), 1)
 
 
+# ---- the wide modes' first pass: a floor before any row is kept ---------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatPrefloor:
+    """The wide flat scan's first pass: a narrow launch (query tile
+    ``tile``) over ``splits`` splits of ``per`` rows, each scanning its first
+    ``rows``; each split publishes its c-th score, and a query's floor is the
+    g-th largest of those."""
+
+    tile: int
+    per: int
+    splits: int
+    rows: int
+    c: int
+    g: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ListPrefloor:
+    """The wide list scan's first pass: the same items at k = c, each
+    scanning the first ``sample`` rows of its segment; each slot publishes its
+    c-th key, and a query's floor key is the g-th largest of its slots'."""
+
+    c: int
+    g: int
+    sample: int
+
+
+def _sample_share(ratio: float, k: int, rows: float) -> float:
+    """f = min(1, sqrt(ratio * k / rows)): the first pass's FMAs grow as f,
+    the rows its floor lets through as about k / f."""
+    return min(1.0, math.sqrt(ratio * k / max(rows, 1.0)))
+
+
+def flat_prefloor_plan(k: int, b: int, d: int, n_rows: int,
+                       sms: int) -> FlatPrefloor | None:
+    """Whether the wide fp32 flat scan (k > NARROW_MAX_K) runs its first
+    pass, from shapes alone, and its shape: the narrow grid of ``_splits``
+    (FLAT_PREFLOOR_WAVES waves of two blocks an SM) at k = c, c = ceil(k /
+    (FLAT_PREFLOOR_SHARE of the splits)), so the floor needs the c-th scores
+    of that share of a query's splits; a sample of each split
+    (``_sample_share`` of its tiles, at least 2c rows). None where k is
+    narrow or no c <= NARROW_MAX_K gives a g within the splits."""
+    if k <= NARROW_MAX_K or b < 1 or n_rows < 1:
+        return None
+    tile = flat_tile(d, 1, b)[0]
+    for _ in range(2):   # the tile depends on c, and the splits on the tile
+        per, splits = _splits(b, n_rows, sms * FLAT_PREFLOOR_WAVES, tile)
+        c = -(-k // max(1, int(splits * FLAT_PREFLOOR_SHARE)))
+        if c > NARROW_MAX_K:
+            return None
+        fit = flat_tile(d, c, b)[0]
+        if fit == tile:
+            break
+        tile = fit
+    else:
+        return None
+    g = -(-k // c)
+    tiles = per // ROW_TILE
+    f = _sample_share(FLAT_PREFLOOR_RATIO, k, n_rows)
+    t = min(tiles, max(math.ceil(f * tiles), -(-2 * c // ROW_TILE)))
+    return FlatPrefloor(tile, per, splits, t * ROW_TILE, c, g)
+
+
+def list_prefloor_plan(k: int, nprobe: int, width: int, seg: int,
+                       rows_per_list: float) -> ListPrefloor | None:
+    """Whether the wide list scan (k > NARROW_MAX_K, any mode) runs its
+    first pass, from shapes alone: at nprobe >= LIST_PREFLOOR_MIN_PROBES (at
+    nprobe 3 a query has three slots, and the wide pass's own floor, g 1,
+    forms as its first item ends), with c = ceil(k / (LIST_PREFLOOR_SHARE of
+    nprobe)) at most NARROW_MAX_K and the slot ``width``; a sample of each
+    segment (``_sample_share`` of a list's mean ``rows_per_list`` rows, in
+    row tiles, at least 2c rows). None where it does not run."""
+    if k <= NARROW_MAX_K or nprobe < LIST_PREFLOOR_MIN_PROBES:
+        return None
+    c = -(-k // max(1, int(nprobe * LIST_PREFLOOR_SHARE)))
+    if c > min(NARROW_MAX_K, width):
+        return None
+    seg_rows = min(seg, max(rows_per_list, 1.0))
+    f = _sample_share(LIST_PREFLOOR_RATIO, k, nprobe * rows_per_list)
+    tiles = max(math.ceil(f * seg_rows / ROW_TILE), -(-2 * c // ROW_TILE))
+    return ListPrefloor(c, -(-k // c), min(seg, tiles * ROW_TILE))
+
+
+def _unsigned_order(keys: torch.Tensor) -> torch.Tensor:
+    """int64 tensors holding 64-bit floor keys, in a signed order equal to
+    the keys' unsigned one (the sign bit flipped): 0 (no key) is the least."""
+    return keys ^ torch.iinfo(torch.int64).min
+
+
+def key_of(v: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The kernels' ``floor_key`` of entries (score, row) as int64 tensors:
+    unsigned order is the lists' (score desc, row asc); 0 for (-inf, -1)."""
+    u = (v + 0.0).view(torch.int32).long() & 0xFFFFFFFF   # -0 -> +0
+    hi = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    key = (hi << 32) | (0xFFFFFFFF - (r.long() & 0xFFFFFFFF))
+    return torch.where((r >= 0) & (v > float("-inf")), key, torch.zeros_like(key))
+
+
+def entry_of(key: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (score, row) of int64 floor keys; (-inf, -1) for 0."""
+    hi = (key >> 32) & 0xFFFFFFFF
+    u = torch.where(hi >= 0x80000000, hi & 0x7FFFFFFF, hi ^ 0xFFFFFFFF)
+    v = u.int().view(torch.float32)
+    r = (0xFFFFFFFF - (key & 0xFFFFFFFF)).int()
+    none = key == 0
+    return (torch.where(none, float("-inf"), v), torch.where(none, -1, r))
+
+
+def _gth_largest(vals: torch.Tensor, ok: torch.Tensor, g: int, none):
+    """[B, m] values, ``ok`` where real -> [B] the g-th largest real value
+    of each row (``none`` where fewer than g)."""
+    if vals.shape[1] < g:
+        return torch.full(vals.shape[:1], none, dtype=vals.dtype, device=vals.device)
+    top = torch.where(ok, vals, torch.full_like(vals, none)).topk(g, dim=1).values[:, -1]
+    return torch.where(ok.sum(1) >= g, top, torch.full_like(top, none))
+
+
+def floor_select_plain(pub, g: int, qend=None, base=None):
+    """Plain version of ``floor_select``: same inputs, same outputs."""
+    if qend is None:
+        return _gth_largest(pub, pub > float("-inf"), g, float("-inf"))
+    qoff = torch.nn.functional.pad(qend[:, -1].long().clamp(max=pub.shape[0]), (1, 0))
+    cnt = qoff.diff().clamp(min=0)
+    m = min(int(cnt.max()) if cnt.numel() else 0, FLOOR_SELECT_CAP)
+    j = torch.arange(m, device=pub.device)
+    ok = j[None, :] < cnt[:, None]
+    keys = _unsigned_order(pub[torch.where(ok, qoff[:-1, None] + j, 0)])
+    least = torch.iinfo(torch.int64).min
+    got = _gth_largest(keys, ok & (keys != least), g, least)
+    if base is not None:
+        got = torch.maximum(got, _unsigned_order(base))
+    return _unsigned_order(got)
+
+
+FLOOR_SELECT_CAP = 2048   # FS_CAP of prefloor.cu: a query's entries read at most
+
+
+def floor_select(pub, g: int, qend=None, base=None):
+    """Each query's g-th largest published entry: ``pub`` [B, S] float
+    scores (-inf: none) -> [B] float (-inf: fewer than g); or with ``qend``
+    ([B, P] int32, the list scan's running slot counts) ``pub`` [nslots]
+    int64 floor keys (0: none), query b's the slots qend[b-1, -1] ..
+    qend[b, -1] -> [B] int64 keys, the larger of that and ``base`` [B] (in
+    the keys' unsigned order). The first FLOOR_SELECT_CAP entries a query are
+    read. The kernel on CUDA tensors, the plain version on CPU ones."""
+    if pub.device.type == "cpu":
+        return floor_select_plain(pub, g, qend, base)
+    from pyrope_tpu_torch.kernels.build import check, load
+
+    if g < 1:
+        raise ValueError(f"floor_select takes g >= 1, got {g}")
+    stream = torch.cuda.current_stream(pub.device).cuda_stream
+    if qend is None:
+        if pub.dtype != torch.float32 or pub.dim() != 2 or not pub.is_contiguous():
+            raise ValueError("pub must be a contiguous float32 [B, S]")
+        out = torch.empty(pub.shape[0], dtype=torch.float32, device=pub.device)
+        check(load().pyrope_floor_select_flat(pub.data_ptr(), pub.shape[0], pub.shape[1],
+                                              g, out.data_ptr(), stream), "floor select")
+    else:
+        b, p = qend.shape
+        if (pub.dtype != torch.int64 or qend.dtype != torch.int32
+                or not all(t.is_contiguous() for t in (pub, qend))
+                or (base is not None and (base.shape != (b,) or not base.is_contiguous()))):
+            raise ValueError("keys int64, qend int32 [B, P], base int64 [B], contiguous")
+        out = torch.empty(b, dtype=torch.int64, device=pub.device)
+        check(load().pyrope_floor_select_list(
+            pub.data_ptr(), pub.shape[0], qend.data_ptr(), b, p, g,
+            None if base is None else base.data_ptr(), out.data_ptr(), stream),
+            "floor select")
+    LAUNCHES["floor_select"] += 1
+    return out
+
+
+def split_floor_plain(scores, ok, plan: FlatPrefloor):
+    """The first pass's floor from [B, n] scores and [n] bool ``ok`` (alive
+    and under max_scans): split s's rows s·per .. s·per + rows, its c-th
+    best score (-inf under c rows), then each query's g-th largest."""
+    b, n = scores.shape
+    pub = torch.full((b, plan.splits), float("-inf"), device=scores.device)
+    for s in range(plan.splits):
+        lo, hi = s * plan.per, min(s * plan.per + plan.rows, n)
+        if hi - lo >= plan.c:
+            sc = torch.where(ok[None, lo:hi], scores[:, lo:hi], float("-inf"))
+            pub[:, s] = sc.topk(plan.c, dim=1).values[:, -1]
+    return floor_select_plain(pub, plan.g)
+
+
+def flat_prefloor_plain(q, x, sqnorm, alive, max_scans: int, plan: FlatPrefloor,
+                        metric=Metric.L2):
+    """Plain version of ``flat_prefloor``: the same floors (to the scores'
+    rounding), from the plain scores."""
+    ms = max(min(int(max_scans), x.shape[0]), 0)
+    sc = _tile_scores(q, x, sqnorm, _metric_ip(metric))(0, ms)
+    return split_floor_plain(sc, alive[:ms], plan)
+
+
+def flat_prefloor(q, x, sqnorm, alive, max_scans: int, plan: FlatPrefloor,
+                  metric=Metric.L2):
+    """The wide fp32 flat scan's first pass alone: [B] floors (-inf: none),
+    the scores each query's hits reach. On CUDA tensors the narrow scan
+    kernel (the plan's sample, no partials) and the floor select kernel;
+    on CPU ones the plain version."""
+    if q.device.type == "cpu":
+        return flat_prefloor_plain(q, x, sqnorm, alive, max_scans, plan, metric)
+    ms = max(min(int(max_scans), x.shape[0]), 0)
+    return _flat_first_pass(q, x, sqnorm, alive, _metric_ip(metric), ms, plan)
+
+
+def _flat_first_pass(q, x, sqnorm, alive, metric_ip, max_scans, plan: FlatPrefloor):
+    from pyrope_tpu_torch.kernels.build import check, load
+
+    b, d = q.shape
+    pub = torch.full((b, plan.splits), float("-inf"), device=q.device)
+    vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    check(load().pyrope_fused_scan(
+        q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), b, x.shape[0],
+        d, plan.c, plan.c, int(metric_ip), max_scans, plan.per, plan.rows, plan.splits,
+        plan.tile, vec, None, None, pub.data_ptr(), plan.c, plan.g, None, FLAT_WIDE_CAP,
+        None, stream), "fused scan kernel (first pass)")
+    LAUNCHES["flat_scan_prefloor"] += 1
+    return floor_select(pub, plan.g)
+
+
 def merge_partials_plain(part_v, part_i, qend=None, k=None):
     """Plain version of ``merge_partials``: (score desc, row asc) over every
     list of a query, whatever order the lists come in (two stable sorts:
@@ -503,12 +759,15 @@ def merge_partials(part_v, part_i, qend=None, k=None):
     return _merge_launch(part_v, part_i, s, b, k, qend, nprobe, 0, w, w)
 
 
-def _merge_launch(part_v, part_i, s, b, k, qend, nprobe, qstride, lstride, width=None):
+def _merge_launch(part_v, part_i, s, b, k, qend, nprobe, qstride, lstride, width=None,
+                  fills=None):
     """The merge kernel over partials whose list ``l`` of query ``q`` starts
     at entry q·qstride + l·lstride (``qend`` None), or over [s, width] rows
     cut by ``qend``; lists ``width`` entries wide (default k), k hits out.
     k <= NARROW_MAX_K with lists of k: the warp-register merge; else the
-    wide merge. The one place the merge is launched and counted."""
+    wide merge, which takes ``fills`` ([B, s] int32, the lists' real
+    entries, without ``qend``) where the lists are not padded. The one place
+    the merge is launched and counted."""
     from pyrope_tpu_torch.kernels.build import check, load
 
     width = k if width is None else width
@@ -529,8 +788,8 @@ def _merge_launch(part_v, part_i, s, b, k, qend, nprobe, qstride, lstride, width
     else:
         check(load().pyrope_merge_partials_wide(
             part_v.data_ptr(), part_i.data_ptr(), s, b, k, width, qptr, nprobe,
-            qstride, lstride, out_v.data_ptr(), out_i.data_ptr(), stream),
-            "wide merge kernel")
+            qstride, lstride, None if fills is None else fills.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), stream), "wide merge kernel")
         LAUNCHES["merge_wide"] += 1
     return out_v, out_i
 
@@ -549,7 +808,8 @@ def _bf16_query(q):
 def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
     """The flat scan kernel into [B, splits, k] partials, then the merge;
     over a bf16 ``x`` the tensor-core kernel, on bf16(q) and ‖q‖² of the
-    fp32 q."""
+    fp32 q. The wide fp32 scan starts from its first pass's floors where
+    ``flat_prefloor_plan`` runs one."""
     from pyrope_tpu_torch.kernels.build import check, load
 
     lib = load()
@@ -562,13 +822,29 @@ def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
         raise RuntimeError("flat_tile and the flat scan's source disagree on shared memory")
     if b == 0:  # an empty grid is not a valid launch
         return _empty_hits(0, k, q.device)
-    per, n_splits = scan_splits(b, max_scans, q.device, tile, k,
-                                flat_blocks_per_sm(tile, smem, k, elem))
+    per_sm = flat_blocks_per_sm(tile, smem, k, elem)
+    floor0, cap = None, FLAT_WIDE_CAP
+    if elem == 4 and k > NARROW_MAX_K:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        plan = flat_prefloor_plan(k, b, d, max_scans, sms)
+        if plan is not None:
+            floor0 = _flat_first_pass(q, x, sqnorm, alive, metric_ip, max_scans, plan)
+            # behind the floor a split keeps few rows: small buffers, two
+            # blocks an SM, a grid of two waves' splits
+            cap = FLAT_WIDE_SMALL_CAP
+            small = flat_scan_smem_bytes(k, tile, cap=cap)
+            if lib.pyrope_scan_wide_smem_bytes(k, cap) != small:
+                raise RuntimeError("flat_scan_smem_bytes and fused_scan.cu disagree")
+            per_sm = 2
+    per, n_splits = scan_splits(b, max_scans, q.device, tile, k, per_sm)
     kw = k if k <= NARROW_MAX_K else min(k, per)   # a split gives at most per rows
     part_v = torch.empty((b, n_splits, kw), dtype=torch.float32, device=q.device)
     part_i = torch.empty((b, n_splits, kw), dtype=torch.int32, device=q.device)
     pub_c, pub_g = flat_floor(k, n_splits, kw)
     pub = torch.full((b, n_splits), float("-inf"), device=q.device)
+    # the fp32 wide lists' real entries, written in place of their pads
+    fills = (torch.empty((b, n_splits), dtype=torch.int32, device=q.device)
+             if elem == 4 and k > NARROW_MAX_K else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tail = (b, x.shape[0], d, k, kw, int(metric_ip), max_scans, per, n_splits, tile)
     outs = (part_v.data_ptr(), part_i.data_ptr(), pub.data_ptr(), pub_c, pub_g, stream)
@@ -581,11 +857,13 @@ def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
     else:
         vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
         check(lib.pyrope_fused_scan(
-            q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), *tail,
-            vec, *outs), "fused scan kernel")
+            q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), *tail[:8],
+            per, *tail[8:], vec, *outs[:5], None if floor0 is None else floor0.data_ptr(),
+            cap, None if fills is None else fills.data_ptr(), stream), "fused scan kernel")
     LAUNCHES[("flat_scan_bf16" if elem == 2 else "flat_scan")
              + ("_wide" if k > NARROW_MAX_K else "")] += 1
-    return _merge_launch(part_v, part_i, n_splits, b, k, None, 0, n_splits * kw, kw, kw)
+    return _merge_launch(part_v, part_i, n_splits, b, k, None, 0, n_splits * kw, kw, kw,
+                         fills)
 
 
 def fused_flat_topk(q, x, sqnorm, alive, max_scans: int, k: int,
@@ -740,39 +1018,131 @@ def list_partials(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip
     (part_v, part_i, slot_end), the [slots, width] partials and the running
     slot counts the merge reads; slots past slot_end[-1, -1] are unused.
     IVF mode over an fp32 slab, BF16 mode over a bf16 one (q rounded unless
-    ``promote``); SQ8 mode when ``sq8`` = (mins, scales, qc)."""
-    from pyrope_tpu_torch.kernels.build import check, load
-
-    lib = load()
-    b, d = q.shape
-    mode = (LIST_SQ8 if sq8 is not None
-            else LIST_BF16 if slab.dtype == torch.bfloat16 else LIST_IVF)
-    if lib.pyrope_list_scan_smem_bytes(k, mode) != list_scan_smem_bytes(k, mode):
-        raise RuntimeError("list_scan_smem_bytes and ivf_list_scan.cu disagree")
-    why = list_scan_refusal(k, mode)
-    if why is not None:
-        raise ValueError(why)
-    nprobe = probe.shape[1]
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    seg = list_seg(b, nprobe, kp, max_len, sms)
-    w = invert_probes(probe, lens, kp, max_len, seg, slab.shape[0])
-    kw = list_slot_width(k, seg, max_len)
+    ``promote``); SQ8 mode when ``sq8`` = (mins, scales, qc). The wide mode
+    runs its first pass where ``list_prefloor_plan`` says."""
+    job = _ListJob(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
+                   max_len, sq8, promote)
+    b, w, kw = q.shape[0], job.work, job.kw
     # every slot below slot_end[-1, -1] is written by the one item covering it
     part_v = torch.empty((w.slots, kw), dtype=torch.float32, device=q.device)
     part_i = torch.empty((w.slots, kw), dtype=torch.int32, device=q.device)
     # the slots' published keys, then the queries' floor keys; 0: none yet
     pub = torch.zeros(w.slots + b, dtype=torch.int64, device=q.device)
-    pub_c, pub_g = list_floor(k, nprobe, kw)
-    qsq = None
-    if mode == LIST_BF16 and not promote:
-        q, qsq = _bf16_query(q)
+    plan = job.plan()
+    if plan is not None:
+        pub[w.slots:] = job.first_pass(plan)
+    pub_c, pub_g = list_floor(k, job.nprobe, kw)
+    key = job.launch(k, kw, part_v, part_i, pub, pub_c, pub_g, job.seg)
+    LAUNCHES[key + ("_wide" if k > NARROW_MAX_K else "")] += 1
+    return part_v, part_i, w.slot_end
+
+
+def list_prefloor(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
+                  max_len, sq8=None, promote=False):
+    """The wide list scan's first pass alone (CUDA tensors; inputs as
+    ``list_partials``): (floor keys [B] int64, its ``ListPrefloor``), or
+    (None, None) where ``list_prefloor_plan`` does not run one."""
+    job = _ListJob(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
+                   max_len, sq8, promote)
+    plan = job.plan()
+    return (None, None) if plan is None else (job.first_pass(plan), plan)
+
+
+def list_prefloor_plain(scores, alive, crow, offsets, lens, probe, seg, plan: ListPrefloor):
+    """Plain version of ``list_prefloor`` on [B, N] scores: each probed
+    list's segments of ``seg`` rows, the first ``plan.sample`` rows of each,
+    the c-th best alive row a query (its key; none under c rows), and each
+    query's g-th largest key over its segments. [B] int64 keys."""
+    b = scores.shape[0]
+    table = probe_table(probe, offsets.shape[0])
+    keys = []
+    for c in torch.unique(probe).tolist():
+        off, n = int(offsets[c]), int(lens[c])
+        for s0 in range(0, n, seg):
+            lo, hi = off + s0, off + min(n, s0 + plan.sample)
+            if hi - lo < plan.c:
+                continue
+            sc = torch.where(alive[None, lo:hi], scores[:, lo:hi], float("-inf"))
+            v, r = torch.sort(sc, dim=1, descending=True, stable=True)   # ties: row asc
+            key = key_of(v[:, plan.c - 1], (r[:, plan.c - 1] + lo).int())
+            keys.append(torch.where(table[:, c], key, torch.zeros_like(key)))
+    if not keys:
+        return torch.zeros(b, dtype=torch.int64, device=scores.device)
+    keys = _unsigned_order(torch.stack(keys, 1))
+    least = torch.iinfo(torch.int64).min
+    return _unsigned_order(_gth_largest(keys, keys != least, plan.g, least))
+
+
+class _ListJob:
+    """A list-scan call's layout, from shapes and the probes: the mode, q as
+    the kernel reads it (bf16-rounded without promote, and ‖q‖² of the fp32
+    q), the segment, the inverted probes and the slot width; and its
+    launches."""
+
+    def __init__(self, q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
+                 max_len, sq8, promote):
+        from pyrope_tpu_torch.kernels.build import load
+
+        self.lib = load()
+        self.mode = (LIST_SQ8 if sq8 is not None
+                     else LIST_BF16 if slab.dtype == torch.bfloat16 else LIST_IVF)
+        if (self.lib.pyrope_list_scan_smem_bytes(k, self.mode)
+                != list_scan_smem_bytes(k, self.mode)):
+            raise RuntimeError("list_scan_smem_bytes and ivf_list_scan.cu disagree")
+        why = list_scan_refusal(k, self.mode)
+        if why is not None:
+            raise ValueError(why)
+        self.nprobe = probe.shape[1]
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        self.seg = list_seg(q.shape[0], self.nprobe, kp, max_len, sms)
+        self.work = invert_probes(probe, lens, kp, max_len, self.seg, slab.shape[0])
+        self.kw = list_slot_width(k, self.seg, max_len)
+        self.k, self.qsq = k, None
+        if self.mode == LIST_BF16 and not promote:
+            q, self.qsq = _bf16_query(q)
+        self.rows_per_list = slab.shape[0] / max(kp, 1)
+        self.args = (q, slab, sqnorm, alive, offsets, lens, kp, metric_ip, sq8)
+
+    def plan(self) -> ListPrefloor | None:
+        return list_prefloor_plan(self.k, self.nprobe, self.kw, self.seg, self.rows_per_list)
+
+    def first_pass(self, plan: ListPrefloor) -> torch.Tensor:
+        """The same items at k = c over each segment's sample, its slots'
+        c-th keys into a pub of its own; then each query's g-th largest:
+        [B] floor keys."""
+        w, b = self.work, self.args[0].shape[0]
+        first = torch.zeros(w.slots + b, dtype=torch.int64, device=self.args[0].device)
+        # a g above the window: the first pass only publishes, it raises no
+        # floor of its own (selecting g of 128 keys at each item's end cost
+        # more than the rows it dropped)
+        self.launch(plan.c, plan.c, None, None, first, plan.c, LIST_FLOOR_WINDOW + 1,
+                    plan.sample)
+        LAUNCHES["list_scan_prefloor"] += 1
+        return floor_select(first[:w.slots], plan.g, w.slot_end, first[w.slots:])
+
+    def launch(self, k, kw, part_v, part_i, pub, pub_c, pub_g, sample) -> str:
+        q, slab, sqnorm, alive, offsets, lens, kp, metric_ip, sq8 = self.args
+        return _list_scan_launch(self.lib, self.mode, q, slab, self.qsq, sqnorm, alive,
+                                 offsets, lens, kp, self.work, self.nprobe, self.seg, k, kw,
+                                 metric_ip, part_v, part_i, pub, pub_c, pub_g, sample, sq8)
+
+
+def _list_scan_launch(lib, mode, q, slab, qsq, sqnorm, alive, offsets, lens, kp, w,
+                      nprobe, seg, k, kw, metric_ip, part_v, part_i, pub, pub_c, pub_g,
+                      sample, sq8):
+    """One launch of the list scan kernel in ``mode`` (partials None: the
+    first pass, pub alone written); returns its LAUNCHES key's stem."""
+    from pyrope_tpu_torch.kernels.build import check
+
+    b, d = q.shape
     vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0
               and slab.data_ptr() % (4 * _LIST_ELEM[mode]) == 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()
     tables = (w.pairs.data_ptr(), nprobe, w.cstart.data_ptr(), w.ccnt.data_ptr(),
               w.item_end.data_ptr(), w.item_c.data_ptr(), w.slot_end.data_ptr(),
               offsets.data_ptr(), lens.data_ptr(), kp, w.grid, b, d, k, kw,
-              int(metric_ip), seg, w.slots, vec, part_v.data_ptr(), part_i.data_ptr(),
+              int(metric_ip), seg, sample, w.slots, vec, ptr(part_v), ptr(part_i),
               pub.data_ptr(), pub_c, pub_g, stream)
     if sq8 is not None:
         mins, scales, qc = sq8
@@ -780,19 +1150,16 @@ def list_partials(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip
             q.data_ptr(), slab.data_ptr(), mins.data_ptr(), scales.data_ptr(),
             sqnorm.data_ptr(), alive.data_ptr(), qc.data_ptr(), qc.shape[1],
             *tables), "IVF list scan kernel (SQ8)")
-        key = "sq8_scan"
-    elif mode == LIST_BF16:
+        return "sq8_scan"
+    if mode == LIST_BF16:
         check(lib.pyrope_ivf_list_scan_bf16(
-            q.data_ptr(), slab.data_ptr(), None if qsq is None else qsq.data_ptr(),
-            sqnorm.data_ptr(), alive.data_ptr(), *tables), "IVF list scan kernel (BF16)")
-        key = "ivf_scan_bf16"
-    else:
-        check(lib.pyrope_ivf_list_scan(
-            q.data_ptr(), slab.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(),
-            *tables), "IVF list scan kernel")
-        key = "ivf_scan"
-    LAUNCHES[key + ("_wide" if k > NARROW_MAX_K else "")] += 1
-    return part_v, part_i, w.slot_end
+            q.data_ptr(), slab.data_ptr(), ptr(qsq), sqnorm.data_ptr(), alive.data_ptr(),
+            *tables), "IVF list scan kernel (BF16)")
+        return "ivf_scan_bf16"
+    check(lib.pyrope_ivf_list_scan(
+        q.data_ptr(), slab.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(),
+        *tables), "IVF list scan kernel")
+    return "ivf_scan"
 
 
 def fused_ivf_topk(q, x, sqnorm, alive, crow, offsets, lens, probe, kp: int,

@@ -272,7 +272,8 @@ def list_window(work, b, slot, nslots, win=fs.LIST_FLOOR_WINDOW):
 
 def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_len,
                            seg, chunk=fs.QUERY_TILE, order=None, wide_cap=None,
-                           floor="slots", concurrent=1, stats=None):
+                           floor="slots", concurrent=1, stats=None, prefloor=None,
+                           floor_strict=False):
     """Plain emulation of the list scan kernel's work layout: invert_probes,
     then every item's sorted lists into its queries' slots (``slot_of``)
     of the [slots, width] partials, as the kernel writes them. Returns
@@ -298,7 +299,13 @@ def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_
     ``width`` copies of the floor the item started from, and the copies
     (that floor's row) are left out when the list is written or published.
     ``stats``, a dict, gets the rows offered to lists ("offered") and the
-    thresholds a floor raised during an item's walk ("raised")."""
+    thresholds a floor raised during an item's walk ("raised").
+
+    The wide lists (``wide_cap``) keep rows at or above a floor (the floor's
+    own row stays a candidate: the threshold is the entry just after it),
+    ``floor_strict`` (a mutant) rows that beat it. ``prefloor`` (an
+    ``fs.ListPrefloor``): the wide mode's first pass runs before the items,
+    ``list_prefloor_emulated``, and each query starts from its floor."""
     b, nprobe = probe.shape
     work = fs.invert_probes(probe, lens, kp, max_len, seg, int(lens.sum()), chunk)
     width = fs.list_slot_width(k, seg, max_len)
@@ -309,6 +316,16 @@ def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_
     qfloor = [None] * b                  # the queries' floors
     offered = raised = 0
     no_thr = (float("-inf"), -1)
+    if prefloor is not None:
+        qfloor = list_prefloor_emulated(item_scores, alive, offsets, lens, work, seg,
+                                        prefloor, chunk)
+
+    def floor_thr(e):
+        """The threshold a floor entry gives: the entry itself (rows must
+        beat it), or in the wide mode the entry just after it."""
+        if e is None:
+            return no_thr
+        return e if wide_cap is None or floor_strict else (e[0], e[1] + 1)
 
     def start(item):
         got = list_item(work, item, lens, offsets, seg, chunk)
@@ -320,7 +337,7 @@ def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_
         sc = torch.where(alive[None, lo:hi], item_scores(pairs // nprobe, c, lo, hi),
                          float("-inf"))
         small = len(bq) <= 8 and wide_cap is None
-        thr = [(qfloor[q] or no_thr) if floor else no_thr for q in bq]
+        thr = [floor_thr(qfloor[q]) if floor else no_thr for q in bq]
         lists = [WideListEmulated(width, wide_cap) if wide_cap else [f0] * width
                  for f0 in thr]
         return dict(lo=lo, hi=hi, bq=bq, slots=slots, sc=sc, small=small, lists=lists,
@@ -348,8 +365,9 @@ def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_
         r1 = min(r0 + fs.ROW_TILE, it["hi"])
         fresh = floor == "slots" and t and ((t - 1) & t) == 0
         for i, q in enumerate(it["bq"]):
-            if fresh and _best(it["thr"][i], qfloor[q]) != it["thr"][i]:
-                it["thr"][i] = qfloor[q]
+            if fresh and qfloor[q] is not None and _key(floor_thr(qfloor[q])) > _key(
+                    it["thr"][i]):
+                it["thr"][i] = floor_thr(qfloor[q])
                 raised += 1
             row = it["sc"][i, r0 - it["lo"]:r1 - it["lo"]].tolist()
             lst = it["lists"][i]
@@ -409,6 +427,37 @@ def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_
     if stats is not None:
         stats.update(offered=offered, raised=raised)
     return part_v, part_i, work
+
+
+def list_prefloor_emulated(item_scores, alive, offsets, lens, work, seg, plan, chunk):
+    """The wide list scan's first pass, emulated: every item scans the first
+    ``plan.sample`` rows of its segment and its slots publish the c-th
+    entry of their queries' rows there (none under c rows); then each
+    query's floor is the g-th largest of its slots' entries (None under g),
+    as floor_select_kernel takes it. Returns the queries' floors."""
+    nprobe = work.slot_end.shape[1]
+    first = [None] * work.slots
+    for item in range(work.grid):
+        got = list_item(work, item, lens, offsets, seg, chunk)
+        if got is None:
+            continue
+        c, pairs, s, lo, hi = got
+        hi = min(hi, lo + plan.sample)
+        sc = torch.where(alive[None, lo:hi], item_scores(pairs // nprobe, c, lo, hi),
+                         float("-inf"))
+        for i, slot in enumerate((slot_of(work, pairs, lens[c], seg) + s).tolist()):
+            ent = sorted(((v, lo + j) for j, v in enumerate(sc[i].tolist())
+                          if v > float("-inf")), key=lambda e: (-e[0], e[1]))
+            if slot < work.slots and len(ent) >= plan.c:
+                first[slot] = ent[plan.c - 1]
+    g = plan.g
+    qoff = query_offsets(work).tolist()
+    floors = []
+    for q in range(work.slot_end.shape[0]):
+        seen = sorted((e for e in first[qoff[q]:qoff[q + 1]] if e is not None), key=_key,
+                      reverse=True)[:fs.FLOOR_SELECT_CAP]
+        floors.append(seen[g - 1] if 1 <= g <= len(seen) else None)
+    return floors
 
 
 def slot_of(work, pairs, n, seg):
@@ -495,7 +544,8 @@ class _SortedList:
 
 def flat_scan_emulated(scores, row_ok, max_scans, k, *, query_tile, per, n_splits,
                        batch=16, seed=0, refresh_every=None, make_list=None,
-                       flush_min=None, pub_short=0, stats=None):
+                       flush_min=None, pub_short=0, stats=None, floor0=None,
+                       floor_strict=False):
     """Plain emulation of the flat scan kernel's blocks on a [B, N] score
     matrix: grid (query tiles) x (``n_splits`` splits of ``per`` rows). A
     warp owns a query's list in its block. Per row tile it compares the
@@ -514,6 +564,10 @@ def flat_scan_emulated(scores, row_ok, max_scans, k, *, query_tile, per, n_split
     that many entries or more flushes, raises its threshold and publishes.
     ``pub_short`` (a mutant): publish the (c - pub_short)-th entry.
     ``stats`` (a dict) gets the candidates offered, summed in "offered".
+    ``floor0`` ([B] scores, -inf: none; the wide mode's first pass): each
+    query's threshold starts at (floor0, INT_MAX), rows scoring floor0 or
+    more stay; ``floor_strict`` (a mutant) at (floor0, -1), rows scoring
+    more.
     Returns the [B, S, k] partials the kernel writes (float32 scores, int32
     rows)."""
     make_list = make_list or _SortedList
@@ -534,7 +588,7 @@ def flat_scan_emulated(scores, row_ok, max_scans, k, *, query_tile, per, n_split
                 q0=q0, s=s, limit=limit, t=0,
                 tiles=list(range(s * per, max(limit, s * per), fs.ROW_TILE)),
                 lists=[make_list(k) for _ in range(real)],
-                thr=[(float("-inf"), -1)] * real))
+                thr=[_first_floor(floor0, q0 + i, floor_strict) for i in range(real)]))
     active = [blk for blk in blocks if blk["tiles"]]
     while active:
         for at in rng.permutation(len(active)):
@@ -588,6 +642,15 @@ def flat_scan_emulated(scores, row_ok, max_scans, k, *, query_tile, per, n_split
             part_v[blk["q0"] + i, blk["s"]] = [v for v, _ in ent]
             part_i[blk["q0"] + i, blk["s"]] = [r for _, r in ent]
     return torch.from_numpy(part_v), torch.from_numpy(part_i)
+
+
+def _first_floor(floor0, q, strict):
+    """A flat block's first threshold for query q: none, or the first
+    pass's floor score with the row that keeps its ties (INT_MAX) or drops
+    them (-1, the strict mutant)."""
+    if floor0 is None or not float(floor0[q]) > float("-inf"):
+        return (float("-inf"), -1)
+    return (float(floor0[q]), -1 if strict else 2**31 - 1)
 
 
 def merge_emulated(part_v, part_i, batch=32):
@@ -720,13 +783,17 @@ class WideListEmulated:
 
 
 def wide_stream_emulated(vals, kw, *, cap=fs.LIST_WIDE_CAP, lanes=32, floor=None,
-                         mutant=None):
+                         mutant=None, reach=False):
     """One wide list fed rows 0..n-1 with scores ``vals`` (-inf: masked),
     ``lanes`` rows an offer, behind the threshold (a full list's last entry,
-    or ``floor`` where that is higher), as a list-scan warp offers them.
-    Returns (values, rows) of the padded list and the list."""
+    or ``floor`` where that is higher), as a list-scan warp offers them;
+    with ``reach`` (the wide mode behind a first pass's floor) rows at or
+    above ``floor`` stay, the floor's own row among them. Returns (values,
+    rows) of the padded list and the list."""
     lst = WideListEmulated(kw, cap, mutant)
     thr = (float("-inf"), -1) if floor is None else floor
+    if reach and floor is not None:
+        thr = (floor[0], floor[1] + 1)
     for r0 in range(0, len(vals), lanes):
         cands = [(float(vals[r]), r) for r in range(r0, min(r0 + lanes, len(vals)))]
         lst.offer_batch(cands, thr)
@@ -760,11 +827,14 @@ def merge_wide_emulated(part_v, part_i, qend=None, k=None, cap=None, stats=None)
     entries, c = ceil(k / g) at most w (a list without a real c-th entry
     gives none at that level; no level found: no floor);
     each list's prefix at or above F (every real entry without a floor) is
-    gathered and sorted once, and the first k go out. Where the gathered
-    entries outgrow ``cap`` (default ``merge_wide_cap(k)``), the prefixes
-    are merged into the output list by list instead (the in-place path):
-    the same entries. ``stats``, a dict, gets per query the entries
-    gathered ("gathered") and whether the in-place path ran ("in_place")."""
+    gathered and sorted once, and the first k go out. Where the entries at
+    or above F outgrow ``cap`` (default ``merge_wide_cap(k)``) and k <=
+    cap, F is raised first to a key that leaves k .. cap of them (the
+    kernel bisects for one; here the cap-th largest); where k > cap, the
+    prefixes are merged into the output list by list instead (the in-place
+    path): the same entries. ``stats``, a dict, gets per query the entries
+    gathered ("gathered"), whether the floor was raised ("bisected") and
+    whether the in-place path ran ("in_place")."""
     w = part_v.shape[-1]
     k = w if k is None else k
     cap = merge_wide_cap(k) if cap is None else cap
@@ -778,7 +848,7 @@ def merge_wide_emulated(part_v, part_i, qend=None, k=None, cap=None, stats=None)
         lists = [[(pv[l], pi[l]) for l in range(qoff[q], qoff[q + 1])] for q in range(b)]
     out_v = np.full((b, k), -np.inf, np.float32)
     out_i = np.full((b, k), -1, np.int32)
-    gathered, in_place = [], []
+    gathered, in_place, bisected = [], [], []
     for q, ls in enumerate(lists):
         m = min(len(ls), MERGE_WIDE_KEYS)
         f = None
@@ -798,11 +868,14 @@ def merge_wide_emulated(part_v, part_i, qend=None, k=None, cap=None, stats=None)
                     f is None or _key((float(v[n]), int(r[n]))) >= f):
                 n += 1
             got += [(float(v[j]), int(r[j])) for j in range(n)]
+        bisected.append(len(got) > cap and k <= cap)
+        if bisected[-1]:   # a floor that leaves k .. cap entries
+            got = sorted(got, key=lambda e: (-e[0], e[1]))[:cap]
         gathered.append(len(got))
         in_place.append(len(got) > cap)
         top = sorted(got, key=lambda e: (-e[0], e[1]))[:k]
         out_v[q, :len(top)] = [e[0] for e in top]
         out_i[q, :len(top)] = [e[1] for e in top]
     if stats is not None:
-        stats.update(gathered=gathered, in_place=in_place)
+        stats.update(gathered=gathered, in_place=in_place, bisected=bisected)
     return torch.from_numpy(out_v), torch.from_numpy(out_i)

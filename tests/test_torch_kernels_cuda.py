@@ -42,6 +42,7 @@ from _torch_parity import (
     sq8_of,
 )
 
+from pyrope_tpu_torch.kernels import build as kbuild
 from pyrope_tpu_torch.ops import fused_scan as fs
 from pyrope_tpu_torch.types import Metric, SearchOptions
 
@@ -1046,5 +1047,307 @@ def test_bf16_flat_scan_runs_on_wgmma(cuda_device):
     tc = [body for name, body in funcs.items() if "flat_scan_tc_kernel" in name]
     assert len(tc) == 6 and all("HGMMA.64x128x16.F32.BF16" in body for body in tc)
     fused = [name for name in funcs if "fused_scan_kernel" in name]
-    assert len(fused) == 6   # <64|128, IP> and the wide <64, IP>, fp32 only
+    # <64|128, IP>, the wide <64, IP> and the wide behind a first pass's
+    # floor <64, IP, true, 64>, fp32 only
+    assert len(fused) == 8
     assert all(re.search(r"fused_scan_kernelI(?:L[a-z]+\d+E)+E", name) for name in fused)
+
+
+# ---- the wide modes' first pass: a floor before any row is kept -------------
+
+
+def _grid_flat(dev, seed, n, b, d, dead=0.05):
+    """Flat inputs on a grid of 1/8 (every fp32 sum exact in any order), so
+    the kernels must return the plain version's hits, ties by row included."""
+    q, x, _, alive = _flat_inputs(dev, seed, n, b, d, dead=dead)
+    q, x = torch.floor(q * 8) / 8, torch.floor(x * 8) / 8
+    return q, x, (x * x).sum(1), alive
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT])
+@pytest.mark.parametrize("shape", ["spread", "one_split", "dups"])
+@pytest.mark.parametrize("b,k", [(1, 300), (70, 1000), (1024, 200), (64, 4096)])
+def test_flat_prefloor_two_pass_vs_plain(cuda_device, b, k, shape, metric):
+    """The wide fp32 flat scan with its first pass (the host rule runs it at
+    these shapes) against the plain version: hits spread over the splits,
+    every hit in one split (rows near the queries copied into split 0's
+    first rows), duplicate rows across splits; 5% dead rows."""
+    n, d = 24_000, 24
+    q, x, sq, alive = _grid_flat(cuda_device, 97, n, b, d)
+    if shape == "one_split":
+        near = q[torch.arange(min(k, 3000), device=cuda_device) % b]
+        x[:near.shape[0]] = near + 0.125
+    elif shape == "dups":
+        x[n // 2:n // 2 + 2000] = x[:2000]
+    sq = (x * x).sum(1)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = fs.flat_prefloor_plan(k, b, d, n, sms)
+    assert plan is not None and plan.g * plan.c >= k
+    before = dict(fs.LAUNCHES)
+    kv, ki = fs.fused_flat_topk(q, x, sq, alive, n, k, metric)
+    assert fs.LAUNCHES["flat_scan_prefloor"] == before["flat_scan_prefloor"] + 1
+    assert fs.LAUNCHES["floor_select"] == before["floor_select"] + 1
+    assert fs.LAUNCHES["flat_scan_wide"] == before["flat_scan_wide"] + 1
+    pv, pi = fs.fused_flat_topk_plain(q, x, sq, alive, n, k, metric)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(ki.cpu().numpy(), pi.cpu().numpy())
+    np.testing.assert_array_equal(kv.cpu().numpy(), pv.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT])
+def test_flat_prefloor_floors_bit_equal_second_pass_scores(cuda_device, metric):
+    """The first pass's floors against the second pass's own scores: a wide
+    launch at k = n returns every row's second-pass score; the split floors
+    computed from those (the plain rule) equal the first pass's floors bit
+    for bit, so no row of the g * c that make a floor scores under it."""
+    n, b, d = 3000, 40, 37   # D % 4 != 0: the plain-load staging too
+    q, x, sq, alive = _flat_inputs(cuda_device, 98, n, b, d, dead=0.05)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = fs.flat_prefloor_plan(600, b, d, n, sms)
+    assert plan is not None
+    plan = fs.FlatPrefloor(plan.tile, plan.per, plan.splits, plan.per, plan.c, plan.g)
+    got = fs.flat_prefloor(q, x, sq, alive, n, plan, metric)
+    kv, ki = fs.fused_flat_topk(q, x, sq, alive, n, n, metric)   # every alive row
+    scores = torch.full((b, n), float("-inf"), device=cuda_device)
+    ok = ki >= 0
+    scores[torch.nonzero(ok)[:, 0], ki[ok].long()] = kv[ok]
+    want = fs.split_floor_plain(scores, alive, plan)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    pv = fs.flat_prefloor_plain(q, x, sq, alive, n, plan, metric)
+    np.testing.assert_allclose(got.cpu().numpy(), pv.cpu().numpy(), rtol=RTOL, atol=1e-4)
+
+
+def _list_work(dev, case, kc, k, mode):
+    """The list scan's inputs on the card and the layout list_partials makes."""
+    x, q, sq, alive, crow, probe = (as_tensor(a).to(dev) for a in case)
+    offs, lens = (t.to(dev) for t in csr(case[4], kc))
+    ml = int(lens.max())
+    sq8 = None
+    if mode == "sq8":
+        codes, mn, sc, sq8v, _, qc = (as_tensor(a).to(dev) for a in sq8_of(case, kc))
+        x, sq, sq8 = codes, sq8v, (mn, sc, qc)
+    elif mode.startswith("bf16"):
+        x = x.bfloat16()
+    return q, x, sq, alive, offs, lens, probe, ml, sq8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ivf", "bf16", "bf16p", "sq8"])
+@pytest.mark.parametrize("b", [3, 300])   # layout B, layout A
+@pytest.mark.parametrize("k", [200, 1000])
+def test_list_prefloor_two_pass_vs_plain(cuda_device, k, b, mode):
+    """The wide list scan with its first pass, every mode, both layouts, on
+    a skewed list holding the hits of half the queries (a 4000-row list
+    probed by every second query), a row copied into two lists, 5% dead
+    rows and probed empty lists: the plain version's hits (ties by row
+    included on the grid of 1/8; SQ8 to its tolerance)."""
+    case = _grid_case(99, 16_000, b, 32, 64, 24, big=4000, dup=True, dead=0.05, empty=2)
+    q, x, sq, alive, offs, lens, probe, ml, sq8 = _list_work(cuda_device, case, 64, k, mode)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    seg = fs.list_seg(b, 24, 64, ml, sms)
+    kw = fs.list_slot_width(k, seg, ml)
+    plan = fs.list_prefloor_plan(k, 24, kw, seg, x.shape[0] / 64)
+    assert plan is not None
+    key = _LIST_KEYS[mode] + "_wide"
+    before = dict(fs.LAUNCHES)
+    (kv, ki), (pv, pi) = _wide_list_run(cuda_device, mode, case, k, kc=64)
+    assert fs.LAUNCHES["list_scan_prefloor"] == before["list_scan_prefloor"] + 1
+    assert fs.LAUNCHES["floor_select"] == before["floor_select"] + 1
+    assert fs.LAUNCHES[key] == before[key] + 1
+    torch.cuda.synchronize()
+    _compare(kv, ki, pv, pi, mode == "sq8", SQ8_RTOL if mode == "sq8" else RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ivf", "bf16", "bf16p", "sq8"])
+@pytest.mark.parametrize("b", [3, 300])
+def test_list_prefloor_keys_bit_equal_second_pass_scores(cuda_device, b, mode):
+    """Every slot key the first pass publishes is bit-equal to the second
+    pass's score of the same (query, row): a wide launch at k above every
+    probed row returns each row's second-pass score."""
+    kc, nprobe = 64, 24
+    case = list_case(100, 6_000, b, 20, kc, nprobe, dead=0.05)
+    q, x, sq, alive, offs, lens, probe, ml, sq8 = _list_work(cuda_device, case, kc, 200, mode)
+    promote = mode == "bf16p"
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    seg = fs.list_seg(b, nprobe, kc, ml, sms)
+    w = fs.invert_probes(probe, lens, kc, ml, seg, x.shape[0])
+    c = 8
+    qs, qsq = (fs._bf16_query(q) if mode == "bf16" else (q, None))
+    first = torch.zeros(w.slots + b, dtype=torch.int64, device=cuda_device)
+    lmode = (fs.LIST_SQ8 if mode == "sq8" else fs.LIST_BF16 if mode.startswith("bf16")
+             else fs.LIST_IVF)
+    fs._list_scan_launch(kbuild.load(), lmode, qs, x, qsq, sq, alive, offs, lens, kc, w,
+                         nprobe, seg, c, c, False, None, None, first, c, 64, seg, sq8)
+    k = 6_000   # every probed row
+    if mode == "sq8":
+        kv, ki = fs.fused_ivf_sq8_topk(q, x, *sq8[:2], sq, alive, as_tensor(case[4]).to(
+            cuda_device), offs, lens, probe, sq8[2], kc, k, max_len=ml)
+    else:
+        kv, ki = fs.fused_ivf_topk(q, x, sq, alive, as_tensor(case[4]).to(cuda_device), offs,
+                                   lens, probe, kc, k, max_len=ml, promote_fp32=promote)
+    keys = first[:w.slots]
+    qoff = torch.nn.functional.pad(w.slot_end[:, -1].long(), (1, 0))
+    owner = torch.searchsorted(qoff, torch.arange(w.slots, device=cuda_device), right=True) - 1
+    v, r = fs.entry_of(keys)
+    has = keys != 0
+    assert int(has.sum()) > b   # most slots published
+    # the second pass's score of (owner, r): find r in the owner's returned rows
+    hit = ki[owner[has]] == r[has][:, None]
+    assert bool(hit.any(1).all())
+    second = kv[owner[has]][hit]
+    torch.cuda.synchronize()
+    assert torch.equal(second.view(torch.int32), v[has].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_prefloor_host_rule_matches_launches(cuda_device):
+    """The host rule's choice, from shapes alone, is what runs: the first
+    pass launches exactly where flat_prefloor_plan / list_prefloor_plan give
+    a plan (narrow k, nprobe 3 and a small corpus do not run it)."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for n, b, k in ((24_000, 70, 1000), (24_000, 70, 100), (300, 5, 200), (24_000, 1, 129)):
+        q, x, sq, alive = _flat_inputs(cuda_device, 101, n, b, 16)
+        before = fs.LAUNCHES["flat_scan_prefloor"]
+        fs.fused_flat_topk(q, x, sq, alive, n, k)
+        ran = fs.LAUNCHES["flat_scan_prefloor"] - before
+        assert ran == (fs.flat_prefloor_plan(k, b, 16, n, sms) is not None), (n, b, k)
+    for nprobe, k in ((24, 300), (3, 300), (24, 64)):
+        case = list_case(102, 8_000, 40, 16, 64, nprobe)
+        q, x, sq, alive, offs, lens, probe, ml, _ = _list_work(cuda_device, case, 64, k, "ivf")
+        seg = fs.list_seg(40, nprobe, 64, ml, sms)
+        plan = fs.list_prefloor_plan(k, nprobe, fs.list_slot_width(k, seg, ml), seg,
+                                     x.shape[0] / 64)
+        before = fs.LAUNCHES["list_scan_prefloor"]
+        _wide_list_run(cuda_device, "ivf", case, k, kc=64)
+        ran = fs.LAUNCHES["list_scan_prefloor"] - before
+        assert ran == (plan is not None), (nprobe, k)
+        assert (plan is not None) == (k > fs.NARROW_MAX_K and nprobe >= 16)
+
+
+@pytest.mark.cuda
+def test_floor_select_kernel_vs_plain(cuda_device):
+    """The floor select kernel, both forms, bit-equal to its plain version:
+    float rows with ties and -inf (none), key slots of uneven counts (none
+    at all for some queries), base keys, g above the entries there are."""
+    rng = np.random.default_rng(103)
+    pub = rng.integers(0, 50, (70, 261)).astype(np.float32)
+    pub[rng.random(pub.shape) < 0.2] = -np.inf
+    pub = torch.from_numpy(pub)
+    for g in (1, 7, 200, 261, 262):
+        got = fs.floor_select(pub.to(cuda_device), g)
+        assert torch.equal(got.cpu(), fs.floor_select_plain(pub, g))
+    cnt = rng.integers(0, 120, 70)
+    cnt[::9] = 0
+    qend = torch.from_numpy(np.cumsum(cnt).astype(np.int32)).view(70, 1)
+    v = torch.from_numpy(rng.integers(-40, 40, int(cnt.sum())).astype(np.float32))
+    r = torch.from_numpy(rng.permutation(int(cnt.sum())).astype(np.int32))
+    keys = fs.key_of(v, r)
+    keys[::5] = 0
+    base = fs.key_of(torch.from_numpy(rng.integers(-40, 40, 70).astype(np.float32)),
+                     torch.arange(70, dtype=torch.int32))
+    base[::2] = 0
+    for g in (1, 5, 60, 119):
+        got = fs.floor_select(keys.to(cuda_device), g, qend.to(cuda_device),
+                              base.to(cuda_device))
+        assert torch.equal(got.cpu(), fs.floor_select_plain(keys, g, qend, base))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ivf", "bf16", "sq8"])
+def test_list_prefloor_vs_plain(cuda_device, mode):
+    """The list scan's first pass alone (``fs.list_prefloor``: the narrow
+    launch and the floor select) names each query's floor of the plain
+    version (``list_prefloor_plain`` on dense scores), on the grid of 1/8
+    where every score is exact."""
+    kc, nprobe, b = 64, 24, 300
+    case = _grid_case(104, 16_000, b, 32, kc, nprobe, big=3000, dead=0.05)
+    q, x, sq, alive, offs, lens, probe, ml, sq8 = _list_work(cuda_device, case, kc, 400, mode)
+    keys, plan = fs.list_prefloor(q, x, sq, alive, offs, lens, probe, kc, 400, False, ml,
+                                  sq8=sq8)
+    assert plan is not None
+    crow = as_tensor(case[4]).to(cuda_device)
+    if mode == "sq8":
+        scores = fs.sq8_scores(q, sq8[2], x, sq8[0], sq8[1], sq, crow, False)
+    else:
+        qd = q.bfloat16().float() if mode == "bf16" else q
+        scores = fs._l2_or_ip(q, qd @ x.float().T, sq, False)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    seg = fs.list_seg(b, nprobe, kc, ml, sms)
+    want = fs.list_prefloor_plain(scores, alive, crow, offs, lens, probe, seg, plan)
+    torch.cuda.synchronize()
+    gv, gr = fs.entry_of(keys)
+    wv, wr = fs.entry_of(want)
+    if mode == "sq8":   # scale terms round in another order
+        np.testing.assert_allclose(gv.cpu().numpy(), wv.cpu().numpy(), rtol=SQ8_RTOL,
+                                   atol=1e-4)
+    else:
+        assert torch.equal(keys, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,width,s", [(1000, 100, 264), (10_000, 120, 264), (300, 40, 33)])
+def test_merge_wide_bisected_floor_vs_plain(cuda_device, k, width, s):
+    """More entries at or above the wide merge's level floor than its run
+    buffer takes, with k inside it (the wide flat scan's partials behind a
+    first pass's floor): the merge bisects for a higher floor and gathers;
+    bit-equal to the plain version, ties across lists included."""
+    b = 5
+    rng = np.random.default_rng(105 + s)
+    v = np.sort(rng.integers(0, 2000, (s, b, width)).astype(np.float32), axis=2)[:, :, ::-1]
+    rows = np.stack([rng.permutation(s * width) for _ in range(b)], 1).reshape(s, width, b)
+    rows = np.ascontiguousarray(rows.transpose(0, 2, 1)).astype(np.int32)
+    order = np.lexsort((rows, -v), axis=2)
+    pv = torch.from_numpy(np.take_along_axis(np.ascontiguousarray(v), order, 2))
+    pi = torch.from_numpy(np.take_along_axis(rows, order, 2))
+    pv[::3, 0, width // 2:], pi[::3, 0, width // 2:] = float("-inf"), -1   # short lists
+    mv, mi = fs.merge_partials_plain(pv, pi, k=k)
+    kv, ki = fs.merge_partials(pv.to(cuda_device), pi.to(cuda_device), k=k)
+    np.testing.assert_array_equal(ki.cpu().numpy(), mi.numpy())
+    np.testing.assert_array_equal(kv.cpu().numpy(), mv.numpy())
+
+
+@pytest.mark.cuda
+def test_wide_small_buffer_smem_formula_matches_the_library(cuda_device):
+    """The wide fp32 flat scan's shared memory with its FLAT_WIDE_CAP buffers
+    and, behind a first pass's floor, with FLAT_WIDE_SMALL_CAP ones is the
+    source's, and only the small buffers let two blocks share an SM."""
+    lib = kbuild.load()
+    for k in (129, 1000, 10_000):
+        for cap in (fs.FLAT_WIDE_CAP, fs.FLAT_WIDE_SMALL_CAP):
+            smem = fs.flat_scan_smem_bytes(k, fs.FLAT_WIDE_TILE, cap=cap)
+            assert lib.pyrope_scan_wide_smem_bytes(k, cap) == smem
+            assert (cap == fs.FLAT_WIDE_CAP) == (smem > fs.SMEM_TWO_BLOCKS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,width,s", [(1000, 1000, 40), (3840, 3840, 12), (300, 300, 9),
+                                       (2000, 600, 264)])
+def test_merge_wide_reads_fill_counts_vs_plain(cuda_device, k, width, s):
+    """The wide merge over [B, S, w] lists that carry a fill count each (the
+    fp32 wide flat scan writes counts in place of its pads): entries past a
+    list's fill are never read (NaN here), some lists are empty, some full;
+    bit-equal to the plain version on the real entries, ties included."""
+    b = 6
+    rng = np.random.default_rng(107 + s)
+    fills = rng.integers(0, width + 1, (b, s)).astype(np.int32)
+    fills[:, ::7] = 0
+    fills[:, 1::9] = width
+    v = np.sort(rng.integers(0, 3000, (b, s, width)).astype(np.float32), axis=2)[:, :, ::-1]
+    r = rng.permutation(b * s * width).reshape(b, s, width).astype(np.int32)
+    order = np.lexsort((r, -v), axis=2)
+    v, r = np.take_along_axis(np.ascontiguousarray(v), order, 2), np.take_along_axis(r, order, 2)
+    past = np.arange(width)[None, None, :] >= fills[:, :, None]
+    pv = torch.from_numpy(np.where(past, -np.inf, v).astype(np.float32))
+    pi = torch.from_numpy(np.where(past, -1, r).astype(np.int32))
+    mv, mi = fs.merge_partials_plain(pv.permute(1, 0, 2), pi.permute(1, 0, 2), k=k)
+    gv = torch.from_numpy(np.where(past, np.nan, v).astype(np.float32)).to(cuda_device)
+    gi = torch.from_numpy(np.where(past, 12345, r).astype(np.int32)).to(cuda_device)
+    kv, ki = fs._merge_launch(gv, gi, s, b, k, None, 0, s * width, width, width,
+                              torch.from_numpy(fills).to(cuda_device))
+    np.testing.assert_array_equal(ki.cpu().numpy(), mi.numpy())
+    np.testing.assert_array_equal(kv.cpu().numpy(), mv.numpy())
