@@ -4,8 +4,8 @@
     python3 chip_smoke.py          # from the repo root, on a host with a GPU
 
 Builds the CUDA kernels from pyrope_tpu_torch/csrc at first use, then runs
-fourteen phases, one line each (phase 8 two); any failed check exits
-non-zero. Each serving path's wall time and the total are printed:
+seventeen phases, one line each (phases 8 and 15 two); any failed check
+exits non-zero. Each serving path's wall time and the total are printed:
 
   1. device    torch/CUDA versions, the card's name and power limit
   2. build     nvcc build time, registers and spills per kernel, and the
@@ -118,15 +118,45 @@ non-zero. Each serving path's wall time and the total are printed:
                route dense-pallas-win (the list scan with q streamed by
                depth), recall@10 >= 0.9894 (the reference's 0.9994 less
                0.01); build_s, QPS, p50/p99, device bytes
+ 15. hnsw native HnswIndex(m 16, ef_construction 200, ef_search 50) built by
+               the native C++ builder (g++ at first use) on
+               synthetic_clustered(100k, 128, 100 centers)
+               (hnsw100k_clustered) and synthetic(10k, 128) (hnsw10k): the
+               beam at b64, recall@10 of 256 queries >= 0.9838 / 0.7244 (the
+               records less 0.01), recall_ref (the copied oracle's
+               sequential search over the same graph, 64 queries), build_s,
+               QPS, p50/p99
+ 16. hnsw 1m   the same index on synthetic_clustered(1M, 128, 100 centers)
+               (hnsw1m_clustered), built by the device bootstrap (build_s and
+               its stage times): recall@10 of 256 queries >= 0.8084 at ef 50
+               and >= 0.9404 at ef 200; QPS and ms a batch at b1, b8, b64,
+               b256 and at ef 200 b256; a bf16 beam over the same graph
+               (recall >= 0.8084 and at most 0.01 under the fp32 beam's;
+               scores equal to an fp32 rescoring of its rows; the recall
+               of its pool ordered by its bf16 scores, without the rerank,
+               printed); the device bytes by storage; a
+               torch.profiler trace of 20 b64 batches (kernels a batch,
+               idle share)
+ 17. delta hnsw create_index's Delta(HNSW head, IVF_PQ tail) on 20k rows
+               (delta_hnsw_pq_wide: head writes, compaction, nprobe 96 and
+               ef_search 200, recall@10 >= 0.9853, the tail's list scan
+               launched) and Delta(Flat, HNSW) (writes compacted into the
+               HNSW tail; the Flat head set to the fused scan, K1, after
+               create_index: the registry's Flat head scans exactly,
+               flat-exact, and never runs K1); 32 streamed adds into each
+               head, each found first
 
 The kernels' launch counters are zeroed before each serving path (phases
-4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-14, one path
+4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-17, one path
 each) and read after it: every kernel of a path must have run on it, the
 wide modes (the ``_wide`` counters) on the paths that ask for k > 128 or
 R > 128, and the wide modes' first pass and floor select
 (``flat_scan_prefloor``, ``list_scan_prefloor``, ``floor_select``) on the
 IVF-Flat path (phase 5 at k 200, nprobe 96; phase 6 at k 200) and the IVF-Flat
-hybrid path (phase 11 at R 512, nprobe 96). The last three lines are the
+hybrid path (phase 11 at R 512, nprobe 96). The HNSW beam is plain torch
+(no Pallas kernel in the JAX package either): phases 15-16 launch none of
+the port's kernels; phase 17 runs K1 and the list scan. The last three
+lines are the
 kernels' JSON record, the card as nvidia-smi names it, and
 {"ok": true, "device": {...}}.
 """
@@ -134,6 +164,7 @@ kernels' JSON record, the card as nvidia-smi names it, and
 from __future__ import annotations
 
 import json
+import logging
 import re
 import statistics
 import subprocess
@@ -155,12 +186,14 @@ from pyrope_tpu_torch.utils.datasets import (
 )
 from pyrope_tpu_torch.utils.stats import LatencySummary
 from pyrope_tpu_torch.index.flat import FlatIndex
+from pyrope_tpu_torch.index.hnsw import HnswIndex, beam_schedule, beam_search_body
 from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex, rank_probes
 from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
 from pyrope_tpu_torch.kernels import build as kbuild
 from pyrope_tpu_torch.ops import fused_scan as fs
 from pyrope_tpu_torch.ops.slab import sq8res_encode
 from pyrope_tpu_torch.registry import create_index
+from pyrope_tpu_torch.utils import ref_oracle
 
 RTOL, ATOL = 1e-5, 1e-4
 SQ8_RTOL = 1e-4   # the JAX package's SQ8 kernel tolerance
@@ -226,21 +259,22 @@ def recall(results, truth, top_k=K) -> float:
     return recall_at_k(rows, truth, top_k)
 
 
-def serve(ix, q_dev: list[torch.Tensor], iters: int, k: int = K) -> dict:
+def serve(ix, q_dev: list[torch.Tensor], iters: int, k: int = K,
+          options: SearchOptions = SearchOptions()) -> dict:
     """Pipelined device_search throughput (one synchronize at the end) and
     blocking per-batch latency including the rows' fetch to the host."""
     b = q_dev[0].shape[0]
-    ix.device_search(q_dev[0], k)
+    ix.device_search(q_dev[0], k, options)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = [ix.device_search(q_dev[i % len(q_dev)], k) for i in range(iters)]
+    outs = [ix.device_search(q_dev[i % len(q_dev)], k, options) for i in range(iters)]
     torch.cuda.synchronize()
     qps = iters * b / (time.perf_counter() - t0)
     del outs
     lat = []
     for i in range(30):
         t0 = time.perf_counter()
-        ix.device_search(q_dev[i % len(q_dev)], k)[1].cpu()
+        ix.device_search(q_dev[i % len(q_dev)], k, options)[1].cpu()
         lat.append((time.perf_counter() - t0) * 1e3)
     s = LatencySummary.from_samples(lat)
     return {"qps": round(qps, 1), "p50_ms": round(s.p50_ms, 3),
@@ -271,7 +305,8 @@ def exact_misses_are_ties(ix, base, queries, truth, batch=None, k=K) -> tuple[fl
 def device_shares(fn, iters: int) -> dict:
     """A torch.profiler trace of ``iters`` pipelined calls: the device span
     (first kernel start to last kernel end), the kernels' busy time, the
-    idle share of the span and the largest kernels' shares of busy time.
+    idle share of the span, the kernels launched a call (copies and
+    memsets apart) and the largest kernels' shares of busy time.
     Where the profiler records no device time, the fields say so."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -291,8 +326,10 @@ def device_shares(fn, iters: int) -> dict:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    launches = sum(not e.name.startswith(("Memcpy", "Memset")) for e in kernels)
     return {"span_ms": round(span / 1e3, 3), "busy_ms": round(busy / 1e3, 3),
             "idle_share": round(1.0 - busy / span, 4),
+            "kernels_per_call": round(launches / iters, 1),
             "shares": {name: round(us / busy, 4) for name, us in top}}
 
 
@@ -1482,6 +1519,215 @@ def phase_ivf_d768(dev) -> None:
     del ix, base
 
 
+def hnsw_index(dev, base, **kw) -> tuple[HnswIndex, float]:
+    """HnswIndex(m 16, ef_construction 200, ef_search 50) over ``base``
+    through add_batch ('auto': the native builder below 200k rows, the
+    bootstrap at and above), and its build seconds."""
+    ix = HnswIndex(base.shape[1], "L2", device=dev, m=16, ef_construction=200,
+                   ef_search=50, **kw)
+    t0 = time.perf_counter()
+    ix.add_batch([str(i) for i in range(len(base))], base)
+    ix._sync()
+    torch.cuda.synchronize()
+    return ix, time.perf_counter() - t0
+
+
+def hnsw_recall(ix, queries, truth, b, opts=None) -> float:
+    """recall@10 of ``queries`` searched in batches of ``b``."""
+    results = [r for s in range(0, len(queries), b)
+               for r in ix.search_batch(queries[s:s + b], K, opts or SearchOptions())]
+    return recall(results, truth)
+
+
+def phase_hnsw_native(dev, smi) -> None:
+    """hnsw100k_clustered (bench.py:172-173) and hnsw10k (:147): the native
+    incremental builder, the beam at b64, recall@10 of 256 queries against
+    the record less 0.01, and the copied oracle's sequential search over the
+    same graph (recall_ref, 64 queries)."""
+    for name, base, queries, gate in (
+        ("hnsw100k_clustered", synthetic_clustered(100_000, 128, n_clusters=100),
+         synthetic_clustered_queries(256, 128, n_clusters=100), 0.9838),
+        ("hnsw10k", synthetic(10_000, 128), synthetic_queries(256, 128), 0.7244),
+    ):
+        ix, build_s = hnsw_index(dev, base)
+        truth = ground_truth(base, queries, K)
+        rec = hnsw_recall(ix, queries, truth, 64)
+        ref_rows = np.stack([ref_oracle.ref_hnsw_search(ix, qv, 50, K) for qv in queries[:64]])
+        rec_ref = recall_at_k(ref_rows, truth[:64], K)
+        require(rec >= gate, f"{name} recall@10 {rec} < {gate}")
+        q_dev = [torch.from_numpy(queries[i * 64:(i + 1) * 64]).to(dev) for i in range(4)]
+        srv = serve(ix, q_dev, iters=100)
+        say("15 hnsw native", cell=name, n=len(base), build_s=round(build_s, 2),
+            recall=rec, gate=gate, recall_ref=rec_ref, top_level=ix._top_level,
+            batch_ms=round(64e3 / srv["qps"], 3), **srv, card=repr(smi))
+
+
+def _bootstrap_stages():
+    """A handler that keeps the bootstrap's stage marks (stage, seconds)."""
+    class Marks(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.marks = []
+
+        def emit(self, record):
+            m = re.match(r"hnsw_bootstrap (.+) at ([0-9.]+)s", record.getMessage())
+            if m:
+                self.marks.append((m.group(1), float(m.group(2))))
+
+    log = logging.getLogger("pyrope_tpu_torch.ops.hnsw_bootstrap")
+    log.setLevel(logging.INFO)
+    h = Marks()
+    log.addHandler(h)
+    return log, h
+
+
+def phase_hnsw_1m(dev, smi) -> None:
+    """hnsw1m_clustered (bench.py:176-177, :333-352): the bootstrap builder
+    on 1M x 128 clustered rows (100 centers); the beam at ef 50 (b1, b8,
+    b64, b256) and ef 200 (b256); recall@10 of 256 queries against the
+    records less 0.01; a bf16 beam over the same graph, at most 0.01 under
+    the fp32 beam, and the recall of its pool ordered by its own bf16
+    scores; the
+    device bytes; a trace of 20 b64 batches."""
+    t0 = time.perf_counter()
+    base = synthetic_clustered(1_000_000, 128, n_clusters=100)
+    queries = synthetic_clustered_queries(256, 128, n_clusters=100)
+    truth = truth_on_card(base, queries, K, dev)
+    data_s = time.perf_counter() - t0
+    log, marks = _bootstrap_stages()
+    try:
+        ix, build_s = hnsw_index(dev, base)
+    finally:
+        log.removeHandler(marks)
+    stages, last = {}, 0.0
+    for stage, at in marks.marks:
+        stages[stage.replace(" ", "_").replace("+", "_")] = round(at - last, 2)
+        last = at
+    require(marks.marks, "the 1M build did not run the bootstrap")
+    del base
+    dev_t = ix._sync()
+    nbytes, seen = {}, set()
+    for name, v in dev_t.items():  # each storage once: x is x_exact in fp32
+        if isinstance(v, torch.Tensor) and v.data_ptr() not in seen:
+            seen.add(v.data_ptr())
+            nbytes[name] = v.numel() * v.element_size()
+    rec50 = hnsw_recall(ix, queries, truth, 256)
+    rec200 = hnsw_recall(ix, queries, truth, 256, SearchOptions(ef_search=200))
+    require(rec50 >= 0.8084, f"hnsw1m_clustered recall@10 {rec50} < 0.8084 at ef 50")
+    require(rec200 >= 0.9404, f"hnsw1m_clustered recall@10 {rec200} < 0.9404 at ef 200")
+    cells = {}
+    for b in (1, 8, 64, 256):
+        q_dev = [torch.from_numpy(queries[i * b:(i + 1) * b]).to(dev)
+                 for i in range(min(256 // b, 32))]
+        srv = serve(ix, q_dev, iters=max(20, 2048 // b) if b > 1 else 200)
+        cells[f"b{b}"] = {"batch_ms": round(b * 1e3 / srv["qps"], 3), **srv}
+    q256 = torch.from_numpy(queries).to(dev)
+    srv = serve(ix, [q256], iters=20, options=SearchOptions(ef_search=200))
+    cells["b256_ef200"] = {"batch_ms": round(256e3 / srv["qps"], 3), **srv}
+    # a bf16 beam over the same graph, the final pool re-scored in fp32
+    ix16 = HnswIndex(128, "L2", device=dev, search_dtype="bfloat16")
+    ix16._restore(ix._arrays())
+    res16 = ix16.search_batch(queries, K)
+    rec16 = recall(res16, truth)
+    require(rec16 >= 0.8084, f"hnsw1m_clustered bf16 beam recall@10 {rec16} < 0.8084")
+    # The bf16 walk trails the fp32 one (the JAX package's beams trail alike
+    # on the CPU: tests/test_torch_hnsw.py); 0.0078 on this graph, held to
+    # 0.01. The recall of its final pool ordered by its own bf16 scores,
+    # without the rerank: recall_bf16_scores, printed.
+    require(rec16 >= rec50 - 0.01,
+            f"bf16 beam recall@10 {rec16} more than 0.01 under the fp32 beam's {rec50}")
+    d16 = ix16._sync()
+    pool, steps = beam_schedule(ix16.ef_search, K)
+    _, walk = beam_search_body(
+        d16["x"], d16["x_exact"], d16["sqnorm"], d16["adj0"], d16["adj_up"],
+        d16["alive"], ix16._entry, q256, metric=Metric.L2, k=K, pool=pool,
+        steps=steps, n_upper=d16["n_upper"])
+    rec_walk = recall_at_k(id_lists_to_rows(ix16.resolve_rows(walk.cpu().numpy()), K),
+                           truth, K)
+    got = np.array([[h.score for h in r] for r in res16])
+    rows = np.array([[ix16._id_to_row[h.id] for h in r] for r in res16])
+    want = np.stack([ix16._scores(qv, rw) for qv, rw in zip(queries, rows)])
+    require(np.allclose(got, want, rtol=RTOL, atol=ATOL),
+            "bf16 beam scores differ from an fp32 rescoring of its rows")
+    srv16 = serve(ix16, [q256], iters=20)
+    bytes16 = dev_t["x"].numel() * 2
+    del ix16
+    trace = device_shares(lambda: ix.device_search(q256[:64], K), 20)
+    say("16 hnsw 1m", cell="hnsw1m_clustered", n=ix._count, data_s=round(data_s, 2),
+        build_s=round(build_s, 2), stages=repr(stages), top_level=ix._top_level,
+        recall_ef50=rec50, recall_ef200=rec200, gates="0.8084 / 0.9404",
+        cells=repr(cells), recall_bf16=rec16, bf16_minus_fp32=round(rec16 - rec50, 6),
+        recall_bf16_scores=rec_walk,
+        bf16_b256=repr(srv16), bf16_beam_slab_bytes=bytes16,
+        device_bytes=repr(nbytes), trace_20_b64=repr(trace), card=repr(smi))
+
+
+def phase_delta_hnsw(dev, smi) -> None:
+    """The Delta composites through create_index: delta_hnsw_pq_wide
+    (bench.py:466-470, :211-212; HNSW head, IVF-PQ tail nlist 100, pq_m 4,
+    ksub 256; writes to the head, compaction, searched at nprobe 96 and
+    ef_search 200, recall@10 of 256 queries >= 0.9853) and Delta(Flat,
+    HNSW) (writes compacted into the HNSW tail, then head writes). The
+    registry's Flat head scans exactly (flat-exact) and never runs K1: here
+    it is set to the fused scan after create_index, so that the path runs
+    K1 over the head. Each then takes streamed adds into its head and
+    finds them."""
+    n, d = 20_000, 128
+    base, queries = synthetic(n, d), synthetic_queries(256, d)
+    truth = ground_truth(base, queries, K)
+    ids = [str(i) for i in range(n)]
+    ix = create_index(IndexConfig(dim=d, metric=Metric.L2, algorithm="IVF_PQ",
+                                  head_algorithm="HNSW",
+                                  params=IndexParams(m=16, ef_construction=200,
+                                                     ef_search=50, nlist=100, pq_m=4,
+                                                     k=256)), device=dev)
+    t0 = time.perf_counter()
+    ix.add_batch(ids, base)
+    head_build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ix.build()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    opts = SearchOptions(nprobe=96, ef_search=200)
+    route = ix.tail.describe_scan(64, 96)
+    key = {"dense-sq8": "sq8_scan", "dense-exact": "ivf_scan"}.get(
+        route.replace("-win", "").rsplit("-pallas", 1)[0])
+    require(key is not None, f"delta_hnsw_pq_wide tail route {route} runs no list scan")
+    before = fs.LAUNCHES[key]
+    rec = hnsw_recall(ix, queries, truth, 64, opts)
+    require(fs.LAUNCHES[key] > before, f"the tail's list scan ({key}) never launched")
+    require(rec >= 0.9853, f"delta_hnsw_pq_wide recall@10 {rec} < 0.9853")
+    streamed = queries[:32] + 0.001
+    for i, v in enumerate(streamed):
+        require(ix.add(f"s{i}", v), "a streamed add into the HNSW head was refused")
+    found = sum(r[0].id == f"s{i}" for i, r in enumerate(ix.search_batch(streamed, K, opts)))
+    require(found == 32, f"{found} of 32 streamed adds found first")
+
+    tail = create_index(IndexConfig(dim=d, metric=Metric.L2, algorithm="HNSW",
+                                    params=IndexParams(m=16, ef_construction=200,
+                                                       ef_search=50)), device=dev)
+    tail.head.selection = "pallas"  # forced: create_index gives flat-exact
+    base10 = base[:10_000]
+    tail.add_batch([str(i) for i in range(10_000)], base10)
+    t0 = time.perf_counter()
+    tail.build()
+    tail_build_s = time.perf_counter() - t0
+    rec_t = hnsw_recall(tail, queries, ground_truth(base10, queries, K), 64)
+    for i, v in enumerate(streamed):
+        tail.add(f"s{i}", v)
+    require(tail.head.describe_scan(64) == "flat-pallas", "the Flat head is not on K1")
+    before = fs.LAUNCHES["flat_scan"]
+    res = tail.search_batch(streamed, K)
+    require(fs.LAUNCHES["flat_scan"] > before, "the Flat head's K1 never launched")
+    found_t = sum(r[0].id == f"s{i}" for i, r in enumerate(res))
+    require(found_t == 32, f"{found_t} of 32 head writes found first over the HNSW tail")
+    say("17 delta hnsw", cell="delta_hnsw_pq_wide", head_build_s=round(head_build_s, 2),
+        compact_s=round(compact_s, 2), tail_route=route, tail_key=key, recall=rec,
+        gate=0.9853, streamed_found=found, flat_hnsw_build_s=round(tail_build_s, 2),
+        flat_hnsw_recall=rec_t, flat_hnsw_found=found_t,
+        flat_head="pallas, set after create_index (its default: exact)", card=repr(smi))
+
+
 def run_path(name: str, fn, kernels: tuple[str, ...]) -> dict:
     """One serving path: the launch counts zeroed before it and read after;
     each of ``kernels`` must have run on it. Prints its wall time."""
@@ -1541,6 +1787,9 @@ def main() -> int:
         ("flat hybrid k100", lambda: phase_flat_hybrid_k100(dev, uniform),
          ("flat_scan_bf16_wide", "merge_wide")),
         ("IVF-Flat d768", lambda: phase_ivf_d768(dev), ("ivf_scan", "merge")),
+        ("HNSW native", lambda: phase_hnsw_native(dev, smi), ()),
+        ("HNSW 1M", lambda: phase_hnsw_1m(dev, smi), ()),
+        ("Delta HNSW", lambda: phase_delta_hnsw(dev, smi), ("flat_scan", "merge")),
     )}
     say("launches", **{name.replace(" ", "_"): repr(got) for name, got in paths.items()})
     launches = {name: sum(got[name] for got in paths.values()) for name in fs.LAUNCHES}

@@ -3,7 +3,7 @@
 A second package beside the JAX one, held against it as its reference. It
 imports nothing of the JAX package and never jax: it keeps its own copies of
 the framework-free modules (``types``, ``index/base``, ``index/delta``,
-``utils``). Ported so far, the IVF-Flat and IVF-PQ serving paths:
+``utils``, ``native`` loader). Ported so far:
 
 - ``FlatIndex``     — exact scan; ``selection="pallas"`` runs the fused CUDA
   scan kernel (ops/fused_scan.py, csrc/fused_scan.cu)
@@ -11,8 +11,11 @@ the framework-free modules (``types``, ``index/base``, ``index/delta``,
   cluster-major list scan kernel (csrc/ivf_list_scan.cu)
 - ``IvfPqIndex``    — coarse k-means + PQ codes + a rerank slab, fp32 or
   residual-SQ8 (``refine_storage="sq8res"``, the list scan in SQ8 mode)
+- ``HnswIndex``     — host-built graph (native C++ builder, or the device
+  bootstrap at 200k rows and up), batched beam search in plain torch
 - ``DeltaIndex``    — the Head+Tail composite (numpy only)
-- ``create_index`` / ``VectorIndexRegistry`` — Delta(Flat, Flat|IVF_FLAT|IVF_PQ)
+- ``create_index`` / ``VectorIndexRegistry`` — Delta(Flat|HNSW,
+  Flat|IVF_FLAT|IVF_PQ|HNSW)
 
 Every index and op takes a ``device``, ``"cuda"`` unless the caller asks
 for the CPU; CUDA on a host without a GPU raises. Importing this package
@@ -38,6 +41,7 @@ __all__ = [
     "FlatIndex",
     "IvfFlatIndex",
     "IvfPqIndex",
+    "HnswIndex",
     "DeltaIndex",
     "VectorIndexRegistry",
     "create_index",
@@ -47,6 +51,7 @@ _LAZY = {
     "FlatIndex": "pyrope_tpu_torch.index.flat",
     "IvfFlatIndex": "pyrope_tpu_torch.index.ivf_flat",
     "IvfPqIndex": "pyrope_tpu_torch.index.ivf_pq",
+    "HnswIndex": "pyrope_tpu_torch.index.hnsw",
     "DeltaIndex": "pyrope_tpu_torch.index.delta",
     "VectorIndexRegistry": "pyrope_tpu_torch.registry",
     "create_index": "pyrope_tpu_torch.registry",

@@ -2,11 +2,12 @@
 
 The JAX package's indexes hold numpy host state; their snapshots store it
 under fixed keys (``pyrope_tpu.ivf_flat.v1``, ``pyrope_tpu.ivf_pq.v1``,
-``pyrope_tpu.flat.v1``). These functions build the port's index from such
-arrays on a given device, so both packages search the same partition:
-same centroids, same cluster-major slab, same lists, and for IVF-PQ the
-same codebooks and codes. Loading a JAX snapshot is this applied to
-``np.load`` (the port's ``load`` runs the same ``_restore``).
+``pyrope_tpu.flat.v1``, ``pyrope_tpu.hnsw.v1``). These functions build the
+port's index from such arrays on a given device, so both packages search
+the same partition: same centroids, same cluster-major slab, same lists,
+for IVF-PQ the same codebooks and codes, and for HNSW the same graph.
+Loading a JAX snapshot is this applied to ``np.load`` (the port's ``load``
+runs the same ``_restore``).
 
 ``arrays`` is any mapping with the snapshot's keys: an ``np.load`` result,
 or a dict built from a live JAX index. ``meta`` may be the snapshot's json
@@ -20,6 +21,7 @@ index's. Options the snapshots do not record (``selection``,
 from __future__ import annotations
 
 from pyrope_tpu_torch.index.flat import FlatIndex, read_meta
+from pyrope_tpu_torch.index.hnsw import FORMAT as HNSW_FORMAT, HnswIndex
 from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex
 from pyrope_tpu_torch.index.ivf_pq import COARSE_SEED, FORMAT, IvfPqIndex
 
@@ -59,5 +61,15 @@ def flat_from_arrays(arrays, device="cuda") -> FlatIndex:
     meta = read_meta(arrays, "pyrope_tpu.flat.v1")
     ix = FlatIndex(int(meta["dim"]), meta["metric"], device=device,
                    storage=str(meta.get("storage", "fp32")))
+    ix._restore(arrays)
+    return ix
+
+
+def hnsw_from_arrays(arrays, device="cuda") -> HnswIndex:
+    """HnswIndex on ``device`` from ``pyrope_tpu.hnsw.v1`` arrays: meta,
+    vecs, alive, levels, adj0, adj_up, ids (the same graph, entry and top
+    level)."""
+    meta = read_meta(arrays, HNSW_FORMAT)
+    ix = HnswIndex(int(meta["dim"]), meta["metric"], device=device)
     ix._restore(arrays)
     return ix

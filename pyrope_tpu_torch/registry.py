@@ -1,10 +1,9 @@
 """Index factory and multi-tenant registry (port of ``pyrope_tpu/registry.py``).
 
-Every index is a Delta(head=Flat, tail=<algo>): the numpy-only
-``DeltaIndex`` over the port's Flat, IVF-Flat and IVF-PQ indexes, all on
-the device the caller names (``"cuda"`` by default). ``get_or_create`` validates dim/metric; a
-per-index epoch counter backs cache invalidation. HNSW and an HNSW head
-are not yet ported and raise NotImplementedError.
+Every index is a Delta(head=Flat|HNSW, tail=<algo>): the numpy-only
+``DeltaIndex`` over the port's Flat, IVF-Flat, IVF-PQ and HNSW indexes, all
+on the device the caller names (``"cuda"`` by default). ``get_or_create``
+validates dim/metric; a per-index epoch counter backs cache invalidation.
 """
 
 from __future__ import annotations
@@ -18,27 +17,38 @@ from pyrope_tpu_torch.index.delta import DeltaIndex
 from pyrope_tpu_torch.types import IndexConfig, Metric
 from pyrope_tpu_torch.device import resolve_device
 from pyrope_tpu_torch.index.flat import FlatIndex
+from pyrope_tpu_torch.index.hnsw import HnswIndex
 from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex
 from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
 
 
 def create_index(config: IndexConfig, device="cuda") -> DeltaIndex:
-    """Delta(head=Flat, tail=algo) on ``device``."""
+    """Delta(head=Flat|HNSW, tail=algo) on ``device``."""
     algo = config.algorithm.upper().replace("-", "_").replace(" ", "_")
     if algo not in ("FLAT", "IVF_FLAT", "IVFFLAT", "IVF_PQ", "IVFPQ", "HNSW"):
         raise ValueError(
             f"unknown algorithm {config.algorithm!r} "
             "(expected FLAT | IVF_FLAT | IVF_PQ | HNSW)"
         )
-    if config.head_algorithm.upper() == "HNSW":
-        raise NotImplementedError("head_algorithm='HNSW' not yet ported")
-    if algo == "HNSW":
-        raise NotImplementedError(f"algorithm {config.algorithm!r} not yet ported")
     dev = resolve_device(device)
     p = config.params
-    head: VectorIndex = FlatIndex(config.dim, config.metric, device=dev)
-    if algo == "FLAT":
-        tail: VectorIndex = FlatIndex(config.dim, config.metric, device=dev)
+    if config.head_algorithm.upper() == "HNSW":
+        head: VectorIndex = HnswIndex(
+            config.dim, config.metric, device=dev,
+            m=p.m, ef_construction=p.ef_construction, ef_search=p.ef_search,
+            neighbor_heuristic=p.neighbor_heuristic, search_dtype=p.search_dtype,
+        )
+    else:
+        head = FlatIndex(config.dim, config.metric, device=dev)
+    if algo == "HNSW":
+        tail: VectorIndex = HnswIndex(
+            config.dim, config.metric, device=dev,
+            m=p.m, ef_construction=p.ef_construction, ef_search=p.ef_search,
+            neighbor_heuristic=p.neighbor_heuristic, build_mode=p.build_mode,
+            search_dtype=p.search_dtype,
+        )
+    elif algo == "FLAT":
+        tail = FlatIndex(config.dim, config.metric, device=dev)
     elif algo in ("IVF_PQ", "IVFPQ"):
         tail = IvfPqIndex(config.dim, config.metric, device=dev, nlist=p.nlist,
                           pq_m=p.pq_m, ksub=p.k, nprobe=p.nprobe,

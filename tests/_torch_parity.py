@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 from pyrope_tpu_torch import types as port_types
@@ -105,6 +106,23 @@ def port_config(cfg) -> "port_types.IndexConfig":
 def stats_tuple(stats) -> tuple:
     """An IndexStats of either package as (count, dim, metric value)."""
     return stats.count, stats.dim, port_metric(stats.metric)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_build_dir(tmp_path_factory):
+    """For the modules that import it: the JAX package's native HNSW
+    library, built anew for the module in a directory of its own. The JAX
+    package builds it in place, with no temporary name, and keeps a failed
+    load for the process (then its add_batch inserts row by row), so a
+    build shared with another test worker could hand this one a partial
+    file. The loader's state is restored after the module."""
+    from pyrope_tpu.native import build as jax_native
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PYROPE_NATIVE_BUILD_DIR", str(tmp_path_factory.mktemp("jax_native")))
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_tried", False)
+        yield
 
 
 # ---- seeded inputs shared by the kernel tests ------------------------------

@@ -147,9 +147,13 @@ def test_registry_surface():
         4, 2, 16, 8, "sq8res")
     assert type(treg.create_index(tt.IndexConfig(dim=8, algorithm="ivfpq"), "cpu").tail
                 ).__name__ == "IvfPqIndex"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        treg.create_index(tt.IndexConfig(dim=8, algorithm="HNSW"), "cpu")
-    with pytest.raises(NotImplementedError):
-        treg.create_index(tt.IndexConfig(dim=8, head_algorithm="HNSW"), "cpu")
+    hp = tt.IndexParams(m=8, ef_construction=40, ef_search=20, neighbor_heuristic=False,
+                        build_mode="incremental", search_dtype="bfloat16")
+    hnsw = treg.create_index(tt.IndexConfig(dim=8, algorithm="HNSW", params=hp), "cpu")
+    head = treg.create_index(tt.IndexConfig(dim=8, head_algorithm="HNSW", params=hp), "cpu")
+    for ix, build_mode in ((hnsw.tail, "incremental"), (head.head, "auto")):
+        assert type(ix).__name__ == "HnswIndex"
+        assert (ix.m, ix.ef_construction, ix.ef_search, ix.neighbor_heuristic,
+                ix.build_mode, ix.search_dtype) == (8, 40, 20, False, build_mode, "bfloat16")
     with pytest.raises(ValueError, match="unknown algorithm"):
         treg.create_index(tt.IndexConfig(dim=8, algorithm="LSH"), "cpu")
