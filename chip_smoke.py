@@ -4,8 +4,9 @@
     python3 chip_smoke.py          # from the repo root, on a host with a GPU
 
 Builds the CUDA kernels from pyrope_tpu_torch/csrc at first use, then runs
-seventeen phases, one line each (phases 8 and 15 two); any failed check
-exits non-zero. Each serving path's wall time and the total are printed:
+eighteen phases, one line each (phases 8 and 15 two, phase 18 one a cell);
+any failed check exits non-zero. Each serving path's wall time and the
+total are printed:
 
   1. device    torch/CUDA versions, the card's name and power limit
   2. build     nvcc build time, registers and spills per kernel, and the
@@ -136,7 +137,8 @@ exits non-zero. Each serving path's wall time and the total are printed:
                of its pool ordered by its bf16 scores, without the rerank,
                printed); the device bytes by storage; a
                torch.profiler trace of 20 b64 batches (kernels a batch,
-               idle share)
+               idle share); the steps one b64 batch runs and the bytes its
+               gathers read in them, over the memory rate (the beam's bound)
  17. delta hnsw create_index's Delta(HNSW head, IVF_PQ tail) on 20k rows
                (delta_hnsw_pq_wide: head writes, compaction, nprobe 96 and
                ef_search 200, recall@10 >= 0.9853, the tail's list scan
@@ -145,9 +147,38 @@ exits non-zero. Each serving path's wall time and the total are printed:
                create_index: the registry's Flat head scans exactly,
                flat-exact, and never runs K1); 32 streamed adds into each
                head, each found first
+ 18. resp      the data plane over the wire: PyropeEngine(device="cuda")
+               behind a RespServer on port 0 in a thread, four client
+               processes (pyrope_tpu_torch/bench/resp_load.py) speaking RESP
+               (scripts/serving_bench.py's cells, cache off): its 100k x 128
+               corpus (IVF_FLAT, nlist 100, dense-pallas) at nprobe 3 and 96,
+               concurrency 4 and 64, 2,000 VEC.SEARCH top-10 a cell; phase
+               4's 1M clustered rows (nlist 1000, nprobe 3, dense-pallas-win)
+               at concurrency 64; 4 writers x 2,500 VEC.UPSERT; one query
+               repeated 500 times with the cache on. Checks: the list scan
+               (scan and merge) against its plain version on each index's
+               own tensors and probes at the server's micro-batch sizes, b1
+               and b8 (100k np3 and np96, 1M np3 windowed; equal hit sets
+               but for k-th place ties, scores within RTOL / ATOL; these
+               launches and the b1 timing's are not counted); every reply
+               names the hits of the index's own search_batch on the same
+               queries (scores within RTOL / ATOL, a hit may differ only as a
+               k-th place tie); recall@10 within 0.005 of the JAX package's
+               on the 100k corpus (SERVING_RECALL_JAX), >= 0.995 at 1M; the
+               list scan launched in every search cell and avg_batch > 1 at
+               concurrency 64; every write acknowledged and its id its own
+               vector's top-1, 100 deleted ids in no later reply, VEC.STATS
+               counting n + writes - deletes; the repeated query's TRACE
+               naming L0 and no list scan launched by the 500 hits. Prints
+               QPS, p50/p99 ms and avg_batch a cell, upsert vec/s, cache-hit
+               QPS, a torch.profiler trace of 500 requests at concurrency
+               64 (idle share, device ms a request, and the medians of the
+               engine's TRACE times), the list scan wrapper's host time
+               against its device time at b1, and at 1M the smallest batch
+               scan_mode "auto" would send to the list scan
 
 The kernels' launch counters are zeroed before each serving path (phases
-4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-17, one path
+4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-18, one path
 each) and read after it: every kernel of a path must have run on it, the
 wide modes (the ``_wide`` counters) on the paths that ask for k > 128 or
 R > 128, and the wide modes' first pass and floor select
@@ -155,7 +186,8 @@ R > 128, and the wide modes' first pass and floor select
 IVF-Flat path (phase 5 at k 200, nprobe 96; phase 6 at k 200) and the IVF-Flat
 hybrid path (phase 11 at R 512, nprobe 96). The HNSW beam is plain torch
 (no Pallas kernel in the JAX package either): phases 15-16 launch none of
-the port's kernels; phase 17 runs K1 and the list scan. The last three
+the port's kernels; phase 17 runs K1 and the list scan; phase 18 the list
+scan and the merge, launched from the server's worker threads. The last three
 lines are the
 kernels' JSON record, the card as nvidia-smi names it, and
 {"ok": true, "device": {...}}.
@@ -163,6 +195,7 @@ kernels' JSON record, the card as nvidia-smi names it, and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import re
@@ -185,15 +218,28 @@ from pyrope_tpu_torch.utils.datasets import (
     synthetic_queries,
 )
 from pyrope_tpu_torch.utils.stats import LatencySummary
+from pyrope_tpu_torch.bench import resp_load
+from pyrope_tpu_torch.cache import CachePolicyConfig
 from pyrope_tpu_torch.index.flat import FlatIndex
-from pyrope_tpu_torch.index.hnsw import HnswIndex, beam_schedule, beam_search_body
-from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex, rank_probes
+from pyrope_tpu_torch.index.hnsw import (
+    DESCENT_BEAM,
+    EXPAND_PER_STEP,
+    HnswIndex,
+    beam_schedule,
+    beam_search_body,
+)
+from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex, pick_scan_mode, rank_probes
 from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
 from pyrope_tpu_torch.kernels import build as kbuild
 from pyrope_tpu_torch.ops import fused_scan as fs
 from pyrope_tpu_torch.ops.slab import sq8res_encode
 from pyrope_tpu_torch.registry import create_index
+from pyrope_tpu_torch.security import AuthSettings
+from pyrope_tpu_torch.server.engine import EngineConfig, PyropeEngine
+from pyrope_tpu_torch.server.resp import RespServer, ThreadedServer
+from pyrope_tpu_torch.server.resp_client import RespClient
 from pyrope_tpu_torch.utils import ref_oracle
+from pyrope_tpu_torch.utils.parsing import encode_vector
 
 RTOL, ATOL = 1e-5, 1e-4
 SQ8_RTOL = 1e-4   # the JAX package's SQ8 kernel tolerance
@@ -1653,13 +1699,30 @@ def phase_hnsw_1m(dev, smi) -> None:
     bytes16 = dev_t["x"].numel() * 2
     del ix16
     trace = device_shares(lambda: ix.device_search(q256[:64], K), 20)
+    # the beam's bound: the bytes its gathers read in the steps one b64
+    # batch ran (adjacency rows; slab rows and their squared norms), over
+    # the memory rate; every step gathers for every query of the batch
+    pool, steps = beam_schedule(ix.ef_search, K)
+    counts = {}
+    beam_search_body(
+        dev_t["x"], dev_t["x_exact"], dev_t["sqnorm"], dev_t["adj0"], dev_t["adj_up"],
+        dev_t["alive"], ix._entry, q256[:64], metric=Metric.L2, k=K, pool=pool,
+        steps=steps, n_upper=dev_t["n_upper"], counts=counts)
+    row = 128 * dev_t["x"].element_size() + dev_t["sqnorm"].element_size()
+    up = dev_t["adj_up"][0] if dev_t["n_upper"] else dev_t["adj0"]
+    beam_bytes = 64 * (
+        counts.get("upper", 0) * DESCENT_BEAM * up.shape[-1] * (up.element_size() + row)
+        + counts.get("layer0", 0) * EXPAND_PER_STEP * dev_t["adj0"].shape[1]
+        * (dev_t["adj0"].element_size() + row))
     say("16 hnsw 1m", cell="hnsw1m_clustered", n=ix._count, data_s=round(data_s, 2),
         build_s=round(build_s, 2), stages=repr(stages), top_level=ix._top_level,
         recall_ef50=rec50, recall_ef200=rec200, gates="0.8084 / 0.9404",
         cells=repr(cells), recall_bf16=rec16, bf16_minus_fp32=round(rec16 - rec50, 6),
         recall_bf16_scores=rec_walk,
         bf16_b256=repr(srv16), bf16_beam_slab_bytes=bytes16,
-        device_bytes=repr(nbytes), trace_20_b64=repr(trace), card=repr(smi))
+        device_bytes=repr(nbytes), trace_20_b64=repr(trace),
+        b64_steps=repr(counts), b64_gather_bytes=beam_bytes,
+        b64_bound_ms=round(beam_bytes / HBM_BYTES_S * 1e3, 4), card=repr(smi))
 
 
 def phase_delta_hnsw(dev, smi) -> None:
@@ -1728,6 +1791,328 @@ def phase_delta_hnsw(dev, smi) -> None:
         flat_head="pallas, set after create_index (its default: exact)", card=repr(smi))
 
 
+# ---- phase 18: the RESP data plane -------------------------------------------
+
+RESP_TENANT = "lt"       # scripts/serving_bench.py's tenant
+# recall@10 of the JAX package (Delta(Flat, IVF_FLAT), nlist 100) on
+# serving_bench's corpus and its first 2000 pool queries, by nprobe,
+# measured on the CPU by tests/test_torch_serving_parity.py
+# (test_chip_smoke_serving_recall_is_the_jax_packages)
+SERVING_RECALL_JAX = {3: 0.13085, 96: 0.996}
+
+
+def resp_clients(port: int, op: str, vectors: np.ndarray, requests: list, conc: int,
+                 *, index: str, extra=(), prefix: str = "") -> dict:
+    """``requests`` sent by bench/resp_load's client processes (at most
+    four: the card's host has 8 cores) over ``conc`` connections: replies
+    by request id, QPS, p50 / p99 ms."""
+    return resp_load.drive(port, op, vectors, requests, conc, tenant=RESP_TENANT,
+                           index=index, top_k=K, extra=extra, prefix=prefix, procs=4)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside are taken back off the kernels' counts: a kernel held
+    against its plain version, or timed alone, is not the path's work."""
+    saved = dict(fs.LAUNCHES)
+    try:
+        yield
+    finally:
+        fs.LAUNCHES.update(saved)
+
+
+def list_scan_at_serving_sizes(dev, tdev, queries: np.ndarray, nprobe: int,
+                               what: str) -> dict:
+    """The list scan's wrapper (scan and merge) against its plain version on
+    an index's own device tensors and probes, at the micro-batch sizes the
+    server hands it: 8 queries one at a time (b1) and 4 batches of 8 (b8).
+    Equal hit sets but for k-th place ties, scores within RTOL / ATOL.
+    Returns the largest score difference and the tie swaps by size."""
+    kp = tdev["cents"].shape[0]
+    n = tdev["xperm"].shape[0]   # no max_scans budget
+    out = {}
+    with uncounted():
+        for b, batches in ((1, [queries[i:i + 1] for i in range(8)]),
+                           (8, [queries[8 + 8 * i:16 + 8 * i] for i in range(4)])):
+            err, swaps = 0.0, 0
+            for qb in batches:
+                q = torch.from_numpy(qb).to(dev)
+                probe = rank_probes(q, tdev["cents"], tdev["cvalid"], tdev["offsets"],
+                                    tdev["lens"], nprobe, n, Metric.L2)[0]
+                args = (q, tdev["xperm"], tdev["sqnorm"], tdev["alive"], tdev["crow"])
+                got = fs.fused_ivf_topk(*args, tdev["offsets"], tdev["lens"], probe, kp, K,
+                                        max_len=tdev["l_pad"])
+                e, sw = compare(got, fs.fused_ivf_topk_plain(*args, probe, kp, K),
+                                f"{what} list scan b{b}")
+                err, swaps = max(err, e), swaps + sw
+            out[f"b{b}"] = {"max_abs_err": err, "tie_swaps": swaps}
+    return out
+
+
+def resp_search_cell(srv, index: str, queries: np.ndarray, n: int, conc: int,
+                     nprobe: int, trace: bool = False) -> dict:
+    """``n`` VEC.SEARCH top-10 requests over ``queries`` in turn, cache off:
+    QPS, p50/p99 ms, the micro-batcher's batches and the list scan's
+    launches in the cell. ``trace``: the requests ask for the engine's
+    TRACE, and the cell adds the medians of its server-side times (ms):
+    ``server`` from search_begin to the reply's assembly, ``engine`` in the
+    micro-batcher (its wait, gate and search_batch), ``host_legs`` the
+    policy, cache and metadata steps."""
+    batcher = srv.server.engine.batcher
+    b0, q0 = batcher.stats.batches, batcher.stats.queries
+    l0 = fs.LAUNCHES["ivf_scan"]
+    out = resp_clients(srv.port, "search", queries, [[r, r % len(queries)] for r in range(n)],
+                       conc, index=index, extra=("NPROBE", nprobe) + (("TRACE",) if trace else ()))
+    batches = batcher.stats.batches - b0
+    out.update(requests=n, concurrency=conc, nprobe=nprobe, batches=batches,
+               avg_batch=(batcher.stats.queries - q0) / max(batches, 1),
+               ivf_launches=fs.LAUNCHES["ivf_scan"] - l0)
+    if trace:
+        trs = [json.loads(reply[1]) for reply in out["replies"].values()]
+        out["server_ms"] = {
+            "server": statistics.median(t["latency_ms"] for t in trs),
+            "engine": statistics.median(t["engine_ms"] for t in trs),
+            "host_legs": statistics.median(t["policy_ms"] + t["cache_ms"] + t["metadata_ms"]
+                                           for t in trs)}
+        out["replies"] = {r: reply[0] for r, reply in out["replies"].items()}
+    return out
+
+
+def replies_match_search_batch(replies: dict, index, queries: np.ndarray,
+                               opts: SearchOptions, what: str) -> float:
+    """Every reply (request r asked for ``queries[r % len(queries)]``) names
+    the hits of ``index.search_batch`` on the same queries, called directly
+    now: equal hit sets (a hit may differ only as a tie at the k-th place)
+    and scores within RTOL / ATOL of the direct ones. Returns the largest
+    score difference."""
+    direct = index.search_batch(queries, K, opts)
+    err = 0.0
+    for r, reply in replies.items():
+        want = {h.id: h.score for h in direct[r % len(queries)]}
+        got = {row[0]: float(row[1]) for row in reply}
+        require(len(got) == len(want), f"{what}: request {r} has {len(got)} hits")
+        kth = min(want.values())
+        for rid in set(got) ^ set(want):
+            score = got.get(rid, want.get(rid))
+            require(np.isclose(score, kth, rtol=RTOL, atol=ATOL),
+                    f"{what}: request {r} hit sets differ outside a k-th place tie")
+        for rid in set(got) & set(want):
+            require(np.isclose(got[rid], want[rid], rtol=RTOL, atol=ATOL),
+                    f"{what}: request {r} score of {rid}: {got[rid]} vs {want[rid]}")
+            err = max(err, abs(got[rid] - want[rid]))
+    return err
+
+
+def reply_recall(replies: dict, truth: np.ndarray) -> float:
+    """recall@10 of the replies (request r asked for query r % len(truth))
+    against exact truth rows; ids are "v<row>"."""
+    rows = np.full((len(replies), K), -1, np.int64)
+    want = np.empty((len(replies), K), np.int64)
+    for i, (r, reply) in enumerate(sorted(replies.items())):
+        ids = [int(row[0][1:]) for row in reply[:K]]
+        rows[i, :len(ids)] = ids
+        want[i] = truth[r % len(truth)]
+    return recall_at_k(rows, want, K)
+
+
+def phase_resp(dev, smi, data) -> None:
+    """The data plane over the wire: PyropeEngine + RespServer on port 0,
+    client processes speaking RESP (scripts/serving_bench.py's cells)."""
+    engine = PyropeEngine(EngineConfig(auth=AuthSettings(enabled=False), device="cuda"))
+    # cache off, as serving_bench.py sets it: every request reaches the card
+    engine.policy.store.update(CachePolicyConfig(enable_cache=False, default_ttl_seconds=60))
+    srv = ThreadedServer(RespServer(engine, "127.0.0.1", 0))
+    try:
+        _resp_cells(dev, smi, data, engine, srv)
+    finally:
+        srv.stop()
+
+
+def _resp_cells(dev, smi, data, engine, srv) -> None:
+    t, card = RESP_TENANT, repr(smi)
+    # serving_bench.py:255-257: the corpus and the query pool from one generator
+    n, d, pool, nreq, nwrites = 100_000, 128, 4096, 2000, 10_000
+    rng = np.random.default_rng(42)
+    base = rng.standard_normal((n, d)).astype(np.float32)
+    queries = rng.standard_normal((pool, d)).astype(np.float32)[:nreq]
+    t0 = time.perf_counter()
+    engine.create_index(t, "idx", IndexConfig(dim=d, algorithm="IVF_FLAT",
+                                              params=IndexParams(nlist=100, nprobe=3)))
+    require(engine.add_batch(t, "idx", [f"v{i}" for i in range(n)], base).ok, "add_batch")
+    require(engine.build_index(t, "idx"), "build_index")
+    build_s = time.perf_counter() - t0
+    state = engine.registry.try_get(t, "idx")
+    route = state.index.tail.describe_scan(64)
+    require(route == "dense-pallas", f"serving_bench 100k route is {route}")
+    truth = truth_on_card(base, queries, K, dev)
+    with RespClient("127.0.0.1", srv.port) as c:   # the first request: warm
+        c.vec_search(t, "idx", encode_vector(queries[0]), K)
+
+    # the list scan against its plain version at the server's micro-batch
+    # sizes, on the index's own tensors; then the host's share of one query:
+    # the wrapper's call (host time to return, no sync) against its device
+    # time, and search_batch b1
+    tdev = state.index.tail._sync()
+    plain = {nprobe: list_scan_at_serving_sizes(dev, tdev, queries, nprobe,
+                                                f"100k np{nprobe}")
+             for nprobe in (3, 96)}
+    q1 = torch.from_numpy(queries[:1]).to(dev)
+    kp = tdev["cents"].shape[0]
+    probe = rank_probes(q1, tdev["cents"], tdev["cvalid"], tdev["offsets"], tdev["lens"],
+                        3, n, Metric.L2)[0]
+    call = lambda: fs.fused_ivf_topk(q1, tdev["xperm"], tdev["sqnorm"], tdev["alive"],
+                                     tdev["crow"], tdev["offsets"], tdev["lens"], probe,
+                                     kp, K, max_len=tdev["l_pad"])
+    host = []
+    with uncounted():
+        for _ in range(50):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            call()
+            host.append((time.perf_counter() - t1) * 1e3)
+        events_ms, device_ms = cuda_ms(call, 20), device_split(call, 20).get("device_ms", 0.0)
+    wall = []
+    for i in range(50):
+        t1 = time.perf_counter()
+        state.index.search_batch(queries[i:i + 1], K, SearchOptions(nprobe=3))
+        wall.append((time.perf_counter() - t1) * 1e3)
+    say("18 resp", cell="serving_bench_100k", n=n, build_s=round(build_s, 2), route=route,
+        list_scan_vs_plain=repr(plain),
+        list_scan_call_host_ms_b1=round(statistics.median(host), 4),
+        list_scan_cuda_events_ms_b1=round(events_ms, 4),
+        list_scan_device_ms_b1=round(device_ms, 4),
+        search_batch_b1_ms=round(statistics.median(wall), 4), card=card)
+
+    # 1. search cells: replies equal a direct search_batch; recall; batching
+    for nprobe in (3, 96):
+        opts = SearchOptions(nprobe=nprobe)
+        for conc in (4, 64):
+            cell = resp_search_cell(srv, "idx", queries, nreq, conc, nprobe)
+            err = replies_match_search_batch(cell["replies"], state.index, queries, opts,
+                                             f"100k np{nprobe} c{conc}")
+            rec = reply_recall(cell["replies"], truth)
+            require(abs(rec - SERVING_RECALL_JAX[nprobe]) <= 0.005,
+                    f"100k np{nprobe} recall {rec} vs the JAX package's "
+                    f"{SERVING_RECALL_JAX[nprobe]}")
+            require(cell["ivf_launches"] > 0, f"np{nprobe} c{conc}: no list scan launched")
+            if conc == 64:
+                require(cell["avg_batch"] > 1, f"np{nprobe} c64: avg_batch {cell['avg_batch']}")
+            say("18 resp", cell=f"serving_bench_100k_np{nprobe}_c{conc}",
+                requests=nreq, qps=round(cell["qps"], 1), p50_ms=round(cell["p50_ms"], 3),
+                p99_ms=round(cell["p99_ms"], 3), avg_batch=round(cell["avg_batch"], 2),
+                batches=cell["batches"], ivf_launches=cell["ivf_launches"],
+                recall=rec, recall_jax_cpu=SERVING_RECALL_JAX[nprobe],
+                max_abs_err_vs_search_batch=err, card=card)
+    # where a request's time goes: 500 requests at concurrency 64 with the
+    # engine's TRACE, under a torch.profiler trace of the card
+    for nprobe in (3, 96):
+        last = []
+        tr = device_shares(lambda: last.append(
+            resp_search_cell(srv, "idx", queries, 500, 64, nprobe, trace=True)), 1)
+        per = {}
+        if "busy_ms" in tr:
+            per = {"device_ms_a_request": round(tr["busy_ms"] / 500, 4),
+                   "span_ms_a_request": round(tr["span_ms"] / 500, 4)}
+        cell = last[-1]
+        say("18 resp", cell=f"serving_bench_100k_np{nprobe}_c64_trace", requests=500,
+            qps=round(cell["qps"], 1), p50_ms=round(cell["p50_ms"], 3),
+            avg_batch=round(cell["avg_batch"], 2),
+            server_median_ms=repr({k: round(v, 3) for k, v in cell["server_ms"].items()}),
+            trace=repr(tr), **per, card=card)
+
+    # 2. writes: 4 writers x 2,500 VEC.UPSERT of new ids, each read back
+    writes = np.random.default_rng(7).standard_normal((nwrites, d)).astype(np.float32)
+    up = resp_clients(srv.port, "upsert", writes, [[r, r] for r in range(len(writes))], 4,
+                      index="idx", prefix="w")
+    require(all(v == "VEC_OK" for v in up["replies"].values()), "an upsert was refused")
+    back = resp_clients(srv.port, "search", writes, [[r, r] for r in range(len(writes))], 64,
+                        index="idx")
+    missed = [r for r, reply in back["replies"].items() if reply[0][0] != f"w{r}"]
+    require(not missed, f"{len(missed)} written ids not their own top-1, e.g. {missed[:3]}")
+    gone = {f"w{r}" for r in range(100)}
+    with RespClient("127.0.0.1", srv.port) as c:
+        for rid in sorted(gone):
+            require(c.vec_del(t, "idx", rid) == "VEC_OK", f"VEC.DEL {rid}")
+    after = resp_clients(srv.port, "search", writes[:100], [[r, r] for r in range(100)], 4,
+                         index="idx")
+    seen = {row[0] for reply in after["replies"].values() for row in reply} & gone
+    require(not seen, f"deleted ids still in replies: {sorted(seen)[:3]}")
+    with RespClient("127.0.0.1", srv.port) as c:
+        count = int(c.vec_stats(t, "idx")["count"])
+    require(count == n + len(writes) - len(gone), f"VEC.STATS count {count}")
+    say("18 resp", cell="serving_bench_100k_upsert", writers=4, writes=len(writes),
+        vec_per_s=round(up["qps"], 1), p50_ms=round(up["p50_ms"], 3),
+        p99_ms=round(up["p99_ms"], 3), coalescer=repr(srv.server.write_coalescer.to_dict()),
+        read_back=len(back["replies"]), deleted=len(gone), stats_count=count, card=card)
+
+    # 3. cache hits: one query repeated, cache on; hits stay on the host
+    engine.policy.store.update(CachePolicyConfig(enable_cache=True, default_ttl_seconds=300))
+    engine.flush_cache()
+    with RespClient("127.0.0.1", srv.port) as c:
+        first = c.vec_search(t, "idx", encode_vector(queries[0]), K, "TRACE")
+        second = c.vec_search(t, "idx", encode_vector(queries[0]), K, "TRACE")
+    require(json.loads(first[1])["cache_hit"] is False, "the first query hit the cache")
+    level = json.loads(second[1])["cache_level"]
+    require(level == "L0", f"the repeated query's TRACE names {level!r}, not L0")
+    l0 = fs.LAUNCHES["ivf_scan"]
+    hits = resp_clients(srv.port, "search", queries[:1], [[r, 0] for r in range(500)], 4,
+                        index="idx")
+    require(fs.LAUNCHES["ivf_scan"] == l0, "a cache hit launched the list scan")
+    require(all(reply == second[0] for reply in hits["replies"].values()),
+            "a cache hit's reply differs from the first")
+    seen = {row[0] for reply in hits["replies"].values() for row in reply} & gone
+    require(not seen, f"deleted ids in cache hits: {sorted(seen)[:3]}")
+    engine.policy.store.update(CachePolicyConfig(enable_cache=False, default_ttl_seconds=60))
+    say("18 resp", cell="serving_bench_100k_cache_hit", requests=500, concurrency=4,
+        qps=round(hits["qps"], 1), p50_ms=round(hits["p50_ms"], 3),
+        p99_ms=round(hits["p99_ms"], 3), trace_level=level, ivf_launches=0, card=card)
+
+    # 4. 1M clustered (phase 4's corpus), nlist 1000, nprobe 3, concurrency 64
+    base1m, queries1m, truth1m = data
+    q1m = queries1m[:len(truth1m)]
+    t0 = time.perf_counter()
+    # scan_mode dense, as phase 4: "auto" sends 1M np3 batches below a few
+    # hundred queries (every micro-batch) to the probe route, plain torch
+    engine.create_index(t, "c1m", IndexConfig(dim=d, algorithm="IVF_FLAT",
+                                              params=IndexParams(nlist=1000, nprobe=3,
+                                                                 scan_mode="dense")))
+    require(engine.add_batch(t, "c1m", [f"v{i}" for i in range(len(base1m))], base1m).ok,
+            "add_batch 1M")
+    require(engine.build_index(t, "c1m"), "build_index 1M")
+    build_s = time.perf_counter() - t0
+    state1m = engine.registry.try_get(t, "c1m")
+    route = state1m.index.tail.describe_scan(64)
+    require(route == "dense-pallas-win", f"1M nlist 1000 route is {route}")
+    tdev = state1m.index.tail._sync()
+    plain = list_scan_at_serving_sizes(dev, tdev, q1m, 3, "1M np3")
+    # the smallest batch that "auto" would send to the list scan here (the
+    # JAX package's pick_scan_mode, the same rule and constants)
+    npad, l_pad = tdev["xperm"].shape[0], tdev["l_pad"]
+    auto_dense = next((b for b in range(1, 4097) if pick_scan_mode(
+        "auto", npad, 3, l_pad, batch=b, pallas_ok=True) == "dense"), None)
+    with RespClient("127.0.0.1", srv.port) as c:
+        c.vec_search(t, "c1m", encode_vector(q1m[0]), K)
+    cell = resp_search_cell(srv, "c1m", q1m, 2 * len(q1m), 64, 3)
+    err = replies_match_search_batch(cell["replies"], state1m.index, q1m,
+                                     SearchOptions(nprobe=3), "1M np3 c64")
+    rec = reply_recall(cell["replies"], truth1m)
+    require(rec >= 0.995, f"1M clustered recall {rec} < 0.995")
+    require(cell["avg_batch"] > 1, f"1M c64: avg_batch {cell['avg_batch']}")
+    last = []
+    tr = device_shares(lambda: last.append(
+        resp_search_cell(srv, "c1m", q1m, 512, 64, 3, trace=True)), 1)
+    say("18 resp", cell="ivf1m_clustered_np3_c64", n=len(base1m), build_s=round(build_s, 2),
+        route=route, requests=cell["requests"], qps=round(cell["qps"], 1),
+        p50_ms=round(cell["p50_ms"], 3), p99_ms=round(cell["p99_ms"], 3),
+        avg_batch=round(cell["avg_batch"], 2), batches=cell["batches"],
+        ivf_launches=cell["ivf_launches"], recall=rec, gate=0.995,
+        max_abs_err_vs_search_batch=err, list_scan_vs_plain=repr(plain), npad=npad,
+        l_pad=l_pad, auto_dense_from_batch=auto_dense, trace_512=repr(tr),
+        server_median_ms=repr({k: round(v, 3) for k, v in last[-1]["server_ms"].items()}),
+        card=card)
+    engine.registry.drop(t, "c1m")
+
+
 def run_path(name: str, fn, kernels: tuple[str, ...]) -> dict:
     """One serving path: the launch counts zeroed before it and read after;
     each of ``kernels`` must have run on it. Prints its wall time."""
@@ -1790,6 +2175,7 @@ def main() -> int:
         ("HNSW native", lambda: phase_hnsw_native(dev, smi), ()),
         ("HNSW 1M", lambda: phase_hnsw_1m(dev, smi), ()),
         ("Delta HNSW", lambda: phase_delta_hnsw(dev, smi), ("flat_scan", "merge")),
+        ("RESP serving", lambda: phase_resp(dev, smi, data), ("ivf_scan", "merge")),
     )}
     say("launches", **{name.replace(" ", "_"): repr(got) for name, got in paths.items()})
     launches = {name: sum(got[name] for got in paths.values()) for name in fs.LAUNCHES}

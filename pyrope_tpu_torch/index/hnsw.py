@@ -72,7 +72,7 @@ def beam_schedule(ef: int, top_k: int) -> tuple[int, int]:
 def beam_search_body(
     x, x_exact, sqnorm, adj0, adj_up, alive, entry: int, q,
     *, metric: Metric, k: int, pool: int, steps: int, n_upper: int,
-    visited_mode: str = "pool", rerank: bool = False,
+    visited_mode: str = "pool", rerank: bool = False, counts: Optional[dict] = None,
 ):
     """Batched beam search (greedy upper descent + layer-0 beam) on tensors
     of one device. Returns (scores [B, k] fp32, node rows [B, k] int32);
@@ -97,7 +97,11 @@ def beam_search_body(
     (exactly the bitmap's result: an evicted node scored <= the monotone
     k-th bound, and ties keep the incumbent because pool entries precede
     candidates in the top-k); 'bitmap' keeps a [B, N] visited map (one
-    extra sink column takes the writes of invalid candidates)."""
+    extra sink column takes the writes of invalid candidates).
+
+    ``counts``: when given, the steps this batch ran are added to its
+    ``"upper"`` and ``"layer0"`` entries (each step gathers every query's
+    frontier or expansions, whether or not that query has converged)."""
     b, d = q.shape
     dev = q.device
     qf = q.float()
@@ -141,6 +145,8 @@ def beam_search_body(
             nfr = torch.where(torch.isfinite(nfr_s), sid.gather(1, pos), -1)
             moved = (nfr != fr).any()
             fr, fr_s = nfr, nfr_s
+            if counts is not None:
+                counts["upper"] = counts.get("upper", 0) + 1
             if not bool(moved):
                 break
 
@@ -164,6 +170,8 @@ def beam_search_body(
     for _ in range(steps):
         if not bool(((~expanded) & (pool_ids >= 0)).any()):
             break  # fixed point: every further step expands nothing
+        if counts is not None:
+            counts["layer0"] = counts.get("layer0", 0) + 1
         unexp = torch.where((~expanded) & (pool_ids >= 0), pool_s, NEG_INF)
         top_vals, pos = stable_topk(unexp, EXPAND_PER_STEP)
         valid_e = torch.isfinite(top_vals)

@@ -69,6 +69,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import numbers
+import threading
 
 import torch
 
@@ -123,7 +124,9 @@ FLAT_PREFLOOR_RATIO = 20.0
 LIST_PREFLOOR_RATIO = 5.0
 
 # launches of each kernel since the last reset_launches(); the ``_wide``
-# keys count the wide mode (k > NARROW_MAX_K) of the same kernel
+# keys count the wide mode (k > NARROW_MAX_K) of the same kernel. Servers
+# launch from several threads at once: counts change only under the lock
+# (count_launch), so none is lost
 LAUNCHES = {"flat_scan": 0, "flat_scan_bf16": 0, "ivf_scan": 0, "ivf_scan_bf16": 0,
             "sq8_scan": 0, "merge": 0, "flat_scan_wide": 0, "flat_scan_bf16_wide": 0,
             "ivf_scan_wide": 0, "ivf_scan_bf16_wide": 0, "sq8_scan_wide": 0,
@@ -131,9 +134,19 @@ LAUNCHES = {"flat_scan": 0, "flat_scan_bf16": 0, "ivf_scan": 0, "ivf_scan_bf16":
             "floor_select": 0}
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(key: str) -> None:
+    """One launch of kernel ``key``, counted where its wrapper launched it."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[key] += 1
+
+
 def reset_launches() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    with _LAUNCH_LOCK:
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
 
 
 # ---- plain PyTorch versions -------------------------------------------------
@@ -645,7 +658,7 @@ def floor_select(pub, g: int, qend=None, base=None):
             pub.data_ptr(), pub.shape[0], qend.data_ptr(), b, p, g,
             None if base is None else base.data_ptr(), out.data_ptr(), stream),
             "floor select")
-    LAUNCHES["floor_select"] += 1
+    count_launch("floor_select")
     return out
 
 
@@ -696,7 +709,7 @@ def _flat_first_pass(q, x, sqnorm, alive, metric_ip, max_scans, plan: FlatPreflo
         d, plan.c, plan.c, int(metric_ip), max_scans, plan.per, plan.rows, plan.splits,
         plan.tile, vec, None, None, pub.data_ptr(), plan.c, plan.g, None, FLAT_WIDE_CAP,
         None, stream), "fused scan kernel (first pass)")
-    LAUNCHES["flat_scan_prefloor"] += 1
+    count_launch("flat_scan_prefloor")
     return floor_select(pub, plan.g)
 
 
@@ -784,13 +797,13 @@ def _merge_launch(part_v, part_i, s, b, k, qend, nprobe, qstride, lstride, width
         check(load().pyrope_merge_partials(
             part_v.data_ptr(), part_i.data_ptr(), s, b, k, qptr, nprobe, qstride,
             lstride, out_v.data_ptr(), out_i.data_ptr(), stream), "merge kernel")
-        LAUNCHES["merge"] += 1
+        count_launch("merge")
     else:
         check(load().pyrope_merge_partials_wide(
             part_v.data_ptr(), part_i.data_ptr(), s, b, k, width, qptr, nprobe,
             qstride, lstride, None if fills is None else fills.data_ptr(),
             out_v.data_ptr(), out_i.data_ptr(), stream), "wide merge kernel")
-        LAUNCHES["merge_wide"] += 1
+        count_launch("merge_wide")
     return out_v, out_i
 
 
@@ -860,8 +873,8 @@ def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
             q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), *tail[:8],
             per, *tail[8:], vec, *outs[:5], None if floor0 is None else floor0.data_ptr(),
             cap, None if fills is None else fills.data_ptr(), stream), "fused scan kernel")
-    LAUNCHES[("flat_scan_bf16" if elem == 2 else "flat_scan")
-             + ("_wide" if k > NARROW_MAX_K else "")] += 1
+    count_launch(("flat_scan_bf16" if elem == 2 else "flat_scan")
+                 + ("_wide" if k > NARROW_MAX_K else ""))
     return _merge_launch(part_v, part_i, n_splits, b, k, None, 0, n_splits * kw, kw, kw,
                          fills)
 
@@ -1033,7 +1046,7 @@ def list_partials(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip
         pub[w.slots:] = job.first_pass(plan)
     pub_c, pub_g = list_floor(k, job.nprobe, kw)
     key = job.launch(k, kw, part_v, part_i, pub, pub_c, pub_g, job.seg)
-    LAUNCHES[key + ("_wide" if k > NARROW_MAX_K else "")] += 1
+    count_launch(key + ("_wide" if k > NARROW_MAX_K else ""))
     return part_v, part_i, w.slot_end
 
 
@@ -1117,7 +1130,7 @@ class _ListJob:
         # more than the rows it dropped)
         self.launch(plan.c, plan.c, None, None, first, plan.c, LIST_FLOOR_WINDOW + 1,
                     plan.sample)
-        LAUNCHES["list_scan_prefloor"] += 1
+        count_launch("list_scan_prefloor")
         return floor_select(first[:w.slots], plan.g, w.slot_end, first[w.slots:])
 
     def launch(self, k, kw, part_v, part_i, pub, pub_c, pub_g, sample) -> str:

@@ -1,10 +1,14 @@
 """Seeded datasets, ground truth and recall (numpy only).
 
 The port's copy of what it uses of ``pyrope_tpu/utils/datasets.py``: the
-same generators with the same seeds, so both packages see the same rows.
+same generators with the same seeds, so both packages see the same rows,
+and the same fvecs / GloVe-txt readers.
 """
 
 from __future__ import annotations
+
+import struct
+from pathlib import Path
 
 import numpy as np
 
@@ -46,6 +50,59 @@ def synthetic_clustered_queries(
     assign = rng.integers(0, n_clusters, n)
     noise = rng.normal(0.0, spread, (n, dim)).astype(np.float32)
     return centers[assign] + noise
+
+
+def read_fvecs(path: str | Path, limit: int | None = None) -> np.ndarray:
+    """SIFT-style .fvecs: per record int32 dim + dim float32 LE
+    (ref: Datasets/FvecsReader.cs:14-58)."""
+    data = Path(path).read_bytes()
+    if len(data) < 4:
+        return np.zeros((0, 0), np.float32)
+    dim = struct.unpack_from("<i", data, 0)[0]
+    rec = 4 + 4 * dim
+    n = len(data) // rec
+    if limit is not None:
+        n = min(n, limit)
+    arr = np.frombuffer(data[: n * rec], dtype=np.float32).reshape(n, dim + 1)
+    # first float of each record is the bit-cast dim header
+    return np.ascontiguousarray(arr[:, 1:])
+
+
+def write_fvecs(path: str | Path, vecs: np.ndarray) -> None:
+    vecs = np.asarray(vecs, np.float32)
+    n, dim = vecs.shape
+    out = np.empty((n, dim + 1), np.float32)
+    out[:, 0] = np.frombuffer(np.full(n, dim, np.int32).tobytes(), np.float32)
+    out[:, 1:] = vecs
+    Path(path).write_bytes(out.tobytes())
+
+
+def read_glove_txt(path: str | Path, limit: int | None = None) -> tuple[list[str], np.ndarray]:
+    """GloVe txt `token v1..vN`, tolerant of malformed lines
+    (ref: Datasets/GloveTxtReader.cs:14-62)."""
+    tokens: list[str] = []
+    rows: list[np.ndarray] = []
+    dim = None
+    with open(path, "r", encoding="utf-8", errors="replace") as f:
+        for line in f:
+            parts = line.rstrip("\n").split(" ")
+            if len(parts) < 2:
+                continue
+            try:
+                vec = np.array(parts[1:], dtype=np.float32)
+            except ValueError:
+                continue
+            if dim is None:
+                dim = vec.shape[0]
+            if vec.shape[0] != dim:
+                continue
+            tokens.append(parts[0])
+            rows.append(vec)
+            if limit is not None and len(rows) >= limit:
+                break
+    if not rows:
+        return [], np.zeros((0, 0), np.float32)
+    return tokens, np.stack(rows)
 
 
 def ground_truth(

@@ -219,6 +219,25 @@ def test_early_exit_is_a_fixed_point():
     assert torch.allclose(v1, v2)
 
 
+
+def test_beam_counts_the_steps_it_ran():
+    """``counts`` records the steps the loops ran (the beam's bound in
+    chip_smoke reads them) and changes no result; the layer-0 count stops
+    at the fixed point, short of its cap."""
+    idx, base = built(n=800)
+    q = torch.from_numpy(synthetic(16, 16, seed=11))
+    pool, steps = beam_schedule(48, 10)
+    dev = idx._sync()
+    args = (dev["x"], dev["x_exact"], dev["sqnorm"], dev["adj0"], dev["adj_up"],
+            dev["alive"], idx._entry, q)
+    kw = dict(metric=Metric.L2, k=10, pool=pool, n_upper=dev["n_upper"], steps=steps * 2)
+    counts = {}
+    v1, r1 = beam_search_body(*args, counts=counts, **kw)
+    v2, r2 = beam_search_body(*args, **kw)
+    assert torch.equal(r1, r2) and torch.equal(v1, v2)
+    assert 0 < counts["layer0"] < steps * 2
+    assert counts.get("upper", 0) <= dev["n_upper"] * 16
+
 class TestRelabel:
     """relabel() permutes rows; results are INVARIANT."""
 
