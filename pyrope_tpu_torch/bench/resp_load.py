@@ -1,11 +1,12 @@
-"""RESP load: VEC.SEARCH or VEC.UPSERT requests sent to a data-plane server by client processes.
+"""RESP load: VEC.SEARCH, VEC.UPSERT or VEC.ADD requests sent to a data-plane server by client processes.
 
 ``drive`` starts the client processes (``python3 -m
 pyrope_tpu_torch.bench.resp_load``, each with its share of the requests
 and connections), lets them all start at once, and gathers their replies,
 latencies and spans. A client process reads its job and the vectors from
 stdin, prints "ready" once every connection (one ``RespClient`` on a thread
-each, taking the process's requests round-robin) is open, starts on one
+each, taking the process's requests round-robin) is open (and has sent
+``AUTH tenant:key`` where the server checks keys), starts on one
 byte from stdin and writes its replies, latencies and span to stdout as
 JSON. Spans are ``time.perf_counter`` (CLOCK_MONOTONIC: one clock for every
 process of the host), so QPS runs from the first send to the last reply.
@@ -30,12 +31,13 @@ from pyrope_tpu_torch.utils.stats import LatencySummary
 
 def drive(port: int, op: str, vectors: np.ndarray, requests: list, conc: int, *,
           tenant: str, index: str, top_k: int = 10, extra=(), prefix: str = "",
-          procs: int = 4) -> dict:
+          procs: int = 4, api_key: str | None = None) -> dict:
     """``requests`` ([request id, row of ``vectors``]) sent as ``op``
     ("search": VEC.SEARCH top ``top_k`` with ``extra`` arguments;
-    "upsert": VEC.UPSERT of id ``prefix`` + request id) over ``conc``
-    connections spread across at most ``procs`` client processes, each
-    connection one request at a time. Returns the replies by request id,
+    "upsert" / "add": VEC.UPSERT / VEC.ADD of id ``prefix`` + request id)
+    over ``conc`` connections spread across at most ``procs`` client
+    processes, each connection one request at a time, authenticated as
+    ``tenant`` with ``api_key`` where one is given. Returns the replies by request id,
     QPS, and p50 / p99 latency in ms; raises if a client or request failed."""
     root = Path(__file__).resolve().parents[2]
     env = {**os.environ, "PYTHONPATH": str(root)}
@@ -46,7 +48,7 @@ def drive(port: int, op: str, vectors: np.ndarray, requests: list, conc: int, *,
         for p in range(nprocs):
             job = json.dumps({
                 "port": port, "op": op, "tenant": tenant, "index": index,
-                "top_k": top_k, "extra": list(extra), "prefix": prefix,
+                "top_k": top_k, "extra": list(extra), "prefix": prefix, "api_key": api_key,
                 "dim": vectors.shape[1], "requests": requests[p::nprocs],
                 "threads": conc // nprocs + (p < conc % nprocs)}).encode()
             proc = subprocess.Popen(
@@ -91,6 +93,10 @@ def _client() -> None:
     width = job["dim"] * 4
     conns = [RespClient("127.0.0.1", job["port"], timeout=300)
              for _ in range(job["threads"])]
+    if job["api_key"] is not None:
+        for c in conns:
+            if not c.auth(job["tenant"], job["api_key"]):
+                raise RuntimeError("AUTH refused")
     out = {"replies": {}, "lat_ms": {}, "errors": []}
 
     def run(t, c):
@@ -102,8 +108,9 @@ def _client() -> None:
                     reply = c.vec_search(job["tenant"], job["index"], payload,
                                          job["top_k"], *job["extra"])
                 else:
-                    reply = c.vec_upsert(job["tenant"], job["index"],
-                                         job["prefix"] + str(r), payload)
+                    write = c.vec_upsert if job["op"] == "upsert" else c.vec_add
+                    reply = write(job["tenant"], job["index"], job["prefix"] + str(r),
+                                  payload)
             except Exception as e:
                 out["errors"].append(f"request {r}: {type(e).__name__}: {e}")
                 continue

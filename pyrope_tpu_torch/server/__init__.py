@@ -1,6 +1,7 @@
-"""Data plane (RESP) server: the port's copy of ``pyrope_tpu/server``'s
-engine, micro-batcher, parser and RESP server and client.
+"""Data plane (RESP) + control plane (HTTP) servers: the port's copy of
+``pyrope_tpu/server``.
 
-Rebuild of the reference's Garnet-hosted command set (SURVEY §2.2) on
-asyncio. The HTTP control plane (``http_api``, ``app``) is not ported yet.
+Rebuild of the reference's Garnet-hosted command set and ASP.NET control
+plane (SURVEY §2.2, §2.5) as one asyncio process serving both protocols
+(``python -m pyrope_tpu_torch.server``).
 """

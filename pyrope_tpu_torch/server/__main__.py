@@ -1,0 +1,4 @@
+from pyrope_tpu_torch.server.app import main
+
+if __name__ == "__main__":
+    main()

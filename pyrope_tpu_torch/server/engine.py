@@ -13,9 +13,9 @@ call stack (SURVEY §3.1):
     metadata join/filter :461-481 → cache set L0+L1+L2 :500-539
 
 with the per-request TRACE breakdown (:884-912) and the write/delete paths
-(:557-724). The engine is shared by the RESP server and in-process
-embedding (`import pyrope_tpu_torch.server`), so tests can drive the full
-pipeline without sockets — the analog of the reference's in-process Garnet
+(:557-724). The engine is shared by the RESP server, the HTTP control
+plane, and in-process embedding (`import pyrope_tpu_torch.server`), so tests
+can drive the full pipeline without sockets — the analog of the reference's in-process Garnet
 integration tests (SURVEY §4 pattern 2).
 
 Every index lives on ``EngineConfig.device`` (``"cuda"`` unless the caller

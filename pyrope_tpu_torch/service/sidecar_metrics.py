@@ -4,9 +4,9 @@ Rebuilds of ``SidecarMetricsCalculator`` (ref:
 Services/SidecarMetricsCalculator.cs:15-70 — pure delta math: QPS, miss
 rate, bucket-boundary P99, CPU utilisation from process time) and
 ``SystemUsageProvider`` (ref: Services/SystemUsageProvider.cs:6-26).
-The async reporter loop that ships these to the sidecar lives in the JAX
-package's ``pyrope_tpu/server/app.py`` (ref:
-Services/SidecarMetricsReporter.cs); the port has no HTTP app yet.
+The async reporter loop that ships these to the sidecar lives in
+``server/app.py`` (``SidecarMetricsReporter``, ref:
+Services/SidecarMetricsReporter.cs).
 """
 
 from __future__ import annotations

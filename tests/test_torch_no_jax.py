@@ -25,7 +25,7 @@ PKG = REPO / "pyrope_tpu_torch"
 ALLOWED = ()  # modules of the JAX package the port may import: none
 
 _PROBE = """
-import importlib, json, pkgutil, sys
+import importlib, json, pkgutil, sys, threading
 import pyrope_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(pyrope_tpu_torch.__path__,
                                                "pyrope_tpu_torch.")]
@@ -38,8 +38,14 @@ print(json.dumps({
     "jax_package": sorted(m for m in sys.modules
                           if m == "pyrope_tpu" or m.startswith("pyrope_tpu.")),
     "cuda_initialized": torch.cuda.is_initialized(),
+    "entry_points": sorted(m for m in sys.modules if m in ENTRY_POINTS),
+    "threads": sorted(t.name for t in threading.enumerate()),
 }))
 """
+# modules whose import must start nothing: the servers' entry points
+ENTRY_POINTS = ("pyrope_tpu_torch.server.__main__", "pyrope_tpu_torch.server.app",
+                "pyrope_tpu_torch.sidecar.server")
+MODULES = 89   # every module of the package, this PR's count
 
 
 @functools.lru_cache(maxsize=1)
@@ -47,7 +53,8 @@ def _probe() -> dict:
     """Import every port module in a fresh interpreter; what it loaded."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
-    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=REPO,
+    probe = f"ENTRY_POINTS = {ENTRY_POINTS!r}\n" + _PROBE
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     return json.loads(out.stdout.strip().splitlines()[-1])
@@ -55,9 +62,31 @@ def _probe() -> dict:
 
 def test_importing_every_module_loads_no_jax():
     got = _probe()
-    assert got["modules"] >= 18  # every module was imported
+    assert got["modules"] >= MODULES  # every module was imported
     assert got["jax"] == []
     assert not got["cuda_initialized"]
+
+
+def test_importing_the_entry_points_starts_no_server():
+    """``python -m`` entry points run only under ``__main__``: the probe
+    imported each one, and the process has no thread but its own."""
+    got = _probe()
+    assert got["entry_points"] == sorted(ENTRY_POINTS)
+    assert got["threads"] == ["MainThread"]
+    assert not got["cuda_initialized"]
+
+
+def test_the_sidecar_server_loads_no_torch():
+    """The sidecar runs no device work: serving it imports no torch, so it
+    can touch no card."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    code = ("import sys, pyrope_tpu_torch.sidecar.server, pyrope_tpu_torch.sidecar.client; "
+            "print(sorted(m for m in sys.modules if m == 'torch' or m == 'jax'))")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_importing_every_module_loads_no_jax_package_module():
