@@ -4,7 +4,8 @@
     python3 chip_smoke.py          # from the repo root, on a host with a GPU
 
 Builds the CUDA kernels from pyrope_tpu_torch/csrc at first use, then runs
-nineteen phases, one line each (phases 8, 15 and 19 two, phase 18 one a cell);
+twenty-two phases, one line each (phases 8, 15 and 19 two, phase 18 one a
+cell, phase 21 three, phase 22 one a family and layout);
 any failed check exits non-zero. Each serving path's wall time and the
 total are printed:
 
@@ -199,9 +200,44 @@ total are printed:
                is a logged decision's); GET /v1/ai/models through the proxy,
                POST /v1/ai/models/train where sklearn and joblib import;
                both processes stop on SIGINT with exit code 0
+ 20. flat sq8  FlatIndex(storage="sq8") on synthetic(100k, 128) (bench.py's
+               sq8_100k at b64 and sq8_100k_b1024): route flat-sq8 (plain
+               torch, as the JAX package's XLA scan; no kernel), recall@10
+               of the first 256 / 1024 queries within 0.005 of the JAX
+               package's on the CPU (SQ8_RECALL_JAX; the TPU records
+               printed beside), QPS and p50/p99 at b64 and b1024, device
+               bytes, capacity, one upsert scattered in place and read back
+ 21. device flat DeviceFlatIndex over 10M x 128 uniform rows generated on
+               the card from seed 42 (flat10m_device_fp32_b1024,
+               flat10m_device_b1024: the fp32 slab and its bf16 copy),
+               adopted in place, device-pallas (K1, K1 bf16), b1024, k 10:
+               the fp32 hits equal the port's chunked_exact_topk on 256
+               queries but for k-th place fp32 ties, the bf16 hits equal
+               K1 bf16's plain version's (its recall printed); QPS,
+               p50/p99, build_s, device bytes, launches; a 100k
+               DeviceFlatIndex's snapshot loaded into FlatIndex
+ 22. sharded   the parallel/ families on a 4-shard mesh of the one card
+               (devices=[cuda:0] * 4; no interconnect is measured):
+               ShardedIvfFlatIndex on phase 4's corpus (the partition of
+               one IvfFlatIndex, nlist 1000, nprobe 3, dense) in the rows
+               and cluster layouts and on a 2 x 2 batch x data mesh, route
+               dense-pallas-win, the list scan once a shard and the shard
+               merge, hits equal the single index's but for k-th place
+               ties, recall@10 >= 0.995; ShardedFlatIndex on phase 6's 1M
+               uniform rows, K1 on every shard, hits equal FlatIndex's with
+               and without a max_scans budget that ends inside a shard, and
+               its sq8 storage; ShardedIvfPqIndex at 100k clustered (phase
+               8's index, fp32 rerank slab: the list scan per shard), recall
+               no lower than the single index's; ShardedHnswIndex over
+               phase 15's hnsw100k_clustered graph (the single beam's hits
+               but for k-th place ties); ShardedHnswCorpusIndex on the same
+               100k rows (recall >= the replicated graph's less 0.02, and
+               >= 0.9, as its CPU twin test states). Per family: QPS,
+               p50/p99, device ms split into scans and merges, the kernels
+               one device_search launches
 
 The kernels' launch counters are zeroed before each serving path (phases
-4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-18, one path
+4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-22, one path
 each) and read after it: every kernel of a path must have run on it, the
 wide modes (the ``_wide`` counters) on the paths that ask for k > 128 or
 R > 128, and the wide modes' first pass and floor select
@@ -212,7 +248,10 @@ hybrid path (phase 11 at R 512, nprobe 96). The HNSW beam is plain torch
 the port's kernels; phase 17 runs K1 and the list scan; phase 18 the list
 scan and the merge, launched from the server's worker threads; phase 19's
 server is a process of its own, so its kernels are read from its own trace
-(the path counts nothing in this process). The last three
+(the path counts nothing in this process); phase 20 (Flat sq8) runs no
+kernel, as the JAX package's sq8 scan reaches no Pallas kernel; phase 21
+launches K1 and K1 bf16 (and the merge), phase 22 K1, the list scan and
+the merge, once a shard. The last three
 lines are the
 kernels' JSON record, the card as nvidia-smi names it, and
 {"ok": true, "device": {...}}.
@@ -1619,11 +1658,12 @@ def hnsw_recall(ix, queries, truth, b, opts=None) -> float:
     return recall(results, truth)
 
 
-def phase_hnsw_native(dev, smi) -> None:
+def phase_hnsw_native(dev, smi, keep: dict) -> None:
     """hnsw100k_clustered (bench.py:172-173) and hnsw10k (:147): the native
     incremental builder, the beam at b64, recall@10 of 256 queries against
     the record less 0.01, and the copied oracle's sequential search over the
-    same graph (recall_ref, 64 queries)."""
+    same graph (recall_ref, 64 queries). ``keep`` takes the
+    hnsw100k_clustered graph, its queries and truth (phase 22)."""
     for name, base, queries, gate in (
         ("hnsw100k_clustered", synthetic_clustered(100_000, 128, n_clusters=100),
          synthetic_clustered_queries(256, 128, n_clusters=100), 0.9838),
@@ -1637,6 +1677,8 @@ def phase_hnsw_native(dev, smi) -> None:
         require(rec >= gate, f"{name} recall@10 {rec} < {gate}")
         q_dev = [torch.from_numpy(queries[i * 64:(i + 1) * 64]).to(dev) for i in range(4)]
         srv = serve(ix, q_dev, iters=100)
+        if name == "hnsw100k_clustered":
+            keep["hnsw100k"] = (ix, queries, truth)
         say("15 hnsw native", cell=name, n=len(base), build_s=round(build_s, 2),
             recall=rec, gate=gate, recall_ref=rec_ref, top_level=ix._top_level,
             batch_ms=round(64e3 / srv["qps"], 3), **srv, card=repr(smi))
@@ -1833,6 +1875,10 @@ RESP_TENANT = "lt"       # scripts/serving_bench.py's tenant
 # measured on the CPU by tests/test_torch_serving_parity.py
 # (test_chip_smoke_serving_recall_is_the_jax_packages)
 SERVING_RECALL_JAX = {3: 0.13085, 96: 0.996}
+# the JAX package's Flat sq8 recall@10 on bench.py's sq8_100k rows on the
+# CPU (256 queries for the b64 row, 1024 for b1024), phase 20's gate:
+# tests/test_torch_flat_sq8.py computes it
+SQ8_RECALL_JAX = {64: 0.989453125, 1024: 0.98720703125}
 
 
 def resp_clients(port: int, op: str, vectors: np.ndarray, requests: list, conc: int,
@@ -2481,6 +2527,403 @@ def _stack(dev, smi, data, in_thread: dict, tmp: str, children: list) -> None:
     engine.registry.drop(t, ix)
 
 
+# ---- phases 20-22: Flat sq8, DeviceFlatIndex at 10M, the sharded families ----
+
+
+def index_device_bytes(dev_state: dict) -> int:
+    """Bytes of the tensors of an index's device state."""
+    return sum(t.numel() * t.element_size() for t in dev_state.values()
+               if isinstance(t, torch.Tensor))
+
+
+def phase_flat_sq8(dev, smi) -> None:
+    """sq8_100k (b64) and sq8_100k_b1024 (bench.py:141, :284): FlatIndex
+    storage="sq8" on synthetic(100k, 128), L2, k 10, route flat-sq8 (plain
+    torch, as the JAX package's XLA scan); recall of the first 256 / 1024
+    queries within 0.005 of the JAX package's on the CPU; one incremental
+    upsert read back."""
+    n, d = 100_000, 128
+    base = synthetic(n, d)
+    queries = synthetic_queries(1024, d)
+    truth = ground_truth(base, queries, K, block=16384)
+    ix = FlatIndex(d, "L2", device=dev, storage="sq8")
+    t0 = time.perf_counter()
+    ix.add_batch([str(i) for i in range(n)], base)
+    ix._sync()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    route = ix.describe_scan(1024)
+    require(route == "flat-sq8", f"sq8 route is {route}")
+    q_dev = [torch.from_numpy(queries[s:s + 256]).to(dev) for s in range(0, 1024, 256)]
+    rows = np.concatenate([ix.device_search(q, K)[1].cpu().numpy() for q in q_dev])
+    ids = id_lists_to_rows(ix.resolve_rows(rows), K)
+    rec = {b: recall_at_k(ids[:m], truth[:m], K) for b, m in ((64, 256), (1024, 1024))}
+    for b, r in rec.items():
+        require(abs(r - SQ8_RECALL_JAX[b]) <= 0.005,
+                f"sq8 b{b} recall@10 {r} not within 0.005 of the JAX package's "
+                f"{SQ8_RECALL_JAX[b]}")
+    q64 = [torch.from_numpy(queries[s:s + 64]).to(dev) for s in range(0, 1024, 64)]
+    q1024 = [torch.from_numpy(queries).to(dev)]
+    s64, s1024 = serve(ix, q64, iters=200), serve(ix, q1024, iters=50)
+    split = device_split(lambda: ix.device_search(q1024[0], K))
+    codes = ix._dev["codes"]
+    moved = base[77] * 0.5 + 0.25
+    ix.upsert("5", moved)
+    hit = ix.search(moved, 1)[0]
+    require(hit.id == "5", f"the upserted row reads back as {hit.id}")
+    require(ix._dev["codes"] is codes, "the upsert re-uploaded the slab")
+    say("20 flat sq8", cells="sq8_100k (b64), sq8_100k_b1024", route=route, n=n,
+        build_s=round(build_s, 2), capacity=ix.capacity,
+        device_bytes=index_device_bytes(ix._dev), recall_b64_first256=rec[64],
+        recall_b1024=rec[1024], recall_jax_cpu=repr(SQ8_RECALL_JAX),
+        tpu_records="0.9891 (b64) / 0.9871 (b1024), taken on a TPU (BENCH_DETAIL.json)",
+        **{f"b64_{k}": v for k, v in s64.items()},
+        **{f"b1024_{k}": v for k, v in s1024.items()},
+        b1024_device_split=repr(split), upsert_read_back=hit.id, card=repr(smi))
+
+
+def phase_device_flat(dev, smi) -> None:
+    """flat10m_device_fp32_b1024 and flat10m_device_b1024 (bench.py:119-133,
+    :663-760): DeviceFlatIndex over 10M x 128 uniform rows generated on the
+    card from seed 42 (no host slab), L2, k 10, selection "pallas" (K1 fp32,
+    K1 bf16); truth the port's chunked_exact_topk over the fp32 rows for 256
+    queries; then a 100k DeviceFlatIndex's snapshot loaded into FlatIndex."""
+    from pyrope_tpu_torch.index.device_flat import DeviceFlatIndex
+    from pyrope_tpu_torch.ops.topk import chunked_exact_topk
+
+    n, d, b, nt = 10_000_000, 128, 1024, 256
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(42)
+    xf = torch.rand((n, d), generator=g, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    queries = synthetic_queries(b, d)
+    q_dev = [torch.from_numpy(queries).to(dev)]
+    t0 = time.perf_counter()
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    truth_v, truth_i = chunked_exact_topk(xf, (xf * xf).sum(1), alive, q_dev[0][:nt], K, "L2")
+    truth_s = time.perf_counter() - t0
+    del alive
+    for name, dtype, key in (("flat10m_device_fp32_b1024", torch.float32, "flat_scan"),
+                             ("flat10m_device_b1024", torch.bfloat16, "flat_scan_bf16")):
+        t0 = time.perf_counter()
+        slab = xf if dtype == torch.float32 else xf.bfloat16()
+        ix = DeviceFlatIndex(slab, "L2", selection="pallas")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        require(ix._dev["vecs"] is slab and ix.describe_scan(b) == "device-pallas",
+                f"{name}: the slab was not adopted in place on device-pallas")
+        before = fs.LAUNCHES[key]
+        out = ix.device_search(q_dev[0][:nt], K)
+        require(fs.LAUNCHES[key] == before + 1, f"{name}: {key} not launched once")
+        ids = id_lists_to_rows(ix.resolve_rows(out[1].cpu().numpy()), K)
+        rec = recall_at_k(ids, truth_i, K)
+        extra = {}
+        if dtype == torch.float32:
+            err, ties = compare(out, (torch.from_numpy(truth_v), torch.from_numpy(truth_i)),
+                                f"{name} vs chunked exact truth")
+            extra.update(max_abs_err_vs_truth=err, kth_ties=ties)
+        with uncounted():   # the served batch, b1024, against the plain version
+            d_ = ix._dev
+            plain = fs.fused_flat_topk_plain(q_dev[0], d_["vecs"], d_["sqnorm"],
+                                             d_["alive"], n, K, chunk_rows=1 << 18)
+            err, ties = compare(ix.device_search(q_dev[0], K), plain,
+                                f"{name} b{b} vs K1's plain version")
+        extra.update(max_abs_err_vs_plain_b1024=err, kth_ties_vs_plain=ties)
+        srv = serve(ix, q_dev, iters=20 if dtype == torch.float32 else 100)
+        split = device_split(lambda: ix.device_search(q_dev[0], K), calls=3)
+        say("21 device flat", cell=name, n=n, d=d, slab=str(dtype).split(".")[-1],
+            batch=b, gen_s=round(gen_s, 2), truth_s=round(truth_s, 2),
+            build_s=round(build_s, 3), device_bytes=ix.memory_bytes(),
+            recall_256=rec, **extra, **srv, device_split=repr(split),
+            launches={key: fs.LAUNCHES[key]}, card=repr(smi))
+        del ix, slab, out
+    del xf
+    torch.cuda.empty_cache()
+    small = torch.rand((100_000, d), generator=g, device=dev)
+    ix = DeviceFlatIndex(small, "L2")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "device_flat.npz")
+        ix.snapshot(path)
+        host = FlatIndex(d, "L2", device=dev, selection="pallas")
+        host.load(path)
+    a = [[h.id for h in r] for r in ix.search_batch(queries[:64], K)]
+    h = [[x.id for x in r] for r in host.search_batch(queries[:64], K)]
+    require(a == h, "the 100k snapshot loaded into FlatIndex searches otherwise")
+    say("21 device flat", snapshot_100k="loaded into FlatIndex, same hits on 64 queries")
+
+
+def one_card_mesh(dev, n=4, two_d=False):
+    """n shards on the one card (devices repeated): the shard layouts,
+    per-shard launches and the merge, no interconnect."""
+    from pyrope_tpu_torch.parallel import make_mesh, make_mesh_2d
+
+    devs = [dev] * n
+    return make_mesh_2d(2, n // 2, devices=devs) if two_d else make_mesh(devices=devs)
+
+
+def hits_arrays(results, k=K) -> tuple[torch.Tensor, torch.Tensor]:
+    """search_batch results as (scores, int ids) tensors, -inf/-1 padded."""
+    v = np.full((len(results), k), -np.inf, np.float32)
+    i = np.full((len(results), k), -1, np.int64)
+    for r, row in enumerate(results):
+        for j, h in enumerate(row):
+            v[r, j], i[r, j] = h.score, int(h.id)
+    return torch.from_numpy(v), torch.from_numpy(i)
+
+
+def shard_merge_vs_plain(groups: list, what: str, dev) -> None:
+    """The shard merge on each batch group's [nd, B, k] lists (the shards'
+    encoded lists, as the path hands them over) bit-equal to its plain
+    version on the same stacked tensors."""
+    from pyrope_tpu_torch.parallel.mesh import allgather_merge_topk
+
+    with uncounted():
+        for g, lists in enumerate(groups):
+            got = allgather_merge_topk(lists, K, dev)
+            plain = fs.merge_partials_plain(torch.stack([v for v, _ in lists]),
+                                            torch.stack([r for _, r in lists]), k=K)
+            require(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]),
+                    f"{what}: group {g}'s shard merge differs from its plain version")
+
+
+def shards_vs_plain(dv: dict, q, scan, plain, what: str, dev) -> dict:
+    """A shard kernel's wrapper against its plain version on every shard's
+    own device tensors at the batch the path gives it (a 2 x 2 mesh splits
+    q over its batch groups), then the merge of the shards' lists. ``scan``
+    and ``plain`` map (shard state, q) to a (scores, local rows) pair.
+    Equal hit sets but for k-th place ties, scores within RTOL / ATOL.
+    These launches are not the path's."""
+    from pyrope_tpu_torch.parallel.mesh import encode_rows
+
+    shards = dv["shards"]
+    err, swaps, groups = 0.0, 0, []
+    with uncounted():
+        for g, qg in enumerate(torch.tensor_split(q, len(shards))):
+            lists = []
+            for s, st in enumerate(shards[g]):
+                got = scan(st, qg)
+                e, sw = compare(got, plain(st, qg), f"{what} shard {s} b{len(qg)}")
+                err, swaps = max(err, e), swaps + sw
+                lists.append((got[0], encode_rows(got[1], st["base"])))
+            groups.append(lists)
+    shard_merge_vs_plain(groups, what, dev)
+    return {"max_abs_err": err, "tie_swaps": swaps,
+            "shape": f"{len(shards[0])} shards x b{len(q) // len(shards)}"}
+
+
+def list_scan_shards_vs_plain(dv: dict, q, nprobe: int, what: str, dev,
+                              slab: str = "xperm", sqnorm: str = "sqnorm",
+                              promote: bool = False) -> dict:
+    """shards_vs_plain for the list scan over each shard's local CSR, the
+    probes ranked off its own centroids, as the sharded routes call it."""
+    from pyrope_tpu_torch.index.ivf_flat import top_probes
+
+    def args(st, qg):
+        probe = top_probes(qg, st["cents"], st["cvalid"], nprobe, Metric.L2)
+        return (qg, st[slab], st[sqnorm], st["alive"], st["crow"]), probe, st["cents"].shape[0]
+
+    def scan(st, qg):
+        a, probe, kp = args(st, qg)
+        return fs.fused_ivf_topk(*a, st["offsets"], st["lens"], probe, kp, K,
+                                 max_len=dv["l_pad"], promote_fp32=promote)
+
+    def plain(st, qg):
+        a, probe, kp = args(st, qg)
+        return fs.fused_ivf_topk_plain(*a, probe, kp, K, promote_fp32=promote)
+
+    return shards_vs_plain(dv, q, scan, plain, what, dev)
+
+
+def sharded_cell(ix, q_dev, iters: int) -> dict:
+    """QPS and latency, the device ms of one device_search split into the
+    shards' scans and the merges (torch.profiler), and the kernels one
+    device_search launches."""
+    srv = serve(ix, q_dev, iters=iters)
+    split = device_split(lambda: ix.device_search(q_dev[0], K), calls=3)
+    before = dict(fs.LAUNCHES)
+    ix.device_search(q_dev[0], K)
+    torch.cuda.synchronize()
+    per_call = {k: n - before[k] for k, n in fs.LAUNCHES.items() if n != before[k]}
+    return {**srv, "device_split": repr(split), "launches_a_call": repr(per_call)}
+
+
+def ivf_flat_arrays(ix) -> dict:
+    """An IvfFlatIndex's ``pyrope_tpu.ivf_flat.v1`` state as arrays (what
+    its snapshot writes, without the compression)."""
+    bids, bvecs = ix._buffer.live_vectors()
+    meta = {"format": "pyrope_tpu.ivf_flat.v1", "dim": ix.dim, "metric": ix.metric.value,
+            "nlist": ix.nlist, "nprobe": ix.nprobe, "built": ix._built, "seed": ix.seed,
+            "scan_mode": ix.scan_mode}
+    return {"meta": json.dumps(meta), "centroids": ix._centroids, "xperm": ix._xperm,
+            "perm_ids": np.array(ix._perm_ids), "alive": ix._alive, "offsets": ix._offsets,
+            "lens": ix._lens, "buf_ids": np.array(bids, dtype=np.str_), "buf_vecs": bvecs}
+
+
+def phase_sharded(dev, smi, clustered, uniform, hnsw100k) -> None:
+    """The sharded families on a 4-shard mesh of the one card
+    (devices=[cuda:0] * 4): IVF-Flat at 1M in both layouts and on a 2 x 2
+    batch x data mesh, Flat at 1M (K1 on every shard, the max_scans budget
+    rebased; sq8 storage), IVF-PQ at 100k with an fp32 rerank slab, HNSW
+    with the graph replicated (phase 15's hnsw100k_clustered graph) and
+    partitioned (100k clustered)."""
+    from pyrope_tpu_torch import convert
+    from pyrope_tpu_torch.parallel import (
+        ShardedFlatIndex,
+        ShardedHnswCorpusIndex,
+        ShardedHnswIndex,
+    )
+    from pyrope_tpu_torch.parallel.mesh import allgather_merge_topk
+
+    mesh = one_card_mesh(dev)
+    say("22 sharded", mesh=repr(mesh), note="4 shards on one card: no interconnect measured")
+    base, queries, truth = clustered
+    d, b = base.shape[1], 1024
+    q_dev = [torch.from_numpy(queries[i * b:(i + 1) * b]).to(dev) for i in range(4)]
+
+    # IVF-Flat 1M: one k-means (the single index), its partition laid out
+    # per shard three ways
+    single = IvfFlatIndex(d, "L2", device=dev, nlist=1000, nprobe=3, scan_mode="dense")
+    single.add_batch([str(i) for i in range(len(base))], base)
+    t0 = time.perf_counter()
+    single.build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ref = single.search_batch(queries[:b], K)
+    arrays = ivf_flat_arrays(single)
+    for layout, m, shard_by in (("rows", mesh, "rows"), ("cluster", mesh, "cluster"),
+                                ("rows_2x2", one_card_mesh(dev, two_d=True), "rows")):
+        sh = convert.sharded_ivf_flat_from_arrays(arrays, m, shard_by=shard_by)
+        t0 = time.perf_counter()
+        sh._sync()
+        torch.cuda.synchronize()
+        layout_s = time.perf_counter() - t0
+        route = sh.describe_scan(b)
+        require(route == "dense-pallas-win", f"sharded IVF {layout} route is {route}")
+        before = dict(fs.LAUNCHES)
+        got = sh.search_batch(queries[:b], K)
+        scans = fs.LAUNCHES["ivf_scan"] - before["ivf_scan"]
+        require(scans == 4 and fs.LAUNCHES["merge"] - before["merge"] >= 5,
+                f"sharded IVF {layout}: {scans} list scans for 4 shards")
+        err, ties = compare(hits_arrays(got), hits_arrays(ref), f"sharded IVF {layout}")
+        rec = recall(got, truth)
+        require(rec >= 0.995, f"sharded IVF {layout} recall@10 {rec} < 0.995")
+        dv = sh._sync()
+        vs_plain = list_scan_shards_vs_plain(dv, q_dev[0], sh.nprobe,
+                                             f"sharded IVF {layout}", dev)
+        with uncounted():   # the shard merge of 4 [1024, 10] lists alone
+            per = [sh.device_search(q, K) for q in q_dev]
+            merge_ms = cuda_ms(lambda: allgather_merge_topk(per, K, dev), 20)
+        say("22 sharded", family="ShardedIvfFlatIndex", cell="ivf1m_clustered_b1024",
+            layout=layout, route=route, stride=dv["stride"], l_pad=dv["l_pad"],
+            single_build_s=round(build_s, 2), layout_s=round(layout_s, 2), recall=rec,
+            max_abs_err_vs_single=err, kth_ties=ties, kernel_vs_plain=repr(vs_plain),
+            **sharded_cell(sh, q_dev, 50),
+            shard_merge_ms=round(merge_ms, 4), card=repr(smi))
+        del sh, dv, per
+    del single, arrays
+    torch.cuda.empty_cache()
+
+    # Flat 1M exact: K1 on every shard, the budget rebased; then sq8
+    ubase, uqueries, _ = uniform
+    ids = [str(i) for i in range(len(ubase))]
+    uq = [torch.from_numpy(uqueries[i * b:(i + 1) * b]).to(dev) for i in range(2)]
+    for storage, sel in (("fp32", "pallas"), ("sq8", "exact")):
+        sh = ShardedFlatIndex(d, "L2", mesh=mesh, storage=storage, selection=sel)
+        one = FlatIndex(d, "L2", device=dev, storage=storage, selection=sel)
+        for ix in (sh, one):
+            ix.add_batch(ids, ubase)
+        route = sh.describe_scan(b)
+        rtol = RTOL if storage == "fp32" else SQ8_RTOL
+        checks = {}
+        for name, opts in (("full", SearchOptions()), ("max_scans_600001",
+                                                       SearchOptions(max_scans=600_001))):
+            before = fs.LAUNCHES["flat_scan"]
+            got = sh.device_search(uq[0], K, opts)
+            if storage == "fp32":
+                require(fs.LAUNCHES["flat_scan"] - before == 4, "K1 not once a shard")
+            checks[name] = compare(got, one.device_search(uq[0], K, opts),
+                                   f"sharded flat {storage} {name}", rtol)
+            if storage == "fp32":   # K1 on each shard's block, the budget rebased
+                ms = sh._count if opts.max_scans is None else opts.max_scans
+                dv = sh._sync()
+
+                def local_ms(st):
+                    return min(max(ms - st["base"], 0), st["alive"].shape[0])
+                checks[f"{name}_K1_vs_plain"] = shards_vs_plain(
+                    dv, uq[0],
+                    lambda st, qg: fs.fused_flat_topk(qg, st["vecs"], st["sqnorm"],
+                                                      st["alive"], local_ms(st), K),
+                    lambda st, qg: fs.fused_flat_topk_plain(qg, st["vecs"], st["sqnorm"],
+                                                            st["alive"], local_ms(st), K,
+                                                            chunk_rows=1 << 17),
+                    f"sharded flat K1 {name}", dev)
+        say("22 sharded", family="ShardedFlatIndex", cell=f"flat1m_{storage}_b1024",
+            route=route, vs_single=repr(checks), **sharded_cell(sh, uq, 20), card=repr(smi))
+        del sh, one
+    torch.cuda.empty_cache()
+
+    # IVF-PQ 100k, fp32 rerank slab: the list scan per shard (promote)
+    pbase = synthetic_clustered(100_000, d, n_clusters=100)
+    pq_q = synthetic_clustered_queries(b, d, n_clusters=100)
+    ptruth = ground_truth(pbase, pq_q, K, block=16384)
+    single, pq_build_s = _pq_narrow_index(dev, pbase)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pq.npz")
+        single.snapshot(path)
+        with np.load(path) as z:
+            sh = convert.sharded_ivf_pq_from_arrays(z, mesh)
+    pq_dev = [torch.from_numpy(pq_q).to(dev)]
+    route = sh.describe_scan(b)
+    require(route == "dense-exact-pallas", f"sharded IVF-PQ route is {route}")
+    before = fs.LAUNCHES["ivf_scan"]
+    r_sh = recall(sh.search_batch(pq_q, K), ptruth)
+    require(fs.LAUNCHES["ivf_scan"] - before == 4, "the list scan not once a shard")
+    r_one = recall(single.search_batch(pq_q, K), ptruth)
+    require(r_sh >= r_one, f"sharded IVF-PQ recall {r_sh} < the single index's {r_one}")
+    vs_plain = list_scan_shards_vs_plain(sh._sync(), pq_dev[0], sh.nprobe,
+                                         "sharded IVF-PQ rerank slab", dev, slab="xraw",
+                                         sqnorm="xsqnorm", promote=True)
+    say("22 sharded", family="ShardedIvfPqIndex", cell="ivfpq100k_fp32slab_b1024",
+        route=route, build_s=round(pq_build_s, 2), recall=r_sh, single_recall=r_one,
+        kernel_vs_plain=repr(vs_plain),
+        **sharded_cell(sh, pq_dev, 50), card=repr(smi))
+    del sh, single
+
+    # HNSW: phase 15's graph replicated, queries split over the shards
+    graph, hq, htruth = hnsw100k
+    sh = ShardedHnswIndex(d, "L2", mesh=mesh, ef_search=50)
+    sh._restore(graph._arrays())
+    opts = SearchOptions(ef_search=50)
+    a = sh.search_batch(hq, K, opts)
+    err, ties = compare(hits_arrays(a), hits_arrays(graph.search_batch(hq, K, opts)),
+                        "sharded HNSW vs the single beam")
+    hq_dev = [torch.from_numpy(hq[:64]).to(dev)]
+    say("22 sharded", family="ShardedHnswIndex", cell="hnsw100k_clustered_b64",
+        recall=recall(a, htruth), max_abs_err_vs_single=err, kth_ties=ties,
+        **sharded_cell(sh, hq_dev, 50), card=repr(smi))
+    r_ref = hnsw_recall(graph, hq, htruth, 64, opts)
+    del sh
+
+    # HNSW partitioned: k-means cells, a native sub-graph a shard
+    cbase = synthetic_clustered(100_000, d, n_clusters=100)
+    sh = ShardedHnswCorpusIndex(d, "L2", mesh=mesh, ef_search=50)
+    t0 = time.perf_counter()
+    sh.add_batch([str(i) for i in range(len(cbase))], cbase)
+    sh.build()
+    build_s = time.perf_counter() - t0
+    r_sh = hnsw_recall(sh, hq, htruth, 64, opts)
+    require(r_sh >= r_ref - 0.02 and r_sh >= 0.9,
+            f"corpus-sharded HNSW recall {r_sh} (replicated {r_ref})")
+    before = fs.LAUNCHES["merge"]
+    sh.device_search(hq_dev[0], K, opts)
+    require(fs.LAUNCHES["merge"] == before + 1, "the shard merge not launched once")
+    say("22 sharded", family="ShardedHnswCorpusIndex", cell="hnsw100k_clustered_b64",
+        build_s=round(build_s, 2), recall=r_sh, replicated_recall=r_ref,
+        cells=[s.get_stats().count for s in sh._subs], memory=repr(sh.memory_bytes()),
+        **sharded_cell(sh, hq_dev, 50), card=repr(smi))
+
+
 def run_path(name: str, fn, kernels: tuple[str, ...]) -> dict:
     """One serving path: the launch counts zeroed before it and read after;
     each of ``kernels`` must have run on it. Prints its wall time."""
@@ -2525,6 +2968,7 @@ def main() -> int:
         phase_pq_narrow(dev)
 
     resp1m = {}   # phase 18's 1M cell, printed beside phase 19's
+    keep = {}     # phase 15's 100k clustered graph, replicated in phase 22
     paths = {name: run_path(name, fn, kernels) for name, fn, kernels in (
         ("IVF-Flat", ivf_flat, ("flat_scan", "ivf_scan", "merge", "flat_scan_wide",
                                 "ivf_scan_wide", "merge_wide", "flat_scan_prefloor",
@@ -2541,7 +2985,7 @@ def main() -> int:
         ("flat hybrid k100", lambda: phase_flat_hybrid_k100(dev, uniform),
          ("flat_scan_bf16_wide", "merge_wide")),
         ("IVF-Flat d768", lambda: phase_ivf_d768(dev), ("ivf_scan", "merge")),
-        ("HNSW native", lambda: phase_hnsw_native(dev, smi), ()),
+        ("HNSW native", lambda: phase_hnsw_native(dev, smi, keep), ()),
         ("HNSW 1M", lambda: phase_hnsw_1m(dev, smi), ()),
         ("Delta HNSW", lambda: phase_delta_hnsw(dev, smi), ("flat_scan", "merge")),
         ("RESP serving", lambda: resp1m.update(phase_resp(dev, smi, data)),
@@ -2549,6 +2993,11 @@ def main() -> int:
         # the server is a process of its own: its launches are not counted
         # here; the phase holds its trace to the list scan and the merge
         ("full stack", lambda: phase_stack(dev, smi, data, resp1m), ()),
+        ("flat sq8", lambda: phase_flat_sq8(dev, smi), ()),
+        ("DeviceFlatIndex 10M", lambda: phase_device_flat(dev, smi),
+         ("flat_scan", "flat_scan_bf16", "merge")),
+        ("sharded", lambda: phase_sharded(dev, smi, data, uniform, keep.pop("hnsw100k")),
+         ("flat_scan", "ivf_scan", "merge")),
     )}
     say("launches", **{name.replace(" ", "_"): repr(got) for name, got in paths.items()})
     launches = {name: sum(got[name] for got in paths.values()) for name in fs.LAUNCHES}

@@ -6,7 +6,10 @@ the framework-free modules (``types``, ``index/base``, ``index/delta``,
 ``utils``, ``native`` loader). Ported so far:
 
 - ``FlatIndex``     — exact scan; ``selection="pallas"`` runs the fused CUDA
-  scan kernel (ops/fused_scan.py, csrc/fused_scan.cu)
+  scan kernel (ops/fused_scan.py, csrc/fused_scan.cu); fp32, bf16 or sq8
+  storage
+- ``DeviceFlatIndex`` — frozen exact scan over a slab already on the card
+  (adopted in place, no host copy), the same scan kernel
 - ``IvfFlatIndex``  — k-means + cluster-major slab; dense routes run the
   cluster-major list scan kernel (csrc/ivf_list_scan.cu)
 - ``IvfPqIndex``    — coarse k-means + PQ codes + a rerank slab, fp32 or
@@ -16,6 +19,9 @@ the framework-free modules (``types``, ``index/base``, ``index/delta``,
 - ``DeltaIndex``    — the Head+Tail composite (numpy only)
 - ``create_index`` / ``VectorIndexRegistry`` — Delta(Flat|HNSW,
   Flat|IVF_FLAT|IVF_PQ|HNSW)
+- ``parallel``      — the sharded families (Flat, IVF-Flat, IVF-PQ, HNSW)
+  over a mesh of devices driven from one process; each shard runs the
+  scan kernels above at shard shapes, the merge kernel joins the shards
 
 Every index and op takes a ``device``, ``"cuda"`` unless the caller asks
 for the CPU; CUDA on a host without a GPU raises. Importing this package
@@ -39,6 +45,7 @@ __all__ = [
     "IndexConfig",
     "IndexParams",
     "FlatIndex",
+    "DeviceFlatIndex",
     "IvfFlatIndex",
     "IvfPqIndex",
     "HnswIndex",
@@ -49,6 +56,7 @@ __all__ = [
 
 _LAZY = {
     "FlatIndex": "pyrope_tpu_torch.index.flat",
+    "DeviceFlatIndex": "pyrope_tpu_torch.index.device_flat",
     "IvfFlatIndex": "pyrope_tpu_torch.index.ivf_flat",
     "IvfPqIndex": "pyrope_tpu_torch.index.ivf_pq",
     "HnswIndex": "pyrope_tpu_torch.index.hnsw",

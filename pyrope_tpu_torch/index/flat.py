@@ -5,9 +5,15 @@ tombstone (alive) mask and the id table. A device copy (vectors, fp32 row
 sqnorms, alive) is synced lazily before queries: in full after growth or
 bulk loads, by scattering the few mutated rows otherwise.
 
-Storage: ``fp32``, or ``bf16`` (the device slab rounded to bf16, sqnorms
-of the fp32 rows). ``sq8`` is not yet ported and raises
-NotImplementedError.
+Storage: ``fp32``, ``bf16`` (the device slab rounded to bf16, sqnorms
+of the fp32 rows), or ``sq8`` (per-vector min/max uint8 codes, route
+``flat-sq8``: plain torch, as it is plain XLA in the JAX package). The SQ8
+scores use the exact affine decomposition dot(q, x̂) = scale·dot(q, code)
++ min·Σq (``sq8_scores``); the product runs on operands rounded to
+``compute_dtype``, bf16 by default: a bf16 q times a code (an integer
+0..255, exact in bf16) is exact in fp32, so an fp32 matmul of the rounded
+values with TF32 off sums what the JAX package's bf16 dot with fp32
+accumulation sums.
 
 Selection (routes by the JAX package's names, ``describe_scan``):
   - ``exact`` (``flat-exact``): plain torch, one [B, cap] score matrix +
@@ -28,6 +34,8 @@ Selection (routes by the JAX package's names, ``describe_scan``):
   The kernel routes take any k >= 1, as the JAX package's kernels do;
   above the rows present the hits are padded (missing hits).
   - ``approx[:recall]``: runs exact (see ops/topk.py).
+  - ``sq8`` storage takes ``flat-sq8`` whatever the selection or metric,
+    as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,7 +56,13 @@ from pyrope_tpu_torch.types import (
 )
 from pyrope_tpu_torch.utils.shapes import batch_bucket, capacity_bucket, next_pow2
 from pyrope_tpu_torch.device import resolve_device
-from pyrope_tpu_torch.ops.distance import rerank_exact, row_sqnorms, score_matrix
+from pyrope_tpu_torch.ops.distance import (
+    check_fp32_exact,
+    rerank_exact,
+    rounded,
+    row_sqnorms,
+    score_matrix,
+)
 from pyrope_tpu_torch.ops.fused_scan import fused_flat_topk, k_refusal
 from pyrope_tpu_torch.ops.topk import masked_topk, parse_selection
 
@@ -78,6 +92,57 @@ def hybrid_shortlist(k: int, r_param: float, row_tile: int) -> int:
     return min(next_pow2(max(r, k)), row_tile)
 
 
+def sq8_quantize(vectors: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-vector min/max SQ8, the JAX package's host encoder. Returns
+    (codes uint8 [N, D], mins [N], scales [N]); a constant row has scale 0."""
+    v = np.asarray(vectors, dtype=np.float32)
+    mins = v.min(axis=1)
+    maxs = v.max(axis=1)
+    scales = (maxs - mins) / 255.0
+    safe = np.where(scales > 0, scales, 1.0)
+    codes = np.clip(np.rint((v - mins[:, None]) / safe[:, None]), 0, 255)
+    return codes.astype(np.uint8), mins, np.where(scales > 0, scales, 0.0)
+
+
+def sq8_host_state(vectors: np.ndarray) -> tuple[np.ndarray, ...]:
+    """(codes, mins, scales, sqnorm) of SQ8 rows: fp32 mins and scales, and
+    the sqnorms of the reconstruction x̂ = min + scale·code, as the JAX
+    package's sync computes them."""
+    codes, mins, scales = sq8_quantize(vectors)
+    deq = mins[:, None] + codes.astype(np.float32) * scales[:, None]
+    sq = np.einsum("nd,nd->n", deq, deq).astype(np.float32)
+    return codes, mins.astype(np.float32), scales.astype(np.float32), sq
+
+
+def sq8_scores(codes, mins, scales, sqnorm, q, metric: Metric,
+               compute_dtype=None) -> torch.Tensor:
+    """[B, cap] metric scores over an SQ8 slab by the exact affine
+    decomposition dot(q, x̂) = scale·dot(q, code) + min·Σq; the product's
+    operands rounded to ``compute_dtype`` (None: bf16, as the JAX package's
+    default) and summed in fp32, as its ``preferred_element_type=float32``
+    dot. Shared by FlatIndex and the sharded Flat index's shards."""
+    qf = q.float()
+    check_fp32_exact(qf)
+    cdtype = compute_dtype or "bfloat16"
+    raw = rounded(qf, cdtype) @ rounded(codes.float(), cdtype).T
+    qsum = qf.sum(dim=-1)
+    dots = raw * scales[None, :] + qsum[:, None] * mins[None, :]
+    if metric == Metric.INNER_PRODUCT:
+        return dots
+    qq = (qf * qf).sum(dim=-1)
+    if metric == Metric.L2:
+        return -torch.clamp(qq[:, None] - 2.0 * dots + sqnorm[None, :], min=0.0)
+    xn = torch.sqrt(torch.clamp(sqnorm, min=1e-24))  # COSINE
+    return dots / torch.clamp(torch.sqrt(qq)[:, None] * xn[None, :], min=1e-12)
+
+
+def sq8_device_state(vectors: np.ndarray, device: torch.device) -> dict:
+    """The SQ8 device slab of host rows: codes, mins, scales, sqnorm."""
+    codes, mins, scales, sq = sq8_host_state(vectors)
+    return {"codes": to_device(codes, device), "mins": to_device(mins, device),
+            "scales": to_device(scales, device), "sqnorm": to_device(sq, device)}
+
+
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A device copy of a host array (never a view of it, also on the CPU:
     the host slab is mutated in place while the copy serves queries)."""
@@ -85,7 +150,7 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class FlatIndex(VectorIndex):
-    """Exact scan index with tombstone deletes (fp32 or bf16 storage)."""
+    """Exact scan index with tombstone deletes and fp32, bf16 or SQ8 storage."""
 
     @property
     def _hybrid(self) -> bool:
@@ -106,7 +171,7 @@ class FlatIndex(VectorIndex):
         metric: Metric | str = Metric.L2,
         *,
         device="cuda",
-        storage: str = "fp32",  # fp32 | bf16 (sq8 not yet ported)
+        storage: str = "fp32",  # fp32 | bf16 | sq8
         compute_dtype: Optional[str] = None,
         selection: str = "exact",  # exact | pallas | approx[:recall] | hybrid[:R]
         min_capacity: int = 1024,
@@ -114,8 +179,6 @@ class FlatIndex(VectorIndex):
         if storage not in ("fp32", "bf16", "sq8"):
             raise ValueError(f"storage must be fp32|bf16|sq8, got {storage}")
         mode, _ = parse_selection(selection)  # validate eagerly
-        if storage == "sq8":
-            raise NotImplementedError("storage='sq8' not yet ported")
         if mode == "hybrid" and storage != "fp32":
             raise ValueError(
                 "selection='hybrid' reranks off the fp32 slab; storage must "
@@ -256,6 +319,12 @@ class FlatIndex(VectorIndex):
             return self._dev  # another thread synced while we waited
         if self._dev is not None and self._dirty_rows:
             return self._sync_incremental()
+        if self.storage == "sq8":
+            self._dev = {**sq8_device_state(self._vecs, self.device),
+                         "alive": to_device(self._alive, self.device)}
+            self._dirty = False
+            self._dirty_rows = set()
+            return self._dev
         vecs = to_device(self._vecs, self.device)
         self._dev = {
             "vecs": vecs.bfloat16() if self.storage == "bf16" else vecs,
@@ -275,13 +344,17 @@ class FlatIndex(VectorIndex):
         the writes sees them absent, never half written."""
         rows = np.fromiter(self._dirty_rows, np.int64, len(self._dirty_rows))
         idx = torch.from_numpy(rows).to(self.device)
-        v = to_device(self._vecs[rows], self.device)
         dev = self._dev
         dev["alive"][idx] = False
-        dev["vecs"][idx] = v.to(dev["vecs"].dtype)
-        if "vecs16" in dev:
-            dev["vecs16"][idx] = v.bfloat16()
-        dev["sqnorm"][idx] = row_sqnorms(v)
+        if self.storage == "sq8":
+            for key, t in sq8_device_state(self._vecs[rows], self.device).items():
+                dev[key][idx] = t
+        else:
+            v = to_device(self._vecs[rows], self.device)
+            dev["vecs"][idx] = v.to(dev["vecs"].dtype)
+            if "vecs16" in dev:
+                dev["vecs16"][idx] = v.bfloat16()
+            dev["sqnorm"][idx] = row_sqnorms(v)
         dev["alive"][idx] = to_device(self._alive[rows], self.device)
         self._dirty = False
         self._dirty_rows = set()
@@ -303,10 +376,12 @@ class FlatIndex(VectorIndex):
 
     def _route(self, batch: int, top_k: int) -> str:
         """The route a batch (bucketed, as the JAX package routes it) of
-        ``top_k`` queries runs: 'flat-pallas-hybrid', 'flat-pallas' or
-        'flat-exact'. The single source of routing truth for searches and
-        describe_scan. A kernel route at a k the kernels do not take
-        raises."""
+        ``top_k`` queries runs: 'flat-sq8', 'flat-pallas-hybrid',
+        'flat-pallas' or 'flat-exact'. The single source of routing truth
+        for searches and describe_scan. A kernel route at a k the kernels
+        do not take raises."""
+        if self.storage == "sq8":
+            return "flat-sq8"
         if self.metric == Metric.COSINE:
             return "flat-exact"
         if self._hybrid:
@@ -329,6 +404,12 @@ class FlatIndex(VectorIndex):
         route = self._route(q.shape[0] if batch is None else batch, top_k)
         dev = self._sync()
         ms = self._count if max_scans is None else min(max_scans, self._count)
+        row = torch.arange(self._cap, device=self.device)
+        if route == "flat-sq8":
+            scores = sq8_scores(dev["codes"], dev["mins"], dev["scales"], dev["sqnorm"],
+                                q, self.metric, self.compute_dtype)
+            return masked_topk(scores, (dev["alive"] & (row < ms))[None, :], top_k,
+                               self.selection)
         if route == "flat-pallas-hybrid":
             _, rows = fused_flat_topk(q, dev["vecs16"], dev["sqnorm"], dev["alive"],
                                       ms, self._shortlist(top_k), self.metric)
@@ -338,7 +419,6 @@ class FlatIndex(VectorIndex):
                                    ms, top_k, self.metric)
         scores = score_matrix(q, dev["vecs"], self.metric, x_sqnorm=dev["sqnorm"],
                               compute_dtype=self.compute_dtype)
-        row = torch.arange(self._cap, device=self.device)
         mask = dev["alive"] & (row < ms)
         sel = "exact" if self.selection.startswith("hybrid") else self.selection
         return masked_topk(scores, mask[None, :], top_k, sel)
@@ -422,8 +502,6 @@ class FlatIndex(VectorIndex):
         if int(meta["dim"]) != self.dim:
             raise ValueError("snapshot dim mismatch")
         storage = meta.get("storage", self.storage)
-        if storage == "sq8":
-            raise NotImplementedError("storage='sq8' not yet ported")
         ids = [str(s) for s in arrays["ids"]]
         vecs = np.asarray(arrays["vecs"], np.float32)
         # adopt the snapshot's metric and storage, as the JAX package does
@@ -435,13 +513,18 @@ class FlatIndex(VectorIndex):
 
     def describe_scan(self, batch: int | None = None,
                       nprobe: int | None = None, *, top_k: int = 10) -> str:
-        """Which kernel a query runs: 'flat-pallas-hybrid', 'flat-pallas' or
-        'flat-exact' (exact, approx and cosine run the exact scan). The
+        """Which kernel a query runs: 'flat-sq8', 'flat-pallas-hybrid',
+        'flat-pallas' or 'flat-exact' (exact, approx and cosine run the
+        exact scan). The
         hybrid route depends on the batch (None: within HYBRID_MAX_BATCH)
         and ``top_k``."""
         return self._route(1 if batch is None else batch_bucket(batch), top_k)
 
     # ---- internals exposed for composite indexes ------------------------
+
+    @property
+    def capacity(self) -> int:
+        return self._cap
 
     def live_vectors(self) -> tuple[list[str], np.ndarray]:
         """(ids, vectors) of live rows, in insertion order. When every row

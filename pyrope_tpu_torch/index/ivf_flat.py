@@ -109,21 +109,30 @@ def slab_pad(n: int, l_pad: int) -> int:
     return int(round_up(npad, 4096) if npad > 4096 else round_up(npad, 128))
 
 
-def rank_probes(q, cents, cvalid, offsets, lens, nprobe, max_scans, metric,
-                cdtype=None):
-    """Rank centroids, pick the top-nprobe lists (ties to the lower id, as
-    ``lax.top_k``), and compute each probe's scan length under the
-    max_scans budget. ``cdtype``: the ranking product's compute dtype.
-    Returns (probe [B, nprobe], offs_p, eff)."""
+def top_probes(q, cents, cvalid, nprobe, metric, cdtype=None):
+    """Rank centroids and pick each query's top-nprobe lists (ties to the
+    lower id, as ``lax.top_k``). ``cdtype``: the ranking product's compute
+    dtype. Returns probe [B, nprobe]."""
     cscores = score_matrix(q, cents, metric, compute_dtype=cdtype)
     cscores = torch.where(cvalid[None, :], cscores, float("-inf"))
-    _, probe = stable_topk(cscores, nprobe)
+    return stable_topk(cscores, nprobe)[1]
+
+
+def probe_extents(probe, offsets, lens, max_scans):
+    """Each probe's slab offset and scan length under the max_scans budget
+    (rows scanned in probe order). Returns (offs_p, eff), both [B, nprobe]."""
     lens_p = lens[probe]
-    offs_p = offsets[probe]
     before = torch.cumsum(lens_p, dim=1) - lens_p           # rows scanned earlier
     budget = torch.clamp(max_scans - before, min=0)
-    eff = torch.minimum(lens_p, budget)
-    return probe, offs_p, eff
+    return offsets[probe], torch.minimum(lens_p, budget)
+
+
+def rank_probes(q, cents, cvalid, offsets, lens, nprobe, max_scans, metric,
+                cdtype=None):
+    """``top_probes`` and their ``probe_extents``. Returns (probe [B,
+    nprobe], offs_p, eff)."""
+    probe = top_probes(q, cents, cvalid, nprobe, metric, cdtype)
+    return (probe, *probe_extents(probe, offsets, lens, max_scans))
 
 
 def scan_probed_lists(xperm, sqnorm, alive, q, offs_p, eff, *, k: int,

@@ -91,8 +91,13 @@ def test_snapshot_crosses_both_ways(tmp_path):
 
 
 def test_not_yet_ported_options_raise():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        FlatIndex(8, "L2", device="cpu", storage="sq8")
+    """The storage options and their refusals match the JAX package's: no
+    storage is left unported, so sq8 builds (its parity tests are in
+    test_torch_flat_sq8.py), and what the JAX package refuses still
+    raises."""
+    assert FlatIndex(8, "L2", device="cpu", storage="sq8").describe_scan() == "flat-sq8"
+    with pytest.raises(ValueError, match="fp32"):
+        FlatIndex(8, "L2", device="cpu", storage="sq8", selection="hybrid")
     # the hybrid route reranks off an fp32 slab, as in the JAX package
     with pytest.raises(ValueError, match="fp32"):
         FlatIndex(8, "L2", device="cpu", storage="bf16", selection="hybrid")

@@ -1351,3 +1351,125 @@ def test_merge_wide_reads_fill_counts_vs_plain(cuda_device, k, width, s):
                               torch.from_numpy(fills).to(cuda_device))
     np.testing.assert_array_equal(ki.cpu().numpy(), mi.numpy())
     np.testing.assert_array_equal(kv.cpu().numpy(), mv.numpy())
+
+
+# ---- the sharded families and DeviceFlatIndex on the card ----------------------
+
+
+def _one_card_mesh(cuda_device, n=4, two_d=False):
+    """n shards on one card: the mesh the one-card machine can hold."""
+    from pyrope_tpu_torch.parallel import make_mesh, make_mesh_2d
+
+    devs = [cuda_device] * n
+    return make_mesh_2d(2, n // 2, devices=devs) if two_d else make_mesh(devices=devs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shard_by", ["rows", "cluster"])
+def test_per_shard_list_scan_at_shard_local_csr(cuda_device, shard_by):
+    """Each shard's list scan over its own slab and local CSR (offsets, lens,
+    l_pad of the layout) against the plain list scan on the same tensors;
+    the sharded search's hits equal the single index's, and the path
+    launched the list scan once a shard and the merge."""
+    from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex, rank_probes
+    from pyrope_tpu_torch.parallel import ShardedIvfFlatIndex
+
+    rng = np.random.default_rng(31)
+    base = rng.random((40_000, 32), np.float32)
+    q = rng.random((200, 32), np.float32)
+    ids = [str(i) for i in range(len(base))]
+    sh = ShardedIvfFlatIndex(32, "L2", mesh=_one_card_mesh(cuda_device), nlist=600,
+                             nprobe=9, shard_by=shard_by, scan_mode="dense")
+    ref = IvfFlatIndex(32, "L2", device=cuda_device, nlist=600, nprobe=9, scan_mode="dense")
+    for ix in (sh, ref):
+        ix.add_batch(ids, base)
+        ix.build()
+    assert sh.describe_scan(256) == "dense-pallas-win"
+    dev = sh._sync()
+    qt = torch.from_numpy(q).to(cuda_device)
+    for s, st in enumerate(dev["shards"][0]):
+        probe = rank_probes(qt, st["cents"], st["cvalid"], st["offsets"], st["lens"], 9,
+                            dev["stride"], Metric.L2)[0]
+        args = (qt, st["xperm"], st["sqnorm"], st["alive"], st["crow"])
+        kv, ki = fs.fused_ivf_topk(*args, st["offsets"], st["lens"], probe, dev["kpad"], 10,
+                                   max_len=dev["l_pad"])
+        pv, pi = fs.fused_ivf_topk_plain(*args, probe, dev["kpad"], 10)
+        assert_same_hits(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+    fs.reset_launches()
+    got = sh.search_batch(q, 10)
+    assert fs.LAUNCHES["ivf_scan"] == 4 and fs.LAUNCHES["merge"] >= 5
+    assert_same_results(got, ref.search_batch(q, 10))
+
+
+@pytest.mark.cuda
+def test_shard_merge_on_the_card(cuda_device):
+    """The shard merge (stacked [nd, B, k] lists, ties across shards) on the
+    card: the merge kernel, bit-equal to its plain version on the CPU."""
+    from pyrope_tpu_torch.parallel.mesh import allgather_merge_topk
+
+    rng = np.random.default_rng(5)
+    nd, b, k, stride = 8, 300, 10, 5000
+    vals = -np.sort(-(np.round(rng.random((nd, b, k)) * 8) / 8).astype(np.float32), axis=2)
+    local = np.stack([[rng.choice(stride, k, replace=False) for _ in range(b)]
+                      for _ in range(nd)])        # a row once a list, as a scan gives it
+    rows = (local + np.arange(nd)[:, None, None] * stride).astype(np.int32)
+    for s in range(nd):
+        for i in range(b):
+            o = np.lexsort((rows[s, i], -vals[s, i]))
+            vals[s, i], rows[s, i] = vals[s, i, o], rows[s, i, o]
+    parts = [(torch.from_numpy(vals[s]), torch.from_numpy(rows[s])) for s in range(nd)]
+    pv, pi = allgather_merge_topk(parts, k, torch.device("cpu"))
+    before = fs.LAUNCHES["merge"]
+    kv, ki = allgather_merge_topk([(v.to(cuda_device), r.to(cuda_device)) for v, r in parts],
+                                  k, cuda_device)
+    assert fs.LAUNCHES["merge"] == before + 1
+    np.testing.assert_array_equal(kv.cpu().numpy(), pv.numpy())
+    np.testing.assert_array_equal(ki.cpu().numpy(), pi.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_d", [False, True])
+def test_sharded_flat_kernel_rebases_the_budget(cuda_device, two_d):
+    """ShardedFlatIndex(selection='pallas') on a 4-shard mesh of the card:
+    the flat scan once a shard, hits equal FlatIndex's, with and without a
+    max_scans budget that ends inside a shard."""
+    from pyrope_tpu_torch.index.flat import FlatIndex
+    from pyrope_tpu_torch.parallel import ShardedFlatIndex
+
+    rng = np.random.default_rng(9)
+    base = rng.random((30_000, 64), np.float32)
+    q = rng.random((96, 64), np.float32)
+    ids = [str(i) for i in range(len(base))]
+    sh = ShardedFlatIndex(64, "L2", mesh=_one_card_mesh(cuda_device, two_d=two_d),
+                          selection="pallas")
+    ref = FlatIndex(64, "L2", device=cuda_device, selection="pallas")
+    for ix in (sh, ref):
+        ix.add_batch(ids, base)
+    for opts in (SearchOptions(), SearchOptions(max_scans=20_001)):
+        fs.reset_launches()
+        got = sh.search_batch(q, 10, opts)
+        assert fs.LAUNCHES["flat_scan"] == 4   # 4 shards, or 2 shards x 2 batch groups
+        assert_same_results(got, ref.search_batch(q, 10, opts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_device_flat_index_runs_the_flat_scan(cuda_device, dtype):
+    """DeviceFlatIndex adopts a slab generated on the card: device-pallas
+    launches K1 (fp32) or its bf16 kernel, hits equal the plain version on
+    the same slab (bf16: but for k-th place ties)."""
+    from pyrope_tpu_torch.index.device_flat import DeviceFlatIndex
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.rand((50_000, 128), generator=g, device=cuda_device).to(dtype)
+    q = torch.rand((64, 128), generator=g, device=cuda_device)
+    ix = DeviceFlatIndex(x, "L2", n_valid=49_000)
+    assert ix._dev["vecs"] is x
+    key = "flat_scan_bf16" if dtype == torch.bfloat16 else "flat_scan"
+    before = fs.LAUNCHES[key]
+    kv, ki = ix.device_search(q, 10)
+    assert fs.LAUNCHES[key] == before + 1
+    d = ix._dev
+    pv, pi = fs.fused_flat_topk_plain(q, d["vecs"], d["sqnorm"], d["alive"], 49_000, 10)
+    check = assert_hits_but_kth_ties if dtype == torch.bfloat16 else assert_same_hits
+    check(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())

@@ -39,13 +39,20 @@ print(json.dumps({
                           if m == "pyrope_tpu" or m.startswith("pyrope_tpu.")),
     "cuda_initialized": torch.cuda.is_initialized(),
     "entry_points": sorted(m for m in sys.modules if m in ENTRY_POINTS),
+    "names": names,
     "threads": sorted(t.name for t in threading.enumerate()),
 }))
 """
 # modules whose import must start nothing: the servers' entry points
 ENTRY_POINTS = ("pyrope_tpu_torch.server.__main__", "pyrope_tpu_torch.server.app",
                 "pyrope_tpu_torch.sidecar.server")
-MODULES = 89   # every module of the package, this PR's count
+MODULES = 97   # every module of the package, this PR's count
+# the modules that complete the port: Flat sq8 lives in index/flat.py
+COMPLETING = ("pyrope_tpu_torch.index.flat", "pyrope_tpu_torch.index.device_flat",
+              "pyrope_tpu_torch.parallel", "pyrope_tpu_torch.parallel.mesh",
+              "pyrope_tpu_torch.parallel.sharded_flat", "pyrope_tpu_torch.parallel.sharded_ivf",
+              "pyrope_tpu_torch.parallel.sharded_ivf_pq",
+              "pyrope_tpu_torch.parallel.sharded_hnsw", "pyrope_tpu_torch.parallel.dryrun")
 
 
 @functools.lru_cache(maxsize=1)
@@ -65,6 +72,18 @@ def test_importing_every_module_loads_no_jax():
     assert got["modules"] >= MODULES  # every module was imported
     assert got["jax"] == []
     assert not got["cuda_initialized"]
+
+
+def test_the_completing_modules_are_imported_and_stand_apart():
+    """The probe walked index/device_flat.py and every parallel/ module, and
+    their sources name neither jax nor the JAX package."""
+    got = _probe()
+    assert set(COMPLETING) <= set(got["names"]) | {"pyrope_tpu_torch.parallel"}
+    pat = re.compile(r"^\s*(?:from|import)\s+(jax\b|pyrope_tpu\b(?!_torch))", re.M)
+    for mod in COMPLETING:
+        rel = mod.replace(".", "/")
+        path = REPO / (rel + ".py") if (REPO / (rel + ".py")).exists() else REPO / rel / "__init__.py"
+        assert not pat.findall(path.read_text()), path
 
 
 def test_importing_the_entry_points_starts_no_server():
@@ -134,11 +153,28 @@ def test_device_is_required_and_checked():
         resolve_device(None)
     with pytest.raises(ValueError):
         resolve_device("meta")
+    import numpy as np
+
+    from pyrope_tpu_torch import parallel
+    from pyrope_tpu_torch.index.device_flat import DeviceFlatIndex
+
     for make in (lambda: IvfFlatIndex(8, "L2"), lambda: FlatIndex(8, "L2"),
                  lambda: IvfPqIndex(8, "L2"), VectorIndexRegistry,
-                 lambda: create_index(IndexConfig(dim=8))):
+                 lambda: create_index(IndexConfig(dim=8)),
+                 lambda: FlatIndex(8, "L2", storage="sq8"),
+                 lambda: DeviceFlatIndex(np.zeros((4, 8), np.float32)),
+                 parallel.make_mesh, parallel.default_mesh,
+                 lambda: parallel.make_mesh_2d(2, 2),
+                 lambda: parallel.make_mesh_multislice(2),
+                 lambda: parallel.ShardedFlatIndex(8),
+                 lambda: parallel.ShardedIvfFlatIndex(8),
+                 lambda: parallel.ShardedIvfPqIndex(8),
+                 lambda: parallel.ShardedHnswIndex(8),
+                 lambda: parallel.ShardedHnswCorpusIndex(8)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     meta = '{"format": "pyrope_tpu.flat.v1", "dim": 8, "metric": "L2"}'
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         convert.flat_from_arrays({"meta": meta, "ids": [], "vecs": []})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.device_flat_from_arrays({"meta": meta, "ids": [], "vecs": []})
