@@ -11,7 +11,8 @@ total are printed:
 
   1. device    torch/CUDA versions, the card's name and power limit
   2. build     nvcc build time, registers and spills per kernel, and the
-               HGMMA instructions (cuobjdump -sass) of the bf16 flat scan
+               HGMMA instructions (cuobjdump -sass) of the bf16 flat scan and
+               of the bf16 list scan on the tensor cores
   3. kernels   each kernel against its plain PyTorch version on the card at
                the main paths' shapes: equal hit sets, scores within
                |a-b| <= 1e-4 + 1e-5|b| (fp32 both sides, other summation
@@ -30,9 +31,11 @@ total are printed:
                copied into two lists, 30% tombstones; the bf16 slab modes:
                the flat scan on the tensor cores (flat_scan_tc.cu) at 1M x
                128 (b1024 at k 10 in L2 and IP, b64 at k 10, b64 at the
-               hybrid's k 64), the list scan without promote (100k, nlist
-               100, nprobe 96, b256, k 64) and with it (1M, nlist 1000,
-               nprobe 3, b64, k 10), each beside the composition, the bare
+               hybrid's k 64), the list scan without promote at k <= 128 on
+               the tensor cores (ivf_list_scan_tc.cu: 100k, nlist 100, nprobe
+               96, b256, k 64, with its first pass) and with promote on the CUDA cores
+               (1M, nlist 1000, nprobe 3, b64, k 10), each beside the
+               composition, the bare
                bf16 q16 @ x16.T, and its bound (bf16 rows over the memory
                rate against the bf16 tensor-core peak, or the fp32 peak with
                promote); the wide modes (k > 128), each beside the
@@ -45,8 +48,9 @@ total are printed:
                scan's slots; the wide modes' first pass alone against its
                plain version (the fp32 flat scan's at b1024 k 1000 and b64
                k 10,000, the list scan's at 100k np96 b1024 k 1000 and bf16
-               b256 k 512; floors' scores to the fp32 tolerance) and the
-               floor select (bit-equal, beside torch.kthvalue); each wide
+               b256 k 512, and the tensor-core list scan's at bf16 b256 k 64;
+               floors' scores to the fp32 tolerance) and the floor select (bit-equal,
+               beside torch.kthvalue through the same wrapping); each wide
                case's device time split into first pass, floor select,
                second pass and merge where the first pass ran, and the real
                entries a query's splits hold (the wide flat scan); and the
@@ -104,7 +108,9 @@ total are printed:
                hits equal the fp32 list scan's on the same queries (sent
                inside a b1024 batch, above HYBRID_MAX_BATCH), but for k-th
                place ties; the 100k index also at k 100 (R 512: the list
-               scan's wide bf16 mode) against the fp32 list scan at k 100
+               scan's wide bf16 mode, on the CUDA cores) against the fp32
+               list scan at k 100; each k 10 cell prints the tensor-core list
+               scan's launches and its first passes
  12. pq bf16   create_index(IVF_PQ, nlist 1000, pq_m 16, ksub 256,
                refine_storage bf16), bf16 training, on phase 4's clustered
                rows (ivfpq1m_bf16slab): route dense-exact-pallas-win at b64
@@ -320,6 +326,7 @@ K = 10
 SOURCE = "pyrope_tpu_torch/csrc/fused_scan.cu"
 TC_SOURCE = "pyrope_tpu_torch/csrc/flat_scan_tc.cu"
 LIST_SOURCE = "pyrope_tpu_torch/csrc/ivf_list_scan.cu"
+LIST_TC_SOURCE = "pyrope_tpu_torch/csrc/ivf_list_scan_tc.cu"
 PREFLOOR_SOURCE = "pyrope_tpu_torch/csrc/prefloor.cu"
 PALLAS = "pyrope_tpu/ops/pallas_scan.py"
 
@@ -478,11 +485,11 @@ def device_split(fn, calls: int = 5) -> dict:
         split["device_ms"] += ms
         if "floor_select" in e.name:
             split["select_ms"] += ms
-        elif "scan" in e.name:   # list_scan, fused_scan, flat_scan_tc
-            m = re.search(r"(list_scan|scan(?:_tc)?)_kernel<([^>]*)>", e.name)
+        elif "scan" in e.name:   # list_scan[_tc], fused_scan, flat_scan_tc
+            m = re.search(r"(list_scan(?:_tc)?|scan(?:_tc)?)_kernel<([^>]*)>", e.name)
             args = m.group(2).replace(" ", "").split(",") if m else []
-            # <MODE, WIDE>; <BT, IP, WIDE[, CAP]>; <NC, IP, WIDE>
-            if m and args[1 if m.group(1) == "list_scan" else 2] == "false":
+            # <MODE, WIDE>, <IP, WIDE>; <BT, IP, WIDE[, CAP]>; <NC, IP, WIDE>
+            if m and args[1 if m.group(1).startswith("list_scan") else 2] == "false":
                 narrow += ms
             else:
                 wide |= m is not None
@@ -548,8 +555,11 @@ def phase_build() -> None:
     funcs = sass.split("Function : ")[1:]
     hgmma = sum(f.count("HGMMA") for f in funcs if "flat_scan_tc_kernel" in f.split()[0])
     require(hgmma > 0, "the bf16 flat scan's SASS has no HGMMA")
+    hgmma_list = sum(f.count("HGMMA") for f in funcs
+                     if "ivf_list_scan_tc_kernel" in f.split()[0])
+    require(hgmma_list > 0, "the bf16 list scan's SASS has no HGMMA")
     say("2 build", seconds=round(secs, 2), lib=kbuild.library_path().name, hgmma=hgmma,
-        ptxas=repr("; ".join(regs)))
+        hgmma_list=hgmma_list, ptxas=repr("; ".join(regs)))
 
 
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate (data sheet)
@@ -671,10 +681,11 @@ def phase_kernels(dev) -> dict:
     alive = torch.rand(n, generator=g, device=dev) > 0.01
     q = torch.rand((b, d), generator=g, device=dev)
     rec = {kind: {"err": 0.0}
-           for kind in ("flat", "ivf", "sq8", "merge", "flat_bf16", "ivf_bf16", "ivf_bf16p",
-                        "flat_wide", "flat_bf16_wide", "ivf_wide", "ivf_bf16_wide",
-                        "ivf_bf16p_wide", "sq8_wide", "ivf_large_d", "sq8_large_d",
-                        "merge_wide", "flat_prefloor", "list_prefloor", "floor_select")}
+           for kind in ("flat", "ivf", "sq8", "merge", "flat_bf16", "ivf_bf16_tc",
+                        "ivf_bf16p", "flat_wide", "flat_bf16_wide", "ivf_wide",
+                        "ivf_bf16_wide", "ivf_bf16p_wide", "sq8_wide", "ivf_large_d",
+                        "sq8_large_d", "merge_wide", "flat_prefloor", "list_prefloor",
+                        "list_prefloor_tc", "floor_select")}
     cells = []
 
     def case(kind, name, kern, plain, reps=10, plain_reps=3, main=False, comp=None,
@@ -872,15 +883,16 @@ def phase_kernels(dev) -> dict:
              comp=lambda: composition_topk(l2_or_ip(qv, qv16.float() @ x16.float().T, sq,
                                                     metric == "IP"), alive[None, :], k),
              lib=lambda: qv16 @ x16.T, bnd=bnd)
-    # without promote: the IVF-Flat hybrid's shortlist scan (100k, nprobe 96, k 64)
+    # without promote: the IVF-Flat hybrid's shortlist scan (100k, nprobe 96,
+    # k 64) on the tensor cores (ivf_list_scan_tc.cu, with its first pass)
     x2_16 = x2.bfloat16()
     lay2 = layout(n2, kp2, g, dev)
     q3 = q2[:256].contiguous()
     q3_16 = q3.bfloat16()
     p3 = probes(256, kp2, 96, g, dev)
     bnd = list_bound(d * 2 + 5, q3, p3, lay2[2], alive2, lay2[0], kp2, 64, rate=BF16_FLOP_S)
-    rec["ivf_bf16"]["bound"] = bnd
-    case("ivf_bf16", "ivf_bf16_100k_nlist100_np96_b256_k64",
+    rec["ivf_bf16_tc"]["bound"] = bnd
+    case("ivf_bf16_tc", "ivf_bf16_100k_nlist100_np96_b256_k64",
          lambda: fs.fused_ivf_topk(q3, x2_16, sq2, alive2, lay2[0], lay2[1], lay2[2], p3,
                                    kp2, 64, max_len=lay2[3]),
          lambda: fs.fused_ivf_topk_plain(q3, x2_16, sq2, alive2, lay2[0], p3, kp2, 64,
@@ -888,7 +900,9 @@ def phase_kernels(dev) -> dict:
          main=True, bnd=bnd, lib=lambda: q3_16 @ x2_16.T,
          comp=lambda: composition_topk(
              l2_or_ip(q3, q3_16.float() @ x2_16.float().T, sq2, False),
-             fs.probe_table(p3, kp2)[:, lay2[0].long()] & alive2[None, :], 64))
+             fs.probe_table(p3, kp2)[:, lay2[0].long()] & alive2[None, :], 64),
+         slots=lambda: fs.list_partials(q3, x2_16, sq2, alive2, lay2[1], lay2[2], p3, kp2,
+                                        64, False, lay2[3]))
     # with promote: IVF-PQ's bf16 rerank slab scanned exactly (1M, nprobe 3, k 10)
     q4 = q[:64].contiguous()
     q4_16 = q4.bfloat16()
@@ -969,11 +983,12 @@ def phase_kernels(dev) -> dict:
     sq8_case("sq8_wide_100k_nlist100_np96_b1024_k200", q5, x2, alive2, lay2, kp2, p5,
              k=200, main=True, reps=5, comp=True, kind="sq8_wide")
 
-    # the wide modes' first pass alone, each against its plain version (the
-    # floors' scores to the fp32 tolerance: the plain scores sum in another
-    # order), and the floor select: the fp32 flat scan's at b1024 k1000 and
-    # b64 k10,000, the list scan's at 100k np96 b1024 k1000 (layout A) and
-    # bf16 b256 k512 (the IVF hybrid's R 512)
+    # the first pass alone, each against its plain version (the floors'
+    # scores to the fp32 tolerance: the plain scores sum in another order),
+    # and the floor select: the fp32 flat scan's at b1024 k1000 and b64
+    # k10,000, the list scan's at 100k np96 b1024 k1000 (layout A) and bf16
+    # b256 k512 (the IVF hybrid's R 512), and the tensor-core list scan's at
+    # bf16 b256 k64 (the hybrid's narrow shortlist)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     as_hits = lambda f: (f[:, None], torch.zeros((f.shape[0], 1), dtype=torch.int32,
                                                  device=dev))
@@ -993,30 +1008,37 @@ def phase_kernels(dev) -> dict:
              lambda: as_hits(fs.flat_prefloor(qv, x, sq, alive, n, plan)),
              lambda: as_hits(fs.flat_prefloor_plain(qv, x, sq, alive, n, plan)),
              reps=5, plain_reps=2, main=bv == b, bnd=bnd)
-    seg5 = fs.list_seg(1024, 96, kp2, lay2[3], sms)
     for name, qv, xv, k, bf in (("100k_np96_b1024_k1000", q5, x2, 1000, False),
-                                ("bf16_100k_np96_b256_k512", q3, x2_16, 512, True)):
+                                ("bf16_100k_np96_b256_k512", q3, x2_16, 512, True),
+                                ("bf16_100k_np96_b256_k64", q3, x2_16, 64, True)):
         pv_ = p5 if qv is q5 else p3
         keys, plan = fs.list_prefloor(qv, xv, sq2, alive2, lay2[1], lay2[2], pv_, kp2, k,
                                       False, lay2[3])
         require(plan is not None, f"no list first pass at {name}")
         qd = qv.bfloat16().float() if bf else qv
         scores = l2_or_ip(qv, qd @ xv.float().T, sq2, False)
-        seg = fs.list_seg(qv.shape[0], 96, kp2, lay2[3], sms)
+        # the tensor-core kernel's items follow its own segment rule
+        tc = bf and k <= fs.NARROW_MAX_K
+        seg = (fs.list_tc_seg(qv.shape[0], 96, kp2, lay2[3], sms, k, d) if tc
+               else fs.list_seg(qv.shape[0], 96, kp2, lay2[3], sms))
         bnd = sample_bound(d * (2 if bf else 4) + 5, qv, pv_, lay2, alive2, kp2, seg,
                            plan.sample, BF16_FLOP_S if bf else FP32_FLOP_S)
-        if not bf:
-            rec["list_prefloor"]["bound"] = bnd
-        case("list_prefloor", f"list_first_pass_{name}_c{plan.c}_g{plan.g}_rows{plan.sample}",
+        kind = "list_prefloor_tc" if tc else "list_prefloor"
+        main = tc or not bf
+        if main:
+            rec[kind]["bound"] = bnd
+        case(kind, f"list_first_pass_{name}_c{plan.c}_g{plan.g}_rows{plan.sample}",
              lambda: as_hits(fs.entry_of(fs.list_prefloor(
                  qv, xv, sq2, alive2, lay2[1], lay2[2], pv_, kp2, k, False, lay2[3])[0])[0]),
              lambda: as_hits(fs.entry_of(fs.list_prefloor_plain(
                  scores, alive2, lay2[0], lay2[1], lay2[2], pv_, seg, plan))[0]),
-             reps=5, plain_reps=1, main=not bf, bnd=bnd)
+             reps=5, plain_reps=1, main=main, bnd=bnd)
         del scores
     del x16, x2_16
     # the floor select alone: the flat first pass's [1024, 33] published
-    # scores (g 28), and the list scan's 96 slot keys a query (g 72)
+    # scores (g 28), and the list scan's 96 slot keys a query (g 72); the
+    # library's torch.kthvalue of the same values timed through the same
+    # wrapping (as_hits, and entry_of for the keys)
     plan = fs.flat_prefloor_plan(1000, b, d, n, sms)
     pubf = torch.rand((b, plan.splits), generator=g, device=dev)
     pubf[:, ::7] = float("-inf")
@@ -1026,14 +1048,16 @@ def phase_kernels(dev) -> dict:
          lambda: as_hits(fs.floor_select(pubf, plan.g)),
          lambda: as_hits(fs.floor_select_plain(pubf, plan.g)), reps=20, plain_reps=10,
          main=True, bnd=bnd,
-         lib=lambda: torch.kthvalue(pubf, plan.splits - plan.g + 1, dim=1))
+         lib=lambda: as_hits(torch.kthvalue(pubf, plan.splits - plan.g + 1, dim=1).values))
     keys5 = fs.key_of(torch.rand((b * 96,), generator=g, device=dev),
                       torch.randperm(b * 96, device=dev).int())
     qend5 = (torch.arange(1, b + 1, device=dev, dtype=torch.int32) * 96).view(b, 1)
     case("floor_select", "floor_select_list_b1024_96slots_g72",
          lambda: as_hits(fs.entry_of(fs.floor_select(keys5, 72, qend5))[0]),
          lambda: as_hits(fs.entry_of(fs.floor_select_plain(keys5, 72, qend5))[0]),
-         reps=20, plain_reps=10, bnd=bound(b * 96 * 8 + b * 8, 0.0))
+         reps=20, plain_reps=10, bnd=bound(b * 96 * 8 + b * 8, 0.0),
+         lib=lambda: as_hits(fs.entry_of(fs._unsigned_order(torch.kthvalue(
+             fs._unsigned_order(keys5).view(b, 96), 96 - 72 + 1, dim=1).values))[0]))
 
     # the merge alone, on partials of the slice's shape: each query's slots
     # (its lists' segments) from the list scan's inversion of the main probes
@@ -1475,8 +1499,11 @@ def _hybrid_against_fp32(dev, ix, queries, truth, name, route, k=K, iters=200):
             **{f"{name}_b256_{key}": v for key, v in srv.items()}}
 
 
-def phase_ivf_hybrid(dev, data) -> None:
-    """ivf100k_np96_hybrid_b256 and ivf1m_np256_hybrid_b256."""
+def phase_ivf_hybrid(dev, data, counts=None) -> None:
+    """ivf100k_np96_hybrid_b256 and ivf1m_np256_hybrid_b256; ``counts`` (a
+    dict) gets the tensor-core list scan's first passes (``tc_first``), which
+    LAUNCHES counts with the CUDA-core kernel's under list_scan_prefloor."""
+    counts = {} if counts is None else counts
     base, queries, truth = data
     n, d = base.shape
     small, small_q = synthetic(100_000, d), synthetic_queries(1024, d)
@@ -1484,10 +1511,21 @@ def phase_ivf_hybrid(dev, data) -> None:
     narrow.add_batch([str(i) for i in range(len(small))], small)
     narrow.build()
     truth100 = ground_truth(small, small_q[:256], 100, block=16384)
-    fields = _hybrid_against_fp32(dev, narrow, small_q, truth100, "ivf100k_np96",
-                                  "dense-pallas-hybrid")
-    # k 100: R 512, the list scan's wide bf16 mode, against the fp32 list
-    # scan at k 100 (narrow) on the same queries
+    keys = ("ivf_scan_bf16_tc", "list_scan_prefloor")
+
+    def tc_cell(name, *args, **kw):
+        """A k 10 cell: the tensor-core list scan and its first passes."""
+        before = [fs.LAUNCHES[key] for key in keys]
+        fields.update(_hybrid_against_fp32(dev, *args, **kw))
+        got = [fs.LAUNCHES[key] - b0 for key, b0 in zip(keys, before)]
+        fields[f"{name}_tc_launches"], fields[f"{name}_tc_first_passes"] = got
+        require(got[0] > 0, f"{name} never launched the tensor-core list scan")
+        counts["tc_first"] = counts.get("tc_first", 0) + got[1]
+
+    fields = {}
+    tc_cell("ivf100k_np96", narrow, small_q, truth100, "ivf100k_np96", "dense-pallas-hybrid")
+    # k 100: R 512, the list scan's wide bf16 mode (on the CUDA cores),
+    # against the fp32 list scan at k 100 (narrow) on the same queries
     launches = fs.LAUNCHES["ivf_scan_bf16_wide"]
     fields.update(_hybrid_against_fp32(dev, narrow, small_q, truth100, "ivf100k_np96_k100",
                                        "dense-pallas-hybrid", k=100, iters=100))
@@ -1502,8 +1540,7 @@ def phase_ivf_hybrid(dev, data) -> None:
     wide.build()
     torch.cuda.synchronize()
     fields["ivf1m_np256_build_s"] = round(time.perf_counter() - t0, 2)
-    fields.update(_hybrid_against_fp32(dev, wide, queries, truth, "ivf1m_np256",
-                                       "dense-pallas-win-hybrid"))
+    tc_cell("ivf1m_np256", wide, queries, truth, "ivf1m_np256", "dense-pallas-win-hybrid")
     say("11 ivf hybrid", R=wide._shortlist(wide._sync(), K), **fields)
 
 
@@ -2969,6 +3006,7 @@ def main() -> int:
 
     resp1m = {}   # phase 18's 1M cell, printed beside phase 19's
     keep = {}     # phase 15's 100k clustered graph, replicated in phase 22
+    hybrid = {}   # phase 11's tensor-core first passes
     paths = {name: run_path(name, fn, kernels) for name, fn, kernels in (
         ("IVF-Flat", ivf_flat, ("flat_scan", "ivf_scan", "merge", "flat_scan_wide",
                                 "ivf_scan_wide", "merge_wide", "flat_scan_prefloor",
@@ -2977,8 +3015,8 @@ def main() -> int:
         ("flat bf16", lambda: phase_flat_bf16(dev, uniform), ("flat_scan_bf16", "merge")),
         ("flat hybrid", lambda: phase_flat_hybrid(dev, uniform),
          ("flat_scan_bf16", "flat_scan", "merge")),
-        ("IVF-Flat hybrid", lambda: phase_ivf_hybrid(dev, uniform),
-         ("ivf_scan_bf16", "ivf_scan", "merge", "ivf_scan_bf16_wide", "merge_wide",
+        ("IVF-Flat hybrid", lambda: phase_ivf_hybrid(dev, uniform, hybrid),
+         ("ivf_scan_bf16_tc", "ivf_scan", "merge", "ivf_scan_bf16_wide", "merge_wide",
           "list_scan_prefloor", "floor_select")),
         ("IVF-PQ bf16", lambda: phase_pq_bf16(dev, data),
          ("ivf_scan_bf16", "merge", "ivf_scan_bf16_wide", "merge_wide")),
@@ -3001,12 +3039,14 @@ def main() -> int:
     )}
     say("launches", **{name.replace(" ", "_"): repr(got) for name, got in paths.items()})
     launches = {name: sum(got[name] for got in paths.values()) for name in fs.LAUNCHES}
-    # the list scan's bf16 mode runs without promote on the hybrid path only,
-    # with promote on the bf16-slab path only; large D on the d768 path only
-    bf16_plain = paths["IVF-Flat hybrid"]["ivf_scan_bf16"]
+    # the list scan's bf16 mode runs without promote on the hybrid path only
+    # (narrow: the tensor-core kernel and its first passes; wide: the CUDA
+    # cores'), with promote on the bf16-slab path only; large D on the d768
+    # path only
     bf16_promote = paths["IVF-PQ bf16"]["ivf_scan_bf16"]
     bf16_plain_wide = paths["IVF-Flat hybrid"]["ivf_scan_bf16_wide"]
     bf16_promote_wide = paths["IVF-PQ bf16"]["ivf_scan_bf16_wide"]
+    tc_first = hybrid["tc_first"]
     large_d = paths["IVF-Flat d768"]["ivf_scan"]
 
     def entry(name, kind, source, replaces, launched):
@@ -3025,8 +3065,8 @@ def main() -> int:
               launches["flat_scan_bf16"]),
         entry("ivf_list_scan_kernel<IVF>", "ivf", LIST_SOURCE,
               f"{PALLAS}:1035, {PALLAS}:992", launches["ivf_scan"] - large_d),
-        entry("ivf_list_scan_kernel<BF16>", "ivf_bf16", LIST_SOURCE,
-              f"{PALLAS}:1035, {PALLAS}:992, {PALLAS}:232", bf16_plain),
+        entry("ivf_list_scan_tc_kernel", "ivf_bf16_tc", LIST_TC_SOURCE,
+              f"{PALLAS}:1035, {PALLAS}:992, {PALLAS}:232", launches["ivf_scan_bf16_tc"]),
         entry("ivf_list_scan_kernel<BF16> promote_fp32", "ivf_bf16p", LIST_SOURCE,
               f"{PALLAS}:992, {PALLAS}:1035, {PALLAS}:232", bf16_promote),
         entry("ivf_list_scan_kernel<SQ8>", "sq8", LIST_SOURCE,
@@ -3051,7 +3091,10 @@ def main() -> int:
         entry("fused_scan_kernel<narrow> first pass", "flat_prefloor", SOURCE,
               f"{PALLAS}:672, {wide}", launches["flat_scan_prefloor"]),
         entry("ivf_list_scan_kernel<narrow> first pass", "list_prefloor", LIST_SOURCE,
-              f"{PALLAS}:1035, {PALLAS}:1204, {wide}", launches["list_scan_prefloor"]),
+              f"{PALLAS}:1035, {PALLAS}:1204, {wide}",
+              launches["list_scan_prefloor"] - tc_first),
+        entry("ivf_list_scan_tc_kernel first pass", "list_prefloor_tc", LIST_TC_SOURCE,
+              f"{PALLAS}:1035, {PALLAS}:232, {wide}", tc_first),
         entry("floor_select_kernel", "floor_select", PREFLOOR_SOURCE,
               f"{PALLAS}:672, {PALLAS}:1035, {wide}", launches["floor_select"]),
     ]

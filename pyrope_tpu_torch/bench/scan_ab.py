@@ -27,7 +27,8 @@ case: the library call, which keeps no row order at ties):
   b1024), merge_108lists_b1024_k128 (a skewed list at nprobe 96),
   and where the tree has the bf16 slab modes: flat_bf16_1M_b1024_k10 (and
   its IP twin flat_bf16_1M_b1024_k10_IP), flat_bf16_1M_b64_k10, flat_bf16_1M_b64_k64 (the hybrid's shortlist),
-  ivf_bf16_100k_nlist100_np96_b256_k64 (no promote: the IVF hybrid),
+  ivf_bf16_100k_nlist100_np96_b256_k64 (no promote: the IVF hybrid; the
+  tensor-core list scan where the tree has it),
   ivf_bf16_promote_1M_nlist1000_np3_b64_k10 (IVF-PQ's bf16 rerank slab),
   matmul_bf16_1M_b1024 (q16 @ x16.T alone, bf16 sums), and the fp32 modes
   at those shapes: flat_fp32_1M_b64_k64, ivf_fp32_100k_nlist100_np96_b256_k64,
@@ -41,10 +42,11 @@ case: the library call, which keeps no row order at ties):
   (large D), merge_flat_splits_b1024_k1000, merge_flat8_b1024_k1000 (the
   wide flat scan's 8 splits),
   merge_wide_slots_b1024_k1000 (the list scan's layout at nprobe 96: 96 slots
-  a query, 1000 entries a slot) beside topk_wide_slots_b1024_k1000, and two
-  serving paths end to end, one b256 device_search at k 100:
-  e2e_ivf100k_np96_hybrid_b256_k100 (chip_smoke phase 11's index) and
-  e2e_flat1m_hybrid_b256_k100 (phase 13's)
+  a query, 1000 entries a slot) beside topk_wide_slots_b1024_k1000, and the
+  serving paths end to end, one b256 device_search:
+  e2e_ivf100k_np96_hybrid_b256_k100 and _k10 (chip_smoke phase 11's 100k
+  index), e2e_ivf1m_np256_hybrid_b256_k10 (phase 11's 1M index: nlist 1000,
+  nprobe 256, bf16 training) and e2e_flat1m_hybrid_b256_k100 (phase 13's)
 
     --cases '_bf16_|_fp32_'    # the bf16 modes beside fp32 at their shapes
     --cases '_wide_'           # the wide modes
@@ -58,11 +60,12 @@ the mean real entries a query's partial slots (or the wide flat scan's
 splits) hold after the scan (read off one more call).
 
 ``--sweep SPEC`` (trees with the first pass) adds, for each wide fp32 flat
-and wide list case, one run a variant of SPEC: variants are separated by
-``;``, each ``off`` (the first pass off) or settings of ``ops/fused_scan``
-constants joined by ``+`` (``FLAT_PREFLOOR_RATIO=5+FLAT_PREFLOOR_WAVES=1``),
-and the run is named ``<case>@<variant>``: the measurement the first
-pass's rules were chosen by.
+and wide list case (or each case ``--sweep-cases`` matches), one run a
+variant of SPEC: variants are separated by ``;``, each ``off`` (the first
+pass off) or settings of ``ops/fused_scan`` constants joined by ``+``
+(``FLAT_PREFLOOR_RATIO=5+FLAT_PREFLOOR_WAVES=1``), and the run is named
+``<case>@<variant>``: the measurement the first pass's rules and the
+tensor-core list scan's segment rule were chosen by.
 
 Prints one JSON object per worker and writes all of them to ``--out``;
 every record names the card and its power limit.
@@ -87,9 +90,9 @@ def _kind(name: str) -> str:
     """A kernel's kind for the device split: the scans' narrow and wide
     launches apart (a wide scan's narrow launch is its first pass), the
     floor select, the merges, the rest."""
-    m = re.search(r"(ivf_list_scan|fused_scan)_kernel<([^>]*)>", name)
-    if m:   # <MODE, WIDE> and <BT, IP, WIDE[, CAP]>
-        base = "list_scan" if m.group(1) == "ivf_list_scan" else "fused_scan"
+    m = re.search(r"(ivf_list_scan(?:_tc)?|fused_scan)_kernel<([^>]*)>", name)
+    if m:   # <MODE, WIDE>, <IP, WIDE[, SPLIT]> and <BT, IP, WIDE[, CAP]>
+        base = "list_scan" if m.group(1).startswith("ivf_list_scan") else "fused_scan"
         wide = m.group(2).replace(" ", "").split(",")[1 if base == "list_scan" else 2]
         return f"{base}_{'wide' if wide == 'true' else 'narrow'}"
     for kind in ("floor_select", "merge", "list_scan", "fused_scan"):
@@ -143,7 +146,11 @@ def _variants(spec: str) -> list[tuple[str, dict | None]]:
     return out
 
 
-def _worker(reps: int, trace: bool, cases: str, sweep: str = "") -> dict:
+WIDE_CASES = r"^(flat|ivf|sq8)_(bf16_)?wide_"
+
+
+def _worker(reps: int, trace: bool, cases: str, sweep: str = "",
+            sweep_cases: str = WIDE_CASES) -> dict:
     import torch
 
     from pyrope_tpu_torch.kernels import build as kbuild
@@ -202,7 +209,7 @@ def _worker(reps: int, trace: bool, cases: str, sweep: str = "") -> dict:
         if not re.search(cases, name):
             return
         run(name, fn)
-        if not (sweep and prefloor and re.search(r"^(flat|ivf|sq8)_(bf16_)?wide_", name)
+        if not (sweep and prefloor and re.search(sweep_cases, name)
                 and not name.startswith("flat_bf16")):
             return
         for var, sets in _variants(sweep):
@@ -347,13 +354,22 @@ def _worker(reps: int, trace: bool, cases: str, sweep: str = "") -> dict:
         from pyrope_tpu_torch.utils.datasets import synthetic, synthetic_queries
 
         q256 = torch.from_numpy(synthetic_queries(256, d)).to(dev)
-        if re.search(cases, "e2e_ivf100k_np96_hybrid_b256_k100"):
+        if re.search(cases, "e2e_ivf100k_np96_hybrid_b256_k100|e2e_ivf100k_np96_hybrid_b256_k10"):
             small = synthetic(100_000, d)   # phase 11's ivf100k_np96_hybrid_b256
             ix = IvfFlatIndex(d, "L2", device=dev, nlist=100, nprobe=96, selection="hybrid")
             ix.add_batch([str(i) for i in range(len(small))], small)
             ix.build()
             case("e2e_ivf100k_np96_hybrid_b256_k100", lambda: ix.device_search(q256, 100))
+            case("e2e_ivf100k_np96_hybrid_b256_k10", lambda: ix.device_search(q256, K))
             del ix, small
+        if re.search(cases, "e2e_ivf1m_np256_hybrid_b256_k10"):
+            big = synthetic(1_000_000, d)   # phase 11's ivf1m_np256_hybrid_b256
+            ix = IvfFlatIndex(d, "L2", device=dev, nlist=1000, nprobe=256,
+                              train_dtype="bfloat16", selection="hybrid")
+            ix.add_batch([str(i) for i in range(len(big))], big)
+            ix.build()
+            case("e2e_ivf1m_np256_hybrid_b256_k10", lambda: ix.device_search(q256, K))
+            del ix, big
         if re.search(cases, "e2e_flat1m_hybrid_b256_k100"):
             big = synthetic(1_000_000, d)   # phase 13's flat1m_hybrid_k100
             fx = FlatIndex(d, "L2", device=dev, selection="hybrid")
@@ -408,11 +424,14 @@ def main() -> int:
     ap.add_argument("--cases", default="", help="regular expression over case names")
     ap.add_argument("--out", default="build/scan_ab.json")
     ap.add_argument("--sweep", default="",
-                    help="variants of the first pass's constants for the wide cases")
+                    help="variants of ops/fused_scan constants for the swept cases")
+    ap.add_argument("--sweep-cases", default=WIDE_CASES,
+                    help="regular expression of the cases --sweep runs (default: wide)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(_worker(args.reps, args.trace, args.cases, args.sweep)))
+        print(json.dumps(_worker(args.reps, args.trace, args.cases, args.sweep,
+                                 args.sweep_cases)))
         return 0
     if len(args.tree) < 2:
         ap.error("give two or more --tree directories")
@@ -426,7 +445,8 @@ def main() -> int:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
                "--reps", str(args.reps), "--cases", args.cases] + (
                    ["--trace"] if args.trace else []) + (
-                   ["--sweep", args.sweep] if args.sweep else [])
+                   ["--sweep", args.sweep, "--sweep-cases", args.sweep_cases]
+                   if args.sweep else [])
         proc = subprocess.run(cmd, cwd=tree, env=env, capture_output=True, text=True,
                               timeout=900)
         if proc.returncode != 0:

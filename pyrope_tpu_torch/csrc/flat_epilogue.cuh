@@ -21,11 +21,12 @@ constexpr int FLAT_CAP = 256;    // the wide mode's candidate buffer, a query
 constexpr int FLAT_SMALL_CAP = 64;  // the fp32 wide mode's, behind a first pass's
                                     // floor: two blocks an SM
 
-// The insertion path, out of line: the epilogue's offer sites hold a call
-// each, not the insertion's code. Offers every lane's (v, r) to one list
-// whose threshold is (tv, ti), and returns the list's last entry.
-__device__ __noinline__ Entry offer(float* lv, int* li, int k, float v, int r,
-                                    float tv, int ti, int lane) {
+// Offers every lane's (v, r) to one list whose threshold is (tv, ti), and
+// returns the list's last entry. Inlined at one call site (the tensor-core
+// list scan's narrow lists, where a call under 128 registers a thread saves
+// and restores the accumulators around it); elsewhere through offer.
+__device__ __forceinline__ Entry offer_inline(float* lv, int* li, int k, float v, int r,
+                                              float tv, int ti, int lane) {
   if (k <= 32) {
     // one list entry a lane, the list in registers while candidates go in;
     // after each insertion one vote drops every candidate the new last
@@ -60,6 +61,13 @@ __device__ __noinline__ Entry offer(float* lv, int* li, int k, float v, int r,
   }
   warp_offer_batch(lv, li, k, v, r, tv, ti, lane);
   return {tv, ti};
+}
+
+// The insertion path, out of line: the epilogue's offer sites hold a call
+// each, not the insertion's code.
+__device__ __noinline__ Entry offer(float* lv, int* li, int k, float v, int r,
+                                    float tv, int ti, int lane) {
+  return offer_inline(lv, li, k, v, r, tv, ti, lane);
 }
 
 // A list's pub_c-th score, when it has risen, goes to the query's row of pub

@@ -21,11 +21,13 @@
 //   BF16: x is a bf16 row widened to fp32 (the branch x.dtype == bfloat16 of
 //        the TPU kernels' _tile_scores, :232-264), sqnorm[t] that of the
 //        fp32 row before the cast. With promote_fp32 the TPU multiplies the
-//        fp32 q by the widened row; without it bf16(q) by the row, fp32
-//        sums. A product of two bf16 values is exact in fp32, so both are
-//        fp32 FMAs here: the wrapper passes q rounded to bf16 (an fp32
-//        tensor) where promote is off, and |q|^2 of the unrounded q beside
-//        it (qsq); with promote it passes q as it is and no qsq.
+//        fp32 q by the widened row (here: q as it is, no qsq), which the
+//        tensor cores cannot compute exactly (TF32 would round q); without
+//        it bf16(q) by the row, fp32 sums (here: q rounded to bf16 by the
+//        wrapper, an fp32 tensor, and |q|^2 of the unrounded q beside it,
+//        qsq), in the wide mode and its first pass only: the narrow mode
+//        without promote runs on the tensor cores (ivf_list_scan_tc.cu),
+//        whose wide mode lost to this one (PERF.md, Findings).
 // and returns the top k in the total order (score desc, row asc), (-inf, -1)
 // in empty slots. Products and sums are IEEE fp32 FMAs on the CUDA cores: no
 // TF32, no bf16 split.
@@ -163,6 +165,7 @@
 
 #include <type_traits>
 
+#include "list_floor.cuh"
 #include "topk_warp.cuh"
 #include "topk_wide.cuh"
 
@@ -182,9 +185,6 @@ constexpr int XLD = DCH + 4;     // stage row stride (elements): conflict-free
 constexpr int LCAP = 128;        // the wide mode's candidate buffer, a list
 constexpr int B_FLUSH = LCAP - 16;  // layout B: a buffer above this is flushed
                                     // (a warp adds at most 16 a query a tile)
-constexpr int FWIN = 128;        // slots whose published keys a warp reads
-constexpr int FPL = FWIN / 32;   // of them a lane
-constexpr int FBATCH = 4;        // queries whose keys load together
 
 enum Mode { MODE_IVF = 1, MODE_SQ8 = 2, MODE_BF16 = 3 };
 
@@ -268,108 +268,18 @@ __device__ __noinline__ Entry offer(float* lv, int* li, int k, float v, int r,
   return beats(fv0, fi0, tv, ti) ? Entry{fv0, fi0} : Entry{tv, ti};
 }
 
-// A slot's list entry (v, r) is published when it is one of the item's
-// own rows (not a copy of the floor, whose row is fr; not empty) and above
-// what the slot published last (*last): stored to the slot's key (dst; the
-// slot has one writer) or, where g = 1 (c = k: the entry is a floor by
-// itself), raised into the query's floor key (qdst) at once. One lane calls
-// it.
-__device__ __noinline__ void publish(float v, int r, int fr, unsigned long long* last,
-                                     unsigned long long* dst, unsigned long long* qdst) {
-  if (r < 0 || r == fr || !(v > -INFINITY)) return;
-  const unsigned long long key = floor_key(v, r);
-  if (key > *last) {
-    *last = key;
-    if (qdst) atomicMax(qdst, key);
-    else __stcg(dst, key);
-  }
-}
-
-// The floors of n queries from i0 on (n <= QPW): for each, the g-th largest
-// key its slots fw0[i] .. fw1[i] (at most FWIN, FPL a lane) have published,
-// into fkey[i] (0: fewer than g keys). The warp together, the loads of
-// FBATCH queries in flight at once; the g largest keys are taken out one at
-// a time (a warp max, then the lane holding it drops it): keys are
-// distinct, since slots hold distinct rows.
-__device__ __noinline__ void take_floors(const unsigned long long* pub, const int* fw0,
-                                         const int* fw1, int i0, int n, int g,
-                                         unsigned long long* fkey, int lane) {
-  for (int u0 = 0; u0 < n; u0 += FBATCH) {
-    unsigned long long key[FBATCH][FPL];
-#pragma unroll
-    for (int u = 0; u < FBATCH; ++u) {
-      const bool in = u0 + u < n;
-#pragma unroll
-      for (int e = 0; e < FPL; ++e) {
-        const int s = in ? fw0[i0 + u0 + u] + lane + 32 * e : 0;
-        key[u][e] = (in && s < fw1[i0 + u0 + u]) ? __ldcg(pub + s) : 0ull;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < FBATCH; ++u) {
-      if (u0 + u >= n) break;
-      unsigned long long t = 0ull;
-      int taken = 0;
-      for (; taken < g; ++taken) {
-        unsigned long long m = 0ull;
-#pragma unroll
-        for (int e = 0; e < FPL; ++e) m = key[u][e] > m ? key[u][e] : m;
-#pragma unroll
-        for (int off = 16; off; off >>= 1) {
-          const unsigned long long o = __shfl_xor_sync(FULL, m, off);
-          m = o > m ? o : m;
-        }
-        if (!m) break;   // warp-uniform: fewer than g keys
-        t = m;
-#pragma unroll
-        for (int e = 0; e < FPL; ++e)
-          if (key[u][e] == m) key[u][e] = 0ull;
-      }
-      if (lane == 0) fkey[i0 + u0 + u] = taken == g ? t : 0ull;
-    }
-  }
-  __syncwarp();
-}
-
 // At an item's end, once its slots have published: each query's floor
-// from its window, kept as the query's floor key (qfloor[b], raised with
-// atomicMax) for the items that start or read it later. The block's warps
-// together, QPW queries a warp at a time.
+// from its window (list_floor.cuh), the block's warps together, QPW queries
+// a warp at a time.
 __device__ __forceinline__ void share_floors(const unsigned long long* pub,
                                              unsigned long long* qfloor, const int* qb,
                                              const int* fw0, const int* fw1, int qn,
                                              int g, unsigned long long* fkey, int warp,
                                              int lane) {
-  if (g == 1) return;   // each publication raised the floor key already
-  if (g > FWIN) return;  // a window never holds g keys: no floor
+  if (g == 1 || g > FWIN) return;   // no window to read
   __syncthreads();      // every slot of the block has published
-  for (int i0 = warp * QPW; i0 < qn; i0 += WARPS * QPW) {
-    const int n = min(QPW, qn - i0);
-    take_floors(pub, fw0, fw1, i0, n, g, fkey, lane);
-    if (lane < n && fkey[i0 + lane]) atomicMax(qfloor + qb[i0 + lane], fkey[i0 + lane]);
-  }
-}
-
-// The entry a row must beat to lie at or above the floor key: the key's own
-// entry, or in the wide mode the entry just after it (row + 1), so that the
-// floor's row stays a candidate. (-inf, -1) for no key.
-template <bool WIDE>
-__device__ __forceinline__ void floor_threshold(unsigned long long key, float& v, int& r) {
-  floor_entry(key, v, r);
-  if (WIDE && key) ++r;
-}
-
-// Raise the threshold (tv, ti) to the floor key where that is higher.
-template <bool WIDE>
-__device__ __forceinline__ void raise_to(unsigned long long key, float& tv, int& ti) {
-  if (!key) return;
-  float v;
-  int r;
-  floor_threshold<WIDE>(key, v, r);
-  if (beats(v, r, tv, ti)) {
-    tv = v;
-    ti = r;
-  }
+  for (int i0 = warp * QPW; i0 < qn; i0 += WARPS * QPW)
+    warp_share_floors(pub, qfloor, qb, fw0, fw1, i0, min(QPW, qn - i0), g, fkey, lane);
 }
 
 // slab: float [N, D] (IVF), uint8 [N, D] (SQ8) or bf16 bits [N, D] (BF16).
@@ -558,11 +468,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
       wti[i] = fi[i];
     }
     if (pub_g > 1) {   // the window of the query's slots lo .. hi that holds its own
-      const int lo = b ? slot_end[(size_t)b * P - 1] : 0;
-      const int hi = min(slot_end[(size_t)b * P + P - 1], nslots);
-      const int w0 = max(lo, min(lo + ((slot - lo) & ~(FWIN - 1)), hi - FWIN));
-      fw0[i] = w0;
-      fw1[i] = min(w0 + FWIN, hi);
+      slot_window(slot_end, b, P, slot, nslots, fw0[i], fw1[i]);
     }
   }
   __syncthreads();
@@ -727,10 +633,10 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
           if constexpr (WIDE) {
             const size_t o = (size_t)qslot[b] * kw + pub_c - 1;
             if (wst[b].fill >= pub_c)
-              publish(part_v[o], part_i[o], -1, pubk + b, pub + qslot[b], qdst(b));
+              publish_key(part_v[o], part_i[o], -1, pubk + b, pub + qslot[b], qdst(b));
           } else {
             const size_t o = (size_t)b * k + pub_c - 1;
-            publish(lv[o], li[o], fi[b], pubk + b, pub + qslot[b], qdst(b));
+            publish_key(lv[o], li[o], fi[b], pubk + b, pub + qslot[b], qdst(b));
           }
         }
       } else if (small) {
@@ -776,7 +682,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
             int t_i = wti[i];
             wide_threshold(part_v + o, part_i + o, kw, wst[i].fill, t_v, t_i);
             if (lane == 0 && wst[i].fill >= pub_c)
-              publish(part_v[o + pub_c - 1], part_i[o + pub_c - 1], -1, pubk + i,
+              publish_key(part_v[o + pub_c - 1], part_i[o + pub_c - 1], -1, pubk + i,
                       pub + qslot[i], qdst(i));
             if (fresh) raise_to<WIDE>(fkey[i], t_v, t_i);
             __syncwarp();
@@ -810,7 +716,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
     if (tid < qn && qslot[tid] < nslots && wst[tid].fill >= pub_c) {
       // the final list's c-th entry, for the query's items still running
       const size_t o = (size_t)qslot[tid] * kw + pub_c - 1;
-      publish(part_v[o], part_i[o], -1, pubk + tid, pub + qslot[tid], qdst(tid));
+      publish_key(part_v[o], part_i[o], -1, pubk + tid, pub + qslot[tid], qdst(tid));
     }
     share_floors(pub, qfloor, qb, fw0, fw1, qn, pub_g, fkey, warp, lane);
     return;
@@ -845,7 +751,7 @@ ivf_list_scan_kernel(const float* __restrict__ q, const void* __restrict__ slab,
   }
   if (tid < qn && qslot[tid] < nslots) {  // the final list's c-th entry
     const size_t o = (size_t)tid * k + pub_c - 1;
-    publish(lv[o], li[o], fi[tid], pubk + tid, pub + qslot[tid], qdst(tid));
+    publish_key(lv[o], li[o], fi[tid], pubk + tid, pub + qslot[tid], qdst(tid));
   }
   share_floors(pub, qfloor, qb, fw0, fw1, qn, pub_g, fkey, warp, lane);
 }
@@ -939,7 +845,8 @@ int pyrope_ivf_list_scan_sq8(const void* q, const void* codes,
 }
 
 // BF16 mode: x [N, D] bf16; qsq null (promote_fp32: q as it is) or |q|^2
-// [B] of the unrounded q (q rounded to bf16 by the caller).
+// [B] of the unrounded q (q rounded to bf16 by the caller: the wide mode
+// and its first pass; the narrow mode is pyrope_ivf_list_scan_tc's).
 int pyrope_ivf_list_scan_bf16(const void* q, const void* x, const void* qsq,
                               const void* sqnorm, const void* alive,
                               const void* pairs, int P, const void* cstart,

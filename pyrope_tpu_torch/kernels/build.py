@@ -45,6 +45,8 @@ _SIGNATURES = {
     "pyrope_flat_tc_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     # k, mode (1 IVF, 2 SQ8, 3 BF16)
     "pyrope_list_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    # k, D: the tensor-core list scan's
+    "pyrope_list_tc_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "pyrope_error_string": (ctypes.c_char_p, [_I]),
     # q, x, sqnorm, alive, B, N, D, k, list width kw, metric_ip, max_scans,
     # rows_per_split, rows_scan, n_splits, query tile, vec, part_v, part_i,
@@ -65,8 +67,11 @@ _SIGNATURES = {
     # metric_ip, seg, sample, nslots, vec, part_v, part_i, pub (the slots'
     # published keys), pub_c, pub_g, stream
     "pyrope_ivf_list_scan": (_I, [_P, _P, _P, _P, *_LIST_TABLES]),
-    # q, x (bf16), qsq (or null), sqnorm, alive, the tables
+    # q, x (bf16), qsq (or null: promote_fp32), sqnorm, alive, the tables
     "pyrope_ivf_list_scan_bf16": (_I, [_P, _P, _P, _P, _P, *_LIST_TABLES]),
+    # q (fp32), x (bf16), sqnorm, alive, N, the tables (bf16(q) on the
+    # tensor cores, k <= 128)
+    "pyrope_ivf_list_scan_tc": (_I, [_P, _P, _P, _P, _I, *_LIST_TABLES]),
     # q, codes, mins, scales, sqnorm, alive, qc, kp, the tables
     "pyrope_ivf_list_scan_sq8": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, *_LIST_TABLES]),
     # part_v, part_i, S, B, k, qend (null: S lists a query at the strides),

@@ -7,7 +7,9 @@ Replaces ``pyrope_tpu/ops/pallas_scan.py``:
     csrc/flat_scan_tc.cu), corpus splits into [B, splits, k] partials;
     ``flat_tile`` picks its query tile, ``scan_splits`` its grid.
   - ``fused_ivf_topk``   <- ``pallas_ivf_topk`` (K2, :1035) and
-    ``pallas_ivf_topk_windowed`` (K3, :992), and
+    ``pallas_ivf_topk_windowed`` (K3, :992) (over a bf16 slab without
+    ``promote_fp32`` at k <= NARROW_MAX_K, the tensor-core list scan of
+    csrc/ivf_list_scan_tc.cu), and
   - ``fused_ivf_sq8_topk`` <- ``pallas_ivf_sq8_topk`` (K4, :1204) and
     ``pallas_ivf_sq8_topk_windowed`` (K5, :1341): the cluster-major list
     scan (csrc/ivf_list_scan.cu). The TPU kernels scan the whole slab and
@@ -25,9 +27,11 @@ bf16 slabs (the branch ``x.dtype == bfloat16`` of the TPU kernels'
 ``_tile_scores``, :232-264): ``fused_flat_topk`` and ``fused_ivf_topk`` take
 a bf16 ``x``. The flat scan and the list scan without ``promote_fp32``
 score bf16(q) against the bf16 rows (the MXU's single bf16 pass: exact
-products, fp32 sums); ``fused_ivf_topk(promote_fp32=True)`` scores the fp32
-q against the widened rows. In both, ‖q‖² is that of the fp32 q and
-``sqnorm`` that of the fp32 rows before the cast.
+products, fp32 sums), the flat scan and the narrow list scan on the tensor
+cores; ``fused_ivf_topk(promote_fp32=True)`` scores the fp32 q against the
+widened rows on the CUDA cores, as the wide list scan does without promote.
+In both, ‖q‖² is that of the fp32 q and ``sqnorm`` that of the fp32 rows
+before the cast.
 
 k is any k >= 1 and D is any: k <= NARROW_MAX_K (128) runs the
 warp-register lists; above it each kernel's wide mode (the TPU kernels'
@@ -97,6 +101,15 @@ LIST_FLOOR_SLOTS = 8     # the most slots list_floor waits for before a floor fo
 LIST_FLOOR_MIN_K = 32    # below it list_floor takes g = 1: a list's own k-th entry
 LIST_SEG = 2048          # rows of one cluster a list-scan block walks at most
 LIST_SEG_MIN = 256       # shortest segment list_seg cuts for parallelism
+# the tensor-core list scan (csrc/ivf_list_scan_tc.cu, k <= NARROW_MAX_K):
+# its segment rule (list_tc_seg), and the fewest probes at which it runs a
+# first pass and that pass's sample ratio (list_prefloor_plan)
+LIST_TC_SEG = 2048
+LIST_TC_SEG_MIN = 512
+LIST_TC_WAVES = 2        # list_tc_seg's grid target: waves of its blocks
+LIST_TC_SPLIT_D = 128    # LT_SPLIT_D: above it each 64-depth chunk is summed apart
+LIST_TC_PREFLOOR_MIN_PROBES = 16
+LIST_TC_PREFLOOR_RATIO = 80.0
 SMEM_LIMIT = 232_448     # bytes of shared memory a block may use on sm_90
 SMEM_TWO_BLOCKS = 115_712  # the most a block may use for two to share an SM
                            # (233,472 B an SM, 1,024 B a block reserved)
@@ -127,11 +140,14 @@ LIST_PREFLOOR_RATIO = 5.0
 # keys count the wide mode (k > NARROW_MAX_K) of the same kernel. Servers
 # launch from several threads at once: counts change only under the lock
 # (count_launch), so none is lost
+# (``ivf_scan_bf16[_wide]``: the CUDA-core list scan's bf16 mode, with
+# promote_fp32, and without it at k > NARROW_MAX_K; ``ivf_scan_bf16_tc``:
+# the tensor-core list scan, without promote at k <= NARROW_MAX_K)
 LAUNCHES = {"flat_scan": 0, "flat_scan_bf16": 0, "ivf_scan": 0, "ivf_scan_bf16": 0,
-            "sq8_scan": 0, "merge": 0, "flat_scan_wide": 0, "flat_scan_bf16_wide": 0,
-            "ivf_scan_wide": 0, "ivf_scan_bf16_wide": 0, "sq8_scan_wide": 0,
-            "merge_wide": 0, "flat_scan_prefloor": 0, "list_scan_prefloor": 0,
-            "floor_select": 0}
+            "ivf_scan_bf16_tc": 0, "sq8_scan": 0, "merge": 0, "flat_scan_wide": 0,
+            "flat_scan_bf16_wide": 0, "ivf_scan_wide": 0, "ivf_scan_bf16_wide": 0,
+            "sq8_scan_wide": 0, "merge_wide": 0, "flat_scan_prefloor": 0,
+            "list_scan_prefloor": 0, "floor_select": 0}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -185,10 +201,21 @@ def _plain_scan(q, n, tile_scores, row_mask, k, chunk_rows):
 def _tile_scores(q, x, sqnorm, metric_ip: bool, promote: bool = False):
     """``tile_scores`` of the plain scans, as the TPU kernels' ``_tile_scores``
     takes them: fp32 dots off an fp32 slab; off a bf16 slab, dots of bf16(q)
-    (the fp32 q with ``promote``) and the widened rows, summed in fp32. ‖q‖²
-    is always that of the unrounded fp32 q."""
-    qd = q.bfloat16().float() if x.dtype == torch.bfloat16 and not promote else q
-    return lambda s, e: _l2_or_ip(q, qd @ x[s:e].float().T, sqnorm[s:e], metric_ip)
+    and the rows (with ``promote`` the fp32 q and the widened rows, summed in
+    fp32). ‖q‖² is always that of the unrounded fp32 q.
+
+    bf16(q)·x is exact products and their sum, which the MXU and the tensor
+    cores approximate in fp32, each in an order of its own. Here the exact
+    products are summed in float64 and rounded once, so the plain version is
+    that sum and a kernel is held to its own rounding alone: an fp32 product
+    of [300, 384] by [384, N] on an H100 (cuBLAS, TF32 off) put a
+    near-duplicate's score, which cancels ‖q‖² and ‖x‖² of ~128, 1.5e-4 off,
+    more than the tolerance the kernels are held to."""
+    if x.dtype == torch.bfloat16 and not promote:
+        qd = q.bfloat16().double()
+        return lambda s, e: _l2_or_ip(q, (qd @ x[s:e].double().T).float(), sqnorm[s:e],
+                                      metric_ip)
+    return lambda s, e: _l2_or_ip(q, q @ x[s:e].float().T, sqnorm[s:e], metric_ip)
 
 
 def fused_flat_topk_plain(q, x, sqnorm, alive, max_scans: int, k: int,
@@ -283,6 +310,48 @@ def list_scan_smem_bytes(k: int, mode: int) -> int:
     return (4 * 2 * QUERY_TILE * ld + 2 * ROW_TILE * ld * _LIST_ELEM[mode]
             + 2 * ROW_TILE * 4 * (4 if mode == LIST_SQ8 else 2)
             + 13 * QUERY_TILE * 4 + lists)
+
+
+def list_tc_smem_bytes(k: int, d: int, stages: int | None = None) -> int:
+    """Shared memory of a tensor-core list-scan block, as ``lt_layout(k, d,
+    stages).total`` of ivf_list_scan_tc.cu computes it (``stages`` default:
+    ``list_tc_stages``): the ring (a 128-row x 128-byte tile of the slab a
+    stage, and the 64 queries' bf16 chunk where q streams above
+    TC_QRES_MAX_D), resident A (ceil(d / 64) chunks of 64 x 128 bytes), the
+    row table and two mbarriers a stage, two 64-bit keys and seven words a
+    query, four warps' staged scores, the lists (64 x k entries), and 1024
+    bytes to align the base for the swizzle."""
+    if d < 1 or not 1 <= k <= NARROW_MAX_K:
+        raise ValueError(f"the tensor-core list scan takes D >= 1 and k in 1..{NARROW_MAX_K},"
+                         f" got {d}, {k}")
+    if stages is None:
+        stages = list_tc_stages(k, d)
+    stream = d > TC_QRES_MAX_D
+    stage = ROW_TILE * 128 + (QUERY_TILE * 128 if stream else 0)
+    resident = 0 if stream else -(-d // TC_DEPTH_CHUNK) * QUERY_TILE * 128
+    return (stages * (stage + 4 * ROW_TILE + 16) + resident + 16 * QUERY_TILE
+            + 28 * QUERY_TILE + 16 * ROW_TILE + 8 * QUERY_TILE * k + 1024)
+
+
+def list_tc_stages(k: int, d: int) -> int:
+    """Stages of the tensor-core list scan's ring, as ``lt_stages`` of
+    ivf_list_scan_tc.cu picks them: the most (4, 3, 2) with which its block
+    fits two to an SM at D <= LIST_TC_SPLIT_D (one above it, where the
+    chunks' sums take 64 more registers a thread); failing that, the most
+    that fit one block an SM."""
+    target = SMEM_TWO_BLOCKS if d <= LIST_TC_SPLIT_D else SMEM_LIMIT
+    for limit in (target, SMEM_LIMIT):
+        for n in TC_STAGES:
+            if list_tc_smem_bytes(k, d, n) <= limit:
+                return n
+    return TC_STAGES[-1]
+
+
+def list_tc_blocks_per_sm(k: int, d: int) -> int:
+    """Blocks of the tensor-core list scan an SM holds: two at D <=
+    LIST_TC_SPLIT_D where shared memory allows (128 registers a thread),
+    else one."""
+    return 2 if d <= LIST_TC_SPLIT_D and list_tc_smem_bytes(k, d) <= SMEM_TWO_BLOCKS else 1
 
 
 def list_scan_refusal(k: int, mode: int) -> str | None:
@@ -456,6 +525,19 @@ def list_floor(k: int, nprobe: int, width: int) -> tuple[int, int]:
     return c, -(-k // c)
 
 
+_SMS: dict = {}
+
+
+def device_sms(dev: torch.device) -> int:
+    """The device's SM count, read once a device (a property query costs
+    host time on every call)."""
+    key = (dev.type, dev.index)
+    sms = _SMS.get(key)
+    if sms is None:
+        sms = _SMS[key] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms
+
+
 def scan_splits(b: int, n_rows: int, dev: torch.device,
                 query_tile: int = QUERY_TILE, k: int = 1,
                 per_sm: int | None = None) -> tuple[int, int]:
@@ -468,8 +550,7 @@ def scan_splits(b: int, n_rows: int, dev: torch.device,
     against 12.8 ms at b256 k512 (bf16), 45.8 against 67.4 ms at b64 k10000.
     ``per_sm`` (the bf16 scan, ``flat_blocks_per_sm``): one wave of that
     many blocks an SM."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _splits(b, n_rows, sms, query_tile, k, per_sm)
+    return _splits(b, n_rows, device_sms(dev), query_tile, k, per_sm)
 
 
 def _splits(b: int, n_rows: int, sms: int, query_tile: int,
@@ -553,21 +634,32 @@ def flat_prefloor_plan(k: int, b: int, d: int, n_rows: int,
 
 
 def list_prefloor_plan(k: int, nprobe: int, width: int, seg: int,
-                       rows_per_list: float) -> ListPrefloor | None:
+                       rows_per_list: float, tc: bool = False) -> ListPrefloor | None:
     """Whether the wide list scan (k > NARROW_MAX_K, any mode) runs its
     first pass, from shapes alone: at nprobe >= LIST_PREFLOOR_MIN_PROBES (at
     nprobe 3 a query has three slots, and the wide pass's own floor, g 1,
     forms as its first item ends), with c = ceil(k / (LIST_PREFLOOR_SHARE of
     nprobe)) at most NARROW_MAX_K and the slot ``width``; a sample of each
     segment (``_sample_share`` of a list's mean ``rows_per_list`` rows, in
-    row tiles, at least 2c rows). None where it does not run."""
-    if k <= NARROW_MAX_K or nprobe < LIST_PREFLOOR_MIN_PROBES:
+    row tiles, at least 2c rows). The tensor-core list scan (``tc``, k <=
+    NARROW_MAX_K) runs it too, at nprobe >= LIST_TC_PREFLOOR_MIN_PROBES: it
+    keeps rows at or above any floor key, so a first pass's floor is exact
+    there. Its sample follows LIST_TC_PREFLOOR_RATIO: on the tensor cores a
+    sampled row is cheap and every row the floor lets through costs an
+    insertion (on an H100, bench/scan_ab.py --sweep, 100k np96 b256 k 64:
+    256 sampled rows a segment left 391 entries a query against 653 at 128,
+    both passes 0.533 against 0.601 ms). None where it does not run."""
+    if tc:
+        if nprobe < LIST_TC_PREFLOOR_MIN_PROBES:
+            return None
+    elif k <= NARROW_MAX_K or nprobe < LIST_PREFLOOR_MIN_PROBES:
         return None
     c = -(-k // max(1, int(nprobe * LIST_PREFLOOR_SHARE)))
     if c > min(NARROW_MAX_K, width):
         return None
     seg_rows = min(seg, max(rows_per_list, 1.0))
-    f = _sample_share(LIST_PREFLOOR_RATIO, k, nprobe * rows_per_list)
+    ratio = LIST_TC_PREFLOOR_RATIO if tc else LIST_PREFLOOR_RATIO
+    f = _sample_share(ratio, k, nprobe * rows_per_list)
     tiles = max(math.ceil(f * seg_rows / ROW_TILE), -(-2 * c // ROW_TILE))
     return ListPrefloor(c, -(-k // c), min(seg, tiles * ROW_TILE))
 
@@ -626,16 +718,18 @@ def floor_select_plain(pub, g: int, qend=None, base=None):
 FLOOR_SELECT_CAP = 2048   # FS_CAP of prefloor.cu: a query's entries read at most
 
 
-def floor_select(pub, g: int, qend=None, base=None):
+def floor_select(pub, g: int, qend=None, base=None, out=None):
     """Each query's g-th largest published entry: ``pub`` [B, S] float
     scores (-inf: none) -> [B] float (-inf: fewer than g); or with ``qend``
     ([B, P] int32, the list scan's running slot counts) ``pub`` [nslots]
     int64 floor keys (0: none), query b's the slots qend[b-1, -1] ..
     qend[b, -1] -> [B] int64 keys, the larger of that and ``base`` [B] (in
     the keys' unsigned order). The first FLOOR_SELECT_CAP entries a query are
-    read. The kernel on CUDA tensors, the plain version on CPU ones."""
+    read. The kernel on CUDA tensors, the plain version on CPU ones; ``out``
+    (contiguous, [B]) takes the result where given."""
     if pub.device.type == "cpu":
-        return floor_select_plain(pub, g, qend, base)
+        got = floor_select_plain(pub, g, qend, base)
+        return got if out is None else out.copy_(got)
     from pyrope_tpu_torch.kernels.build import check, load
 
     if g < 1:
@@ -644,7 +738,8 @@ def floor_select(pub, g: int, qend=None, base=None):
     if qend is None:
         if pub.dtype != torch.float32 or pub.dim() != 2 or not pub.is_contiguous():
             raise ValueError("pub must be a contiguous float32 [B, S]")
-        out = torch.empty(pub.shape[0], dtype=torch.float32, device=pub.device)
+        if out is None:
+            out = torch.empty(pub.shape[0], dtype=torch.float32, device=pub.device)
         check(load().pyrope_floor_select_flat(pub.data_ptr(), pub.shape[0], pub.shape[1],
                                               g, out.data_ptr(), stream), "floor select")
     else:
@@ -653,7 +748,8 @@ def floor_select(pub, g: int, qend=None, base=None):
                 or not all(t.is_contiguous() for t in (pub, qend))
                 or (base is not None and (base.shape != (b,) or not base.is_contiguous()))):
             raise ValueError("keys int64, qend int32 [B, P], base int64 [B], contiguous")
-        out = torch.empty(b, dtype=torch.int64, device=pub.device)
+        if out is None:
+            out = torch.empty(b, dtype=torch.int64, device=pub.device)
         check(load().pyrope_floor_select_list(
             pub.data_ptr(), pub.shape[0], qend.data_ptr(), b, p, g,
             None if base is None else base.data_ptr(), out.data_ptr(), stream),
@@ -813,8 +909,8 @@ def _empty_hits(b, k, dev):
 
 
 def _bf16_query(q):
-    """(bf16(q) as fp32, ‖q‖² of the unrounded q): what the bf16 modes
-    without promote read for q."""
+    """(bf16(q) as fp32, ‖q‖² of the unrounded q): what the CUDA-core list
+    scan's BF16 mode without promote reads for q."""
     return q.bfloat16().float(), (q * q).sum(dim=1)
 
 
@@ -838,8 +934,7 @@ def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
     per_sm = flat_blocks_per_sm(tile, smem, k, elem)
     floor0, cap = None, FLAT_WIDE_CAP
     if elem == 4 and k > NARROW_MAX_K:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        plan = flat_prefloor_plan(k, b, d, max_scans, sms)
+        plan = flat_prefloor_plan(k, b, d, max_scans, device_sms(q.device))
         if plan is not None:
             floor0 = _flat_first_pass(q, x, sqnorm, alive, metric_ip, max_scans, plan)
             # behind the floor a split keeps few rows: small buffers, two
@@ -961,6 +1056,62 @@ def list_seg(b: int, nprobe: int, kp: int, max_len: int, sms: int) -> int:
     return seg
 
 
+def list_tc_seg(b: int, nprobe: int, kp: int, max_len: int, sms: int, k: int,
+                d: int) -> int:
+    """Segment length of a tensor-core list-scan launch, from shapes alone:
+    LIST_TC_SEG, halved (down to LIST_TC_SEG_MIN) while the grid bound holds
+    fewer than LIST_TC_WAVES waves of its blocks (``list_tc_blocks_per_sm``
+    an SM). Its own rule, not ``list_seg``'s: that one keeps four 256-thread
+    CUDA-core blocks an SM busy; a tensor-core block is one consumer
+    warpgroup, one or two an SM, and every item pays the gather of its
+    queries, so it wants fewer, longer items."""
+    seg = LIST_TC_SEG
+    want = LIST_TC_WAVES * list_tc_blocks_per_sm(k, d) * sms
+    while seg > LIST_TC_SEG_MIN and list_grid(b, nprobe, kp, max_len, seg)[0] < want:
+        seg //= 2
+    return seg
+
+
+@dataclasses.dataclass(frozen=True)
+class ListPlan:
+    """Which list-scan kernel a call takes and how, from shapes alone:
+    ``tc`` the tensor-core kernel (a bf16 slab without promote_fp32, k <=
+    NARROW_MAX_K) or the CUDA-core one in ``mode``; its segment, the slots'
+    width, the block's shared memory, and the ``LAUNCHES`` key of its
+    launch."""
+
+    tc: bool
+    mode: int
+    seg: int
+    kw: int
+    smem: int
+    key: str
+
+
+def list_plan(k: int, mode: int, promote: bool, b: int, nprobe: int, kp: int,
+              max_len: int, d: int, sms: int) -> ListPlan:
+    """The host plan of a list-scan call: a bf16 slab without promote at k
+    <= NARROW_MAX_K takes the tensor-core kernel, every other call the
+    CUDA-core one (its wide mode beat the tensor cores', PERF.md). Raises
+    where the kernel refuses k (``list_scan_refusal``)."""
+    tc = mode == LIST_BF16 and not promote and k <= NARROW_MAX_K
+    if tc:
+        why = k_refusal(k)
+        if why is not None:
+            raise ValueError(why)
+        seg = list_tc_seg(b, nprobe, kp, max_len, sms, k, d)
+        smem, key = list_tc_smem_bytes(k, d), "ivf_scan_bf16_tc"
+    else:
+        why = list_scan_refusal(k, mode)
+        if why is not None:
+            raise ValueError(why)
+        seg = list_seg(b, nprobe, kp, max_len, sms)
+        smem = list_scan_smem_bytes(k, mode)
+        key = {LIST_IVF: "ivf_scan", LIST_SQ8: "sq8_scan", LIST_BF16: "ivf_scan_bf16"}[mode]
+    return ListPlan(tc, mode, seg, list_slot_width(k, seg, max_len), smem,
+                    key + ("_wide" if k > NARROW_MAX_K else ""))
+
+
 def invert_probes(probe: torch.Tensor, lens: torch.Tensor, kp: int, max_len: int,
                   seg: int, n_rows: int, chunk: int = QUERY_TILE) -> ListWork:
     """Group the (query, probe position) pairs of ``probe`` [B, P] by
@@ -1030,23 +1181,29 @@ def list_partials(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip
     """The list scan kernel alone (CUDA tensors, B and nprobe >= 1):
     (part_v, part_i, slot_end), the [slots, width] partials and the running
     slot counts the merge reads; slots past slot_end[-1, -1] are unused.
-    IVF mode over an fp32 slab, BF16 mode over a bf16 one (q rounded unless
-    ``promote``); SQ8 mode when ``sq8`` = (mins, scales, qc). The wide mode
-    runs its first pass where ``list_prefloor_plan`` says."""
+    IVF mode over an fp32 slab; over a bf16 one at k <= NARROW_MAX_K the
+    tensor-core kernel (bf16(q), ``LAUNCHES`` ``ivf_scan_bf16_tc``), else,
+    and with ``promote``, the CUDA-core kernel's BF16 mode (``ivf_scan_bf16``,
+    q rounded unless ``promote``); SQ8 mode when ``sq8`` = (mins, scales,
+    qc). The first pass runs where ``list_prefloor_plan`` says (the wide
+    modes, and the tensor-core kernel)."""
     job = _ListJob(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
                    max_len, sq8, promote)
-    b, w, kw = q.shape[0], job.work, job.kw
+    b, w, kw = q.shape[0], job.work, job.plan.kw
     # every slot below slot_end[-1, -1] is written by the one item covering it
     part_v = torch.empty((w.slots, kw), dtype=torch.float32, device=q.device)
     part_i = torch.empty((w.slots, kw), dtype=torch.int32, device=q.device)
     # the slots' published keys, then the queries' floor keys; 0: none yet
-    pub = torch.zeros(w.slots + b, dtype=torch.int64, device=q.device)
-    plan = job.plan()
+    # (and the first pass's own, in the same memset)
+    plan = job.prefloor()
+    keys = torch.zeros((1 if plan is None else 2) * (w.slots + b), dtype=torch.int64,
+                       device=q.device)
+    pub = keys[:w.slots + b]
     if plan is not None:
-        pub[w.slots:] = job.first_pass(plan)
+        job.first_pass(plan, keys[w.slots + b:], out=pub[w.slots:])
     pub_c, pub_g = list_floor(k, job.nprobe, kw)
-    key = job.launch(k, kw, part_v, part_i, pub, pub_c, pub_g, job.seg)
-    count_launch(key + ("_wide" if k > NARROW_MAX_K else ""))
+    job.launch(k, kw, part_v, part_i, pub, pub_c, pub_g, job.plan.seg)
+    count_launch(job.plan.key)
     return part_v, part_i, w.slot_end
 
 
@@ -1057,8 +1214,11 @@ def list_prefloor(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip
     (None, None) where ``list_prefloor_plan`` does not run one."""
     job = _ListJob(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
                    max_len, sq8, promote)
-    plan = job.plan()
-    return (None, None) if plan is None else (job.first_pass(plan), plan)
+    plan = job.prefloor()
+    if plan is None:
+        return None, None
+    first = torch.zeros(job.work.slots + q.shape[0], dtype=torch.int64, device=q.device)
+    return job.first_pass(plan, first), plan
 
 
 def list_prefloor_plain(scores, alive, crow, offsets, lens, probe, seg, plan: ListPrefloor):
@@ -1086,93 +1246,117 @@ def list_prefloor_plain(scores, alive, crow, offsets, lens, probe, seg, plan: Li
     return _unsigned_order(_gth_largest(keys, keys != least, plan.g, least))
 
 
+_SMEM_CHECKED: set = set()
+
+
+def _check_smem(lib, plan: ListPlan, k: int, d: int) -> None:
+    """The host formula against the library's, once per kernel, k and mode
+    (and D, on which the tensor-core kernel's depends) in a process."""
+    key = (plan.tc, k, plan.mode, d if plan.tc else 0)
+    if key in _SMEM_CHECKED:
+        return
+    got = (lib.pyrope_list_tc_smem_bytes(k, d) if plan.tc
+           else lib.pyrope_list_scan_smem_bytes(k, plan.mode))
+    if got != plan.smem:
+        raise RuntimeError("the list scan's host shared-memory formula and its source "
+                           f"disagree: {plan.smem} against {got} B (k {k}, mode "
+                           f"{plan.mode}, tensor cores {plan.tc})")
+    _SMEM_CHECKED.add(key)
+
+
 class _ListJob:
-    """A list-scan call's layout, from shapes and the probes: the mode, q as
-    the kernel reads it (bf16-rounded without promote, and ‖q‖² of the fp32
-    q), the segment, the inverted probes and the slot width; and its
-    launches."""
+    """A list-scan call's layout, from shapes and the probes: its plan
+    (``list_plan``: the kernel, segment and slot width), the inverted probes
+    and its launches. What depends only on the process, the device or (k,
+    mode) is cached: the library (``load``), the SM count (``device_sms``)
+    and the shared-memory cross-check (``_check_smem``). The CUDA-core
+    kernel's BF16 mode without promote (the wide mode) reads q rounded to
+    bf16 and ‖q‖² of the fp32 q (``qsq``); the tensor-core kernel rounds and
+    sums them itself."""
 
     def __init__(self, q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
                  max_len, sq8, promote):
         from pyrope_tpu_torch.kernels.build import load
 
         self.lib = load()
-        self.mode = (LIST_SQ8 if sq8 is not None
-                     else LIST_BF16 if slab.dtype == torch.bfloat16 else LIST_IVF)
-        if (self.lib.pyrope_list_scan_smem_bytes(k, self.mode)
-                != list_scan_smem_bytes(k, self.mode)):
-            raise RuntimeError("list_scan_smem_bytes and ivf_list_scan.cu disagree")
-        why = list_scan_refusal(k, self.mode)
-        if why is not None:
-            raise ValueError(why)
+        mode = (LIST_SQ8 if sq8 is not None
+                else LIST_BF16 if slab.dtype == torch.bfloat16 else LIST_IVF)
+        b, d = q.shape
         self.nprobe = probe.shape[1]
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        self.seg = list_seg(q.shape[0], self.nprobe, kp, max_len, sms)
-        self.work = invert_probes(probe, lens, kp, max_len, self.seg, slab.shape[0])
-        self.kw = list_slot_width(k, self.seg, max_len)
+        self.plan = list_plan(k, mode, promote, b, self.nprobe, kp, max_len, d,
+                              device_sms(q.device))
+        _check_smem(self.lib, self.plan, k, d)
+        self.work = invert_probes(probe, lens, kp, max_len, self.plan.seg, slab.shape[0])
         self.k, self.qsq = k, None
-        if self.mode == LIST_BF16 and not promote:
+        if mode == LIST_BF16 and not promote and not self.plan.tc:
             q, self.qsq = _bf16_query(q)
         self.rows_per_list = slab.shape[0] / max(kp, 1)
         self.args = (q, slab, sqnorm, alive, offsets, lens, kp, metric_ip, sq8)
 
-    def plan(self) -> ListPrefloor | None:
-        return list_prefloor_plan(self.k, self.nprobe, self.kw, self.seg, self.rows_per_list)
+    def prefloor(self) -> ListPrefloor | None:
+        return list_prefloor_plan(self.k, self.nprobe, self.plan.kw, self.plan.seg,
+                                  self.rows_per_list, self.plan.tc)
 
-    def first_pass(self, plan: ListPrefloor) -> torch.Tensor:
+    def first_pass(self, plan: ListPrefloor, first: torch.Tensor,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
         """The same items at k = c over each segment's sample, its slots'
-        c-th keys into a pub of its own; then each query's g-th largest:
-        [B] floor keys."""
-        w, b = self.work, self.args[0].shape[0]
-        first = torch.zeros(w.slots + b, dtype=torch.int64, device=self.args[0].device)
+        c-th keys into ``first`` ([slots + B] int64 zeros, a pub of its
+        own); then each query's g-th largest: [B] floor keys (into ``out``
+        where given)."""
+        w = self.work
         # a g above the window: the first pass only publishes, it raises no
         # floor of its own (selecting g of 128 keys at each item's end cost
         # more than the rows it dropped)
         self.launch(plan.c, plan.c, None, None, first, plan.c, LIST_FLOOR_WINDOW + 1,
                     plan.sample)
         count_launch("list_scan_prefloor")
-        return floor_select(first[:w.slots], plan.g, w.slot_end, first[w.slots:])
+        return floor_select(first[:w.slots], plan.g, w.slot_end, first[w.slots:], out=out)
 
-    def launch(self, k, kw, part_v, part_i, pub, pub_c, pub_g, sample) -> str:
+    def launch(self, k, kw, part_v, part_i, pub, pub_c, pub_g, sample) -> None:
         q, slab, sqnorm, alive, offsets, lens, kp, metric_ip, sq8 = self.args
-        return _list_scan_launch(self.lib, self.mode, q, slab, self.qsq, sqnorm, alive,
-                                 offsets, lens, kp, self.work, self.nprobe, self.seg, k, kw,
-                                 metric_ip, part_v, part_i, pub, pub_c, pub_g, sample, sq8)
+        _list_scan_launch(self.lib, self.plan, q, slab, self.qsq, sqnorm, alive, offsets,
+                          lens, kp, self.work, self.nprobe, k, kw, metric_ip, part_v, part_i,
+                          pub, pub_c, pub_g, sample, sq8)
 
 
-def _list_scan_launch(lib, mode, q, slab, qsq, sqnorm, alive, offsets, lens, kp, w,
-                      nprobe, seg, k, kw, metric_ip, part_v, part_i, pub, pub_c, pub_g,
-                      sample, sq8):
-    """One launch of the list scan kernel in ``mode`` (partials None: the
-    first pass, pub alone written); returns its LAUNCHES key's stem."""
+def _list_scan_launch(lib, plan: ListPlan, q, slab, qsq, sqnorm, alive, offsets, lens, kp,
+                      w, nprobe, k, kw, metric_ip, part_v, part_i, pub, pub_c, pub_g,
+                      sample, sq8) -> None:
+    """One launch of the list scan kernel ``plan`` names (partials None: the
+    first pass, pub alone written). It launches or raises."""
     from pyrope_tpu_torch.kernels.build import check
 
     b, d = q.shape
-    vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0
-              and slab.data_ptr() % (4 * _LIST_ELEM[mode]) == 0)
+    if plan.tc:   # TMA reads 16-byte rows off a 16-byte aligned base
+        vec = int(d % 8 == 0 and slab.data_ptr() % 16 == 0)
+    else:
+        vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0
+                  and slab.data_ptr() % (4 * _LIST_ELEM[plan.mode]) == 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
     tables = (w.pairs.data_ptr(), nprobe, w.cstart.data_ptr(), w.ccnt.data_ptr(),
               w.item_end.data_ptr(), w.item_c.data_ptr(), w.slot_end.data_ptr(),
               offsets.data_ptr(), lens.data_ptr(), kp, w.grid, b, d, k, kw,
-              int(metric_ip), seg, sample, w.slots, vec, ptr(part_v), ptr(part_i),
+              int(metric_ip), plan.seg, sample, w.slots, vec, ptr(part_v), ptr(part_i),
               pub.data_ptr(), pub_c, pub_g, stream)
-    if sq8 is not None:
+    if plan.tc:
+        check(lib.pyrope_ivf_list_scan_tc(
+            q.data_ptr(), slab.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(),
+            slab.shape[0], *tables), "IVF list scan kernel (BF16, tensor cores)")
+    elif sq8 is not None:
         mins, scales, qc = sq8
         check(lib.pyrope_ivf_list_scan_sq8(
             q.data_ptr(), slab.data_ptr(), mins.data_ptr(), scales.data_ptr(),
             sqnorm.data_ptr(), alive.data_ptr(), qc.data_ptr(), qc.shape[1],
             *tables), "IVF list scan kernel (SQ8)")
-        return "sq8_scan"
-    if mode == LIST_BF16:
+    elif plan.mode == LIST_BF16:
         check(lib.pyrope_ivf_list_scan_bf16(
             q.data_ptr(), slab.data_ptr(), ptr(qsq), sqnorm.data_ptr(), alive.data_ptr(),
             *tables), "IVF list scan kernel (BF16)")
-        return "ivf_scan_bf16"
-    check(lib.pyrope_ivf_list_scan(
-        q.data_ptr(), slab.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(),
-        *tables), "IVF list scan kernel")
-    return "ivf_scan"
+    else:
+        check(lib.pyrope_ivf_list_scan(
+            q.data_ptr(), slab.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(),
+            *tables), "IVF list scan kernel")
 
 
 def fused_ivf_topk(q, x, sqnorm, alive, crow, offsets, lens, probe, kp: int,

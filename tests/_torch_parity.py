@@ -291,7 +291,7 @@ def list_window(work, b, slot, nslots, win=fs.LIST_FLOOR_WINDOW):
 def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_len,
                            seg, chunk=fs.QUERY_TILE, order=None, wide_cap=None,
                            floor="slots", concurrent=1, stats=None, prefloor=None,
-                           floor_strict=False):
+                           floor_strict=False, tc=False):
     """Plain emulation of the list scan kernel's work layout: invert_probes,
     then every item's sorted lists into its queries' slots (``slot_of``)
     of the [slots, width] partials, as the kernel writes them. Returns
@@ -322,8 +322,13 @@ def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_
     The wide lists (``wide_cap``) keep rows at or above a floor (the floor's
     own row stays a candidate: the threshold is the entry just after it),
     ``floor_strict`` (a mutant) rows that beat it. ``prefloor`` (an
-    ``fs.ListPrefloor``): the wide mode's first pass runs before the items,
-    ``list_prefloor_emulated``, and each query starts from its floor."""
+    ``fs.ListPrefloor``): the first pass runs before the items,
+    ``list_prefloor_emulated``, and each query starts from its floor.
+
+    ``tc``: the tensor-core list scan's form (csrc/ivf_list_scan_tc.cu): a
+    narrow list starts empty with its threshold apart (no floor copies), it
+    keeps rows at or above a floor as the wide lists do, and every item
+    publishes after each tile (no few-query layout)."""
     b, nprobe = probe.shape
     work = fs.invert_probes(probe, lens, kp, max_len, seg, int(lens.sum()), chunk)
     width = fs.list_slot_width(k, seg, max_len)
@@ -343,7 +348,7 @@ def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_
         beat it), or in the wide mode the entry just after it."""
         if e is None:
             return no_thr
-        return e if wide_cap is None or floor_strict else (e[0], e[1] + 1)
+        return e if (wide_cap is None and not tc) or floor_strict else (e[0], e[1] + 1)
 
     def start(item):
         got = list_item(work, item, lens, offsets, seg, chunk)
@@ -354,9 +359,9 @@ def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_
         slots = (slot_of(work, pairs, lens[c], seg) + s).tolist()
         sc = torch.where(alive[None, lo:hi], item_scores(pairs // nprobe, c, lo, hi),
                          float("-inf"))
-        small = len(bq) <= 8 and wide_cap is None
+        small = len(bq) <= 8 and wide_cap is None and not tc
         thr = [floor_thr(qfloor[q]) if floor else no_thr for q in bq]
-        lists = [WideListEmulated(width, wide_cap) if wide_cap else [f0] * width
+        lists = [WideListEmulated(width, wide_cap) if wide_cap else [] if tc else [f0] * width
                  for f0 in thr]
         return dict(lo=lo, hi=hi, bq=bq, slots=slots, sc=sc, small=small, lists=lists,
                     thr=thr, f0=list(thr), tile=0)
@@ -366,6 +371,8 @@ def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_
         lst = it["lists"][i]
         if wide_cap:
             return lst.items
+        if tc:
+            return list(lst)
         return [e for e in lst if e[1] != it["f0"][i][1]]
 
     def publish(it, i):
@@ -400,7 +407,8 @@ def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_
                                          else None)
                 elif cands:
                     lst[:] = sorted(lst + cands, key=lambda e: (-e[0], e[1]))[:width]
-                    it["thr"][i] = _best(it["thr"][i], lst[-1])
+                    if len(lst) == width:   # a full list's last entry
+                        it["thr"][i] = _best(it["thr"][i], lst[-1])
             if floor == "slots" and not it["small"]:
                 publish(it, i)
         it["tile"] += 1

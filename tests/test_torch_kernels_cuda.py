@@ -518,7 +518,11 @@ def test_bf16_list_scan_vs_plain(cuda_device, name, d, promote):
         before = dict(fs.LAUNCHES)
         kv, ki = fs.fused_ivf_topk(q, x16, sq, alive, crow, offs, lens, probe, 128, k,
                                    metric, max_len=int(lens.max()), promote_fp32=promote)
-        assert fs.LAUNCHES["ivf_scan_bf16"] == before["ivf_scan_bf16"] + 1
+        # promote: the CUDA-core kernel's BF16 mode; else the tensor cores
+        key = "ivf_scan_bf16" if promote else "ivf_scan_bf16_tc"
+        other = "ivf_scan_bf16_tc" if promote else "ivf_scan_bf16"
+        assert fs.LAUNCHES[key] == before[key] + 1
+        assert fs.LAUNCHES[other] == before[other]
         assert fs.LAUNCHES["ivf_scan"] == before["ivf_scan"]
         pv, pi = fs.fused_ivf_topk_plain(q, x16, sq, alive, crow, probe, 128, k, metric,
                                          promote_fp32=promote)
@@ -563,6 +567,10 @@ def test_smem_formulas_match_the_library(cuda_device):
             for d in (8, 24, 72, 128, 136, 256, 384, 768):   # the bf16 scan's: by D
                 assert (lib.pyrope_flat_tc_smem_bytes(k, tile, d)
                         == fs.flat_scan_smem_bytes(k, tile, 2, d)), (k, tile, d)
+    for k in (1, 10, 32, 33, 64, 100, 128):   # the tensor-core list scan's: by D
+        for d in (8, 30, 64, 128, 200, 256, 384, 768):
+            assert (lib.pyrope_list_tc_smem_bytes(k, d)
+                    == fs.list_tc_smem_bytes(k, d) <= fs.SMEM_LIMIT), (k, d)
     assert fs.list_scan_smem_bytes(10, fs.LIST_IVF) == 114_944   # two blocks an SM
     assert fs.list_scan_refusal(20_000, fs.LIST_IVF) is None
     assert fs.list_scan_refusal(0, fs.LIST_IVF) is not None
@@ -654,7 +662,7 @@ def test_bf16_index_routes_launch_their_kernels(cuda_device):
     ivf.add_batch(ids, base)
     ivf.build()
     assert ivf.describe_scan(64) == "dense-pallas-win-hybrid"
-    got = run(ivf, "ivf_scan_bf16")
+    got = run(ivf, "ivf_scan_bf16_tc")
     wide = np.concatenate([q, rng.normal(size=(1024 - 64, 32)).astype(np.float32)])
     assert ivf.describe_scan(1024) == "dense-pallas-win"
     assert_same_results(got, run(ivf, "ivf_scan", wide)[:64])
@@ -873,7 +881,9 @@ def test_list_scan_floor_every_mode_and_layout_vs_plain(cuda_device, k, b, mode)
     query probes, padded with -inf/-1), on skewed lists with a row copied
     into two lists (exact ties): the plain version's hits."""
     case = _grid_case(93, 12_000, b, 32, 64, 24, big=2500, dup=True, dead=0.05)
-    key = _LIST_KEYS[mode] + ("_wide" if k > fs.NARROW_MAX_K else "")
+    # bf16 without promote at k <= 128: the tensor-core list scan
+    key = ("ivf_scan_bf16_tc" if mode == "bf16" and k <= fs.NARROW_MAX_K
+           else _LIST_KEYS[mode] + ("_wide" if k > fs.NARROW_MAX_K else ""))
     before = fs.LAUNCHES[key]
     (kv, ki), (pv, pi) = _wide_list_run(cuda_device, mode, case, k, kc=64)
     assert fs.LAUNCHES[key] == before + 1
@@ -1173,16 +1183,13 @@ def test_list_prefloor_keys_bit_equal_second_pass_scores(cuda_device, b, mode):
     case = list_case(100, 6_000, b, 20, kc, nprobe, dead=0.05)
     q, x, sq, alive, offs, lens, probe, ml, sq8 = _list_work(cuda_device, case, kc, 200, mode)
     promote = mode == "bf16p"
-    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    seg = fs.list_seg(b, nprobe, kc, ml, sms)
-    w = fs.invert_probes(probe, lens, kc, ml, seg, x.shape[0])
-    c = 8
-    qs, qsq = (fs._bf16_query(q) if mode == "bf16" else (q, None))
+    # the layout of a wide call (k 200, as the second pass's k 6,000: one
+    # segment rule), its narrow launch at k = c over whole segments
+    job = fs._ListJob(q, x, sq, alive, offs, lens, probe, kc, 200, False, ml, sq8, promote)
+    assert not job.plan.tc
+    w, c = job.work, 8
     first = torch.zeros(w.slots + b, dtype=torch.int64, device=cuda_device)
-    lmode = (fs.LIST_SQ8 if mode == "sq8" else fs.LIST_BF16 if mode.startswith("bf16")
-             else fs.LIST_IVF)
-    fs._list_scan_launch(kbuild.load(), lmode, qs, x, qsq, sq, alive, offs, lens, kc, w,
-                         nprobe, seg, c, c, False, None, None, first, c, 64, seg, sq8)
+    job.launch(c, c, None, None, first, c, 64, job.plan.seg)
     k = 6_000   # every probed row
     if mode == "sq8":
         kv, ki = fs.fused_ivf_sq8_topk(q, x, *sq8[:2], sq, alive, as_tensor(case[4]).to(
@@ -1276,8 +1283,10 @@ def test_list_prefloor_vs_plain(cuda_device, mode):
     else:
         qd = q.bfloat16().float() if mode == "bf16" else q
         scores = fs._l2_or_ip(q, qd @ x.float().T, sq, False)
-    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
-    seg = fs.list_seg(b, nprobe, kc, ml, sms)
+    # the segments of the kernel the call took (the tensor-core list scan
+    # has a segment rule of its own)
+    seg = fs._ListJob(q, x, sq, alive, offs, lens, probe, kc, 400, False, ml, sq8,
+                      False).plan.seg
     want = fs.list_prefloor_plain(scores, alive, crow, offs, lens, probe, seg, plan)
     torch.cuda.synchronize()
     gv, gr = fs.entry_of(keys)
@@ -1287,6 +1296,163 @@ def test_list_prefloor_vs_plain(cuda_device, mode):
                                    atol=1e-4)
     else:
         assert torch.equal(keys, want)
+
+
+# ---- the bf16 list scan on the tensor cores (csrc/ivf_list_scan_tc.cu) -------
+
+LT_KS = [1, 10, 32, 33, 64, 128]   # register lists (<= 32), shared-memory lists
+
+
+def _tc_run(dev, case, k, kc, metric=Metric.L2, slab=None):
+    """One bf16 list scan without promote at k <= 128 (the tensor-core
+    kernel, counted once) and its plain version on ``case``."""
+    x, q, sq, alive, crow, probe = (as_tensor(a).to(dev) for a in case)
+    offs, lens = (t.to(dev) for t in csr(case[4], kc))
+    x16 = x.bfloat16() if slab is None else slab
+    key = "ivf_scan_bf16_tc"
+    before = dict(fs.LAUNCHES)
+    got = fs.fused_ivf_topk(q, x16, sq, alive, crow, offs, lens, probe, kc, k, metric,
+                            max_len=int(lens.max()))
+    assert fs.LAUNCHES[key] == before[key] + 1
+    assert fs.LAUNCHES["ivf_scan_bf16"] == before["ivf_scan_bf16"]
+    plain = fs.fused_ivf_topk_plain(q, x16, sq, alive, crow, probe, kc, k, metric)
+    torch.cuda.synchronize()
+    return got, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT])
+@pytest.mark.parametrize("d", [8, 30, 100, 128, 256, 384])   # 30, 100: plain-load staging;
+@pytest.mark.parametrize("b", [1, 5, 70, 300])               # 384: q streamed
+def test_list_tc_vs_plain(cuda_device, b, d, metric):
+    """Every k of LT_KS, chunks of 1 to 64 queries (b 1 to 300 over 40
+    lists at nprobe 9), a 3000-row list (segment ends inside
+    a TMA box), a row copied into two lists, 10% dead rows, empty lists
+    probed: the plain version's hits but for k-th place ties."""
+    case = list_case(110 + d, 12_000, b, d, 40, 9, big=3000, empty=2, dead=0.1, dup=True)
+    for k in LT_KS:
+        (kv, ki), (pv, pi) = _tc_run(cuda_device, case, k, 40, metric)
+        assert_hits_but_kth_ties(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 64, 128])
+def test_list_tc_on_the_grid_is_exact(cuda_device, k):
+    """Rows and queries on a grid of 1/8 (exact in bf16 and in every fp32
+    sum): the kernel returns the plain version's hits exactly, ties by row
+    included, at nprobe 24 (the first pass runs) and at nprobe 4 (none)."""
+    for nprobe, b in ((24, 300), (4, 70)):
+        case = _grid_case(111, 16_000, b, 32, 64, nprobe, big=3000, dup=True, dead=0.05)
+        (kv, ki), (pv, pi) = _tc_run(cuda_device, case, k, 64)
+        np.testing.assert_array_equal(ki.cpu().numpy(), pi.cpu().numpy())
+        np.testing.assert_array_equal(kv.cpu().numpy(), pv.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg", [512, 2048])
+def test_list_tc_segments_end_inside_a_box(cuda_device, monkeypatch, seg):
+    """Segments cut at LIST_TC_SEG_MIN (512 rows: four boxes) and at 2048,
+    lists of 700-3000 rows whose ends fall inside a 128-row TMA box (the
+    next list's rows there are masked): the plain version's hits."""
+    monkeypatch.setattr(fs, "LIST_TC_SEG", seg)
+    monkeypatch.setattr(fs, "LIST_TC_SEG_MIN", seg)
+    case = _grid_case(112, 20_000, 200, 64, 16, 6, big=3000, dead=0.05)
+    for k in (10, 128):
+        (kv, ki), (pv, pi) = _tc_run(cuda_device, case, k, 16)
+        np.testing.assert_array_equal(ki.cpu().numpy(), pi.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 136, 768])
+@pytest.mark.parametrize("k", [10, 100])
+def test_list_tc_unaligned_base_and_bit_equal_launches(cuda_device, d, k):
+    """A slab whose base is not 16-byte aligned is staged by plain loads
+    into the layout TMA writes: the same products in the same order, so the
+    same hits bit for bit; and repeated launches of either are bit-equal."""
+    case = list_case(113, 9_000, 130, d, 32, 12, dead=0.05, dup=True)
+    x16 = as_tensor(case[0]).to(cuda_device).bfloat16()
+    xo = torch.empty(x16.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
+    xo = xo.view_as(x16).copy_(x16)
+    assert xo.data_ptr() % 16 != 0 and xo.is_contiguous()
+    runs = [_tc_run(cuda_device, case, k, 32, slab=slab) for slab in (x16, x16, xo, xo)]
+    for (v, i), _ in runs[1:]:
+        assert torch.equal(v, runs[0][0][0]) and torch.equal(i, runs[0][0][1])
+    (kv, ki), (pv, pi) = runs[0]
+    assert_hits_but_kth_ties(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nprobe,k", [(24, 64), (24, 128), (4, 10), (4, 64)])
+def test_list_tc_first_pass_runs_where_the_host_rule_says(cuda_device, nprobe, k):
+    """The tensor-core list scan's first pass (a launch of it at k = c and
+    the floor select) runs where list_prefloor_plan(tc=True) gives a plan:
+    from nprobe 16, and never at nprobe 4; the promote mode keeps the
+    CUDA-core kernel's rule (wide k only)."""
+    case = list_case(114, 8_000, 40, 16, 64, nprobe)
+    q, x, sq, alive, offs, lens, probe, ml, _ = _list_work(cuda_device, case, 64, k, "bf16")
+    job = fs._ListJob(q, x, sq, alive, offs, lens, probe, 64, k, False, ml, None, False)
+    plan = job.prefloor()
+    assert (plan is not None) == (nprobe >= 16)
+    before = dict(fs.LAUNCHES)
+    _tc_run(cuda_device, case, k, 64)
+    assert fs.LAUNCHES["list_scan_prefloor"] - before["list_scan_prefloor"] == (
+        plan is not None)
+    assert fs.LAUNCHES["floor_select"] - before["floor_select"] == (plan is not None)
+    promoted = fs._ListJob(q, x, sq, alive, offs, lens, probe, 64, k, False, ml, None, True)
+    assert not promoted.plan.tc
+    assert (promoted.prefloor() is not None) == (nprobe >= 16 and k > fs.NARROW_MAX_K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT])
+@pytest.mark.parametrize("b", [3, 300])
+def test_list_tc_first_pass_keys_bit_equal_second_pass_scores(cuda_device, b, metric):
+    """Every slot key the tensor-core first pass publishes (its launch at
+    k = c over whole segments) is bit-equal to the main pass's score of the
+    same (query, row): lists of ~16 rows at nprobe 4, so a k 128 scan
+    returns every probed alive row of a query; D 40 (plain loads) and 64
+    (TMA)."""
+    kc, nprobe, k = 64, 4, 128
+    for d in (40, 64):
+        case = list_case(115, 1_000, b, d, kc, nprobe, dead=0.05)
+        q, x, sq, alive, offs, lens, probe, ml, _ = _list_work(cuda_device, case, kc, k, "bf16")
+        job = fs._ListJob(q, x, sq, alive, offs, lens, probe, kc, k, metric == Metric.INNER_PRODUCT,
+                          ml, None, False)
+        assert job.plan.tc
+        w, c = job.work, 8
+        first = torch.zeros(w.slots + b, dtype=torch.int64, device=cuda_device)
+        job.launch(c, c, None, None, first, c, 64, job.plan.seg)
+        kv, ki = fs.fused_ivf_topk(q, x, sq, alive, as_tensor(case[4]).to(cuda_device), offs,
+                                   lens, probe, kc, k, metric, max_len=ml)
+        assert int((ki >= 0).sum(1).max()) < k   # every probed alive row returned
+        keys = first[:w.slots]
+        qoff = torch.nn.functional.pad(w.slot_end[:, -1].long(), (1, 0))
+        owner = torch.searchsorted(qoff, torch.arange(w.slots, device=cuda_device),
+                                   right=True) - 1
+        v, r = fs.entry_of(keys)
+        has = keys != 0
+        assert int(has.sum()) > b
+        hit = ki[owner[has]] == r[has][:, None]
+        assert bool(hit.any(1).all())
+        second = kv[owner[has]][hit]
+        torch.cuda.synchronize()
+        assert torch.equal(second.view(torch.int32), v[has].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_list_tc_runs_on_wgmma(cuda_device):
+    """The built library's SASS: every instantiation of the tensor-core list
+    scan (<IP, SPLIT>) issues HGMMA."""
+    from pyrope_tpu_torch.kernels.build import library_path, load
+
+    load()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = {part.split()[0]: part for part in re.split(r"Function : ", sass)[1:]}
+    tc = [body for name, body in funcs.items() if "ivf_list_scan_tc_kernel" in name]
+    # <IP, SPLIT>: SPLIT sums each 64-depth chunk apart (D > 128)
+    assert len(tc) == 4 and all("HGMMA.64x128x16.F32.BF16" in body for body in tc)
 
 
 @pytest.mark.cuda
