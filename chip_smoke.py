@@ -1017,10 +1017,10 @@ def phase_kernels(dev) -> dict:
         require(plan is not None, f"no list first pass at {name}")
         qd = qv.bfloat16().float() if bf else qv
         scores = l2_or_ip(qv, qd @ xv.float().T, sq2, False)
-        # the tensor-core kernel's items follow its own segment rule
-        tc = bf and k <= fs.NARROW_MAX_K
-        seg = (fs.list_tc_seg(qv.shape[0], 96, kp2, lay2[3], sms, k, d) if tc
-               else fs.list_seg(qv.shape[0], 96, kp2, lay2[3], sms))
+        # the segments of the kernel the call takes
+        lp = fs.list_plan(k, fs.LIST_BF16 if bf else fs.LIST_IVF, False, qv.shape[0], 96,
+                          kp2, lay2[3], d, sms)
+        tc, seg = lp.tc, lp.seg
         bnd = sample_bound(d * (2 if bf else 4) + 5, qv, pv_, lay2, alive2, kp2, seg,
                            plan.sample, BF16_FLOP_S if bf else FP32_FLOP_S)
         kind = "list_prefloor_tc" if tc else "list_prefloor"
@@ -1499,11 +1499,8 @@ def _hybrid_against_fp32(dev, ix, queries, truth, name, route, k=K, iters=200):
             **{f"{name}_b256_{key}": v for key, v in srv.items()}}
 
 
-def phase_ivf_hybrid(dev, data, counts=None) -> None:
-    """ivf100k_np96_hybrid_b256 and ivf1m_np256_hybrid_b256; ``counts`` (a
-    dict) gets the tensor-core list scan's first passes (``tc_first``), which
-    LAUNCHES counts with the CUDA-core kernel's under list_scan_prefloor."""
-    counts = {} if counts is None else counts
+def phase_ivf_hybrid(dev, data) -> None:
+    """ivf100k_np96_hybrid_b256 and ivf1m_np256_hybrid_b256."""
     base, queries, truth = data
     n, d = base.shape
     small, small_q = synthetic(100_000, d), synthetic_queries(1024, d)
@@ -1511,7 +1508,7 @@ def phase_ivf_hybrid(dev, data, counts=None) -> None:
     narrow.add_batch([str(i) for i in range(len(small))], small)
     narrow.build()
     truth100 = ground_truth(small, small_q[:256], 100, block=16384)
-    keys = ("ivf_scan_bf16_tc", "list_scan_prefloor")
+    keys = ("ivf_scan_bf16_tc", "list_scan_prefloor_tc")
 
     def tc_cell(name, *args, **kw):
         """A k 10 cell: the tensor-core list scan and its first passes."""
@@ -1520,7 +1517,6 @@ def phase_ivf_hybrid(dev, data, counts=None) -> None:
         got = [fs.LAUNCHES[key] - b0 for key, b0 in zip(keys, before)]
         fields[f"{name}_tc_launches"], fields[f"{name}_tc_first_passes"] = got
         require(got[0] > 0, f"{name} never launched the tensor-core list scan")
-        counts["tc_first"] = counts.get("tc_first", 0) + got[1]
 
     fields = {}
     tc_cell("ivf100k_np96", narrow, small_q, truth100, "ivf100k_np96", "dense-pallas-hybrid")
@@ -3006,7 +3002,6 @@ def main() -> int:
 
     resp1m = {}   # phase 18's 1M cell, printed beside phase 19's
     keep = {}     # phase 15's 100k clustered graph, replicated in phase 22
-    hybrid = {}   # phase 11's tensor-core first passes
     paths = {name: run_path(name, fn, kernels) for name, fn, kernels in (
         ("IVF-Flat", ivf_flat, ("flat_scan", "ivf_scan", "merge", "flat_scan_wide",
                                 "ivf_scan_wide", "merge_wide", "flat_scan_prefloor",
@@ -3015,9 +3010,9 @@ def main() -> int:
         ("flat bf16", lambda: phase_flat_bf16(dev, uniform), ("flat_scan_bf16", "merge")),
         ("flat hybrid", lambda: phase_flat_hybrid(dev, uniform),
          ("flat_scan_bf16", "flat_scan", "merge")),
-        ("IVF-Flat hybrid", lambda: phase_ivf_hybrid(dev, uniform, hybrid),
+        ("IVF-Flat hybrid", lambda: phase_ivf_hybrid(dev, uniform),
          ("ivf_scan_bf16_tc", "ivf_scan", "merge", "ivf_scan_bf16_wide", "merge_wide",
-          "list_scan_prefloor", "floor_select")),
+          "list_scan_prefloor", "list_scan_prefloor_tc", "floor_select")),
         ("IVF-PQ bf16", lambda: phase_pq_bf16(dev, data),
          ("ivf_scan_bf16", "merge", "ivf_scan_bf16_wide", "merge_wide")),
         ("flat hybrid k100", lambda: phase_flat_hybrid_k100(dev, uniform),
@@ -3046,7 +3041,6 @@ def main() -> int:
     bf16_promote = paths["IVF-PQ bf16"]["ivf_scan_bf16"]
     bf16_plain_wide = paths["IVF-Flat hybrid"]["ivf_scan_bf16_wide"]
     bf16_promote_wide = paths["IVF-PQ bf16"]["ivf_scan_bf16_wide"]
-    tc_first = hybrid["tc_first"]
     large_d = paths["IVF-Flat d768"]["ivf_scan"]
 
     def entry(name, kind, source, replaces, launched):
@@ -3091,10 +3085,9 @@ def main() -> int:
         entry("fused_scan_kernel<narrow> first pass", "flat_prefloor", SOURCE,
               f"{PALLAS}:672, {wide}", launches["flat_scan_prefloor"]),
         entry("ivf_list_scan_kernel<narrow> first pass", "list_prefloor", LIST_SOURCE,
-              f"{PALLAS}:1035, {PALLAS}:1204, {wide}",
-              launches["list_scan_prefloor"] - tc_first),
+              f"{PALLAS}:1035, {PALLAS}:1204, {wide}", launches["list_scan_prefloor"]),
         entry("ivf_list_scan_tc_kernel first pass", "list_prefloor_tc", LIST_TC_SOURCE,
-              f"{PALLAS}:1035, {PALLAS}:232, {wide}", tc_first),
+              f"{PALLAS}:1035, {PALLAS}:232, {wide}", launches["list_scan_prefloor_tc"]),
         entry("floor_select_kernel", "floor_select", PREFLOOR_SOURCE,
               f"{PALLAS}:672, {PALLAS}:1035, {wide}", launches["floor_select"]),
     ]

@@ -1,7 +1,7 @@
 """Run phases of two or more checkouts' ``chip_smoke.py`` on one GPU, in turns.
 
     python3 -m pyrope_tpu_torch.bench.smoke_ab --tree build/parent --tree . \\
-        [--order ABBA] [--phases 3,11] [--out build/smoke_ab.json]
+        [--order ABBA] [--phases 3,11|16] [--out build/smoke_ab.json]
 
 Each tree is a directory holding ``chip_smoke.py`` and its
 ``pyrope_tpu_torch`` package (``git archive`` of a commit, or the repo
@@ -10,13 +10,17 @@ root). For every turn of ``--order`` (A = the first tree, B = the second,
 and runs the phases asked for, each tree's own code on the same seeded
 inputs: phase 3 (``phase_kernels``: every kernel against its plain version
 at the main paths' shapes, with its wrapper, device, plain, composition and
-library times) and phase 11 (``phase_ivf_hybrid``: the IVF hybrid cells'
-b256 batches, on phase 11's uniform 1M rows). It is the comparison of two
-trees whose wrappers differ, where ``scan_ab`` needs the same ones.
+library times), phase 11 (``phase_ivf_hybrid``: the IVF hybrid cells'
+b256 batches, on phase 11's uniform 1M rows) and phase 16
+(``phase_hnsw_1m``: the bootstrap build of the 1M x 128 clustered graph,
+recall at ef 50 and 200, the beam's batch times at b1, b8, b64 and b256,
+and a trace of 20 b64 batches). It is the comparison of two trees whose
+wrappers differ, where ``scan_ab`` needs the same ones.
 
 Prints each turn's phase lines as they come and writes, per turn, the card
 and its power limit, the phase lines, phase 3's cells (name -> the fields of
-its ``ms/plain/err/...`` record) and phase 11's fields to ``--out``.
+its ``ms/plain/err/...`` record) and phase 11's and 16's fields to
+``--out``.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
-cs.phase_device()
+smi = cs.phase_device()
 cs.kbuild.build()
 cs.kbuild.load()
 for phase in sys.argv[1].split(","):
@@ -46,8 +50,10 @@ for phase in sys.argv[1].split(","):
         cs.phase_kernels(dev)
     elif phase == "11":
         cs.phase_ivf_hybrid(dev, cs.uniform_1m())
+    elif phase == "16":
+        cs.phase_hnsw_1m(dev, smi)
     else:
-        raise SystemExit(f"smoke_ab runs phases 3 and 11, not {phase}")
+        raise SystemExit(f"smoke_ab runs phases 3, 11 and 16, not {phase}")
     cs.say("time", step=f"phase_{phase}", seconds=round(time.perf_counter() - t0, 1))
 """
 
@@ -112,6 +118,8 @@ def main() -> int:
                 rec["cells"] = _cells(ln)
             elif ln.startswith("[11 ivf hybrid]"):
                 rec["hybrid"] = _fields(ln)
+            elif ln.startswith("[16 hnsw 1m]"):
+                rec["hnsw"] = _fields(ln)
         records.append(rec)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(records, indent=1))

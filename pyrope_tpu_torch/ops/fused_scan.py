@@ -102,13 +102,10 @@ LIST_FLOOR_MIN_K = 32    # below it list_floor takes g = 1: a list's own k-th en
 LIST_SEG = 2048          # rows of one cluster a list-scan block walks at most
 LIST_SEG_MIN = 256       # shortest segment list_seg cuts for parallelism
 # the tensor-core list scan (csrc/ivf_list_scan_tc.cu, k <= NARROW_MAX_K):
-# its segment rule (list_tc_seg), and the fewest probes at which it runs a
-# first pass and that pass's sample ratio (list_prefloor_plan)
-LIST_TC_SEG = 2048
+# its shortest segment (list_plan), and its first pass's sample ratio
+# (list_prefloor_plan)
 LIST_TC_SEG_MIN = 512
-LIST_TC_WAVES = 2        # list_tc_seg's grid target: waves of its blocks
 LIST_TC_SPLIT_D = 128    # LT_SPLIT_D: above it each 64-depth chunk is summed apart
-LIST_TC_PREFLOOR_MIN_PROBES = 16
 LIST_TC_PREFLOOR_RATIO = 80.0
 SMEM_LIMIT = 232_448     # bytes of shared memory a block may use on sm_90
 SMEM_TWO_BLOCKS = 115_712  # the most a block may use for two to share an SM
@@ -142,12 +139,13 @@ LIST_PREFLOOR_RATIO = 5.0
 # (count_launch), so none is lost
 # (``ivf_scan_bf16[_wide]``: the CUDA-core list scan's bf16 mode, with
 # promote_fp32, and without it at k > NARROW_MAX_K; ``ivf_scan_bf16_tc``:
-# the tensor-core list scan, without promote at k <= NARROW_MAX_K)
+# the tensor-core list scan, without promote at k <= NARROW_MAX_K, and
+# ``list_scan_prefloor_tc`` its first pass)
 LAUNCHES = {"flat_scan": 0, "flat_scan_bf16": 0, "ivf_scan": 0, "ivf_scan_bf16": 0,
             "ivf_scan_bf16_tc": 0, "sq8_scan": 0, "merge": 0, "flat_scan_wide": 0,
             "flat_scan_bf16_wide": 0, "ivf_scan_wide": 0, "ivf_scan_bf16_wide": 0,
             "sq8_scan_wide": 0, "merge_wide": 0, "flat_scan_prefloor": 0,
-            "list_scan_prefloor": 0, "floor_select": 0}
+            "list_scan_prefloor": 0, "list_scan_prefloor_tc": 0, "floor_select": 0}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -201,21 +199,10 @@ def _plain_scan(q, n, tile_scores, row_mask, k, chunk_rows):
 def _tile_scores(q, x, sqnorm, metric_ip: bool, promote: bool = False):
     """``tile_scores`` of the plain scans, as the TPU kernels' ``_tile_scores``
     takes them: fp32 dots off an fp32 slab; off a bf16 slab, dots of bf16(q)
-    and the rows (with ``promote`` the fp32 q and the widened rows, summed in
-    fp32). ‖q‖² is always that of the unrounded fp32 q.
-
-    bf16(q)·x is exact products and their sum, which the MXU and the tensor
-    cores approximate in fp32, each in an order of its own. Here the exact
-    products are summed in float64 and rounded once, so the plain version is
-    that sum and a kernel is held to its own rounding alone: an fp32 product
-    of [300, 384] by [384, N] on an H100 (cuBLAS, TF32 off) put a
-    near-duplicate's score, which cancels ‖q‖² and ‖x‖² of ~128, 1.5e-4 off,
-    more than the tolerance the kernels are held to."""
-    if x.dtype == torch.bfloat16 and not promote:
-        qd = q.bfloat16().double()
-        return lambda s, e: _l2_or_ip(q, (qd @ x[s:e].double().T).float(), sqnorm[s:e],
-                                      metric_ip)
-    return lambda s, e: _l2_or_ip(q, q @ x[s:e].float().T, sqnorm[s:e], metric_ip)
+    (the fp32 q with ``promote``) and the widened rows, summed in fp32. ‖q‖²
+    is always that of the unrounded fp32 q."""
+    qd = q.bfloat16().float() if x.dtype == torch.bfloat16 and not promote else q
+    return lambda s, e: _l2_or_ip(q, qd @ x[s:e].float().T, sqnorm[s:e], metric_ip)
 
 
 def fused_flat_topk_plain(q, x, sqnorm, alive, max_scans: int, k: int,
@@ -345,13 +332,6 @@ def list_tc_stages(k: int, d: int) -> int:
             if list_tc_smem_bytes(k, d, n) <= limit:
                 return n
     return TC_STAGES[-1]
-
-
-def list_tc_blocks_per_sm(k: int, d: int) -> int:
-    """Blocks of the tensor-core list scan an SM holds: two at D <=
-    LIST_TC_SPLIT_D where shared memory allows (128 registers a thread),
-    else one."""
-    return 2 if d <= LIST_TC_SPLIT_D and list_tc_smem_bytes(k, d) <= SMEM_TWO_BLOCKS else 1
 
 
 def list_scan_refusal(k: int, mode: int) -> str | None:
@@ -642,17 +622,14 @@ def list_prefloor_plan(k: int, nprobe: int, width: int, seg: int,
     nprobe)) at most NARROW_MAX_K and the slot ``width``; a sample of each
     segment (``_sample_share`` of a list's mean ``rows_per_list`` rows, in
     row tiles, at least 2c rows). The tensor-core list scan (``tc``, k <=
-    NARROW_MAX_K) runs it too, at nprobe >= LIST_TC_PREFLOOR_MIN_PROBES: it
+    NARROW_MAX_K) runs it too, at the same nprobe: it
     keeps rows at or above any floor key, so a first pass's floor is exact
     there. Its sample follows LIST_TC_PREFLOOR_RATIO: on the tensor cores a
     sampled row is cheap and every row the floor lets through costs an
     insertion (on an H100, bench/scan_ab.py --sweep, 100k np96 b256 k 64:
     256 sampled rows a segment left 391 entries a query against 653 at 128,
     both passes 0.533 against 0.601 ms). None where it does not run."""
-    if tc:
-        if nprobe < LIST_TC_PREFLOOR_MIN_PROBES:
-            return None
-    elif k <= NARROW_MAX_K or nprobe < LIST_PREFLOOR_MIN_PROBES:
+    if (k <= NARROW_MAX_K and not tc) or nprobe < LIST_PREFLOOR_MIN_PROBES:
         return None
     c = -(-k // max(1, int(nprobe * LIST_PREFLOOR_SHARE)))
     if c > min(NARROW_MAX_K, width):
@@ -1056,22 +1033,6 @@ def list_seg(b: int, nprobe: int, kp: int, max_len: int, sms: int) -> int:
     return seg
 
 
-def list_tc_seg(b: int, nprobe: int, kp: int, max_len: int, sms: int, k: int,
-                d: int) -> int:
-    """Segment length of a tensor-core list-scan launch, from shapes alone:
-    LIST_TC_SEG, halved (down to LIST_TC_SEG_MIN) while the grid bound holds
-    fewer than LIST_TC_WAVES waves of its blocks (``list_tc_blocks_per_sm``
-    an SM). Its own rule, not ``list_seg``'s: that one keeps four 256-thread
-    CUDA-core blocks an SM busy; a tensor-core block is one consumer
-    warpgroup, one or two an SM, and every item pays the gather of its
-    queries, so it wants fewer, longer items."""
-    seg = LIST_TC_SEG
-    want = LIST_TC_WAVES * list_tc_blocks_per_sm(k, d) * sms
-    while seg > LIST_TC_SEG_MIN and list_grid(b, nprobe, kp, max_len, seg)[0] < want:
-        seg //= 2
-    return seg
-
-
 @dataclasses.dataclass(frozen=True)
 class ListPlan:
     """Which list-scan kernel a call takes and how, from shapes alone:
@@ -1099,7 +1060,12 @@ def list_plan(k: int, mode: int, promote: bool, b: int, nprobe: int, kp: int,
         why = k_refusal(k)
         if why is not None:
             raise ValueError(why)
-        seg = list_tc_seg(b, nprobe, kp, max_len, sms, k, d)
+        # list_seg's rule, never under LIST_TC_SEG_MIN rows (four TMA boxes):
+        # every item gathers its queries first, so a tensor-core block wants
+        # fewer, longer items than a CUDA-core one. At 100k np96 b256 k 64
+        # it cuts 1,024 rows; 2,048 (one wave) and 512 scanned in the same
+        # time there (H100, bench/scan_ab.py --sweep, PERF.md)
+        seg = max(list_seg(b, nprobe, kp, max_len, sms), LIST_TC_SEG_MIN)
         smem, key = list_tc_smem_bytes(k, d), "ivf_scan_bf16_tc"
     else:
         why = list_scan_refusal(k, mode)
@@ -1309,7 +1275,7 @@ class _ListJob:
         # more than the rows it dropped)
         self.launch(plan.c, plan.c, None, None, first, plan.c, LIST_FLOOR_WINDOW + 1,
                     plan.sample)
-        count_launch("list_scan_prefloor")
+        count_launch("list_scan_prefloor_tc" if self.plan.tc else "list_scan_prefloor")
         return floor_select(first[:w.slots], plan.g, w.slot_end, first[w.slots:], out=out)
 
     def launch(self, k, kw, part_v, part_i, pub, pub_c, pub_g, sample) -> None:

@@ -68,6 +68,25 @@ def assert_hits_but_kth_ties(vals_a, idx_a, vals_b, idx_b, rtol=RTOL) -> None:
             f"row {row}: {ia[row]} vs {ib[row]} differ outside a k-th place tie")
 
 
+def ivf_plain_exact(q, x16, sqnorm, alive, crow, probe, kp, k, metric="L2"):
+    """``fs.fused_ivf_topk_plain`` over a bf16 slab without promote, with
+    bf16(q)·x summed exactly: the exact products summed in float64 and
+    rounded once to fp32 (‖q‖², the sqnorm and the L2 combination in fp32,
+    as the plain version). The reference the tensor-core list scan is held
+    to, so that a comparison sees the kernel's own rounding alone: two fp32
+    orders of the same sum drift apart by more than ATOL where a
+    near-duplicate's L2 cancels ‖q‖² and ‖x‖² of ~128 (1.7e-4 at D 384,
+    tests/bf16_sum_witness.py)."""
+    ip = fs._metric_ip(metric)
+    qd = q.bfloat16().double()
+
+    def tile(s, e):
+        return fs._l2_or_ip(q, (qd @ x16[s:e].double().T).float(), sqnorm[s:e], ip)
+
+    return fs._plain_scan(q, x16.shape[0], tile, fs._probed_rows(probe, kp, crow, alive), k,
+                          8192)
+
+
 def hits_to_arrays(results):
     """search_batch output -> (scores, ids) arrays padded with -inf / ''."""
     k = max((len(r) for r in results), default=0)

@@ -11,10 +11,9 @@ library records the C entry each call reaches and the arguments it gets.
 
 The plain version is held against ``pallas_ivf_topk`` in interpret mode on
 the same numpy inputs: both score bf16(q)·x (exact products) with ‖q‖² of
-the fp32 q, the plain version summing the products in float64, the JAX
-kernel in fp32 in an order of its own, so scores agree within rtol 1e-5 /
-atol 1e-4 and a hit may differ only as a k-th place tie within that
-rounding (``assert_hits_but_kth_ties``).
+the fp32 q, each summing the products in fp32 in an order of its own, so
+scores agree within rtol 1e-5 / atol 1e-4 and a hit may differ only as a
+k-th place tie within that rounding (``assert_hits_but_kth_ties``).
 """
 
 import jax.numpy as jnp
@@ -58,8 +57,8 @@ def test_list_plan_routes_bf16_without_promote_to_the_tensor_cores(mode, promote
     plan = fs.list_plan(k, mode, promote, 256, 96, 100, 1100, 128, SMS)
     assert (plan.tc, plan.key, plan.mode) == (tc, key, mode)
     assert plan.key in fs.LAUNCHES
-    if tc:   # the tensor-core kernel's own segment rule and shared memory
-        assert plan.seg == fs.list_tc_seg(256, 96, 100, 1100, SMS, k, 128)
+    if tc:   # list_seg's segment, no shorter than LIST_TC_SEG_MIN; its own shared memory
+        assert plan.seg == max(fs.list_seg(256, 96, 100, 1100, SMS), fs.LIST_TC_SEG_MIN)
         assert plan.smem == fs.list_tc_smem_bytes(k, 128)
     else:
         assert plan.seg == fs.list_seg(256, 96, 100, 1100, SMS)
@@ -93,33 +92,33 @@ def test_tc_shared_memory_formula_hand_worked(k, d, stages, want):
     assert fs.list_tc_smem_bytes(k, d) == want <= fs.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("k,d,blocks", [
-    (10, 128, 2), (64, 128, 2), (128, 128, 1),   # 155,456 B: one an SM
-    (64, 200, 1), (10, 768, 1),                   # above LIST_TC_SPLIT_D: 250 registers
-    (64, 64, 2), (128, 64, 2),                    # two stages: 113,440 B
-])
-def test_tc_blocks_per_sm(k, d, blocks):
-    assert fs.list_tc_blocks_per_sm(k, d) == blocks
-
-
 @pytest.mark.parametrize("b,nprobe,kp,max_len,k,d,want", [
-    # 256 x 96 pairs over 100 lists of ~1,100 rows: the bound at 2,048 is
-    # (ceil(24,576 / 64) + 100) x 1 = 484 blocks, under two waves of two
-    # narrow blocks (528); at 1,024, 968
-    (256, 96, 100, 1100, 64, 128, 1024),
-    (256, 96, 100, 1100, 128, 128, 2048),   # one an SM: 484 >= 264
-    (256, 96, 100, 1100, 64, 200, 2048),    # D 200: one an SM
+    # list_seg's rule: 2,048 rows halved while the grid bound, (ceil(B·P /
+    # 64) + min(kp, B·P)) x ceil(max_len / seg), is under 4 x 132 = 528
+    # blocks; then no shorter than 512 rows. 256 x 96 pairs over 100 lists
+    # of ~1,100 rows: (384 + 100) x 1 = 484 at 2,048, 968 at 1,024
+    (256, 96, 100, 1100, 64, 128, 1024),    # the hybrid's 100k np96 b256 cell
+    (256, 96, 100, 1100, 128, 200, 1024),   # k and D do not enter the rule
+    (256, 256, 1000, 1200, 10, 128, 2048),  # 1M np256 b256: 1,024 + 1,000
+    (1024, 96, 100, 1100, 64, 128, 2048),   # 1,536 + 100
     (4096, 96, 100, 1100, 10, 128, 2048),   # a large batch fills the card
+    (64, 96, 100, 1100, 64, 128, 512),      # (96 + 100) x 3 = 588 at 512
+    (8, 96, 100, 1100, 64, 128, 512),       # list_seg's 256 (560), raised to 512
+    (1, 96, 100, 1100, 64, 128, 512),       # (2 + 96) x 5 = 490 even at 256
+    (70, 9, 40, 3500, 10, 384, 512),        # (10 + 40) x 14 = 700 at 256
+    (256, 3, 1000, 1200, 10, 128, 2048),    # nprobe 3: 12 + 768 lists
+    (130, 100, 128, 400, 10, 32, 512),      # (204 + 128) x 2 = 664 at 256
     (1, 1, 1000, 1100, 10, 128, fs.LIST_TC_SEG_MIN),   # never under the least
 ])
 def test_tc_segment_rule_hand_worked(b, nprobe, kp, max_len, k, d, want):
-    assert fs.list_tc_seg(b, nprobe, kp, max_len, SMS, k, d) == want
+    plan = fs.list_plan(k, fs.LIST_BF16, False, b, nprobe, kp, max_len, d, SMS)
+    assert plan.tc and plan.seg == want
 
 
 def test_tc_first_pass_rule_from_shapes():
     """The tensor-core kernel (k <= 128) runs a first pass from
-    LIST_TC_PREFLOOR_MIN_PROBES probes; the CUDA-core rule is as it was
-    (wide k only)."""
+    LIST_PREFLOOR_MIN_PROBES probes, as the wide mode does; the CUDA-core
+    rule is as it was (wide k only)."""
     narrow = fs.list_prefloor_plan(64, 96, 64, 1024, 1000.0, tc=True)
     # c = ceil(64 / (3/4 of 96)) = 1, g = 64; the sample: sqrt(80 x 64 /
     # 96,000) of ~1,000 rows, 231, in whole row tiles, 256
@@ -214,8 +213,10 @@ def test_list_partials_reaches_the_kernel_its_plan_names(stand_in, promote, k):
     assert tables[19] == int(aligned)
     assert part_v.shape == (tables[18], plan.kw) and slot_end.shape == (40, 20)
     assert fs.LAUNCHES[plan.key] == before[plan.key] + 1
-    assert (fs.LAUNCHES["list_scan_prefloor"] - before["list_scan_prefloor"]
-            == (first is not None))
+    tc_first, cuda_first = (fs.LAUNCHES[key] - before[key]
+                            for key in ("list_scan_prefloor_tc", "list_scan_prefloor"))
+    assert (tc_first, cuda_first) == ((first is not None) * plan.tc,
+                                      (first is not None) * (not plan.tc))
 
 
 def test_list_job_caches_change_no_result(stand_in):
@@ -232,8 +233,8 @@ def test_list_job_caches_change_no_result(stand_in):
         assert torch.equal(getattr(a.work, name), getattr(b.work, name)), name
     assert (a.work.grid, a.work.slots) == (b.work.grid, b.work.slots)
     # the same layout as a fresh, uncached computation from shapes
-    fresh = fs.invert_probes(probe, lens, kc, ml,
-                             fs.list_tc_seg(40, 20, kc, ml, SMS, 64, 24), x.shape[0])
+    fresh = fs.invert_probes(probe, lens, kc, ml, max(fs.list_seg(40, 20, kc, ml, SMS),
+                                                      fs.LIST_TC_SEG_MIN), x.shape[0])
     assert torch.equal(a.work.item_c, fresh.item_c) and a.work.grid == fresh.grid
     fs._ListJob(q, x, sq, alive, offs, lens, probe, kc, 128, False, ml, None, False)
     fs._ListJob(q, x, sq, alive, offs, lens, probe, kc, 64, False, ml, None, True)
