@@ -55,13 +55,19 @@ total are printed:
                second pass and merge where the first pass ran, and the real
                entries a query's splits hold (the wide flat scan); and the
                list scan at D 768 (1M clustered rows,
-               nlist 1000, np3, b1024, k 10), IVF and SQ8 modes. Each row
+               nlist 1000, np3, b1024, k 10), IVF and SQ8 modes; the probe
+               inversion (invert_probes.cu) against its plain version,
+               every table bit-equal, at 1M nlist 1000 np3 b1024 and b1,
+               100k nlist 100 np96 b256 (the tensor-core segment) and
+               b4096, with its time, device time and bytes bound. Each row
                adds its device time from torch.profiler (the scans split
                into scan and merge, the merges beside torch.topk's), and
                each wide list scan the mean real entries a query's partial
                slots hold after the scan; the library call (the bare
-               product, q @ x.T or q16 @ x16.T) beside every flat and
-               fp32 or bf16 list-scan row that has one, and torch.topk
+               product, q @ x.T or q16 @ x16.T, or q @ x̂ᵀ over the SQ8
+               rows' fp32 reconstruction) beside every flat and list-scan
+               row that has one, torch.topk at k = c over the sampled
+               rows' scores beside the first passes, and torch.topk
                alone on the masked scores beside the wide list scan's
                layout A (100k, np96, b1024, k 1000). Last, k-means++
                (jax.random's draws, ops/jrandom.py) on the card and on the
@@ -133,7 +139,12 @@ total are printed:
                beam at b64, recall@10 of 256 queries >= 0.9838 / 0.7244 (the
                records less 0.01), recall_ref (the copied oracle's
                sequential search over the same graph, 64 queries), build_s,
-               QPS, p50/p99
+               QPS, p50/p99; hnsw100k_clustered's graph hash equal to the
+               CPU build's in both packages (HNSW100K_GRAPH_SHA256), and a
+               bf16 beam over it: recall@10 within 0.005 of the JAX
+               package's bf16 beam on the CPU, its gap under the fp32 beam
+               at most the JAX package's gap + 0.005 (HNSW_BF16_GAP_JAX,
+               scripts/torch_hnsw_bf16_gap.py)
  16. hnsw 1m   the same index on synthetic_clustered(1M, 128, 100 centers)
                (hnsw1m_clustered), built by the device bootstrap (build_s and
                its stage times): recall@10 of 256 queries >= 0.8084 at ef 50
@@ -181,8 +192,11 @@ total are printed:
                QPS, a torch.profiler trace of 500 requests at concurrency
                64 (idle share, device ms a request, and the medians of the
                engine's TRACE times), the list scan wrapper's host time
-               against its device time at b1, and at 1M the smallest batch
-               scan_mode "auto" would send to the list scan
+               against its device time at b1 and that host time by step
+               (list_scan_host_split_b1: fs.host_split), and at 1M the
+               smallest batch scan_mode "auto" would send to the list scan
+               and the list-scan route against the probe route at b1, b8
+               and b64 (the same hits; ms a device_search batch each)
  19. stack     the full stack as users start it: the sidecar (python -m
                pyrope_tpu_torch.sidecar.server) and the server (python -m
                pyrope_tpu_torch.server --device cuda --sidecar ..., auth on,
@@ -242,6 +256,8 @@ total are printed:
                p50/p99, device ms split into scans and merges, the kernels
                one device_search launches
 
+Every list-scan call inverts its probes with the inversion kernel once
+(``invert_probes``): on every path its launches equal the list scan's.
 The kernels' launch counters are zeroed before each serving path (phases
 4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-22, one path
 each) and read after it: every kernel of a path must have run on it, the
@@ -268,6 +284,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import glob
+import hashlib
 import json
 import logging
 import os
@@ -328,6 +345,11 @@ TC_SOURCE = "pyrope_tpu_torch/csrc/flat_scan_tc.cu"
 LIST_SOURCE = "pyrope_tpu_torch/csrc/ivf_list_scan.cu"
 LIST_TC_SOURCE = "pyrope_tpu_torch/csrc/ivf_list_scan_tc.cu"
 PREFLOOR_SOURCE = "pyrope_tpu_torch/csrc/prefloor.cu"
+INVERT_SOURCE = "pyrope_tpu_torch/csrc/invert_probes.cu"
+# the list scan's LAUNCHES keys, one a call (list_partials): each call also
+# launches the probe inversion once
+LIST_SCAN_KEYS = ("ivf_scan", "ivf_scan_bf16", "ivf_scan_bf16_tc", "sq8_scan",
+                  "ivf_scan_wide", "ivf_scan_bf16_wide", "sq8_scan_wide")
 PALLAS = "pyrope_tpu/ops/pallas_scan.py"
 
 
@@ -685,7 +707,7 @@ def phase_kernels(dev) -> dict:
                         "ivf_bf16p", "flat_wide", "flat_bf16_wide", "ivf_wide",
                         "ivf_bf16_wide", "ivf_bf16p_wide", "sq8_wide", "ivf_large_d",
                         "sq8_large_d", "merge_wide", "flat_prefloor", "list_prefloor",
-                        "list_prefloor_tc", "floor_select")}
+                        "list_prefloor_tc", "floor_select", "invert_probes")}
     cells = []
 
     def case(kind, name, kern, plain, reps=10, plain_reps=3, main=False, comp=None,
@@ -789,6 +811,11 @@ def phase_kernels(dev) -> dict:
         ip = metric == "IP"
         bnd = list_bound(xv.shape[1] + 13, qv, probe, lens, alv, crow, kp, k,
                          extra=probe.numel() * 4)
+        # the library call beside a main case: the bare q @ x̂ᵀ over the
+        # reconstructed fp32 rows x̂ = cent[crow] + min + scale·code, as K2's
+        # row has q @ x.T (the product alone: no metric, mask or top-k)
+        xhat = (cents[crow.long()] + mins[:, None] + scales[:, None] * codes.float()
+                if main else None)
         case(kind, f"{name}_{metric}",
              lambda: fs.fused_ivf_sq8_topk(qv, codes, mins, scales, sq8, alv, crow, offs,
                                            lens, probe, qc, kp, k, metric, max_len=ml),
@@ -801,7 +828,9 @@ def phase_kernels(dev) -> dict:
              if main or comp else None, bnd=bnd,
              slots=(lambda: fs.list_partials(qv, codes, sq8, alv, offs, lens, probe, kp, k,
                                              ip, ml, sq8=(mins, scales, qc)))
-             if k > fs.NARROW_MAX_K else None)
+             if k > fs.NARROW_MAX_K else None,
+             lib=(lambda: qv @ xhat.T) if main else None)
+        del xhat
         if main:
             rec[kind]["bound"] = bnd
 
@@ -1003,11 +1032,16 @@ def phase_kernels(dev) -> dict:
                     2.0 * bv * int((sampled & alive).sum()) * d)
         if bv == b:
             rec["flat_prefloor"]["bound"] = bnd
+        # the library call: torch.topk at k = c over the sampled rows' scores
+        sampled_sc = (torch.where(alive[sampled][None, :], l2_or_ip(
+            qv, qv @ x[sampled].T, sq[sampled], False), float("-inf")) if bv == b else None)
         case("flat_prefloor", f"flat_first_pass_1M_b{bv}_k{k}_c{plan.c}_g{plan.g}"
              f"_rows{plan.rows}of{plan.per}",
              lambda: as_hits(fs.flat_prefloor(qv, x, sq, alive, n, plan)),
              lambda: as_hits(fs.flat_prefloor_plain(qv, x, sq, alive, n, plan)),
-             reps=5, plain_reps=2, main=bv == b, bnd=bnd)
+             reps=5, plain_reps=2, main=bv == b, bnd=bnd,
+             lib=(lambda: torch.topk(sampled_sc, plan.c, dim=1)) if bv == b else None)
+        del sampled_sc
     for name, qv, xv, k, bf in (("100k_np96_b1024_k1000", q5, x2, 1000, False),
                                 ("bf16_100k_np96_b256_k512", q3, x2_16, 512, True),
                                 ("bf16_100k_np96_b256_k64", q3, x2_16, 64, True)):
@@ -1027,13 +1061,19 @@ def phase_kernels(dev) -> dict:
         main = tc or not bf
         if main:
             rec[kind]["bound"] = bnd
+        # the library call: torch.topk at k = c over the sampled rows' scores
+        # (the first plan.sample rows of each segment, alive, in any list)
+        local = torch.arange(n2, device=dev) - lay2[1][lay2[0].long()]
+        taken = ((local % seg) < plan.sample) & alive2
+        sampled_sc = scores[:, taken].contiguous() if main else None
         case(kind, f"list_first_pass_{name}_c{plan.c}_g{plan.g}_rows{plan.sample}",
              lambda: as_hits(fs.entry_of(fs.list_prefloor(
                  qv, xv, sq2, alive2, lay2[1], lay2[2], pv_, kp2, k, False, lay2[3])[0])[0]),
              lambda: as_hits(fs.entry_of(fs.list_prefloor_plain(
                  scores, alive2, lay2[0], lay2[1], lay2[2], pv_, seg, plan))[0]),
-             reps=5, plain_reps=1, main=main, bnd=bnd)
-        del scores
+             reps=5, plain_reps=1, main=main, bnd=bnd,
+             lib=(lambda: torch.topk(sampled_sc, plan.c, dim=1)) if main else None)
+        del scores, sampled_sc
     del x16, x2_16
     # the floor select alone: the flat first pass's [1024, 33] published
     # scores (g 28), and the list scan's 96 slot keys a query (g 72); the
@@ -1059,9 +1099,51 @@ def phase_kernels(dev) -> dict:
          lib=lambda: as_hits(fs.entry_of(fs._unsigned_order(torch.kthvalue(
              fs._unsigned_order(keys5).view(b, 96), 96 - 72 + 1, dim=1).values))[0]))
 
+    # the probe inversion alone (csrc/invert_probes.cu) against its plain
+    # version (the torch invert_probes) on the same probes: every table
+    # bit-equal, at the list-scan calls' shapes: the slice's b1024 np3 (kp
+    # 1000, the CUDA-core segment), the serving b1, the IVF hybrid's b256
+    # np96 (kp 100, the tensor-core segment) and phase 5's b4096 np96
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def inversion_case(name, probe, lay_i, kp_i, seg_i, main=False):
+        _, _, lens_i, ml_i = lay_i
+        n_i = lay_i[0].shape[0]
+        kern = lambda: fs.invert_probes(probe, lens_i, kp_i, ml_i, seg_i, n_i)
+        plain = lambda: fs.invert_probes_plain(probe, lens_i, kp_i, ml_i, seg_i, n_i)
+        got, want = kern(), plain()
+        for table in ("pairs", "cstart", "ccnt", "item_end", "item_c", "slot_end"):
+            require(torch.equal(getattr(got, table), getattr(want, table)),
+                    f"inversion {name}: {table} differs from the plain version's")
+        ms, pms = cuda_ms(kern, 20), cuda_ms(plain, 10)
+        split = device_split(kern)
+        pairs = probe.numel()
+        # probe and lens read once; pairs, slot_end, three [kp] tables and
+        # item_c written once
+        bnd = bound(pairs * probe.element_size() + kp_i * 4 + 2 * pairs * 4 + 3 * kp_i * 4
+                    + got.grid * 4, 0.0)
+        if main:
+            rec["invert_probes"].update(ms=ms, plain_ms=pms, composition_ms=None,
+                                        library_ms=None, device_ms=split.get("device_ms"),
+                                        bound=bnd)
+        cells.append(f"{name}:{ms:.3f}ms/plain {pms:.3f}ms/err 0/ties 0/bound "
+                     f"{bnd[0]:.2e}ms {bnd[1]}/device {split.get('device_ms', 0.0):.4f}ms"
+                     f"/grid {got.grid} seg {seg_i}")
+
+    inversion_case("invert_1M_nlist1000_np3_b1024", p_main, lay, kp,
+                   fs.list_plan(K, fs.LIST_IVF, False, b, 3, kp, lay[3], d, sms).seg,
+                   main=True)
+    inversion_case("invert_1M_nlist1000_np3_b1", p_main[:1].contiguous(), lay, kp,
+                   fs.list_plan(K, fs.LIST_IVF, False, 1, 3, kp, lay[3], d, sms).seg)
+    inversion_case("invert_100k_nlist100_np96_b256_tc", p3, lay2, kp2,
+                   fs.list_plan(64, fs.LIST_BF16, False, 256, 96, kp2, lay2[3], d, sms).seg)
+    # (its own generator: the later cases' inputs stay as they were)
+    p6 = probes(b2, kp2, 96, torch.Generator(device=dev).manual_seed(96), dev)
+    inversion_case("invert_100k_nlist100_np96_b4096", p6, lay2, kp2,
+                   fs.list_plan(K, fs.LIST_IVF, False, b2, 96, kp2, lay2[3], d, sms).seg)
+
     # the merge alone, on partials of the slice's shape: each query's slots
     # (its lists' segments) from the list scan's inversion of the main probes
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     seg = fs.list_seg(b, 3, kp, lay[3], sms)
     qend = fs.invert_probes(p_main, lay[2], kp, lay[3], seg, n).slot_end
     lists = int(qend[-1, -1])
@@ -1210,8 +1292,11 @@ def phase_slice(dev, counts_before, data) -> dict:
         tdev["offsets"], tdev["lens"], probe, kp, K, max_len=tdev["l_pad"]), 10)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     seg = fs.list_seg(1024, 3, kp, tdev["l_pad"], sms)
-    invert_ms = cuda_ms(lambda: fs.invert_probes(probe, tdev["lens"], kp, tdev["l_pad"],
-                                                 seg, tdev["xperm"].shape[0]), 10)
+    with uncounted():   # the inversion alone is not the path's work
+        invert_ms = cuda_ms(lambda: fs.invert_probes(probe, tdev["lens"], kp, tdev["l_pad"],
+                                                     seg, tdev["xperm"].shape[0]), 10)
+    invert_plain_ms = cuda_ms(lambda: fs.invert_probes_plain(
+        probe, tdev["lens"], kp, tdev["l_pad"], seg, tdev["xperm"].shape[0]), 10)
     trace = device_shares(lambda: ix.device_search(q_dev[0], K), 40)
     t0 = time.perf_counter()
     ix.resolve_rows(rows.cpu().numpy())
@@ -1221,7 +1306,8 @@ def phase_slice(dev, counts_before, data) -> dict:
         recall_device_search=r_device, **srv,
         search_batch_b1024_ms=round(search_batch_ms, 1),
         rank_probes_ms=round(rank_ms, 3), scan_plus_merge_ms=round(scan_ms, 3),
-        inversion_ms=round(invert_ms, 3), trace_40_b1024=repr(trace),
+        inversion_ms=round(invert_ms, 3), inversion_plain_ms=round(invert_plain_ms, 3),
+        trace_40_b1024=repr(trace),
         resolve_rows_ms=round(resolve_ms, 2),
         ivf_launches=fs.LAUNCHES["ivf_scan"] - counts_before["ivf_scan"])
     return srv
@@ -1710,11 +1796,52 @@ def phase_hnsw_native(dev, smi, keep: dict) -> None:
         require(rec >= gate, f"{name} recall@10 {rec} < {gate}")
         q_dev = [torch.from_numpy(queries[i * 64:(i + 1) * 64]).to(dev) for i in range(4)]
         srv = serve(ix, q_dev, iters=100)
+        extra = {}
         if name == "hnsw100k_clustered":
             keep["hnsw100k"] = (ix, queries, truth)
+            extra = hnsw_bf16_beam_vs_jax(dev, ix, queries, truth, rec)
         say("15 hnsw native", cell=name, n=len(base), build_s=round(build_s, 2),
             recall=rec, gate=gate, recall_ref=rec_ref, top_level=ix._top_level,
-            batch_ms=round(64e3 / srv["qps"], 3), **srv, card=repr(smi))
+            batch_ms=round(64e3 / srv["qps"], 3), **srv, **extra, card=repr(smi))
+
+
+def graph_hash(ix) -> dict:
+    """SHA-256 of an HNSW graph as the index holds it on the host: layer 0's
+    adjacency [n, 2m] int32, and the whole graph (levels, layer 0, the
+    upper layers [L, n, m], entry row and top level), as
+    scripts/torch_hnsw_bf16_gap.py computes it for both packages."""
+    n = ix._count
+    adj0 = np.ascontiguousarray(ix._adj0[:n], dtype=np.int32)
+    up = np.ascontiguousarray(np.stack([a[:n] for a in ix._adj_up]) if ix._adj_up
+                              else np.zeros((0, n, ix.m), np.int32), dtype=np.int32)
+    whole = hashlib.sha256()
+    for part in (np.ascontiguousarray(ix._levels[:n], dtype=np.int32), adj0, up,
+                 np.array([ix._entry, ix._top_level], np.int64)):
+        whole.update(part.tobytes())
+    return {"adj0": hashlib.sha256(adj0.tobytes()).hexdigest(), "graph": whole.hexdigest()}
+
+
+def hnsw_bf16_beam_vs_jax(dev, ix, queries, truth, rec32) -> dict:
+    """hnsw100k_clustered's graph as the JAX package builds it on the CPU
+    (HNSW100K_GRAPH_SHA256), and a bf16 beam over it (the final pool
+    re-scored in fp32) held to the JAX package's bf16 beam on the CPU: its
+    recall@10 within 0.005 of HNSW_BF16_GAP_JAX's, its gap under the fp32
+    beam at most the JAX package's gap + 0.005."""
+    got = graph_hash(ix)
+    require(got == HNSW100K_GRAPH_SHA256,
+            f"hnsw100k_clustered's graph differs from the CPU build's: {got}")
+    ix16 = HnswIndex(128, "L2", device=dev, search_dtype="bfloat16")
+    ix16._restore(ix._arrays())
+    rec16 = hnsw_recall(ix16, queries, truth, 64)
+    jax16, gap = HNSW_BF16_GAP_JAX["bf16"], HNSW_BF16_GAP_JAX["gap"]
+    require(abs(rec16 - jax16) <= 0.005,
+            f"bf16 beam recall@10 {rec16} not within 0.005 of the JAX package's {jax16}")
+    require(rec32 - rec16 <= gap + 0.005,
+            f"bf16 beam {rec16} trails the fp32 beam's {rec32} by more than the JAX "
+            f"package's gap {gap} + 0.005")
+    return {"adj0_sha256": got["adj0"], "graph_sha256": got["graph"], "recall_bf16": rec16,
+            "bf16_minus_fp32": round(rec16 - rec32, 8), "recall_jax_cpu": repr(
+                HNSW_BF16_GAP_JAX)}
 
 
 def _bootstrap_stages():
@@ -1912,6 +2039,14 @@ SERVING_RECALL_JAX = {3: 0.13085, 96: 0.996}
 # CPU (256 queries for the b64 row, 1024 for b1024), phase 20's gate:
 # tests/test_torch_flat_sq8.py computes it
 SQ8_RECALL_JAX = {64: 0.989453125, 1024: 0.98720703125}
+# hnsw100k_clustered (phase 15), built by the native builder in both
+# packages on the CPU: SHA-256 of layer 0's adjacency and of the whole graph
+# (graph_hash), and the JAX package's fp32 and bf16 beams' recall@10 at ef 50
+# over phase 15's 256 queries in batches of 64, and their gap; phase 15's
+# gates. Reproduce: JAX_PLATFORMS=cpu python3 scripts/torch_hnsw_bf16_gap.py
+HNSW100K_GRAPH_SHA256 = {"adj0": "3504a472aa996d4fb50264700d604180d795f1f58b74186a59be962905150567",
+                         "graph": "d4fbb4dcc92b311887939940c8fb5759b6123d6b6fbf022c95faa9d49dee962b"}
+HNSW_BF16_GAP_JAX = {"fp32": 0.990234375, "bf16": 0.989453125, "gap": 0.00078125}
 
 
 def resp_clients(port: int, op: str, vectors: np.ndarray, requests: list, conc: int,
@@ -1959,6 +2094,38 @@ def list_scan_at_serving_sizes(dev, tdev, queries: np.ndarray, nprobe: int,
                                 f"{what} list scan b{b}")
                 err, swaps = max(err, e), swaps + sw
             out[f"b{b}"] = {"max_abs_err": err, "tie_swaps": swaps}
+    return out
+
+
+def list_vs_probe_route(dev, tail, queries: np.ndarray) -> dict:
+    """An IVF index's list-scan route (its scan_mode "dense") against its
+    probe route (plain torch, which scan_mode "auto" takes at 1M nprobe 3
+    below a few hundred queries) at the server's batch sizes b1, b8 and b64:
+    the same hits but for k-th place ties, and each route's ms a
+    device_search batch (host clock around the call and a sync, median of
+    30), by route name."""
+    out = {}
+    mode, opts = tail.scan_mode, SearchOptions(nprobe=3)
+    try:
+        for b in (1, 8, 64):
+            q = torch.from_numpy(queries[:b]).to(dev)
+            got, times = {}, {}
+            for scan_mode in ("dense", "probe"):
+                tail.scan_mode = scan_mode
+                route = tail.describe_scan(b, 3)
+                got[scan_mode] = tail.device_search(q, K, opts)
+                ms = []
+                for _ in range(30):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    tail.device_search(q, K, opts)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t1) * 1e3)
+                times[route] = round(statistics.median(ms), 4)
+            compare(got["dense"], got["probe"], f"b{b} list scan route vs probe route")
+            out[f"b{b}"] = times
+    finally:
+        tail.scan_mode = mode
     return out
 
 
@@ -2092,6 +2259,16 @@ def _resp_cells(dev, smi, data, engine, srv) -> dict:
             call()
             host.append((time.perf_counter() - t1) * 1e3)
         events_ms, device_ms = cuda_ms(call, 20), device_split(call, 20).get("device_ms", 0.0)
+        # the same call's host time by step (fs.host_split), the card synced
+        # before each call: medians of 50 calls
+        with fs.host_split() as marks:
+            for _ in range(50):
+                torch.cuda.synchronize()
+                call()
+    steps = {}
+    for step, sec in marks:
+        steps.setdefault(step, []).append(sec * 1e3)
+    host_split = {step: round(statistics.median(v), 4) for step, v in steps.items()}
     wall = []
     for i in range(50):
         t1 = time.perf_counter()
@@ -2100,6 +2277,7 @@ def _resp_cells(dev, smi, data, engine, srv) -> dict:
     say("18 resp", cell="serving_bench_100k", n=n, build_s=round(build_s, 2), route=route,
         list_scan_vs_plain=repr(plain),
         list_scan_call_host_ms_b1=round(statistics.median(host), 4),
+        list_scan_host_split_b1=repr(host_split),
         list_scan_cuda_events_ms_b1=round(events_ms, 4),
         list_scan_device_ms_b1=round(device_ms, 4),
         search_batch_b1_ms=round(statistics.median(wall), 4), card=card)
@@ -2206,6 +2384,7 @@ def _resp_cells(dev, smi, data, engine, srv) -> dict:
     require(route == "dense-pallas-win", f"1M nlist 1000 route is {route}")
     tdev = state1m.index.tail._sync()
     plain = list_scan_at_serving_sizes(dev, tdev, q1m, 3, "1M np3")
+    routes = list_vs_probe_route(dev, state1m.index.tail, q1m)
     # the smallest batch that "auto" would send to the list scan here (the
     # JAX package's pick_scan_mode, the same rule and constants)
     npad, l_pad = tdev["xperm"].shape[0], tdev["l_pad"]
@@ -2228,7 +2407,8 @@ def _resp_cells(dev, smi, data, engine, srv) -> dict:
         p50_ms=round(cell["p50_ms"], 3), p99_ms=round(cell["p99_ms"], 3),
         avg_batch=round(cell["avg_batch"], 2), batches=cell["batches"],
         ivf_launches=cell["ivf_launches"], recall=rec, gate=0.995,
-        max_abs_err_vs_search_batch=err, list_scan_vs_plain=repr(plain), npad=npad,
+        max_abs_err_vs_search_batch=err, list_scan_vs_plain=repr(plain),
+        list_vs_probe_route_ms=repr(routes), npad=npad,
         l_pad=l_pad, auto_dense_from_batch=auto_dense, trace_512=repr(tr),
         server_median_ms=repr(server_ms), card=card)
     engine.registry.drop(t, "c1m")
@@ -3005,24 +3185,26 @@ def main() -> int:
     paths = {name: run_path(name, fn, kernels) for name, fn, kernels in (
         ("IVF-Flat", ivf_flat, ("flat_scan", "ivf_scan", "merge", "flat_scan_wide",
                                 "ivf_scan_wide", "merge_wide", "flat_scan_prefloor",
-                                "list_scan_prefloor", "floor_select")),
-        ("IVF-PQ", ivf_pq, ("sq8_scan", "ivf_scan", "merge", "sq8_scan_wide", "merge_wide")),
+                                "list_scan_prefloor", "floor_select", "invert_probes")),
+        ("IVF-PQ", ivf_pq, ("sq8_scan", "ivf_scan", "merge", "sq8_scan_wide", "merge_wide",
+                            "invert_probes")),
         ("flat bf16", lambda: phase_flat_bf16(dev, uniform), ("flat_scan_bf16", "merge")),
         ("flat hybrid", lambda: phase_flat_hybrid(dev, uniform),
          ("flat_scan_bf16", "flat_scan", "merge")),
         ("IVF-Flat hybrid", lambda: phase_ivf_hybrid(dev, uniform),
          ("ivf_scan_bf16_tc", "ivf_scan", "merge", "ivf_scan_bf16_wide", "merge_wide",
-          "list_scan_prefloor", "list_scan_prefloor_tc", "floor_select")),
+          "list_scan_prefloor", "list_scan_prefloor_tc", "floor_select", "invert_probes")),
         ("IVF-PQ bf16", lambda: phase_pq_bf16(dev, data),
-         ("ivf_scan_bf16", "merge", "ivf_scan_bf16_wide", "merge_wide")),
+         ("ivf_scan_bf16", "merge", "ivf_scan_bf16_wide", "merge_wide", "invert_probes")),
         ("flat hybrid k100", lambda: phase_flat_hybrid_k100(dev, uniform),
          ("flat_scan_bf16_wide", "merge_wide")),
-        ("IVF-Flat d768", lambda: phase_ivf_d768(dev), ("ivf_scan", "merge")),
+        ("IVF-Flat d768", lambda: phase_ivf_d768(dev), ("ivf_scan", "merge", "invert_probes")),
         ("HNSW native", lambda: phase_hnsw_native(dev, smi, keep), ()),
         ("HNSW 1M", lambda: phase_hnsw_1m(dev, smi), ()),
-        ("Delta HNSW", lambda: phase_delta_hnsw(dev, smi), ("flat_scan", "merge")),
+        ("Delta HNSW", lambda: phase_delta_hnsw(dev, smi),
+         ("flat_scan", "merge", "invert_probes")),
         ("RESP serving", lambda: resp1m.update(phase_resp(dev, smi, data)),
-         ("ivf_scan", "merge")),
+         ("ivf_scan", "merge", "invert_probes")),
         # the server is a process of its own: its launches are not counted
         # here; the phase holds its trace to the list scan and the merge
         ("full stack", lambda: phase_stack(dev, smi, data, resp1m), ()),
@@ -3030,9 +3212,14 @@ def main() -> int:
         ("DeviceFlatIndex 10M", lambda: phase_device_flat(dev, smi),
          ("flat_scan", "flat_scan_bf16", "merge")),
         ("sharded", lambda: phase_sharded(dev, smi, data, uniform, keep.pop("hnsw100k")),
-         ("flat_scan", "ivf_scan", "merge")),
+         ("flat_scan", "ivf_scan", "merge", "invert_probes")),
     )}
     say("launches", **{name.replace(" ", "_"): repr(got) for name, got in paths.items()})
+    # every list-scan call inverts its probes with the kernel, once
+    for name, got in paths.items():
+        calls = sum(got[key] for key in LIST_SCAN_KEYS)
+        require(got["invert_probes"] == calls,
+                f"{name}: {got['invert_probes']} inversions for {calls} list-scan calls")
     launches = {name: sum(got[name] for got in paths.values()) for name in fs.LAUNCHES}
     # the list scan's bf16 mode runs without promote on the hybrid path only
     # (narrow: the tensor-core kernel and its first passes; wide: the CUDA
@@ -3090,6 +3277,9 @@ def main() -> int:
               f"{PALLAS}:1035, {PALLAS}:232, {wide}", launches["list_scan_prefloor_tc"]),
         entry("floor_select_kernel", "floor_select", PREFLOOR_SOURCE,
               f"{PALLAS}:672, {PALLAS}:1035, {wide}", launches["floor_select"]),
+        entry("invert_probes_kernel", "invert_probes", INVERT_SOURCE,
+              "pyrope_tpu/index/ivf_flat.py:224, pyrope_tpu/ops/pallas_scan.py:841",
+              launches["invert_probes"]),
     ]
     say("time", total_seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}))

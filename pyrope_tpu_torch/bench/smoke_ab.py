@@ -1,7 +1,7 @@
 """Run phases of two or more checkouts' ``chip_smoke.py`` on one GPU, in turns.
 
     python3 -m pyrope_tpu_torch.bench.smoke_ab --tree build/parent --tree . \\
-        [--order ABBA] [--phases 3,11|16] [--out build/smoke_ab.json]
+        [--order ABBA] [--phases 3,4,11,16,18] [--out build/smoke_ab.json]
 
 Each tree is a directory holding ``chip_smoke.py`` and its
 ``pyrope_tpu_torch`` package (``git archive`` of a commit, or the repo
@@ -10,7 +10,11 @@ root). For every turn of ``--order`` (A = the first tree, B = the second,
 and runs the phases asked for, each tree's own code on the same seeded
 inputs: phase 3 (``phase_kernels``: every kernel against its plain version
 at the main paths' shapes, with its wrapper, device, plain, composition and
-library times), phase 11 (``phase_ivf_hybrid``: the IVF hybrid cells'
+library times), phase 4 (``phase_slice``: the 1M clustered IVF-Flat
+slice, its per-layer times and the trace of 40 b1024 batches, idle share
+included), phase 18 (``phase_resp``: the RESP cells, with the list scan's
+host time at b1), both on phase 4's corpus (``clustered_1m``, made once a
+turn), phase 11 (``phase_ivf_hybrid``: the IVF hybrid cells'
 b256 batches, on phase 11's uniform 1M rows) and phase 16
 (``phase_hnsw_1m``: the bootstrap build of the 1M x 128 clustered graph,
 recall at ef 50 and 200, the beam's batch times at b1, b8, b64 and b256,
@@ -19,8 +23,8 @@ wrappers differ, where ``scan_ab`` needs the same ones.
 
 Prints each turn's phase lines as they come and writes, per turn, the card
 and its power limit, the phase lines, phase 3's cells (name -> the fields of
-its ``ms/plain/err/...`` record) and phase 11's and 16's fields to
-``--out``.
+its ``ms/plain/err/...`` record), phase 11's and 16's fields and phase
+4's and 18's lines to ``--out``.
 """
 
 from __future__ import annotations
@@ -44,16 +48,23 @@ torch.cuda.set_device(dev)
 smi = cs.phase_device()
 cs.kbuild.build()
 cs.kbuild.load()
+data = None
 for phase in sys.argv[1].split(","):
+    if phase in ("4", "18") and data is None:
+        data = cs.clustered_1m()
     t0 = time.perf_counter()
     if phase == "3":
         cs.phase_kernels(dev)
+    elif phase == "4":
+        cs.phase_slice(dev, dict(cs.fs.LAUNCHES), data)
+    elif phase == "18":
+        cs.phase_resp(dev, smi, data)
     elif phase == "11":
         cs.phase_ivf_hybrid(dev, cs.uniform_1m())
     elif phase == "16":
         cs.phase_hnsw_1m(dev, smi)
     else:
-        raise SystemExit(f"smoke_ab runs phases 3, 11 and 16, not {phase}")
+        raise SystemExit(f"smoke_ab runs phases 3, 4, 11, 16 and 18, not {phase}")
     cs.say("time", step=f"phase_{phase}", seconds=round(time.perf_counter() - t0, 1))
 """
 
@@ -120,6 +131,8 @@ def main() -> int:
                 rec["hybrid"] = _fields(ln)
             elif ln.startswith("[16 hnsw 1m]"):
                 rec["hnsw"] = _fields(ln)
+            elif ln.startswith(("[4 slice]", "[18 resp]")):
+                rec.setdefault("phase_lines", []).append(ln)
         records.append(rec)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(records, indent=1))

@@ -548,10 +548,10 @@ class IvfFlatIndex(VectorIndex, CentroidsProvider):
                 "selection='pallas' requires the fused dense kernel but the "
                 f"scan resolved to {path!r} (needs dense mode, L2/IP, fp32 "
                 "compute)")
-        probe, offs_p, eff = rank_probes(
-            q, dev["cents"], dev["cvalid"], dev["offsets"], dev["lens"],
-            nprobe, ms, self.metric, self.compute_dtype,
-        )
+        probe = top_probes(q, dev["cents"], dev["cvalid"], nprobe, self.metric,
+                           self.compute_dtype)
+        if path in ("probe", "dense-xla"):   # the routes that read the extents
+            offs_p, eff = probe_extents(probe, dev["offsets"], dev["lens"], ms)
         kpad = dev["cents"].shape[0]
         if path.endswith("-hybrid"):
             _, rows = fused_ivf_topk(

@@ -65,8 +65,9 @@ from pyrope_tpu_torch.index.ivf_flat import (
     dense_probe_mask,
     pallas_dense_ok,
     pick_scan_mode,
-    rank_probes,
+    probe_extents,
     slab_pad,
+    top_probes,
 )
 from pyrope_tpu_torch.ops.distance import (
     check_fp32_exact,
@@ -537,10 +538,9 @@ class IvfPqIndex(VectorIndex, CentroidsProvider):
         probe_metric = Metric.L2 if self.metric == Metric.COSINE else self.metric
         path = self._resolve_scan(dev, batch, nprobe, ms, top_k)
         check_fp32_exact(q)
-        probe, offs_p, eff = rank_probes(
-            q, dev["cents"], dev["cvalid"], dev["offsets"], dev["lens"],
-            nprobe, ms, probe_metric,
-        )
+        probe = top_probes(q, dev["cents"], dev["cvalid"], nprobe, probe_metric)
+        if "-pallas" not in path:   # the list scan's routes read no extents
+            offs_p, eff = probe_extents(probe, dev["offsets"], dev["lens"], ms)
         kpad = dev["cents"].shape[0]
         if path.startswith("dense-sq8-pallas"):
             qc = q @ dev["cents"].T

@@ -90,6 +90,15 @@ _SIGNATURES = {
     "pyrope_floor_select_flat": (_I, [_P, _I, _I, _I, _P, _P]),
     # keys [nslots] u64, nslots, qend [B, P], B, P, g, base [B], out [B], stream
     "pyrope_floor_select_list": (_I, [_P, _I, _P, _I, _I, _I, _P, _P, _P]),
+    # B, kp: the inversion's scratch bytes
+    "pyrope_invert_scratch_bytes": (ctypes.c_longlong, [_I, _I]),
+    # probe, probe is int64, lens, B, P, kp, seg, chunk, grid, then pairs,
+    # cstart, ccnt, item_end, item_c, slot_end, scratch, keys (zeroed),
+    # n_keys, stream
+    "pyrope_invert_probes": (
+        _I, [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+             ctypes.c_longlong, _P],
+    ),
 }
 
 

@@ -70,10 +70,12 @@ to ``LAUNCHES``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import numbers
 import threading
+import time
 
 import torch
 
@@ -145,7 +147,8 @@ LAUNCHES = {"flat_scan": 0, "flat_scan_bf16": 0, "ivf_scan": 0, "ivf_scan_bf16":
             "ivf_scan_bf16_tc": 0, "sq8_scan": 0, "merge": 0, "flat_scan_wide": 0,
             "flat_scan_bf16_wide": 0, "ivf_scan_wide": 0, "ivf_scan_bf16_wide": 0,
             "sq8_scan_wide": 0, "merge_wide": 0, "flat_scan_prefloor": 0,
-            "list_scan_prefloor": 0, "list_scan_prefloor_tc": 0, "floor_select": 0}
+            "list_scan_prefloor": 0, "list_scan_prefloor_tc": 0, "floor_select": 0,
+            "invert_probes": 0}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -161,6 +164,36 @@ def reset_launches() -> None:
     with _LAUNCH_LOCK:
         for key in LAUNCHES:
             LAUNCHES[key] = 0
+
+
+# the list-scan wrapper's host steps, recorded while host_split() runs in
+# this thread: (step, perf_counter) marks, each at the end of its step
+_SPLIT = threading.local()
+
+
+def _mark(step: str) -> None:
+    marks = getattr(_SPLIT, "marks", None)
+    if marks is not None:
+        marks.append((step, time.perf_counter()))
+
+
+@contextlib.contextmanager
+def host_split():
+    """Record the host time of each step of the list-scan calls this thread
+    makes inside: yields a list that takes (step, seconds) pairs, call by
+    call (``checks``, ``plan``, ``alloc``, ``invert``, ``first_pass``,
+    ``scan``, ``merge``), each the host time from the step before, the
+    first from the wrapper's entry. No device sync: what each step costs to
+    enqueue."""
+    marks, out = [], []
+    _SPLIT.marks = marks
+    try:
+        yield out
+    finally:
+        _SPLIT.marks = None
+        for (_, t0), (step, t1) in zip(marks, marks[1:]):
+            if step != "start":
+                out.append((step, t1 - t0))
 
 
 # ---- plain PyTorch versions -------------------------------------------------
@@ -727,12 +760,22 @@ def floor_select(pub, g: int, qend=None, base=None, out=None):
             raise ValueError("keys int64, qend int32 [B, P], base int64 [B], contiguous")
         if out is None:
             out = torch.empty(b, dtype=torch.int64, device=pub.device)
-        check(load().pyrope_floor_select_list(
-            pub.data_ptr(), pub.shape[0], qend.data_ptr(), b, p, g,
-            None if base is None else base.data_ptr(), out.data_ptr(), stream),
-            "floor select")
+        _floor_select_list_launch(load(), pub.data_ptr(), pub.shape[0], qend.data_ptr(), b,
+                                  p, g, None if base is None else base.data_ptr(),
+                                  out.data_ptr(), stream)
+        return out
     count_launch("floor_select")
     return out
+
+
+def _floor_select_list_launch(lib, keys, nslots, qend, b, p, g, base, out, stream) -> None:
+    """The list form of the floor select kernel on addresses (``keys``
+    [nslots], ``qend`` [B, P], ``base`` [B] or None, ``out`` [B]), counted."""
+    from pyrope_tpu_torch.kernels.build import check
+
+    check(lib.pyrope_floor_select_list(keys, nslots, qend, b, p, g, base, out, stream),
+          "floor select")
+    count_launch("floor_select")
 
 
 def split_floor_plain(scores, ok, plan: FlatPrefloor):
@@ -1078,17 +1121,12 @@ def list_plan(k: int, mode: int, promote: bool, b: int, nprobe: int, kp: int,
                     key + ("_wide" if k > NARROW_MAX_K else ""))
 
 
-def invert_probes(probe: torch.Tensor, lens: torch.Tensor, kp: int, max_len: int,
-                  seg: int, n_rows: int, chunk: int = QUERY_TILE) -> ListWork:
-    """Group the (query, probe position) pairs of ``probe`` [B, P] by
-    cluster and lay out the list scan's items: item = (cluster, chunk of <=
-    ``chunk`` of its queries, segment of <= ``seg`` of its ``lens`` rows).
-    Pair j = b·P + p gets one partial slot per segment of its list, the
-    slot_end[j] - segments(j) .. slot_end[j] before it; a query's slots are
-    contiguous, so the merge reads only the lists its probes have.
-    ``max_len`` >= every list length; the lists cover at most ``n_rows``
-    rows. Device-side torch throughout, in few launches: on the card each
-    costs more host time than device time."""
+def invert_probes_plain(probe: torch.Tensor, lens: torch.Tensor, kp: int, max_len: int,
+                        seg: int, n_rows: int, chunk: int = QUERY_TILE) -> ListWork:
+    """Plain version of ``invert_probes``: the same tables, in some twenty
+    small torch launches (a sort, two searchsorted, cumsums, a take). The
+    CPU path and the CPU emulation of the list scan use it; on the card it
+    is only the kernel's yardstick."""
     b, nprobe = probe.shape
     dev = probe.device
     grid, segs = list_grid(b, nprobe, kp, max_len, seg, chunk)
@@ -1109,6 +1147,121 @@ def invert_probes(probe: torch.Tensor, lens: torch.Tensor, kp: int, max_len: int
                     list_slots(b, nprobe, segs, seg, n_rows))
 
 
+INVERT_TILE = 64   # IT_TILE of invert_probes.cu: queries a block, one mask bit each
+_TABLES = ("pairs", "cstart", "ccnt", "item_end", "item_c", "slot_end")
+
+
+def invert_scratch_bytes(b: int, kp: int) -> int:
+    """Scratch of the inversion kernel, as ``pyrope_invert_scratch_bytes``
+    of invert_probes.cu computes it: a 64-bit mask word, a 32-bit base a
+    (query tile, cluster) and a 64-bit segment sum a tile, each region
+    rounded up to 16 bytes."""
+    t = -(-b // INVERT_TILE)
+    return _round16(8 * t * kp) + _round16(4 * t * kp) + _round16(8 * t)
+
+
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def _table_sizes(b: int, nprobe: int, kp: int, grid: int) -> tuple[tuple[str, int], ...]:
+    """The inversion's pieces of a buffer: its tables and scratch, in int32
+    elements."""
+    pairs = b * nprobe
+    return (("pairs", pairs), ("cstart", kp), ("ccnt", kp), ("item_end", kp),
+            ("item_c", grid), ("slot_end", pairs),
+            ("scratch", invert_scratch_bytes(b, kp) // 4))
+
+
+def layout(pieces) -> tuple[dict, int]:
+    """``pieces`` ((name, int32 elements), in order) laid end to end in one
+    buffer, each starting on a 16-byte boundary: (name -> (first element,
+    elements)), and the elements in all."""
+    at, out = 0, {}
+    for name, n in pieces:
+        out[name] = (at, n)
+        at += n + -n % 4
+    return out, at
+
+
+class _CarvedWork:
+    """``ListWork`` over a call's one buffer (``buf``, int32, cut by
+    ``layout``'s ``spans``): one allocation from the stream-ordered caching
+    allocator a call, never kept across calls (two micro-batches may be in
+    flight). The pieces' addresses (``ptr``) come without a tensor each, and
+    a table's view is made when it is first read (the merge reads slot_end;
+    tests and the CPU path the rest)."""
+
+    def __init__(self, buf: torch.Tensor, spans: dict, b: int, nprobe: int, segs: int,
+                 grid: int, slots: int):
+        self._buf, self._spans, self._base = buf, spans, buf.data_ptr()
+        self._shape = (b, nprobe)
+        self.segs, self.grid, self.slots = segs, grid, slots
+
+    def ptr(self, name: str) -> int:
+        return self._base + 4 * self._spans[name][0]
+
+    def __getattr__(self, name: str) -> torch.Tensor:
+        if name not in _TABLES:
+            raise AttributeError(name)
+        t = self._buf.narrow(0, *self._spans[name])
+        if name == "slot_end":
+            t = t.view(self._shape)
+        self.__dict__[name] = t
+        return t
+
+
+def _invert_launch(lib, probe, lens, kp, seg, chunk, grid, ptr, keys, n_keys,
+                   stream) -> None:
+    """One call of the inversion kernel (its two launches) into the tables
+    at ``ptr(name)`` (pairs .. slot_end, scratch), zeroing ``n_keys`` 64-bit
+    keys at address ``keys`` (None: none)."""
+    from pyrope_tpu_torch.kernels.build import check
+
+    b, nprobe = probe.shape
+    if not probe.is_contiguous():
+        probe = probe.contiguous()
+    if probe.dtype not in (torch.int64, torch.int32):
+        probe = probe.long()
+    if b * nprobe >= 2**31:
+        raise ValueError(f"the inversion takes B·P < 2^31 pairs, got {b * nprobe}")
+    check(lib.pyrope_invert_probes(
+        probe.data_ptr(), int(probe.dtype == torch.int64), lens.data_ptr(), b, nprobe, kp,
+        seg, chunk, grid, ptr("pairs"), ptr("cstart"), ptr("ccnt"), ptr("item_end"),
+        ptr("item_c"), ptr("slot_end"), ptr("scratch"), keys, n_keys, stream),
+        "probe inversion kernel")
+    count_launch("invert_probes")
+
+
+def invert_probes(probe: torch.Tensor, lens: torch.Tensor, kp: int, max_len: int,
+                  seg: int, n_rows: int, chunk: int = QUERY_TILE) -> ListWork:
+    """Group the (query, probe position) pairs of ``probe`` [B, P] by
+    cluster and lay out the list scan's items: item = (cluster, chunk of <=
+    ``chunk`` of its queries, segment of <= ``seg`` of its ``lens`` rows).
+    Pair j = b·P + p gets one partial slot per segment of its list, the
+    slot_end[j] - segments(j) .. slot_end[j] before it; a query's slots are
+    contiguous, so the merge reads only the lists its probes have.
+    ``max_len`` >= every list length; the lists cover at most ``n_rows``
+    rows. On CUDA tensors the inversion kernel (csrc/invert_probes.cu, two
+    launches, no host sync) into one allocation; on CPU ones the plain
+    version."""
+    if probe.device.type == "cpu":
+        return invert_probes_plain(probe, lens, kp, max_len, seg, n_rows, chunk)
+    from pyrope_tpu_torch.kernels.build import load
+
+    b, nprobe = probe.shape
+    grid, segs = list_grid(b, nprobe, kp, max_len, seg, chunk)
+    if lens.dtype != torch.int32 or lens.shape != (kp,) or lens.device != probe.device:
+        raise ValueError(f"lens must be int32 [kp] = [{kp}] on the probes' device")
+    spans, total = layout(_table_sizes(b, nprobe, kp, grid))
+    buf = torch.empty(total, dtype=torch.int32, device=probe.device)
+    work = _CarvedWork(buf, spans, b, nprobe, segs, grid,
+                       list_slots(b, nprobe, segs, seg, n_rows))
+    _invert_launch(load(), probe, lens, kp, seg, chunk, grid, work.ptr, None, 0,
+                   torch.cuda.current_stream(probe.device).cuda_stream)
+    return work
+
+
 def _check_lists(q, probe, offsets, lens, kp, max_len):
     if probe.dim() != 2 or probe.shape[0] != q.shape[0] or probe.device != q.device:
         raise ValueError("probe must be [B, nprobe] on the queries' device")
@@ -1123,7 +1276,7 @@ def _check_list_preconditions(probe, lens, max_len):
     """What the list scan relies on: a probe row names distinct clusters,
     and ``max_len`` >= every lens[c]. Checked on the CPU path only: on the
     card a check would sync the host, and there a violation gives wrong
-    hits (the kernel never writes out of bounds)."""
+    hits (the kernels never write out of bounds)."""
     if lens.numel() and int(lens.max()) > max_len:
         raise ValueError(f"max_len {max_len} is below the longest list, {int(lens.max())}")
     ranked = probe.sort(dim=1).values
@@ -1139,7 +1292,10 @@ def _launch_list(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
         return _empty_hits(b, k, q.device)
     part_v, part_i, slot_end = list_partials(q, slab, sqnorm, alive, offsets, lens, probe,
                                              kp, k, metric_ip, max_len, sq8, promote)
-    return merge_partials(part_v, part_i, slot_end, k)
+    slots, width = part_v.shape   # the call's own partials: merge_partials' checks hold
+    out = _merge_launch(part_v, part_i, slots, b, k, slot_end, probe.shape[1], 0, width, width)
+    _mark("merge")
+    return out
 
 
 def list_partials(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
@@ -1155,22 +1311,18 @@ def list_partials(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip
     modes, and the tensor-core kernel)."""
     job = _ListJob(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
                    max_len, sq8, promote)
-    b, w, kw = q.shape[0], job.work, job.plan.kw
-    # every slot below slot_end[-1, -1] is written by the one item covering it
-    part_v = torch.empty((w.slots, kw), dtype=torch.float32, device=q.device)
-    part_i = torch.empty((w.slots, kw), dtype=torch.int32, device=q.device)
-    # the slots' published keys, then the queries' floor keys; 0: none yet
-    # (and the first pass's own, in the same memset)
-    plan = job.prefloor()
-    keys = torch.zeros((1 if plan is None else 2) * (w.slots + b), dtype=torch.int64,
-                       device=q.device)
-    pub = keys[:w.slots + b]
-    if plan is not None:
-        job.first_pass(plan, keys[w.slots + b:], out=pub[w.slots:])
-    pub_c, pub_g = list_floor(k, job.nprobe, kw)
-    job.launch(k, kw, part_v, part_i, pub, pub_c, pub_g, job.plan.seg)
-    count_launch(job.plan.key)
-    return part_v, part_i, w.slot_end
+    call, w = job.call, job.work
+    # every slot below slot_end[-1, -1] is written by the one item covering
+    # it; the slots' published keys, then the queries' floor keys, are 0
+    # (none yet) from the inversion, and so are the first pass's own
+    if call.prefloor is not None:   # its floors are the main pass's queries' keys
+        job.first_pass(call.prefloor, into_pub=True)
+    _mark("first_pass")
+    job.launch(k, call.plan.kw, job.part_v, job.part_i, job.keys_ptr, call.pub_c,
+               call.pub_g, call.plan.seg)
+    count_launch(call.plan.key)
+    _mark("scan")
+    return job.part_v, job.part_i, w.slot_end
 
 
 def list_prefloor(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
@@ -1183,8 +1335,7 @@ def list_prefloor(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip
     plan = job.prefloor()
     if plan is None:
         return None, None
-    first = torch.zeros(job.work.slots + q.shape[0], dtype=torch.int64, device=q.device)
-    return job.first_pass(plan, first), plan
+    return job.first_pass(plan), plan
 
 
 def list_prefloor_plain(scores, alive, crow, offsets, lens, probe, seg, plan: ListPrefloor):
@@ -1230,15 +1381,77 @@ def _check_smem(lib, plan: ListPlan, k: int, d: int) -> None:
     _SMEM_CHECKED.add(key)
 
 
+@dataclasses.dataclass(frozen=True)
+class ListCall:
+    """A list-scan call's host plan, from shapes alone: the kernel and its
+    segment (``list_plan``), the first pass (``list_prefloor_plan``, or
+    None), the floor's (c, g) (``list_floor``), the grid, segments and
+    slots (``list_grid``, ``list_slots``), and the pieces of the call's one
+    buffer ((name, int32 elements): partials, keys, the inversion's tables
+    and scratch)."""
+
+    plan: ListPlan
+    prefloor: ListPrefloor | None
+    pub_c: int
+    pub_g: int
+    grid: int
+    segs: int
+    slots: int
+    pieces: tuple
+    spans: dict    # ``layout(pieces)``: name -> (first int32 element, elements)
+    total: int     # int32 elements of the buffer
+
+
+def _list_call(k, mode, promote, b, nprobe, kp, max_len, d, n_rows, sms) -> ListCall:
+    plan = list_plan(k, mode, promote, b, nprobe, kp, max_len, d, sms)
+    grid, segs = list_grid(b, nprobe, kp, max_len, plan.seg)
+    slots = list_slots(b, nprobe, segs, plan.seg, n_rows)
+    prefloor = list_prefloor_plan(k, nprobe, plan.kw, plan.seg, n_rows / max(kp, 1),
+                                  plan.tc)
+    # the keys, in int32 elements: a 64-bit key a slot, then a query; twice
+    # with a first pass (its own, after the main pass's)
+    keys = 2 * (slots + b) * (1 if prefloor is None else 2)
+    pieces = (("part_v", slots * plan.kw), ("part_i", slots * plan.kw), ("keys", keys),
+              *_table_sizes(b, nprobe, kp, grid))
+    return ListCall(plan, prefloor, *list_floor(k, nprobe, plan.kw), grid, segs, slots,
+                    pieces, *layout(pieces))
+
+
+_CALLS: dict = {}
+_CALLS_LOCK = threading.Lock()
+_CALLS_MAX = 4096   # distinct shapes kept; the cache starts over past it
+
+
+def list_call(k: int, mode: int, promote: bool, b: int, nprobe: int, kp: int,
+              max_len: int, d: int, n_rows: int, sms: int) -> ListCall:
+    """``ListCall`` of these shapes, computed once for each in a process.
+    Servers search from several threads: a reader takes the dict's entry
+    as it is (entries are frozen and never change), and writers insert
+    under a lock; two threads that miss together compute the same plan."""
+    key = (k, mode, bool(promote), b, nprobe, kp, max_len, d, n_rows, sms)
+    call = _CALLS.get(key)
+    if call is None:
+        call = _list_call(*key)
+        with _CALLS_LOCK:
+            if len(_CALLS) >= _CALLS_MAX:
+                _CALLS.clear()
+            _CALLS[key] = call
+    return call
+
+
 class _ListJob:
-    """A list-scan call's layout, from shapes and the probes: its plan
-    (``list_plan``: the kernel, segment and slot width), the inverted probes
-    and its launches. What depends only on the process, the device or (k,
-    mode) is cached: the library (``load``), the SM count (``device_sms``)
-    and the shared-memory cross-check (``_check_smem``). The CUDA-core
-    kernel's BF16 mode without promote (the wide mode) reads q rounded to
-    bf16 and ‖q‖² of the fp32 q (``qsq``); the tensor-core kernel rounds and
-    sums them itself."""
+    """A list-scan call: its plan (``list_call``, cached by shapes: the
+    kernel, segment, slot width, first pass, floor, grid and the buffer's
+    layout), its one buffer (partials, published keys, the inversion's
+    tables and scratch, addressed by offset; a view is made only where a
+    tensor is read), the inverted probes and its launches. What depends
+    only on the process or the device is cached too: the library
+    (``load``), the SM count (``device_sms``) and the shared-memory
+    cross-check (``_check_smem``). On CUDA tensors the inversion kernel
+    fills the tables and zeroes the keys; on CPU ones (the wrapper's tests)
+    the plain version is copied in. The CUDA-core kernel's BF16 mode without
+    promote (the wide mode) reads q rounded to bf16 and ‖q‖² of the fp32 q
+    (``qsq``); the tensor-core kernel rounds and sums them itself."""
 
     def __init__(self, q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
                  max_len, sq8, promote):
@@ -1247,47 +1460,102 @@ class _ListJob:
         self.lib = load()
         mode = (LIST_SQ8 if sq8 is not None
                 else LIST_BF16 if slab.dtype == torch.bfloat16 else LIST_IVF)
-        b, d = q.shape
+        self.b, d = q.shape
+        dev = q.device
         self.nprobe = probe.shape[1]
-        self.plan = list_plan(k, mode, promote, b, self.nprobe, kp, max_len, d,
-                              device_sms(q.device))
+        self.call = call = list_call(k, mode, promote, self.b, self.nprobe, kp, max_len, d,
+                                     slab.shape[0], device_sms(dev))
+        self.plan = call.plan
         _check_smem(self.lib, self.plan, k, d)
-        self.work = invert_probes(probe, lens, kp, max_len, self.plan.seg, slab.shape[0])
-        self.k, self.qsq = k, None
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+        _mark("plan")
+        buf = torch.empty(call.total, dtype=torch.int32, device=dev)
+        spans, kw = call.spans, call.plan.kw
+        self.part_v = buf.narrow(0, *spans["part_v"]).view(torch.float32).view(call.slots, kw)
+        self.part_i = buf.narrow(0, *spans["part_i"]).view(call.slots, kw)
+        self._keys = buf.narrow(0, *spans["keys"])
+        self.work = _CarvedWork(buf, spans, self.b, self.nprobe, call.segs, call.grid,
+                                call.slots)
+        self.keys_ptr = self.work.ptr("keys")
+        _mark("alloc")
+        if dev.type == "cpu":
+            plain = invert_probes_plain(probe, lens, kp, max_len, call.plan.seg,
+                                        slab.shape[0])
+            for name in _TABLES:
+                getattr(self.work, name).copy_(getattr(plain, name))
+            self._keys.zero_()
+        else:
+            _invert_launch(self.lib, probe, lens, kp, call.plan.seg, QUERY_TILE, call.grid,
+                           self.work.ptr, self.keys_ptr, spans["keys"][1] // 2, self.stream)
+        _mark("invert")
+        self.qsq = None
         if mode == LIST_BF16 and not promote and not self.plan.tc:
             q, self.qsq = _bf16_query(q)
-        self.rows_per_list = slab.shape[0] / max(kp, 1)
         self.args = (q, slab, sqnorm, alive, offsets, lens, kp, metric_ip, sq8)
+        _mark("q_bf16")
+
+    @property
+    def pub(self) -> torch.Tensor:
+        """The main pass's keys: [slots] published, then [B] floors."""
+        return self._keys.view(torch.int64).narrow(0, 0, self.call.slots + self.b)
+
+    @property
+    def first(self) -> torch.Tensor | None:
+        """The first pass's own keys, as ``pub`` (None: no first pass)."""
+        n = self.call.slots + self.b
+        return (None if self.call.prefloor is None
+                else self._keys.view(torch.int64).narrow(0, n, n))
 
     def prefloor(self) -> ListPrefloor | None:
-        return list_prefloor_plan(self.k, self.nprobe, self.plan.kw, self.plan.seg,
-                                  self.rows_per_list, self.plan.tc)
+        return self.call.prefloor
 
-    def first_pass(self, plan: ListPrefloor, first: torch.Tensor,
-                   out: torch.Tensor | None = None) -> torch.Tensor:
+    def first_pass(self, plan: ListPrefloor, into_pub: bool = False) -> torch.Tensor | None:
         """The same items at k = c over each segment's sample, its slots'
-        c-th keys into ``first`` ([slots + B] int64 zeros, a pub of its
-        own); then each query's g-th largest: [B] floor keys (into ``out``
-        where given)."""
-        w = self.work
+        c-th keys into the job's first-pass keys (zeros); then each query's
+        g-th largest: [B] floor keys, a new tensor, or with ``into_pub`` the
+        main pass's query floors (None returned)."""
+        w, n = self.work, self.call.slots + self.b
+        first = self.keys_ptr + 8 * n
         # a g above the window: the first pass only publishes, it raises no
         # floor of its own (selecting g of 128 keys at each item's end cost
         # more than the rows it dropped)
         self.launch(plan.c, plan.c, None, None, first, plan.c, LIST_FLOOR_WINDOW + 1,
                     plan.sample)
         count_launch("list_scan_prefloor_tc" if self.plan.tc else "list_scan_prefloor")
-        return floor_select(first[:w.slots], plan.g, w.slot_end, first[w.slots:], out=out)
+        if self.part_v.device.type == "cpu":   # the wrapper's tests: the plain select
+            keys = self.first
+            got = floor_select_plain(keys[:w.slots], plan.g, w.slot_end, keys[w.slots:])
+            if not into_pub:
+                return got
+            self.pub[w.slots:].copy_(got)
+            return None
+        floors = None
+        if into_pub:
+            out = self.keys_ptr + 8 * w.slots
+        else:
+            floors = torch.empty(self.b, dtype=torch.int64, device=self.part_v.device)
+            out = floors.data_ptr()
+        _floor_select_list_launch(self.lib, first, w.slots, w.ptr("slot_end"), self.b,
+                                  self.nprobe, plan.g, first + 8 * w.slots, out, self.stream)
+        return floors
 
     def launch(self, k, kw, part_v, part_i, pub, pub_c, pub_g, sample) -> None:
+        """One launch of the plan's kernel; the partials and ``pub`` tensors
+        or addresses (partials None: the first pass, pub alone written)."""
         q, slab, sqnorm, alive, offsets, lens, kp, metric_ip, sq8 = self.args
         _list_scan_launch(self.lib, self.plan, q, slab, self.qsq, sqnorm, alive, offsets,
                           lens, kp, self.work, self.nprobe, k, kw, metric_ip, part_v, part_i,
-                          pub, pub_c, pub_g, sample, sq8)
+                          pub, pub_c, pub_g, sample, sq8, self.stream)
+
+
+def _addr(t) -> int | None:
+    """A tensor's address, an address as it is, or None."""
+    return t if t is None or isinstance(t, int) else t.data_ptr()
 
 
 def _list_scan_launch(lib, plan: ListPlan, q, slab, qsq, sqnorm, alive, offsets, lens, kp,
                       w, nprobe, k, kw, metric_ip, part_v, part_i, pub, pub_c, pub_g,
-                      sample, sq8) -> None:
+                      sample, sq8, stream) -> None:
     """One launch of the list scan kernel ``plan`` names (partials None: the
     first pass, pub alone written). It launches or raises."""
     from pyrope_tpu_torch.kernels.build import check
@@ -1298,13 +1566,10 @@ def _list_scan_launch(lib, plan: ListPlan, q, slab, qsq, sqnorm, alive, offsets,
     else:
         vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0
                   and slab.data_ptr() % (4 * _LIST_ELEM[plan.mode]) == 0)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptr = lambda t: None if t is None else t.data_ptr()
-    tables = (w.pairs.data_ptr(), nprobe, w.cstart.data_ptr(), w.ccnt.data_ptr(),
-              w.item_end.data_ptr(), w.item_c.data_ptr(), w.slot_end.data_ptr(),
-              offsets.data_ptr(), lens.data_ptr(), kp, w.grid, b, d, k, kw,
-              int(metric_ip), plan.seg, sample, w.slots, vec, ptr(part_v), ptr(part_i),
-              pub.data_ptr(), pub_c, pub_g, stream)
+    tables = (w.ptr("pairs"), nprobe, w.ptr("cstart"), w.ptr("ccnt"), w.ptr("item_end"),
+              w.ptr("item_c"), w.ptr("slot_end"), offsets.data_ptr(), lens.data_ptr(), kp,
+              w.grid, b, d, k, kw, int(metric_ip), plan.seg, sample, w.slots, vec,
+              _addr(part_v), _addr(part_i), _addr(pub), pub_c, pub_g, stream)
     if plan.tc:
         check(lib.pyrope_ivf_list_scan_tc(
             q.data_ptr(), slab.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(),
@@ -1317,7 +1582,7 @@ def _list_scan_launch(lib, plan: ListPlan, q, slab, qsq, sqnorm, alive, offsets,
             *tables), "IVF list scan kernel (SQ8)")
     elif plan.mode == LIST_BF16:
         check(lib.pyrope_ivf_list_scan_bf16(
-            q.data_ptr(), slab.data_ptr(), ptr(qsq), sqnorm.data_ptr(), alive.data_ptr(),
+            q.data_ptr(), slab.data_ptr(), _addr(qsq), sqnorm.data_ptr(), alive.data_ptr(),
             *tables), "IVF list scan kernel (BF16)")
     else:
         check(lib.pyrope_ivf_list_scan(
@@ -1342,6 +1607,7 @@ def fused_ivf_topk(q, x, sqnorm, alive, crow, offsets, lens, probe, kp: int,
     with a budget take the plain dense or probe scans). ``max_len`` >=
     every list length, a host int (the indexes' ``l_pad``). Returns as
     ``fused_flat_topk``."""
+    _mark("start")
     metric_ip = _metric_ip(metric)
     _check_probe(q, x, crow, probe)
     _check_lists(q, probe, offsets, lens, kp, max_len)
@@ -1350,6 +1616,7 @@ def fused_ivf_topk(q, x, sqnorm, alive, crow, offsets, lens, probe, kp: int,
         return fused_ivf_topk_plain(q, x, sqnorm, alive, crow, probe, kp, k,
                                     metric, promote_fp32=promote_fp32)
     check_fp32_exact(q)
+    _mark("checks")
     return _launch_list(q, x, sqnorm, alive, offsets, lens, probe, kp, k,
                         metric_ip, max_len, promote=promote_fp32)
 
@@ -1365,6 +1632,7 @@ def fused_ivf_sq8_topk(q, codes, mins, scales, sqnorm, alive, crow, offsets, len
     scale·code; qc [B, kp] f32 = q·centsᵀ (the kernel reads qc[b, c] once
     per probed list); crow, offsets, lens, probe, max_len and the return as
     ``fused_ivf_topk``."""
+    _mark("start")
     metric_ip = _metric_ip(metric)
     _check_probe(q, codes, crow, probe)
     _check_lists(q, probe, offsets, lens, kp, max_len)
@@ -1384,5 +1652,6 @@ def fused_ivf_sq8_topk(q, codes, mins, scales, sqnorm, alive, crow, offsets, len
         return fused_ivf_sq8_topk_plain(q, codes, mins, scales, sqnorm, alive,
                                         crow, probe, qc, kp, k, metric)
     check_fp32_exact(q)
+    _mark("checks")
     return _launch_list(q, codes, sqnorm, alive, offsets, lens, probe, kp, k,
                         metric_ip, max_len, sq8=(mins, scales, qc))

@@ -307,6 +307,96 @@ def list_window(work, b, slot, nslots, win=fs.LIST_FLOOR_WINDOW):
     return w0, min(w0 + win, hi)
 
 
+# the inversion's shapes: (b, nprobe, kp, list rows, segment or "tc" for the
+# tensor-core list scan's, empty lists); the main paths' and the edges
+INVERT_CASES = {
+    "b1_np3_kp1000": (1, 3, 1000, 1000, fs.LIST_SEG, 0),
+    "b1024_np3_kp1000_seg2048": (1024, 3, 1000, 1000, fs.LIST_SEG, 0),
+    "b1024_np3_kp1000_tc_seg": (1024, 3, 1000, 1000, "tc", 0),
+    "b256_np96_kp100": (256, 96, 100, 1000, "tc", 0),
+    "b4096_np96_kp100": (4096, 96, 100, 1000, fs.LIST_SEG, 0),
+    "empty_lists": (300, 8, 64, 50, 256, 20),
+    "kp_over_pairs": (5, 3, 16_384, 20, fs.LIST_SEG, 0),
+    "segs_over_1": (200, 12, 64, 5000, 256, 0),
+    "p1": (130, 1, 64, 300, fs.LIST_SEG, 0),
+}
+
+
+def invert_case(name, sms=132):
+    """(probe [B, P] int64, lens [kp] int32, kp, max_len, seg, n_rows) of
+    ``INVERT_CASES[name]``: distinct random clusters a row (clusters
+    0..empty-1 hold no rows, and every query probes one of them where there
+    are), list lengths drawn around the mean, one list three times longer;
+    "tc": the segment list_plan gives the tensor-core list scan at k 64 on
+    an H100's ``sms``."""
+    b, nprobe, kp, rows, seg, empty = INVERT_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    lens = rng.integers(rows // 2, rows * 3 // 2 + 1, kp)
+    lens[:empty] = 0
+    lens[empty] *= 3
+    probe = np.argsort(rng.random((b, kp - empty)), axis=1)[:, :nprobe - bool(empty)] + empty
+    if empty:
+        probe = np.concatenate([rng.integers(0, empty, (b, 1)), probe], 1)
+    max_len = int(lens.max())
+    if seg == "tc":
+        seg = fs.list_plan(64, fs.LIST_BF16, False, b, nprobe, kp, max_len, 128, sms).seg
+    return (torch.from_numpy(probe.astype(np.int64)), torch.from_numpy(lens.astype(np.int32)),
+            kp, max_len, seg, int(lens.sum()))
+
+
+def _popcount(words):
+    """Set bits of each uint64 word."""
+    words = np.ascontiguousarray(words, np.uint64)
+    return np.unpackbits(words.view(np.uint8)).reshape(*words.shape, 64).sum(-1).astype(
+        np.int64)
+
+
+def invert_probes_emulated(probe, lens, kp, seg, chunk, grid):
+    """The inversion kernel's two passes (csrc/invert_probes.cu) in numpy,
+    as its blocks compute them: pass 1 sets one bit a query of a 64-query
+    tile for each cluster it probes (mask[tile, cluster]) and sums each
+    tile's segments; pass 2 places a pair at cstart[c] plus the earlier
+    tiles' bits of c plus the bits of earlier queries of its own tile (a
+    popcount), writes item_c over each cluster's item range, and slot_end as
+    the tile's base (the earlier tiles' sums) plus the scan of its own
+    pairs. Returns the tables as ``fs.ListWork`` names them, numpy int32."""
+    probe = np.asarray(probe, np.int64)
+    lens = np.asarray(lens, np.int64)
+    b, nprobe = probe.shape
+    tile = fs.INVERT_TILE
+    tiles = -(-b // tile)
+    c = probe.reshape(-1)
+    j = np.arange(b * nprobe)
+    t, bit = (j // nprobe) // tile, ((j // nprobe) % tile).astype(np.uint64)
+    ok = (c >= 0) & (c < kp)
+    nseg = (lens + seg - 1) // seg
+    ns = np.where(ok, nseg[np.clip(c, 0, kp - 1)], 0)
+    mask = np.zeros((tiles, kp), np.uint64)                   # pass 1
+    np.bitwise_or.at(mask, (t[ok], c[ok]), np.uint64(1) << bit[ok])
+    tsum = np.bincount(t, weights=ns, minlength=tiles).astype(np.int64)
+    counts = _popcount(mask)                                  # pass 2
+    ccnt = counts.sum(0)
+    cstart = np.cumsum(ccnt) - ccnt
+    items = (ccnt + chunk - 1) // chunk * nseg
+    item_end = np.cumsum(items)
+    item_c = np.full(grid, kp, np.int64)
+    for cl in np.flatnonzero(items):
+        item_c[item_end[cl] - items[cl]:min(item_end[cl], grid)] = cl
+    base = cstart[None, :] + np.cumsum(counts, 0) - counts    # a tile's base a cluster
+    earlier = mask[t[ok], c[ok]] & ((np.uint64(1) << bit[ok]) - np.uint64(1))
+    pairs = np.full(b * nprobe, -1, np.int64)
+    pairs[base[t[ok], c[ok]] + _popcount(earlier)] = j[ok]
+    first_of_tile = np.cumsum(tsum) - tsum
+    within = np.zeros(b * nprobe, np.int64)    # each tile's own inclusive scan
+    for u in range(tiles):
+        at = t == u
+        within[at] = np.cumsum(ns[at])
+    slot_end = first_of_tile[t] + within
+    return {name: v.astype(np.int32) for name, v in (
+        ("pairs", pairs), ("cstart", cstart), ("ccnt", ccnt), ("item_end", item_end),
+        ("item_c", item_c), ("slot_end", slot_end.reshape(b, nprobe)))}
+
+
 def list_partials_emulated(item_scores, alive, offsets, lens, probe, kp, k, max_len,
                            seg, chunk=fs.QUERY_TILE, order=None, wide_cap=None,
                            floor="slots", concurrent=1, stats=None, prefloor=None,

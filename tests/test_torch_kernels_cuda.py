@@ -33,8 +33,10 @@ from _torch_parity import (
     assert_same_hits,
     assert_same_results,
     csr,
+    INVERT_CASES,
     flat_case,
     fused_ivf_topk_emulated,
+    invert_case,
     ivf_case,
     ivf_plain_exact,
     list_case,
@@ -1648,3 +1650,112 @@ def test_device_flat_index_runs_the_flat_scan(cuda_device, dtype):
     pv, pi = fs.fused_flat_topk_plain(q, d["vecs"], d["sqnorm"], d["alive"], 49_000, 10)
     check = assert_hits_but_kth_ties if dtype == torch.bfloat16 else assert_same_hits
     check(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+
+
+# ---- the probe inversion (csrc/invert_probes.cu) ------------------------------
+
+_INVERT_TABLES = ("pairs", "cstart", "ccnt", "item_end", "item_c", "slot_end")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("name", sorted(INVERT_CASES))
+def test_invert_probes_kernel_is_bit_equal_to_plain(cuda_device, name, dtype):
+    """Every table the inversion kernel writes is bit-equal to the plain
+    version's, at the main paths' shapes (b1 np3 and b1024 np3 at kp 1000,
+    at the 2,048-row and the tensor-core segment; b256 and b4096 np96 at kp
+    100) and the edges (probed empty lists, kp far above B·P, several
+    segments a list, P = 1); one count a call, the same tables twice."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    probe, lens, kp, max_len, seg, n = invert_case(name, sms)
+    probe, lens = probe.to(cuda_device, dtype), lens.to(cuda_device)
+    plain = fs.invert_probes_plain(probe, lens, kp, max_len, seg, n)
+    before = fs.LAUNCHES["invert_probes"]
+    runs = [fs.invert_probes(probe, lens, kp, max_len, seg, n) for _ in range(2)]
+    assert fs.LAUNCHES["invert_probes"] == before + 2
+    torch.cuda.synchronize()
+    for got in runs:
+        assert (got.grid, got.segs, got.slots) == (plain.grid, plain.segs, plain.slots)
+        for table in _INVERT_TABLES:
+            assert torch.equal(getattr(got, table), getattr(plain, table)), table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys", [1, 7, 100_003])
+def test_invert_probes_kernel_zeroes_the_keys(cuda_device, n_keys):
+    """The inversion's first launch zeroes the call's keys (every 64-bit
+    word of them, none past them) beside the tables."""
+    probe, lens, kp, max_len, seg, n = invert_case("b256_np96_kp100")
+    probe, lens = probe.to(cuda_device), lens.to(cuda_device)
+    grid, segs = fs.list_grid(256, 96, kp, max_len, seg)
+    spans, total = fs.layout((("keys", 2 * n_keys + 4), *fs._table_sizes(256, 96, kp, grid)))
+    buf = torch.full((total,), -1, dtype=torch.int32, device=cuda_device)
+    work = fs._CarvedWork(buf, spans, 256, 96, segs, grid, 0)
+    keys = buf.narrow(0, *spans["keys"])
+    fs._invert_launch(kbuild.load(), probe, lens, kp, seg, fs.QUERY_TILE, grid, work.ptr,
+                      work.ptr("keys"), n_keys, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert not keys[:2 * n_keys].any()
+    assert bool((keys[2 * n_keys:] == -1).all())
+    plain = fs.invert_probes_plain(probe, lens, kp, max_len, seg, n)
+    assert torch.equal(work.pairs, plain.pairs)
+
+
+@pytest.mark.cuda
+def test_invert_probes_scratch_formula_matches_the_library(cuda_device):
+    lib = kbuild.load()
+    for b, kp in ((1, 1), (64, 100), (65, 1000), (4096, 100), (1024, 16_384)):
+        assert lib.pyrope_invert_scratch_bytes(b, kp) == fs.invert_scratch_bytes(b, kp)
+
+
+@pytest.mark.cuda
+def test_invert_probes_raises_on_a_refused_launch(cuda_device):
+    """A launch the C entry refuses (kp 0) raises; nothing falls back to
+    the plain version."""
+    probe, lens, kp, max_len, seg, n = invert_case("p1")
+    probe, lens = probe.to(cuda_device), lens.to(cuda_device)
+    grid, segs = fs.list_grid(130, 1, kp, max_len, seg)
+    spans, total = fs.layout(fs._table_sizes(130, 1, kp, grid))
+    work = fs._CarvedWork(torch.empty(total, dtype=torch.int32, device=cuda_device), spans,
+                          130, 1, segs, grid, 0)
+    with pytest.raises(RuntimeError, match="probe inversion"):
+        fs._invert_launch(kbuild.load(), probe, lens, 0, seg, fs.QUERY_TILE, grid, work.ptr,
+                          None, 0, torch.cuda.current_stream().cuda_stream)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,k", [("ivf", 10), ("ivf", 300), ("sq8", 10), ("bf16", 64),
+                                    ("bf16", 300), ("bf16p", 10)])
+def test_every_list_scan_call_launches_the_inversion(cuda_device, mode, k):
+    """Each list-scan call inverts its probes with the kernel, once, and the
+    plain version runs on no call on the card: the hits are the plain
+    route's."""
+    case = list_case(120, 8_000, 70, 32, 64, 24, dead=0.05)
+    q, x, sq, alive, offs, lens, probe, ml, sq8 = _list_work(cuda_device, case, 64, k, mode)
+    crow = as_tensor(case[4]).to(cuda_device)
+    real = fs.invert_probes_plain
+    fs.invert_probes_plain = None   # any call of it on the card would raise
+    try:
+        before = dict(fs.LAUNCHES)
+        if mode == "sq8":
+            kv, ki = fs.fused_ivf_sq8_topk(q, x, *sq8[:2], sq, alive, crow, offs, lens,
+                                           probe, sq8[2], 64, k, max_len=ml)
+        else:
+            kv, ki = fs.fused_ivf_topk(q, x, sq, alive, crow, offs, lens, probe, 64, k,
+                                       max_len=ml, promote_fp32=mode == "bf16p")
+        assert fs.LAUNCHES["invert_probes"] == before["invert_probes"] + 1
+        scans = sum(fs.LAUNCHES[key] - before[key] for key in
+                    ("ivf_scan", "ivf_scan_bf16", "ivf_scan_bf16_tc", "sq8_scan",
+                     "ivf_scan_wide", "ivf_scan_bf16_wide", "sq8_scan_wide"))
+        assert scans == 1
+    finally:
+        fs.invert_probes_plain = real
+    torch.cuda.synchronize()
+    if mode == "sq8":
+        pv, pi = fs.fused_ivf_sq8_topk_plain(q, x, *sq8[:2], sq, alive, crow, probe, sq8[2],
+                                             64, k)
+        _compare(kv, ki, pv, pi, True, SQ8_RTOL)
+    else:
+        pv, pi = fs.fused_ivf_topk_plain(q, x, sq, alive, crow, probe, 64, k,
+                                         promote_fp32=mode == "bf16p")
+        _compare(kv, ki, pv, pi, mode != "ivf", RTOL)
