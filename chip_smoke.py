@@ -34,7 +34,8 @@ total are printed:
                hybrid's k 64), the list scan without promote at k <= 128 on
                the tensor cores (ivf_list_scan_tc.cu: 100k, nlist 100, nprobe
                96, b256, k 64, with its first pass) and with promote on the CUDA cores
-               (1M, nlist 1000, nprobe 3, b64, k 10), each beside the
+               (ivf_list_scan_promote.cu, the rows on a ring of bulk copies:
+               1M, nlist 1000, nprobe 3, b64 and b1024, k 10), each beside the
                composition, the bare
                bf16 q16 @ x16.T, and its bound (bf16 rows over the memory
                rate against the bf16 tensor-core peak, or the fp32 peak with
@@ -49,10 +50,14 @@ total are printed:
                plain version (the fp32 flat scan's at b1024 k 1000 and b64
                k 10,000, the list scan's at 100k np96 b1024 k 1000 and bf16
                b256 k 512, and the tensor-core list scan's at bf16 b256 k 64;
-               floors' scores to the fp32 tolerance) and the floor select (bit-equal,
-               beside torch.kthvalue through the same wrapping); each wide
-               case's device time split into first pass, floor select,
-               second pass and merge where the first pass ran, and the real
+               floors' scores to the fp32 tolerance), and each first pass's
+               floors (the flat pass takes them in its own launch, the list
+               passes with the floor select kernel) bit-equal to the plain
+               select (floor_select_plain) over the entries it published;
+               the list floor select alone (bit-equal, beside torch.kthvalue
+               through the same wrapping); each wide case's device time split
+               into first pass, floor select, second pass and merge where the
+               first pass ran, and the real
                entries a query's splits hold (the wide flat scan); and the
                list scan at D 768 (1M clustered rows,
                nlist 1000, np3, b1024, k 10), IVF and SQ8 modes; the probe
@@ -120,7 +125,8 @@ total are printed:
  12. pq bf16   create_index(IVF_PQ, nlist 1000, pq_m 16, ksub 256,
                refine_storage bf16), bf16 training, on phase 4's clustered
                rows (ivfpq1m_bf16slab): route dense-exact-pallas-win at b64
-               (the bf16 list scan with promote), a 256,000,000-byte slab,
+               (the bf16 list scan with promote: ivf_list_scan_promote.cu,
+               its launches counted), a 256,000,000-byte slab,
                recall@10 of 1024 queries within 0.03 of 0.725; k 200 (its
                wide mode) against the plain route's hits
  13. flat hybrid k100 FlatIndex(selection="hybrid") on phase 6's rows
@@ -262,11 +268,12 @@ The kernels' launch counters are zeroed before each serving path (phases
 4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-22, one path
 each) and read after it: every kernel of a path must have run on it, the
 wide modes (the ``_wide`` counters) on the paths that ask for k > 128 or
-R > 128, and the wide modes' first pass and floor select
-(``flat_scan_prefloor``, ``list_scan_prefloor``, ``floor_select``) on the
-IVF-Flat path (phase 5 at k 200, nprobe 96; phase 6 at k 200) and the IVF-Flat
-hybrid path (phase 11 at R 512, nprobe 96). The HNSW beam is plain torch
-(no Pallas kernel in the JAX package either): phases 15-16 launch none of
+R > 128, and the wide modes' first pass and the list scans' floor select
+(``flat_scan_prefloor``, ``list_scan_prefloor``, ``floor_select``; the flat
+first pass takes its floors in its own launch) on the IVF-Flat path (phase
+5 at k 200, nprobe 96; phase 6 at k 200) and the IVF-Flat hybrid path
+(phase 11 at R 512, nprobe 96). The HNSW beam is plain torch (no Pallas
+kernel in the JAX package either): phases 15-16 launch none of
 the port's kernels; phase 17 runs K1 and the list scan; phase 18 the list
 scan and the merge, launched from the server's worker threads; phase 19's
 server is a process of its own, so its kernels are read from its own trace
@@ -344,11 +351,13 @@ SOURCE = "pyrope_tpu_torch/csrc/fused_scan.cu"
 TC_SOURCE = "pyrope_tpu_torch/csrc/flat_scan_tc.cu"
 LIST_SOURCE = "pyrope_tpu_torch/csrc/ivf_list_scan.cu"
 LIST_TC_SOURCE = "pyrope_tpu_torch/csrc/ivf_list_scan_tc.cu"
+LIST_PROMOTE_SOURCE = "pyrope_tpu_torch/csrc/ivf_list_scan_promote.cu"
 PREFLOOR_SOURCE = "pyrope_tpu_torch/csrc/prefloor.cu"
 INVERT_SOURCE = "pyrope_tpu_torch/csrc/invert_probes.cu"
 # the list scan's LAUNCHES keys, one a call (list_partials): each call also
 # launches the probe inversion once
-LIST_SCAN_KEYS = ("ivf_scan", "ivf_scan_bf16", "ivf_scan_bf16_tc", "sq8_scan",
+LIST_SCAN_KEYS = ("ivf_scan", "ivf_scan_bf16", "ivf_scan_bf16_promote", "ivf_scan_bf16_tc",
+                  "sq8_scan",
                   "ivf_scan_wide", "ivf_scan_bf16_wide", "sq8_scan_wide")
 PALLAS = "pyrope_tpu/ops/pallas_scan.py"
 
@@ -485,9 +494,10 @@ def device_split(fn, calls: int = 5) -> dict:
     """Device time a call of ``fn`` (a torch.profiler trace of ``calls``
     calls after one warm-up), in all and by kind: the scans, the merges,
     the rest; where a call runs a wide scan and a narrow one, the narrow
-    launch is the wide mode's first pass (``pass1_ms``) and the floor
-    select (``select_ms``) is apart. Empty where the profiler records no
-    device time."""
+    launch is the wide mode's first pass (``pass1_ms``; the flat one takes
+    its floors in the same launch) and the list scans' floor select
+    (``select_ms``) is apart. Empty where the profiler records no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -704,7 +714,7 @@ def phase_kernels(dev) -> dict:
     q = torch.rand((b, d), generator=g, device=dev)
     rec = {kind: {"err": 0.0}
            for kind in ("flat", "ivf", "sq8", "merge", "flat_bf16", "ivf_bf16_tc",
-                        "ivf_bf16p", "flat_wide", "flat_bf16_wide", "ivf_wide",
+                        "ivf_bf16p", "ivf_bf16p_b1024", "flat_wide", "flat_bf16_wide", "ivf_wide",
                         "ivf_bf16_wide", "ivf_bf16p_wide", "sq8_wide", "ivf_large_d",
                         "sq8_large_d", "merge_wide", "flat_prefloor", "list_prefloor",
                         "list_prefloor_tc", "floor_select", "invert_probes")}
@@ -947,6 +957,22 @@ def phase_kernels(dev) -> dict:
          comp=lambda: composition_topk(
              l2_or_ip(q4, q4 @ x16.float().T, sq, False),
              fs.probe_table(p4, kp)[:, lay[0].long()] & alive[None, :], K))
+    # the same at b1024 (p_main: ~95% of the lists), where the device time
+    # sets the pace
+    bnd = list_bound(d * 2 + 5, q, p_main, lay[2], alive, lay[0], kp, K)
+    rec["ivf_bf16p_b1024"]["bound"] = bnd
+    case("ivf_bf16p_b1024", "ivf_bf16_promote_1M_nlist1000_np3_b1024_k10",
+         lambda: fs.fused_ivf_topk(q, x16, sq, alive, lay[0], lay[1], lay[2], p_main, kp, K,
+                                   max_len=lay[3], promote_fp32=True),
+         lambda: fs.fused_ivf_topk_plain(q, x16, sq, alive, lay[0], p_main, kp, K,
+                                         promote_fp32=True, chunk_rows=65536),
+         main=True, bnd=bnd, plain_reps=1, lib=lambda: q16 @ x16.T,
+         comp=lambda: composition_topk(
+             l2_or_ip(q, q @ x16.float().T, sq, False),
+             fs.probe_table(p_main, kp)[:, lay[0].long()] & alive[None, :], K))
+    require(fs.list_plan(K, fs.LIST_BF16, True, b, 3, kp, lay[3], d,
+                         fs.device_sms(dev)).promote,
+            "the b1024 promote call does not take the promote kernel")
 
     # ---- the wide modes (k > 128): flat scan, list scan in every mode ----
     for kind, name, bv, k, xs in (
@@ -1014,7 +1040,8 @@ def phase_kernels(dev) -> dict:
 
     # the first pass alone, each against its plain version (the floors'
     # scores to the fp32 tolerance: the plain scores sum in another order),
-    # and the floor select: the fp32 flat scan's at b1024 k1000 and b64
+    # and its floors, taken in its own launch, bit-equal to the plain select
+    # over what it published: the fp32 flat scan's at b1024 k1000 and b64
     # k10,000, the list scan's at 100k np96 b1024 k1000 (layout A) and bf16
     # b256 k512 (the IVF hybrid's R 512), and the tensor-core list scan's at
     # bf16 b256 k64 (the hybrid's narrow shortlist)
@@ -1042,6 +1069,10 @@ def phase_kernels(dev) -> dict:
              reps=5, plain_reps=2, main=bv == b, bnd=bnd,
              lib=(lambda: torch.topk(sampled_sc, plan.c, dim=1)) if bv == b else None)
         del sampled_sc
+        floors, pub = fs.flat_prefloor(qv, x, sq, alive, n, plan, published=True)
+        require(torch.equal(floors, fs.floor_select_plain(pub, plan.g)),
+                f"flat first pass b{bv} k{k}: its floors differ from the plain select's")
+        cells[-1] += f"/floors = plain select over [{bv}, {plan.splits}]"
     for name, qv, xv, k, bf in (("100k_np96_b1024_k1000", q5, x2, 1000, False),
                                 ("bf16_100k_np96_b256_k512", q3, x2_16, 512, True),
                                 ("bf16_100k_np96_b256_k64", q3, x2_16, 64, True)):
@@ -1074,28 +1105,26 @@ def phase_kernels(dev) -> dict:
              reps=5, plain_reps=1, main=main, bnd=bnd,
              lib=(lambda: torch.topk(sampled_sc, plan.c, dim=1)) if main else None)
         del scores, sampled_sc
+        floors, _, (keys, slot_end) = fs.list_prefloor(
+            qv, xv, sq2, alive2, lay2[1], lay2[2], pv_, kp2, k, False, lay2[3], published=True)
+        slots = keys.shape[0] - qv.shape[0]
+        require(torch.equal(floors, fs.floor_select_plain(keys[:slots], plan.g, slot_end,
+                                                          keys[slots:])),
+                f"list first pass {name}: its floors differ from the plain select's")
+        cells[-1] += f"/floors = plain select over {slots} slots"
     del x16, x2_16
-    # the floor select alone: the flat first pass's [1024, 33] published
-    # scores (g 28), and the list scan's 96 slot keys a query (g 72); the
-    # library's torch.kthvalue of the same values timed through the same
-    # wrapping (as_hits, and entry_of for the keys)
-    plan = fs.flat_prefloor_plan(1000, b, d, n, sms)
-    pubf = torch.rand((b, plan.splits), generator=g, device=dev)
-    pubf[:, ::7] = float("-inf")
-    bnd = bound(b * plan.splits * 4 + b * 4, 0.0)
-    rec["floor_select"]["bound"] = bnd
-    case("floor_select", f"floor_select_flat_b1024_{plan.splits}splits_g{plan.g}",
-         lambda: as_hits(fs.floor_select(pubf, plan.g)),
-         lambda: as_hits(fs.floor_select_plain(pubf, plan.g)), reps=20, plain_reps=10,
-         main=True, bnd=bnd,
-         lib=lambda: as_hits(torch.kthvalue(pubf, plan.splits - plan.g + 1, dim=1).values))
+    # the list floor select alone (csrc/prefloor.cu): the list scan's 96
+    # slot keys a query (g 72); the library's torch.kthvalue of the same
+    # keys timed through the same wrapping (entry_of)
     keys5 = fs.key_of(torch.rand((b * 96,), generator=g, device=dev),
                       torch.randperm(b * 96, device=dev).int())
     qend5 = (torch.arange(1, b + 1, device=dev, dtype=torch.int32) * 96).view(b, 1)
+    bnd = bound(b * 96 * 8 + b * 8, 0.0)
+    rec["floor_select"]["bound"] = bnd
     case("floor_select", "floor_select_list_b1024_96slots_g72",
-         lambda: as_hits(fs.entry_of(fs.floor_select(keys5, 72, qend5))[0]),
+         lambda: as_hits(fs.entry_of(fs.floor_select_list(keys5, 72, qend5))[0]),
          lambda: as_hits(fs.entry_of(fs.floor_select_plain(keys5, 72, qend5))[0]),
-         reps=20, plain_reps=10, bnd=bound(b * 96 * 8 + b * 8, 0.0),
+         reps=20, plain_reps=10, main=True, bnd=bnd,
          lib=lambda: as_hits(fs.entry_of(fs._unsigned_order(torch.kthvalue(
              fs._unsigned_order(keys5).view(b, 96), 96 - 72 + 1, dim=1).values))[0]))
 
@@ -1659,7 +1688,14 @@ def phase_pq_bf16(dev, data) -> None:
     require(build_alloc >= slab_bytes,
             f"the build allocated {build_alloc} B, less than its {slab_bytes} B slab")
     q64 = [torch.from_numpy(queries[i * 64:(i + 1) * 64]).to(dev) for i in range(16)]
+    # the route's b64 calls run the promote kernel (ivf_list_scan_promote.cu)
+    before = {key: fs.LAUNCHES[key] for key in ("ivf_scan_bf16_promote", "ivf_scan_bf16")}
     rows = np.concatenate([ix.device_search(qb, K)[1].cpu().numpy() for qb in q64])
+    promote_launches = fs.LAUNCHES["ivf_scan_bf16_promote"] - before["ivf_scan_bf16_promote"]
+    require(promote_launches >= len(q64)
+            and fs.LAUNCHES["ivf_scan_bf16"] == before["ivf_scan_bf16"],
+            f"the b64 route launched the promote kernel {promote_launches} times "
+            f"for {len(q64)} batches")
     r = recall_at_k(id_lists_to_rows(ix.resolve_rows(rows), K), truth, K)
     require(abs(r - 0.725) <= 0.03, f"bf16-slab recall@10 {r} not within 0.03 of 0.725")
     srv = serve(ix, q64, iters=400)
@@ -1676,7 +1712,8 @@ def phase_pq_bf16(dev, data) -> None:
                                     tdev["crow"], probe, tdev["cents"].shape[0], 200,
                                     promote_fp32=True)
     err200, swaps200 = compare(wide, plain, "bf16 slab k200 vs plain")
-    say("12 pq bf16", route=route, n=n, build_s=round(build_s, 2), recall_1024_b64=r,
+    say("12 pq bf16", route=route, kernel="ivf_list_scan_promote_kernel",
+        promote_launches=promote_launches, n=n, build_s=round(build_s, 2), recall_1024_b64=r,
         k200_route="dense-exact-pallas-win", k200_err_vs_plain=err200,
         k200_kth_ties=swaps200,
         reference=0.725, slab_rows=npad, slab_bytes=slab_bytes,
@@ -3195,7 +3232,8 @@ def main() -> int:
          ("ivf_scan_bf16_tc", "ivf_scan", "merge", "ivf_scan_bf16_wide", "merge_wide",
           "list_scan_prefloor", "list_scan_prefloor_tc", "floor_select", "invert_probes")),
         ("IVF-PQ bf16", lambda: phase_pq_bf16(dev, data),
-         ("ivf_scan_bf16", "merge", "ivf_scan_bf16_wide", "merge_wide", "invert_probes")),
+         ("ivf_scan_bf16_promote", "merge", "ivf_scan_bf16_wide", "merge_wide",
+          "invert_probes")),
         ("flat hybrid k100", lambda: phase_flat_hybrid_k100(dev, uniform),
          ("flat_scan_bf16_wide", "merge_wide")),
         ("IVF-Flat d768", lambda: phase_ivf_d768(dev), ("ivf_scan", "merge", "invert_probes")),
@@ -3223,9 +3261,9 @@ def main() -> int:
     launches = {name: sum(got[name] for got in paths.values()) for name in fs.LAUNCHES}
     # the list scan's bf16 mode runs without promote on the hybrid path only
     # (narrow: the tensor-core kernel and its first passes; wide: the CUDA
-    # cores'), with promote on the bf16-slab path only; large D on the d768
-    # path only
-    bf16_promote = paths["IVF-PQ bf16"]["ivf_scan_bf16"]
+    # cores'), with promote on the bf16-slab path only (narrow: the promote
+    # kernel; wide: the CUDA cores'); large D on the d768 path only
+    bf16_promote = paths["IVF-PQ bf16"]["ivf_scan_bf16_promote"]
     bf16_plain_wide = paths["IVF-Flat hybrid"]["ivf_scan_bf16_wide"]
     bf16_promote_wide = paths["IVF-PQ bf16"]["ivf_scan_bf16_wide"]
     large_d = paths["IVF-Flat d768"]["ivf_scan"]
@@ -3248,7 +3286,7 @@ def main() -> int:
               f"{PALLAS}:1035, {PALLAS}:992", launches["ivf_scan"] - large_d),
         entry("ivf_list_scan_tc_kernel", "ivf_bf16_tc", LIST_TC_SOURCE,
               f"{PALLAS}:1035, {PALLAS}:992, {PALLAS}:232", launches["ivf_scan_bf16_tc"]),
-        entry("ivf_list_scan_kernel<BF16> promote_fp32", "ivf_bf16p", LIST_SOURCE,
+        entry("ivf_list_scan_promote_kernel", "ivf_bf16p", LIST_PROMOTE_SOURCE,
               f"{PALLAS}:992, {PALLAS}:1035, {PALLAS}:232", bf16_promote),
         entry("ivf_list_scan_kernel<SQ8>", "sq8", LIST_SOURCE,
               f"{PALLAS}:1204, {PALLAS}:1341", launches["sq8_scan"]),
@@ -3275,8 +3313,8 @@ def main() -> int:
               f"{PALLAS}:1035, {PALLAS}:1204, {wide}", launches["list_scan_prefloor"]),
         entry("ivf_list_scan_tc_kernel first pass", "list_prefloor_tc", LIST_TC_SOURCE,
               f"{PALLAS}:1035, {PALLAS}:232, {wide}", launches["list_scan_prefloor_tc"]),
-        entry("floor_select_kernel", "floor_select", PREFLOOR_SOURCE,
-              f"{PALLAS}:672, {PALLAS}:1035, {wide}", launches["floor_select"]),
+        entry("floor_select_list_kernel", "floor_select", PREFLOOR_SOURCE,
+              f"{PALLAS}:1035, {PALLAS}:1204, {wide}", launches["floor_select"]),
         entry("invert_probes_kernel", "invert_probes", INVERT_SOURCE,
               "pyrope_tpu/index/ivf_flat.py:224, pyrope_tpu/ops/pallas_scan.py:841",
               launches["invert_probes"]),

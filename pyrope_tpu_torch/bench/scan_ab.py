@@ -29,7 +29,8 @@ case: the library call, which keeps no row order at ties):
   its IP twin flat_bf16_1M_b1024_k10_IP), flat_bf16_1M_b64_k10, flat_bf16_1M_b64_k64 (the hybrid's shortlist),
   ivf_bf16_100k_nlist100_np96_b256_k64 (no promote: the IVF hybrid; the
   tensor-core list scan where the tree has it),
-  ivf_bf16_promote_1M_nlist1000_np3_b64_k10 (IVF-PQ's bf16 rerank slab),
+  ivf_bf16_promote_1M_nlist1000_np3_b64_k10 (IVF-PQ's bf16 rerank slab) and
+  its b1024 twin, where the device time sets the pace,
   matmul_bf16_1M_b1024 (q16 @ x16.T alone, bf16 sums), and the fp32 modes
   at those shapes: flat_fp32_1M_b64_k64, ivf_fp32_100k_nlist100_np96_b256_k64,
   ivf_fp32_1M_nlist1000_np3_b64_k10, and where the tree has the wide modes
@@ -65,7 +66,8 @@ variant of SPEC: variants are separated by ``;``, each ``off`` (the first
 pass off) or settings of ``ops/fused_scan`` constants joined by ``+``
 (``FLAT_PREFLOOR_RATIO=5+FLAT_PREFLOOR_WAVES=1``), and the run is named
 ``<case>@<variant>``: the measurement the first pass's rules and the
-tensor-core list scan's segment rule were chosen by.
+tensor-core and promote list scans' segment rules were chosen by (the
+list scan's plan cache is cleared around each variant).
 
 Prints one JSON object per worker and writes all of them to ``--out``;
 every record names the card and its power limit.
@@ -217,11 +219,14 @@ def _worker(reps: int, trace: bool, cases: str, sweep: str = "",
             saved = {key: getattr(fs, key) for key in names}
             for key in names:
                 setattr(fs, key, (lambda *a: None) if sets is None else sets[key])
+            plans = getattr(fs, "_CALLS", {})   # plans cached by shape
+            plans.clear()
             try:
                 run(f"{name}@{var}", fn)
             finally:
                 for key, val in saved.items():
                     setattr(fs, key, val)
+                plans.clear()
 
     def run(name, fn):
         res[name] = timed(fn)
@@ -307,6 +312,10 @@ def _worker(reps: int, trace: bool, cases: str, sweep: str = "",
                     else "ivf_fp32_1M_nlist1000_np3_b64_k10")
             case(name, lambda: fs.fused_ivf_topk(q4, xs, sq, alive, crow, offs4, lens4,
                                                   p4, 1000, K, max_len=ml4, promote_fp32=True))
+            if tag == "bf16":
+                case("ivf_bf16_promote_1M_nlist1000_np3_b1024_k10", lambda: fs.fused_ivf_topk(
+                    q, xs, sq, alive, crow, offs4, lens4, probe, 1000, K, max_len=ml4,
+                    promote_fp32=True))
         case("flat_fp32_1M_b64_k64", lambda: fs.fused_flat_topk(q4, x, sq, alive, n, 64))
         case("matmul_bf16_1M_b1024", lambda: q16 @ x16.T)
         del x16, x2s, x2_32

@@ -15,7 +15,8 @@ slice, its per-layer times and the trace of 40 b1024 batches, idle share
 included), phase 18 (``phase_resp``: the RESP cells, with the list scan's
 host time at b1), both on phase 4's corpus (``clustered_1m``, made once a
 turn), phase 11 (``phase_ivf_hybrid``: the IVF hybrid cells'
-b256 batches, on phase 11's uniform 1M rows) and phase 16
+b256 batches, on phase 11's uniform 1M rows), phase 12 (``phase_pq_bf16``:
+IVF-PQ's bf16 rerank slab at b64, on phase 4's corpus) and phase 16
 (``phase_hnsw_1m``: the bootstrap build of the 1M x 128 clustered graph,
 recall at ef 50 and 200, the beam's batch times at b1, b8, b64 and b256,
 and a trace of 20 b64 batches). It is the comparison of two trees whose
@@ -23,8 +24,8 @@ wrappers differ, where ``scan_ab`` needs the same ones.
 
 Prints each turn's phase lines as they come and writes, per turn, the card
 and its power limit, the phase lines, phase 3's cells (name -> the fields of
-its ``ms/plain/err/...`` record), phase 11's and 16's fields and phase
-4's and 18's lines to ``--out``.
+its ``ms/plain/err/...`` record), phase 11's, 12's and 16's fields and
+phase 4's and 18's lines to ``--out``.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ cs.kbuild.build()
 cs.kbuild.load()
 data = None
 for phase in sys.argv[1].split(","):
-    if phase in ("4", "18") and data is None:
+    if phase in ("4", "12", "18") and data is None:
         data = cs.clustered_1m()
     t0 = time.perf_counter()
     if phase == "3":
@@ -61,10 +62,12 @@ for phase in sys.argv[1].split(","):
         cs.phase_resp(dev, smi, data)
     elif phase == "11":
         cs.phase_ivf_hybrid(dev, cs.uniform_1m())
+    elif phase == "12":
+        cs.phase_pq_bf16(dev, data)
     elif phase == "16":
         cs.phase_hnsw_1m(dev, smi)
     else:
-        raise SystemExit(f"smoke_ab runs phases 3, 4, 11, 16 and 18, not {phase}")
+        raise SystemExit(f"smoke_ab runs phases 3, 4, 11, 12, 16 and 18, not {phase}")
     cs.say("time", step=f"phase_{phase}", seconds=round(time.perf_counter() - t0, 1))
 """
 
@@ -129,6 +132,8 @@ def main() -> int:
                 rec["cells"] = _cells(ln)
             elif ln.startswith("[11 ivf hybrid]"):
                 rec["hybrid"] = _fields(ln)
+            elif ln.startswith("[12 pq bf16]"):
+                rec["pq_bf16"] = _fields(ln)
             elif ln.startswith("[16 hnsw 1m]"):
                 rec["hnsw"] = _fields(ln)
             elif ln.startswith(("[4 slice]", "[18 resp]")):

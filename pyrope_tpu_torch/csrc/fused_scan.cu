@@ -135,14 +135,16 @@
 // rows, and the floor needs 32 splits' flushed c-th entries. So a narrow
 // launch of this same kernel (fused_scan_kernel<BT, IP, false>, k = c <=
 // 128) first scans the first rows_scan rows of each of its own splits and
-// publishes each split's c-th score (no partials: part_v null);
-// floor_select_kernel (prefloor.cu) takes each query's g-th largest, g =
-// ceil(k / c), and the wide launch starts every threshold there (floor0,
-// kept as (F, INT_MAX): rows scoring F or more stay, the floor's own row
-// among them). The splits hold disjoint real rows, so g * c >= k rows lie
-// at or above F. Both launches compute a score with the same FMAs in the
-// same order (the FMA loop and the score do not depend on BT or WIDE), so a
-// row's score in the second pass is bit-equal to the first's.
+// publishes each split's c-th score (no partials: part_v null); the
+// split that ends last for a query tile takes each of its queries' g-th
+// largest, g = ceil(k / c), in the same launch (floor_tail.cuh: a count of
+// the tile's splits in the fill of pub, one warp a query), and the wide
+// launch starts every threshold there (floor0, kept as (F, INT_MAX): rows
+// scoring F or more stay, the floor's own row among them). The splits hold
+// disjoint real rows, so g * c >= k rows lie at or above F. Both launches
+// compute a score with the same FMAs in the same order (the FMA loop and the
+// score do not depend on BT or WIDE), so a row's score in the second pass is
+// bit-equal to the first's.
 //
 // Not done here: a tensor-core path where exactness allows (a 3xbf16 split
 // product, beside flat_scan_tc.cu's bf16 one); a narrow query tile for batches of a few queries (a 64-query
@@ -152,6 +154,7 @@
 // dozen tiles cost as much as its FMAs).
 
 #include "flat_epilogue.cuh"
+#include "floor_tail.cuh"
 
 namespace {
 
@@ -216,7 +219,10 @@ __device__ __forceinline__ float4 load_row4(const char* xs, int r, int d4) {
 // its first rows_scan (<= rows_per_split) rows. floor0 (the wide mode; null:
 // none): [B] scores each query's rows must reach, -inf where none. fills
 // (the wide mode; null: the lists are padded with (-inf, -1) instead):
-// [B, S], the real entries of each list.
+// [B, S], the real entries of each list. fcnt (the first pass; null:
+// none): one count a query tile, whose bits start as -inf's (the fill of
+// pub); the split that completes it writes each query's fs_g-th largest
+// published score into fout [B] (-inf: fewer).
 template <int BT, bool IP, bool WIDE = false, int CAP = FLAT_CAP>
 __global__ void __launch_bounds__(THREADS, 2)
 fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
@@ -226,7 +232,8 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
                   int vec, float* __restrict__ part_v,
                   int32_t* __restrict__ part_i, float* __restrict__ pub,
                   int pub_c, int pub_g, const float* __restrict__ floor0,
-                  int32_t* __restrict__ fills) {
+                  int32_t* __restrict__ fills, unsigned* __restrict__ fcnt,
+                  float* __restrict__ fout, int fs_g) {
   constexpr int QG = 2;             // query groups of a warp's lanes
   constexpr int RG = 32 / QG;       // row groups: rows lr + RG j, j < TR
   constexpr int TQ = BT / 16;       // queries per thread
@@ -480,7 +487,13 @@ fused_scan_kernel(const float* __restrict__ q, const float* __restrict__ x,
     }
     return;
   }
-  if (!part_v) return;   // the first pass: pub is its output
+  if (!part_v) {   // the first pass: pub is its output, and the floors
+    if (fcnt)   // a warp a query; the stages are free
+      flat_pass_floors(pub, S, q0, min(BT, B - q0), fcnt + blockIdx.x, fout, fs_g,
+                       reinterpret_cast<unsigned long long*>(stages),
+                       NST * STAGE * (int)sizeof(float) / (8 * WARPS), THREADS);
+    return;
+  }
   for (int e = tid; e < BT * k; e += THREADS) {
     const int b = q0 + e / k;
     if (b < B) {
@@ -864,7 +877,8 @@ int launch_scan(const void* q, const void* x, const void* sqnorm,
                 const void* alive, int B, int N, int D, int k, int kw,
                 int max_scans, int rows_per_split, int rows_scan, int n_splits,
                 int vec, void* part_v, void* part_i, void* pub, int pub_c,
-                int pub_g, const void* floor0, void* fills, cudaStream_t stream) {
+                int pub_g, const void* floor0, void* fills, void* fcnt, void* fout,
+                int fs_g, cudaStream_t stream) {
   const size_t smem = scan_smem_bytes(k, BT, CAP);
   cudaError_t err = cudaFuncSetAttribute(
       fused_scan_kernel<BT, IP, WIDE, CAP>,
@@ -875,7 +889,7 @@ int launch_scan(const void* q, const void* x, const void* sqnorm,
       (const float*)q, (const float*)x, (const float*)sqnorm,
       (const uint8_t*)alive, B, N, D, k, kw, max_scans, rows_per_split, rows_scan,
       vec, (float*)part_v, (int32_t*)part_i, (float*)pub, pub_c, pub_g,
-      (const float*)floor0, (int32_t*)fills);
+      (const float*)floor0, (int32_t*)fills, (unsigned*)fcnt, (float*)fout, fs_g);
   return (int)cudaGetLastError();
 }
 
@@ -911,22 +925,28 @@ const char* pyrope_error_string(int code) {
 // MAXK): the candidate buffer a query, FLAT_CAP, or FLAT_SMALL_CAP behind a
 // first pass's floor (two blocks an SM). fills: null, or (k > MAXK) [B,
 // n_splits] int32, each list's real entries, written in place of the pads.
+// fcnt, fout (the first pass only; null: none): the floors' counts, one a
+// query tile after pub's B x n_splits scores in the same -inf fill, and [B]
+// floats that take each query's fs_g-th largest published score.
 int pyrope_fused_scan(const void* q, const void* x, const void* sqnorm,
                       const void* alive, int B, int N, int D, int k, int kw,
                       int metric_ip, int max_scans, int rows_per_split,
                       int rows_scan, int n_splits, int bt, int vec, void* part_v,
                       void* part_i, void* pub, int pub_c, int pub_g,
-                      const void* floor0, int cap, void* fills, void* stream) {
+                      const void* floor0, int cap, void* fills, void* fcnt, void* fout,
+                      int fs_g, void* stream) {
   const bool wide = k > MAXK;
   if (k < 1 || (wide ? kw < 1 || kw > k : kw != k) || (bt != 64 && bt != 128) ||
       (wide && bt != WIDE_BT) || pub_c < 1 || pub_c > kw || pub_g < 1 ||
       (long long)pub_g * pub_c < k || rows_scan < 1 || rows_scan > rows_per_split ||
       (wide && (!part_v || !part_i)) || (!wide && floor0) || (!part_v != !part_i) ||
-      (wide && cap != FLAT_CAP && cap != FLAT_SMALL_CAP) || (!wide && fills))
+      (wide && cap != FLAT_CAP && cap != FLAT_SMALL_CAP) || (!wide && fills) ||
+      (!fcnt != !fout) || (fcnt && (part_v || fs_g < 1)))
     return (int)cudaErrorInvalidValue;
   using Launch = int (*)(const void*, const void*, const void*, const void*, int,
                          int, int, int, int, int, int, int, int, int, void*, void*,
-                         void*, int, int, const void*, void*, cudaStream_t);
+                         void*, int, int, const void*, void*, void*, void*, int,
+                         cudaStream_t);
   static const Launch wide_table[2][2] = {   // [cap == FLAT_SMALL_CAP][ip]
       {launch_scan<WIDE_BT, false, true>, launch_scan<WIDE_BT, true, true>},
       {launch_scan<WIDE_BT, false, true, FLAT_SMALL_CAP>,
@@ -934,15 +954,15 @@ int pyrope_fused_scan(const void* q, const void* x, const void* sqnorm,
   if (wide)
     return wide_table[cap == FLAT_SMALL_CAP][metric_ip != 0](
         q, x, sqnorm, alive, B, N, D, k, kw, max_scans, rows_per_split, rows_scan,
-        n_splits, vec, part_v, part_i, pub, pub_c, pub_g, floor0, fills,
-        (cudaStream_t)stream);
+        n_splits, vec, part_v, part_i, pub, pub_c, pub_g, floor0, fills, nullptr, nullptr,
+        0, (cudaStream_t)stream);
   static const Launch table[2][2] = {   // [bt == 128][ip]
       {launch_scan<64, false>, launch_scan<64, true>},
       {launch_scan<128, false>, launch_scan<128, true>}};
   return table[bt == 128][metric_ip != 0](
       q, x, sqnorm, alive, B, N, D, k, kw, max_scans, rows_per_split, rows_scan,
-      n_splits, vec, part_v, part_i, pub, pub_c, pub_g, floor0, nullptr,
-      (cudaStream_t)stream);
+      n_splits, vec, part_v, part_i, pub, pub_c, pub_g, floor0, nullptr, fcnt, fout,
+      fs_g, (cudaStream_t)stream);
 }
 
 // qend: null for S lists a query at strides (qstride, lstride), else int32

@@ -21,7 +21,9 @@
 //   BF16: x is a bf16 row widened to fp32 (the branch x.dtype == bfloat16 of
 //        the TPU kernels' _tile_scores, :232-264), sqnorm[t] that of the
 //        fp32 row before the cast. With promote_fp32 the TPU multiplies the
-//        fp32 q by the widened row (here: q as it is, no qsq), which the
+//        fp32 q by the widened row (here: q as it is, no qsq; at k <= 128
+//        and D <= 256 ivf_list_scan_promote.cu runs that mode, on a ring of
+//        bulk copies), which the
 //        tensor cores cannot compute exactly (TF32 would round q); without
 //        it bf16(q) by the row, fp32 sums (here: q rounded to bf16 by the
 //        wrapper, an fp32 tensor, and |q|^2 of the unrounded q beside it,
@@ -137,7 +139,7 @@
 // a narrow launch of this kernel (ivf_list_scan_kernel<MODE, false>, k = c
 // <= 128, the same items, slots and layouts) first scans the first `sample`
 // rows of each segment and publishes each slot's c-th key into a pub of
-// its own (no partials: part_v null); floor_select_kernel (prefloor.cu)
+// its own (no partials: part_v null); floor_select_list_kernel (prefloor.cu)
 // takes each query's g-th largest slot key, g = ceil(k / c), into the wide
 // launch's floor keys, which its items read at their start. Slots hold
 // disjoint real rows, so g * c >= k rows lie at or above that key; they

@@ -26,8 +26,8 @@
 // fp32 rows), sqnorm[t] of the fp32 row before its cast; the top k in the
 // total order (score desc, row asc). The work items, partial slots, slot
 // counts and floor protocol are the CUDA-core list scan's (ivf_list_scan.cu
-// header; list_floor.cuh), so merge_partials_kernel and floor_select_kernel
-// read its output unchanged.
+// header; list_floor.cuh), so merge_partials_kernel and
+// floor_select_list_kernel read its output unchanged.
 //
 // What bounds it on an H100. At the IVF hybrid's cell (100k x 128, nlist
 // 100, nprobe 96, b256) the products are 6.3 GFLOP (0.0064 ms at 989
@@ -100,8 +100,9 @@
 //   The first pass (ops/fused_scan.list_prefloor_plan(..., tc=True), from
 //   shapes alone: nprobe >= LIST_TC_PREFLOOR_MIN_PROBES): this kernel's
 //   launch at k = c over the first `sample` rows of each segment, no
-//   partials, its slots' c-th keys into a pub of its own; floor_select_kernel
-//   takes each query's g-th largest into the scan's floor keys. Its keys
+//   partials, its slots' c-th keys into a pub of its own;
+//   floor_select_list_kernel takes each query's g-th largest into the scan's
+//   floor keys. Its keys
 //   equal the scan's own scores of the same rows, bit for bit: both launches
 //   run one instruction sequence on the same tiles (the same chunk in A,
 //   rows tiled from the segment's start). Without it, in the wave that

@@ -47,13 +47,16 @@ _SIGNATURES = {
     "pyrope_list_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     # k, D: the tensor-core list scan's
     "pyrope_list_tc_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    # k, D: the promote list scan's (0: it does not take D)
+    "pyrope_list_promote_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "pyrope_error_string": (ctypes.c_char_p, [_I]),
     # q, x, sqnorm, alive, B, N, D, k, list width kw, metric_ip, max_scans,
     # rows_per_split, rows_scan, n_splits, query tile, vec, part_v, part_i,
-    # pub, pub_c, pub_g, floor0, cap, fills, stream
+    # pub, pub_c, pub_g, floor0, cap, fills, the first pass's floor counts
+    # and floors (fcnt, fout) and g, stream
     "pyrope_fused_scan": (
         _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-             _P, _P, _P, _I, _I, _P, _I, _P, _P],
+             _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P],
     ),
     # k, the wide candidate buffer's entries
     "pyrope_scan_wide_smem_bytes": (ctypes.c_longlong, [_I, _I]),
@@ -72,6 +75,9 @@ _SIGNATURES = {
     # q (fp32), x (bf16), sqnorm, alive, N, the tables (bf16(q) on the
     # tensor cores, k <= 128)
     "pyrope_ivf_list_scan_tc": (_I, [_P, _P, _P, _P, _I, *_LIST_TABLES]),
+    # q (fp32), x (bf16), sqnorm, alive, blocks (the walking grid), the
+    # tables (promote_fp32 at k <= 128, D <= 256)
+    "pyrope_ivf_list_scan_promote": (_I, [_P, _P, _P, _P, _I, *_LIST_TABLES]),
     # q, codes, mins, scales, sqnorm, alive, qc, kp, the tables
     "pyrope_ivf_list_scan_sq8": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, *_LIST_TABLES]),
     # part_v, part_i, S, B, k, qend (null: S lists a query at the strides),
@@ -86,8 +92,6 @@ _SIGNATURES = {
         _I, [_P, _P, _I, _I, _I, _I, _P, _I, ctypes.c_longlong, ctypes.c_longlong,
              _P, _P, _P, _P],
     ),
-    # pub [B, S] float, B, S, g, out [B] float, stream
-    "pyrope_floor_select_flat": (_I, [_P, _I, _I, _I, _P, _P]),
     # keys [nslots] u64, nslots, qend [B, P], B, P, g, base [B], out [B], stream
     "pyrope_floor_select_list": (_I, [_P, _I, _P, _I, _I, _I, _P, _P, _P]),
     # B, kp: the inversion's scratch bytes

@@ -7,9 +7,10 @@ Replaces ``pyrope_tpu/ops/pallas_scan.py``:
     csrc/flat_scan_tc.cu), corpus splits into [B, splits, k] partials;
     ``flat_tile`` picks its query tile, ``scan_splits`` its grid.
   - ``fused_ivf_topk``   <- ``pallas_ivf_topk`` (K2, :1035) and
-    ``pallas_ivf_topk_windowed`` (K3, :992) (over a bf16 slab without
-    ``promote_fp32`` at k <= NARROW_MAX_K, the tensor-core list scan of
-    csrc/ivf_list_scan_tc.cu), and
+    ``pallas_ivf_topk_windowed`` (K3, :992) (over a bf16 slab at k <=
+    NARROW_MAX_K: without ``promote_fp32`` the tensor-core list scan of
+    csrc/ivf_list_scan_tc.cu, with it at D <= PROMOTE_MAX_D the bulk-copy
+    list scan of csrc/ivf_list_scan_promote.cu), and
   - ``fused_ivf_sq8_topk`` <- ``pallas_ivf_sq8_topk`` (K4, :1204) and
     ``pallas_ivf_sq8_topk_windowed`` (K5, :1341): the cluster-major list
     scan (csrc/ivf_list_scan.cu). The TPU kernels scan the whole slab and
@@ -29,7 +30,8 @@ a bf16 ``x``. The flat scan and the list scan without ``promote_fp32``
 score bf16(q) against the bf16 rows (the MXU's single bf16 pass: exact
 products, fp32 sums), the flat scan and the narrow list scan on the tensor
 cores; ``fused_ivf_topk(promote_fp32=True)`` scores the fp32 q against the
-widened rows on the CUDA cores, as the wide list scan does without promote.
+widened rows on the CUDA cores (at k <= NARROW_MAX_K and D <= PROMOTE_MAX_D
+its own kernel, ``list_plan``), as the wide list scan does without promote.
 In both, ‖q‖² is that of the fp32 q and ``sqnorm`` that of the fp32 rows
 before the cast.
 
@@ -49,10 +51,13 @@ pass that forms each query's floor before the wide pass keeps any row
 (``flat_prefloor_plan``, ``list_prefloor_plan``: decided on the host from
 shapes alone): a narrow launch of the same kernel at k = c <= NARROW_MAX_K
 over a sample of each split or segment publishes each split's or slot's
-c-th entry, and the floor select kernel (csrc/prefloor.cu) takes each
-query's g-th largest, g = ceil(k / c); the wide pass keeps rows at or above
-it. ``LAUNCHES`` counts them under ``flat_scan_prefloor``,
-``list_scan_prefloor`` and ``floor_select``.
+c-th entry, and each query's g-th largest, g = ceil(k / c), is its floor
+(``floor_select_plain`` is the plain version): the flat first pass takes it
+in its own launch (the split that completes a query tile, csrc/
+floor_tail.cuh), the list scans' with the floor select kernel (csrc/
+prefloor.cu); the wide pass keeps rows at or above it. ``LAUNCHES`` counts
+them under ``flat_scan_prefloor``, ``list_scan_prefloor`` (``_tc``) and
+``floor_select``.
 
 What bounds each kernel on an H100, and what its design does about it, is
 in the header of its CUDA source.
@@ -109,6 +114,20 @@ LIST_SEG_MIN = 256       # shortest segment list_seg cuts for parallelism
 LIST_TC_SEG_MIN = 512
 LIST_TC_SPLIT_D = 128    # LT_SPLIT_D: above it each 64-depth chunk is summed apart
 LIST_TC_PREFLOOR_RATIO = 80.0
+# the bf16 list scan with promote (csrc/ivf_list_scan_promote.cu, k <=
+# NARROW_MAX_K): the widest D it takes (32 lanes x 8 depths a row, the
+# queries whole in shared memory), its ring's stages (promote_stages), and
+# its segment rule (promote_seg): from PROMOTE_SEG_MAX halved, down to
+# PROMOTE_SEG_MIN, while the grid bound holds fewer than
+# PROMOTE_ITEMS_PER_SM items an SM; its blocks walk the items (swept on an
+# H100 by bench/scan_ab.py --sweep, PERF.md: 2 items an SM against 4,
+# 6 and 12 at 1M np3 b64 and b1024)
+PROMOTE_MAX_D = 256
+PROMOTE_STAGES = (6, 5, 4, 3)
+PROMOTE_WARPS = 8        # PM_WARPS: consumer warps, a tile of rows each a stage
+PROMOTE_SEG_MAX = 2048
+PROMOTE_SEG_MIN = 256
+PROMOTE_ITEMS_PER_SM = 2
 SMEM_LIMIT = 232_448     # bytes of shared memory a block may use on sm_90
 SMEM_TWO_BLOCKS = 115_712  # the most a block may use for two to share an SM
                            # (233,472 B an SM, 1,024 B a block reserved)
@@ -140,15 +159,18 @@ LIST_PREFLOOR_RATIO = 5.0
 # launch from several threads at once: counts change only under the lock
 # (count_launch), so none is lost
 # (``ivf_scan_bf16[_wide]``: the CUDA-core list scan's bf16 mode, with
-# promote_fp32, and without it at k > NARROW_MAX_K; ``ivf_scan_bf16_tc``:
-# the tensor-core list scan, without promote at k <= NARROW_MAX_K, and
-# ``list_scan_prefloor_tc`` its first pass)
+# promote_fp32 above PROMOTE_MAX_D, and at k > NARROW_MAX_K with or without
+# it; ``ivf_scan_bf16_promote``: the bulk-copy list scan, with promote at k
+# <= NARROW_MAX_K and D <= PROMOTE_MAX_D; ``ivf_scan_bf16_tc``: the
+# tensor-core list scan, without promote at k <= NARROW_MAX_K, and
+# ``list_scan_prefloor_tc`` its first pass; ``floor_select``: the list
+# scans' first-pass floor select, the flat first pass taking its own)
 LAUNCHES = {"flat_scan": 0, "flat_scan_bf16": 0, "ivf_scan": 0, "ivf_scan_bf16": 0,
-            "ivf_scan_bf16_tc": 0, "sq8_scan": 0, "merge": 0, "flat_scan_wide": 0,
-            "flat_scan_bf16_wide": 0, "ivf_scan_wide": 0, "ivf_scan_bf16_wide": 0,
-            "sq8_scan_wide": 0, "merge_wide": 0, "flat_scan_prefloor": 0,
-            "list_scan_prefloor": 0, "list_scan_prefloor_tc": 0, "floor_select": 0,
-            "invert_probes": 0}
+            "ivf_scan_bf16_promote": 0, "ivf_scan_bf16_tc": 0, "sq8_scan": 0, "merge": 0,
+            "flat_scan_wide": 0, "flat_scan_bf16_wide": 0, "ivf_scan_wide": 0,
+            "ivf_scan_bf16_wide": 0, "sq8_scan_wide": 0, "merge_wide": 0,
+            "flat_scan_prefloor": 0, "list_scan_prefloor": 0, "list_scan_prefloor_tc": 0,
+            "floor_select": 0, "invert_probes": 0}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -365,6 +387,42 @@ def list_tc_stages(k: int, d: int) -> int:
             if list_tc_smem_bytes(k, d, n) <= limit:
                 return n
     return TC_STAGES[-1]
+
+
+def promote_lanes(d: int) -> int:
+    """Lanes a row of the promote list scan (``pm_lpr``): 16 up to D 128, 32
+    above, each an 8-depth piece."""
+    return 16 if d <= 128 else 32
+
+
+def list_promote_smem_bytes(k: int, d: int, stages: int | None = None) -> int:
+    """Shared memory of a promote list-scan block, as ``pm_layout(k, d,
+    stages).total`` of ivf_list_scan_promote.cu computes it (``stages``
+    default: ``promote_stages``): the ring (a stage holds PROMOTE_WARPS
+    tiles of 4 x 32 / lanes rows of D rounded up to 8 bf16), its row tables,
+    two mbarriers a stage, two 64-bit keys (the window's floor, the
+    query's threshold) and five words a query, the 64 queries in fp32, and
+    the lists (64 x k entries)."""
+    if not 1 <= d <= PROMOTE_MAX_D or not 1 <= k <= NARROW_MAX_K:
+        raise ValueError(f"the promote list scan takes D in 1..{PROMOTE_MAX_D} and k in "
+                         f"1..{NARROW_MAX_K}, got {d}, {k}")
+    if stages is None:
+        stages = promote_stages(k, d)
+    xs = -(-d // 8) * 8
+    rows = PROMOTE_WARPS * 4 * (32 // promote_lanes(d))
+    return (stages * (rows * xs * 2 + 4 * rows + 16) + 8 * QUERY_TILE + 28 * QUERY_TILE
+            + 4 * QUERY_TILE * xs + 8 * QUERY_TILE * k)
+
+
+def promote_stages(k: int, d: int) -> int:
+    """Stages of the promote list scan's ring, as ``pm_stages``: the most
+    of PROMOTE_STAGES with which two blocks share an SM, else the most that
+    fit one (D <= PROMOTE_MAX_D always fits three)."""
+    for limit in (SMEM_TWO_BLOCKS, SMEM_LIMIT):
+        for n in PROMOTE_STAGES:
+            if list_promote_smem_bytes(k, d, n) <= limit:
+                return n
+    raise ValueError(f"no ring of the promote list scan fits at k {k}, D {d}")
 
 
 def list_scan_refusal(k: int, mode: int) -> str | None:
@@ -709,7 +767,16 @@ def _gth_largest(vals: torch.Tensor, ok: torch.Tensor, g: int, none):
 
 
 def floor_select_plain(pub, g: int, qend=None, base=None):
-    """Plain version of ``floor_select``: same inputs, same outputs."""
+    """The first passes' floor select (the flat first pass takes it in its
+    own launch, csrc/floor_tail.cuh; the list scans' is ``floor_select_list``;
+    this is their plain version): each query's g-th largest published entry,
+    equal entries counted with their multiplicity. ``pub`` [B, S] float
+    scores (-inf: none) -> [B] float (-inf: fewer than g); or with ``qend``
+    ([B, P] int32, the list scan's running slot counts) ``pub`` [nslots]
+    int64 floor keys (0: none), query b's the slots qend[b-1, -1] ..
+    qend[b, -1] -> [B] int64 keys, the larger of that and ``base`` [B] (in
+    the keys' unsigned order). The first FLOOR_SELECT_CAP entries a query
+    are read."""
     if qend is None:
         return _gth_largest(pub, pub > float("-inf"), g, float("-inf"))
     qoff = torch.nn.functional.pad(qend[:, -1].long().clamp(max=pub.shape[0]), (1, 0))
@@ -725,52 +792,37 @@ def floor_select_plain(pub, g: int, qend=None, base=None):
     return _unsigned_order(got)
 
 
-FLOOR_SELECT_CAP = 2048   # FS_CAP of prefloor.cu: a query's entries read at most
+FLOOR_SELECT_CAP = 2048   # FS_CAP of floor_tail.cuh: a query's entries read at most
 
 
-def floor_select(pub, g: int, qend=None, base=None, out=None):
-    """Each query's g-th largest published entry: ``pub`` [B, S] float
-    scores (-inf: none) -> [B] float (-inf: fewer than g); or with ``qend``
-    ([B, P] int32, the list scan's running slot counts) ``pub`` [nslots]
-    int64 floor keys (0: none), query b's the slots qend[b-1, -1] ..
-    qend[b, -1] -> [B] int64 keys, the larger of that and ``base`` [B] (in
-    the keys' unsigned order). The first FLOOR_SELECT_CAP entries a query are
-    read. The kernel on CUDA tensors, the plain version on CPU ones; ``out``
-    (contiguous, [B]) takes the result where given."""
-    if pub.device.type == "cpu":
-        got = floor_select_plain(pub, g, qend, base)
+def floor_select_list(keys, g: int, qend, base=None, out=None):
+    """The list scans' first-pass floor select: ``keys`` [nslots] int64
+    floor keys (0: none), query b's the slots qend[b-1, -1] .. qend[b, -1]
+    of ``qend`` [B, P] int32 -> [B] int64, each query's g-th largest key
+    raised to ``base`` [B]: the kernel (csrc/prefloor.cu) on CUDA tensors,
+    ``floor_select_plain`` on CPU ones; ``out`` (contiguous, [B]) takes the
+    result where given."""
+    if keys.device.type == "cpu":
+        got = floor_select_plain(keys, g, qend, base)
         return got if out is None else out.copy_(got)
-    from pyrope_tpu_torch.kernels.build import check, load
+    from pyrope_tpu_torch.kernels.build import load
 
-    if g < 1:
-        raise ValueError(f"floor_select takes g >= 1, got {g}")
-    stream = torch.cuda.current_stream(pub.device).cuda_stream
-    if qend is None:
-        if pub.dtype != torch.float32 or pub.dim() != 2 or not pub.is_contiguous():
-            raise ValueError("pub must be a contiguous float32 [B, S]")
-        if out is None:
-            out = torch.empty(pub.shape[0], dtype=torch.float32, device=pub.device)
-        check(load().pyrope_floor_select_flat(pub.data_ptr(), pub.shape[0], pub.shape[1],
-                                              g, out.data_ptr(), stream), "floor select")
-    else:
-        b, p = qend.shape
-        if (pub.dtype != torch.int64 or qend.dtype != torch.int32
-                or not all(t.is_contiguous() for t in (pub, qend))
-                or (base is not None and (base.shape != (b,) or not base.is_contiguous()))):
-            raise ValueError("keys int64, qend int32 [B, P], base int64 [B], contiguous")
-        if out is None:
-            out = torch.empty(b, dtype=torch.int64, device=pub.device)
-        _floor_select_list_launch(load(), pub.data_ptr(), pub.shape[0], qend.data_ptr(), b,
-                                  p, g, None if base is None else base.data_ptr(),
-                                  out.data_ptr(), stream)
-        return out
-    count_launch("floor_select")
+    b, p = qend.shape
+    if (g < 1 or keys.dtype != torch.int64 or qend.dtype != torch.int32
+            or not all(t.is_contiguous() for t in (keys, qend))
+            or (base is not None and (base.shape != (b,) or not base.is_contiguous()))):
+        raise ValueError("g >= 1; keys int64, qend int32 [B, P], base int64 [B], contiguous")
+    if out is None:
+        out = torch.empty(b, dtype=torch.int64, device=keys.device)
+    _floor_select_list_launch(load(), keys.data_ptr(), keys.shape[0], qend.data_ptr(), b, p,
+                              g, None if base is None else base.data_ptr(), out.data_ptr(),
+                              torch.cuda.current_stream(keys.device).cuda_stream)
     return out
 
 
 def _floor_select_list_launch(lib, keys, nslots, qend, b, p, g, base, out, stream) -> None:
-    """The list form of the floor select kernel on addresses (``keys``
-    [nslots], ``qend`` [B, P], ``base`` [B] or None, ``out`` [B]), counted."""
+    """The floor select kernel on addresses (``keys`` [nslots], ``qend``
+    [B, P], ``base`` [B] or None, ``out`` [B]), counted."""
     from pyrope_tpu_torch.kernels.build import check
 
     check(lib.pyrope_floor_select_list(keys, nslots, qend, b, p, g, base, out, stream),
@@ -802,31 +854,41 @@ def flat_prefloor_plain(q, x, sqnorm, alive, max_scans: int, plan: FlatPrefloor,
 
 
 def flat_prefloor(q, x, sqnorm, alive, max_scans: int, plan: FlatPrefloor,
-                  metric=Metric.L2):
+                  metric=Metric.L2, *, published: bool = False):
     """The wide fp32 flat scan's first pass alone: [B] floors (-inf: none),
     the scores each query's hits reach. On CUDA tensors the narrow scan
-    kernel (the plan's sample, no partials) and the floor select kernel;
-    on CPU ones the plain version."""
+    kernel (the plan's sample, no partials), which takes the floors in its
+    own launch; on CPU ones the plain version. ``published`` (CUDA): also
+    the [B, splits] scores the splits published, the floors' inputs."""
     if q.device.type == "cpu":
         return flat_prefloor_plain(q, x, sqnorm, alive, max_scans, plan, metric)
     ms = max(min(int(max_scans), x.shape[0]), 0)
-    return _flat_first_pass(q, x, sqnorm, alive, _metric_ip(metric), ms, plan)
+    floors, pub = _flat_first_pass(q, x, sqnorm, alive, _metric_ip(metric), ms, plan)
+    return (floors, pub) if published else floors
 
 
 def _flat_first_pass(q, x, sqnorm, alive, metric_ip, max_scans, plan: FlatPrefloor):
+    """One launch: (floors [B], the published scores [B, splits]). The
+    splits publish into ``pub``; after it in the same -inf fill, one count a
+    query tile (its bits start as -inf's), which the split that completes it
+    reads as its cue to take the tile's floors."""
     from pyrope_tpu_torch.kernels.build import check, load
 
     b, d = q.shape
-    pub = torch.full((b, plan.splits), float("-inf"), device=q.device)
+    tiles = -(-b // plan.tile)
+    fill = torch.full((b * plan.splits + tiles,), float("-inf"), device=q.device)
+    pub = fill[:b * plan.splits].view(b, plan.splits)
+    floors = torch.empty(b, dtype=torch.float32, device=q.device)
     vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     check(load().pyrope_fused_scan(
         q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), b, x.shape[0],
         d, plan.c, plan.c, int(metric_ip), max_scans, plan.per, plan.rows, plan.splits,
         plan.tile, vec, None, None, pub.data_ptr(), plan.c, plan.g, None, FLAT_WIDE_CAP,
-        None, stream), "fused scan kernel (first pass)")
+        None, fill.data_ptr() + 4 * b * plan.splits, floors.data_ptr(), plan.g, stream),
+        "fused scan kernel (first pass)")
     count_launch("flat_scan_prefloor")
-    return floor_select(pub, plan.g)
+    return floors, pub
 
 
 def merge_partials_plain(part_v, part_i, qend=None, k=None):
@@ -956,7 +1018,7 @@ def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
     if elem == 4 and k > NARROW_MAX_K:
         plan = flat_prefloor_plan(k, b, d, max_scans, device_sms(q.device))
         if plan is not None:
-            floor0 = _flat_first_pass(q, x, sqnorm, alive, metric_ip, max_scans, plan)
+            floor0 = _flat_first_pass(q, x, sqnorm, alive, metric_ip, max_scans, plan)[0]
             # behind the floor a split keeps few rows: small buffers, two
             # blocks an SM, a grid of two waves' splits
             cap = FLAT_WIDE_SMALL_CAP
@@ -987,7 +1049,8 @@ def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
         check(lib.pyrope_fused_scan(
             q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), *tail[:8],
             per, *tail[8:], vec, *outs[:5], None if floor0 is None else floor0.data_ptr(),
-            cap, None if fills is None else fills.data_ptr(), stream), "fused scan kernel")
+            cap, None if fills is None else fills.data_ptr(), None, None, 0, stream),
+            "fused scan kernel")
     count_launch(("flat_scan_bf16" if elem == 2 else "flat_scan")
                  + ("_wide" if k > NARROW_MAX_K else ""))
     return _merge_launch(part_v, part_i, n_splits, b, k, None, 0, n_splits * kw, kw, kw,
@@ -1076,13 +1139,29 @@ def list_seg(b: int, nprobe: int, kp: int, max_len: int, sms: int) -> int:
     return seg
 
 
+def promote_seg(b: int, nprobe: int, kp: int, max_len: int, sms: int) -> int:
+    """Segment length of a promote list-scan launch, from shapes alone:
+    PROMOTE_SEG_MAX, halved (down to PROMOTE_SEG_MIN) while the grid bound
+    holds fewer than PROMOTE_ITEMS_PER_SM items an SM. Its blocks walk the
+    items and stream across their ends: the rule wants items enough to
+    balance the blocks' walks, each item paying its set-up and its lists'
+    merge once."""
+    seg = PROMOTE_SEG_MAX
+    while (seg > PROMOTE_SEG_MIN
+           and list_grid(b, nprobe, kp, max_len, seg)[0] < PROMOTE_ITEMS_PER_SM * sms):
+        seg //= 2
+    return seg
+
+
 @dataclasses.dataclass(frozen=True)
 class ListPlan:
     """Which list-scan kernel a call takes and how, from shapes alone:
     ``tc`` the tensor-core kernel (a bf16 slab without promote_fp32, k <=
-    NARROW_MAX_K) or the CUDA-core one in ``mode``; its segment, the slots'
-    width, the block's shared memory, and the ``LAUNCHES`` key of its
-    launch."""
+    NARROW_MAX_K), ``promote`` the bulk-copy kernel (a bf16 slab with
+    promote_fp32, k <= NARROW_MAX_K, D <= PROMOTE_MAX_D), else the CUDA-core
+    one in ``mode``; its segment, the slots' width, the block's shared
+    memory, the ``LAUNCHES`` key of its launch, and (``promote``) its
+    walking grid's blocks."""
 
     tc: bool
     mode: int
@@ -1090,15 +1169,24 @@ class ListPlan:
     kw: int
     smem: int
     key: str
+    promote: bool = False
+    blocks: int = 0
 
 
 def list_plan(k: int, mode: int, promote: bool, b: int, nprobe: int, kp: int,
               max_len: int, d: int, sms: int) -> ListPlan:
-    """The host plan of a list-scan call: a bf16 slab without promote at k
-    <= NARROW_MAX_K takes the tensor-core kernel, every other call the
-    CUDA-core one (its wide mode beat the tensor cores', PERF.md). Raises
-    where the kernel refuses k (``list_scan_refusal``)."""
+    """The host plan of a list-scan call: a bf16 slab at k <= NARROW_MAX_K
+    takes the tensor-core kernel without promote and the bulk-copy kernel
+    with it up to D PROMOTE_MAX_D; every other call the CUDA-core one (its
+    wide mode beat the tensor cores', PERF.md). Raises where the kernel
+    refuses k (``list_scan_refusal``)."""
     tc = mode == LIST_BF16 and not promote and k <= NARROW_MAX_K
+    if mode == LIST_BF16 and promote and 1 <= k <= NARROW_MAX_K and d <= PROMOTE_MAX_D:
+        seg = promote_seg(b, nprobe, kp, max_len, sms)
+        smem = list_promote_smem_bytes(k, d)
+        per_sm = 2 if smem <= SMEM_TWO_BLOCKS else 1
+        return ListPlan(False, mode, seg, k, smem, "ivf_scan_bf16_promote", True,
+                        per_sm * sms)
     if tc:
         why = k_refusal(k)
         if why is not None:
@@ -1304,11 +1392,12 @@ def list_partials(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip
     (part_v, part_i, slot_end), the [slots, width] partials and the running
     slot counts the merge reads; slots past slot_end[-1, -1] are unused.
     IVF mode over an fp32 slab; over a bf16 one at k <= NARROW_MAX_K the
-    tensor-core kernel (bf16(q), ``LAUNCHES`` ``ivf_scan_bf16_tc``), else,
-    and with ``promote``, the CUDA-core kernel's BF16 mode (``ivf_scan_bf16``,
-    q rounded unless ``promote``); SQ8 mode when ``sq8`` = (mins, scales,
-    qc). The first pass runs where ``list_prefloor_plan`` says (the wide
-    modes, and the tensor-core kernel)."""
+    tensor-core kernel (bf16(q), ``LAUNCHES`` ``ivf_scan_bf16_tc``), with
+    ``promote`` up to D PROMOTE_MAX_D the bulk-copy kernel (q as it is,
+    ``ivf_scan_bf16_promote``), else the CUDA-core kernel's BF16 mode
+    (``ivf_scan_bf16``, q rounded unless ``promote``); SQ8 mode when ``sq8``
+    = (mins, scales, qc). The first pass runs where ``list_prefloor_plan``
+    says (the wide modes, and the tensor-core kernel)."""
     job = _ListJob(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
                    max_len, sq8, promote)
     call, w = job.call, job.work
@@ -1326,16 +1415,23 @@ def list_partials(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip
 
 
 def list_prefloor(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
-                  max_len, sq8=None, promote=False):
+                  max_len, sq8=None, promote=False, *, published: bool = False):
     """The wide list scan's first pass alone (CUDA tensors; inputs as
     ``list_partials``): (floor keys [B] int64, its ``ListPrefloor``), or
-    (None, None) where ``list_prefloor_plan`` does not run one."""
+    (None, None) where ``list_prefloor_plan`` does not run one (the narrow
+    launch, then the floor select kernel). ``published``: also the floors'
+    inputs, (the first pass's keys [slots + B]: its slots', then its own
+    floor keys; the running slot counts [B, P]), as ``floor_select_plain``
+    takes them."""
     job = _ListJob(q, slab, sqnorm, alive, offsets, lens, probe, kp, k, metric_ip,
                    max_len, sq8, promote)
     plan = job.prefloor()
     if plan is None:
-        return None, None
-    return job.first_pass(plan), plan
+        return (None, None, None) if published else (None, None)
+    floors = job.first_pass(plan)
+    if published:
+        return floors, plan, (job.first, job.work.slot_end)
+    return floors, plan
 
 
 def list_prefloor_plain(scores, alive, crow, offsets, lens, probe, seg, plan: ListPrefloor):
@@ -1369,10 +1465,11 @@ _SMEM_CHECKED: set = set()
 def _check_smem(lib, plan: ListPlan, k: int, d: int) -> None:
     """The host formula against the library's, once per kernel, k and mode
     (and D, on which the tensor-core kernel's depends) in a process."""
-    key = (plan.tc, k, plan.mode, d if plan.tc else 0)
+    key = (plan.tc, plan.promote, k, plan.mode, d if plan.tc or plan.promote else 0)
     if key in _SMEM_CHECKED:
         return
     got = (lib.pyrope_list_tc_smem_bytes(k, d) if plan.tc
+           else lib.pyrope_list_promote_smem_bytes(k, d) if plan.promote
            else lib.pyrope_list_scan_smem_bytes(k, plan.mode))
     if got != plan.smem:
         raise RuntimeError("the list scan's host shared-memory formula and its source "
@@ -1512,8 +1609,9 @@ class _ListJob:
     def first_pass(self, plan: ListPrefloor, into_pub: bool = False) -> torch.Tensor | None:
         """The same items at k = c over each segment's sample, its slots'
         c-th keys into the job's first-pass keys (zeros); then each query's
-        g-th largest: [B] floor keys, a new tensor, or with ``into_pub`` the
-        main pass's query floors (None returned)."""
+        g-th largest, raised to the pass's own floor key (the floor select
+        kernel): [B] floor keys, a new tensor, or with ``into_pub`` the main
+        pass's query floors (None returned)."""
         w, n = self.work, self.call.slots + self.b
         first = self.keys_ptr + 8 * n
         # a g above the window: the first pass only publishes, it raises no
@@ -1561,7 +1659,7 @@ def _list_scan_launch(lib, plan: ListPlan, q, slab, qsq, sqnorm, alive, offsets,
     from pyrope_tpu_torch.kernels.build import check
 
     b, d = q.shape
-    if plan.tc:   # TMA reads 16-byte rows off a 16-byte aligned base
+    if plan.tc or plan.promote:   # TMA reads 16-byte rows off a 16-byte aligned base
         vec = int(d % 8 == 0 and slab.data_ptr() % 16 == 0)
     else:
         vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0
@@ -1570,7 +1668,11 @@ def _list_scan_launch(lib, plan: ListPlan, q, slab, qsq, sqnorm, alive, offsets,
               w.ptr("item_c"), w.ptr("slot_end"), offsets.data_ptr(), lens.data_ptr(), kp,
               w.grid, b, d, k, kw, int(metric_ip), plan.seg, sample, w.slots, vec,
               _addr(part_v), _addr(part_i), _addr(pub), pub_c, pub_g, stream)
-    if plan.tc:
+    if plan.promote:
+        check(lib.pyrope_ivf_list_scan_promote(
+            q.data_ptr(), slab.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), plan.blocks,
+            *tables), "IVF list scan kernel (BF16, promote_fp32)")
+    elif plan.tc:
         check(lib.pyrope_ivf_list_scan_tc(
             q.data_ptr(), slab.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(),
             slab.shape[0], *tables), "IVF list scan kernel (BF16, tensor cores)")

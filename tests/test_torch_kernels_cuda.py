@@ -525,11 +525,12 @@ def test_bf16_list_scan_vs_plain(cuda_device, name, d, promote):
         before = dict(fs.LAUNCHES)
         kv, ki = fs.fused_ivf_topk(q, x16, sq, alive, crow, offs, lens, probe, 128, k,
                                    metric, max_len=int(lens.max()), promote_fp32=promote)
-        # promote: the CUDA-core kernel's BF16 mode; else the tensor cores
-        key = "ivf_scan_bf16" if promote else "ivf_scan_bf16_tc"
-        other = "ivf_scan_bf16_tc" if promote else "ivf_scan_bf16"
-        assert fs.LAUNCHES[key] == before[key] + 1
-        assert fs.LAUNCHES[other] == before[other]
+        # promote: the bulk-copy kernel up to PROMOTE_MAX_D, above it the
+        # CUDA-core kernel's BF16 mode; else the tensor cores
+        key = (("ivf_scan_bf16_promote" if d <= fs.PROMOTE_MAX_D else "ivf_scan_bf16")
+               if promote else "ivf_scan_bf16_tc")
+        for other in ("ivf_scan_bf16", "ivf_scan_bf16_promote", "ivf_scan_bf16_tc"):
+            assert fs.LAUNCHES[other] == before[other] + (other == key), other
         assert fs.LAUNCHES["ivf_scan"] == before["ivf_scan"]
         pv, pi = (fs.fused_ivf_topk_plain(q, x16, sq, alive, crow, probe, 128, k, metric,
                                           promote_fp32=True) if promote
@@ -580,6 +581,11 @@ def test_smem_formulas_match_the_library(cuda_device):
         for d in (8, 30, 64, 128, 200, 256, 384, 768):
             assert (lib.pyrope_list_tc_smem_bytes(k, d)
                     == fs.list_tc_smem_bytes(k, d) <= fs.SMEM_LIMIT), (k, d)
+    for k in (1, 10, 32, 64, 100, 128):   # the promote list scan's: by D, up to its limit
+        for d in (1, 8, 30, 96, 128, 129, 200, 256):
+            assert (lib.pyrope_list_promote_smem_bytes(k, d)
+                    == fs.list_promote_smem_bytes(k, d) <= fs.SMEM_LIMIT), (k, d)
+        assert lib.pyrope_list_promote_smem_bytes(k, fs.PROMOTE_MAX_D + 1) == 0
     assert fs.list_scan_smem_bytes(10, fs.LIST_IVF) == 114_944   # two blocks an SM
     assert fs.list_scan_refusal(20_000, fs.LIST_IVF) is None
     assert fs.list_scan_refusal(0, fs.LIST_IVF) is not None
@@ -682,7 +688,7 @@ def test_bf16_index_routes_launch_their_kernels(cuda_device):
     pq.build()
     assert pq._dev["xraw"].dtype == torch.bfloat16
     assert pq.describe_scan(64) == "dense-exact-pallas"
-    got = run(pq, "ivf_scan_bf16")
+    got = run(pq, "ivf_scan_bf16_promote")
     plain = pq.search_batch(q, 10, SearchOptions(max_scans=len(base) - 1))
     assert pq.describe_scan(64, max_scans=len(base) - 1) == "dense-exact-xla"
     assert_hits_but_kth_ties(*_arrays(got), *_arrays(plain))
@@ -890,8 +896,10 @@ def test_list_scan_floor_every_mode_and_layout_vs_plain(cuda_device, k, b, mode)
     query probes, padded with -inf/-1), on skewed lists with a row copied
     into two lists (exact ties): the plain version's hits."""
     case = _grid_case(93, 12_000, b, 32, 64, 24, big=2500, dup=True, dead=0.05)
-    # bf16 without promote at k <= 128: the tensor-core list scan
+    # bf16 at k <= 128: without promote the tensor-core list scan, with it
+    # the bulk-copy one
     key = ("ivf_scan_bf16_tc" if mode == "bf16" and k <= fs.NARROW_MAX_K
+           else "ivf_scan_bf16_promote" if mode == "bf16p" and k <= fs.NARROW_MAX_K
            else _LIST_KEYS[mode] + ("_wide" if k > fs.NARROW_MAX_K else ""))
     before = fs.LAUNCHES[key]
     (kv, ki), (pv, pi) = _wide_list_run(cuda_device, mode, case, k, kc=64)
@@ -1106,7 +1114,7 @@ def test_flat_prefloor_two_pass_vs_plain(cuda_device, b, k, shape, metric):
     before = dict(fs.LAUNCHES)
     kv, ki = fs.fused_flat_topk(q, x, sq, alive, n, k, metric)
     assert fs.LAUNCHES["flat_scan_prefloor"] == before["flat_scan_prefloor"] + 1
-    assert fs.LAUNCHES["floor_select"] == before["floor_select"] + 1
+    assert fs.LAUNCHES["floor_select"] == before["floor_select"]   # in the pass's launch
     assert fs.LAUNCHES["flat_scan_wide"] == before["flat_scan_wide"] + 1
     pv, pi = fs.fused_flat_topk_plain(q, x, sq, alive, n, k, metric)
     torch.cuda.synchronize()
@@ -1246,19 +1254,84 @@ def test_prefloor_host_rule_matches_launches(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT])
+@pytest.mark.parametrize("b,k,grid", [(70, 1000, True), (1, 300, False), (1024, 200, True),
+                                      (64, 4096, False)])
+def test_flat_first_pass_floors_equal_the_plain_select(cuda_device, b, k, grid, metric):
+    """The flat first pass takes its floors in its own launch (the split that
+    completes a query tile selects): bit-equal to floor_select_plain over the
+    scores its splits published, whatever order the splits ended in; rows on
+    a grid of 1/8 (equal scores across splits, counted with their
+    multiplicity) or random; splits that publish nothing (-inf)."""
+    n, d = 24_000, 24
+    q, x, sq, alive = (_grid_flat(cuda_device, 105, n, b, d) if grid
+                       else _flat_inputs(cuda_device, 105, n, b, d, dead=0.05))
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = fs.flat_prefloor_plan(k, b, d, n, sms)
+    assert plan is not None
+    for g in (plan.g, 1, plan.splits, plan.splits + 1):   # the last: fewer than g
+        plan_g = fs.FlatPrefloor(plan.tile, plan.per, plan.splits, plan.rows, plan.c, g)
+        for _ in range(3):   # block orders differ from launch to launch
+            floors, pub = fs.flat_prefloor(q, x, sq, alive, n, plan_g, metric, published=True)
+            torch.cuda.synchronize()
+            assert torch.equal(floors, fs.floor_select_plain(pub, g)), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ivf", "bf16", "bf16_tc", "sq8"])
+@pytest.mark.parametrize("b", [3, 300])
+def test_list_first_pass_floors_equal_the_plain_select(cuda_device, b, mode):
+    """Every list first pass (the CUDA-core kernel's in each mode, the
+    tensor-core kernel's) and the floor select kernel after it: bit-equal
+    to floor_select_plain over the keys the slots published and the pass's
+    own floor keys (base), at the plan's g and at g above the slots some
+    queries have (none), on a skewed list, probed empty lists and dead
+    rows; a base above the selection wins."""
+    kc, nprobe = 64, 24
+    case = _grid_case(106, 16_000, b, 32, kc, nprobe, big=3000, dup=True, dead=0.05,
+                      empty=2)
+    q, x, sq, alive, offs, lens, probe, ml, sq8 = _list_work(
+        cuda_device, case, kc, 400, "bf16" if mode == "bf16_tc" else mode)
+    k = 64 if mode == "bf16_tc" else 400
+    before = dict(fs.LAUNCHES)
+    for _ in range(2):
+        floors, plan, (keys, slot_end) = fs.list_prefloor(
+            q, x, sq, alive, offs, lens, probe, kc, k, False, ml, sq8=sq8, published=True)
+        torch.cuda.synchronize()
+        slots = keys.shape[0] - b
+        want = fs.floor_select_plain(keys[:slots], plan.g, slot_end, keys[slots:])
+        assert torch.equal(floors, want)
+    key = "list_scan_prefloor_tc" if mode == "bf16_tc" else "list_scan_prefloor"
+    assert fs.LAUNCHES[key] == before[key] + 2
+    assert fs.LAUNCHES["floor_select"] == before["floor_select"] + 2
+    # other g, and a base above some selections: written into the pass's own
+    # floor keys before it runs (its rows must beat them, and the select
+    # raises to them)
+    base = fs.key_of(torch.full((b,), -1.0, device=cuda_device),
+                     torch.arange(b, dtype=torch.int32, device=cuda_device))
+    base[::2] = 0
+    for g in (plan.g, 200):
+        job = fs._ListJob(q, x, sq, alive, offs, lens, probe, kc, k, False, ml, sq8, False)
+        w = job.work
+        job.first[w.slots:].copy_(base)
+        got = job.first_pass(fs.ListPrefloor(plan.c, g, plan.sample))
+        torch.cuda.synchronize()
+        keys = job.first
+        assert torch.equal(got, fs.floor_select_plain(keys[:w.slots], g, w.slot_end,
+                                                      keys[w.slots:])), g
+
+
+@pytest.mark.cuda
 def test_floor_select_kernel_vs_plain(cuda_device):
-    """The floor select kernel, both forms, bit-equal to its plain version:
-    float rows with ties and -inf (none), key slots of uneven counts (none
-    at all for some queries), base keys, g above the entries there are."""
+    """The list floor select kernel (csrc/prefloor.cu) bit-equal to its
+    plain version: key slots of uneven counts (none at all for some
+    queries, 300 and 2,500 for others: keys read from L2 past 256 a
+    query, and the first 2,048 only), equal scores told apart by row, base
+    keys, g above the keys there are."""
     rng = np.random.default_rng(103)
-    pub = rng.integers(0, 50, (70, 261)).astype(np.float32)
-    pub[rng.random(pub.shape) < 0.2] = -np.inf
-    pub = torch.from_numpy(pub)
-    for g in (1, 7, 200, 261, 262):
-        got = fs.floor_select(pub.to(cuda_device), g)
-        assert torch.equal(got.cpu(), fs.floor_select_plain(pub, g))
     cnt = rng.integers(0, 120, 70)
     cnt[::9] = 0
+    cnt[5], cnt[6] = 300, 2500
     qend = torch.from_numpy(np.cumsum(cnt).astype(np.int32)).view(70, 1)
     v = torch.from_numpy(rng.integers(-40, 40, int(cnt.sum())).astype(np.float32))
     r = torch.from_numpy(rng.permutation(int(cnt.sum())).astype(np.int32))
@@ -1267,10 +1340,86 @@ def test_floor_select_kernel_vs_plain(cuda_device):
     base = fs.key_of(torch.from_numpy(rng.integers(-40, 40, 70).astype(np.float32)),
                      torch.arange(70, dtype=torch.int32))
     base[::2] = 0
-    for g in (1, 5, 60, 119):
-        got = fs.floor_select(keys.to(cuda_device), g, qend.to(cuda_device),
-                              base.to(cuda_device))
-        assert torch.equal(got.cpu(), fs.floor_select_plain(keys, g, qend, base))
+    before = fs.LAUNCHES["floor_select"]
+    for g in (1, 5, 60, 119, 290, 2048, 2049):
+        for bv in (base, None):
+            got = fs.floor_select_list(keys.to(cuda_device), g, qend.to(cuda_device),
+                                       None if bv is None else bv.to(cuda_device))
+            assert torch.equal(got.cpu(), fs.floor_select_plain(keys, g, qend, bv)), g
+    assert fs.LAUNCHES["floor_select"] == before + 14
+
+
+# ---- the bf16 list scan with promote (csrc/ivf_list_scan_promote.cu) --------
+
+
+def _promote_run(dev, case, k, kc, metric=Metric.L2, slab=None):
+    """One bf16 list scan with promote (the bulk-copy kernel, counted once)
+    and its plain version on ``case``."""
+    x, q, sq, alive, crow, probe = (as_tensor(a).to(dev) for a in case)
+    offs, lens = (t.to(dev) for t in csr(case[4], kc))
+    x16 = x.bfloat16() if slab is None else slab
+    before = dict(fs.LAUNCHES)
+    got = fs.fused_ivf_topk(q, x16, sq, alive, crow, offs, lens, probe, kc, k, metric,
+                            max_len=int(lens.max()), promote_fp32=True)
+    key = ("ivf_scan_bf16_promote" if q.shape[1] <= fs.PROMOTE_MAX_D else "ivf_scan_bf16")
+    for other in ("ivf_scan_bf16", "ivf_scan_bf16_promote", "ivf_scan_bf16_tc"):
+        assert fs.LAUNCHES[other] == before[other] + (other == key), other
+    plain = fs.fused_ivf_topk_plain(q, x16, sq, alive, crow, probe, kc, k, metric,
+                                    promote_fp32=True)
+    torch.cuda.synchronize()
+    return got, plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT])
+@pytest.mark.parametrize("d", [96, 128, 768])   # 768: above the limit, the CUDA-core kernel
+@pytest.mark.parametrize("b", [1, 64, 1000])
+def test_list_promote_vs_plain(cuda_device, b, d, metric):
+    """k 1, 10 and 128; a 50,000-row list probed by every second query,
+    probed empty lists, 30% dead rows, a row copied into two lists: the
+    plain version's hits but for k-th place ties, scores to RTOL."""
+    n = 80_000 if d <= 128 else 60_000
+    case = list_case(120 + d, n, b, d, 100, 3, big=50_000, empty=3, dead=0.3, dup=True)
+    for k in (1, 10, 128):
+        (kv, ki), (pv, pi) = _promote_run(cuda_device, case, k, 100, metric)
+        assert_hits_but_kth_ties(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nprobe", [(70, 9), (300, 40)])   # chunks of 1-64 queries
+@pytest.mark.parametrize("k", [10, 33, 128])                 # g = 1, and a window's floor
+def test_list_promote_chunks_and_floors_on_the_grid(cuda_device, b, nprobe, k):
+    """On a grid of 1/8 (every sum exact in any order) the kernel returns the
+    plain version's hits exactly, ties by row included: chunks from 1 to 64
+    queries a list (teams of warps and their merge, two groups a warp above
+    32 queries), the floor from a window of slots (k >= 32, nprobe >= 8)."""
+    case = _grid_case(121, 16_000, b, 32, 40, nprobe, big=3000, dup=True, dead=0.05)
+    (kv, ki), (pv, pi) = _promote_run(cuda_device, case, k, 40)
+    np.testing.assert_array_equal(ki.cpu().numpy(), pi.cpu().numpy())
+    np.testing.assert_array_equal(kv.cpu().numpy(), pv.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 100, 128, 256])   # 100: D % 8 != 0, plain loads
+@pytest.mark.parametrize("seg", [256, 2048])
+def test_list_promote_unaligned_segments_and_bit_equal_launches(cuda_device, monkeypatch,
+                                                                 d, seg):
+    """A slab whose base is not 16-byte aligned is copied by plain loads
+    into the layout the bulk copies write: the same products in the same
+    order, so the same hits bit for bit; repeated launches are bit-equal;
+    short and long segments (the blocks walk many items, or few)."""
+    for name in ("PROMOTE_SEG_MAX", "PROMOTE_SEG_MIN"):
+        monkeypatch.setattr(fs, name, seg)
+    case = list_case(122, 9_000, 130, d, 32, 5, dead=0.05, dup=True, big=2000)
+    x16 = as_tensor(case[0]).to(cuda_device).bfloat16()
+    xo = torch.empty(x16.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
+    xo = xo.view_as(x16).copy_(x16)
+    assert xo.data_ptr() % 16 != 0 and xo.is_contiguous()
+    runs = [_promote_run(cuda_device, case, 10, 32, slab=slab) for slab in (x16, x16, xo, xo)]
+    for (v, i), _ in runs[1:]:
+        assert torch.equal(v, runs[0][0][0]) and torch.equal(i, runs[0][0][1])
+    (kv, ki), (pv, pi) = runs[0]
+    assert_hits_but_kth_ties(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
 
 
 @pytest.mark.cuda
@@ -1745,7 +1894,8 @@ def test_every_list_scan_call_launches_the_inversion(cuda_device, mode, k):
                                        max_len=ml, promote_fp32=mode == "bf16p")
         assert fs.LAUNCHES["invert_probes"] == before["invert_probes"] + 1
         scans = sum(fs.LAUNCHES[key] - before[key] for key in
-                    ("ivf_scan", "ivf_scan_bf16", "ivf_scan_bf16_tc", "sq8_scan",
+                    ("ivf_scan", "ivf_scan_bf16", "ivf_scan_bf16_promote",
+                     "ivf_scan_bf16_tc", "sq8_scan",
                      "ivf_scan_wide", "ivf_scan_bf16_wide", "sq8_scan_wide"))
         assert scans == 1
     finally:

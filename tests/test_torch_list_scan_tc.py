@@ -46,7 +46,7 @@ SMS = 132  # an H100's SMs
     (fs.LIST_BF16, False, 1, True, "ivf_scan_bf16_tc"),
     (fs.LIST_BF16, False, 128, True, "ivf_scan_bf16_tc"),
     (fs.LIST_BF16, False, 129, False, "ivf_scan_bf16_wide"),   # wide: the CUDA cores
-    (fs.LIST_BF16, True, 64, False, "ivf_scan_bf16"),
+    (fs.LIST_BF16, True, 64, False, "ivf_scan_bf16_promote"),   # the bulk-copy kernel
     (fs.LIST_BF16, True, 200, False, "ivf_scan_bf16_wide"),
     (fs.LIST_IVF, False, 10, False, "ivf_scan"),
     (fs.LIST_IVF, True, 10, False, "ivf_scan"),     # promote is the identity on fp32
@@ -60,6 +60,9 @@ def test_list_plan_routes_bf16_without_promote_to_the_tensor_cores(mode, promote
     if tc:   # list_seg's segment, no shorter than LIST_TC_SEG_MIN; its own shared memory
         assert plan.seg == max(fs.list_seg(256, 96, 100, 1100, SMS), fs.LIST_TC_SEG_MIN)
         assert plan.smem == fs.list_tc_smem_bytes(k, 128)
+    elif plan.promote:   # its own segment rule and shared memory
+        assert plan.seg == fs.promote_seg(256, 96, 100, 1100, SMS)
+        assert plan.smem == fs.list_promote_smem_bytes(k, 128)
     else:
         assert plan.seg == fs.list_seg(256, 96, 100, 1100, SMS)
         assert plan.smem == fs.list_scan_smem_bytes(k, mode)
@@ -153,6 +156,10 @@ class _Lib:
         self.smem.append(("list", k, mode))
         return fs.list_scan_smem_bytes(k, mode) + self.skew
 
+    def pyrope_list_promote_smem_bytes(self, k, d):
+        self.smem.append(("promote", k, d))
+        return fs.list_promote_smem_bytes(k, d) + self.skew
+
     def __getattr__(self, name):
         if not name.startswith("pyrope_ivf_list_scan"):
             raise AttributeError(name)
@@ -185,7 +192,8 @@ def _inputs(b=40, d=24, nprobe=20, n=6000, kc=32, seed=3):
 def test_list_partials_reaches_the_kernel_its_plan_names(stand_in, promote, k):
     """list_partials on a bf16 slab: without promote at k <= 128 the
     tensor-core entry, with q as it is (fp32) and the slab's rows N, under
-    the tc LAUNCHES key; with promote, and at k > 128, the CUDA-core entry's
+    the tc LAUNCHES key; with promote at k <= 128 the bulk-copy entry (q as
+    it is, then its walking grid's blocks); at k > 128 the CUDA-core entry's
     BF16 mode (q, x, then |q|^2 of the fp32 q without promote, or null). The
     first pass (nprobe 20) launches first at k = c."""
     q, x, sq, alive, offs, lens, probe, kc, ml = _inputs()
@@ -194,7 +202,9 @@ def test_list_partials_reaches_the_kernel_its_plan_names(stand_in, promote, k):
                                                 False, ml, promote=promote)
     plan = fs.list_plan(k, fs.LIST_BF16, promote, 40, 20, kc, ml, 24, SMS)
     assert plan.tc == (not promote and k <= fs.NARROW_MAX_K)
-    name = "pyrope_ivf_list_scan_tc" if plan.tc else "pyrope_ivf_list_scan_bf16"
+    assert plan.promote == (promote and k <= fs.NARROW_MAX_K)
+    name = ("pyrope_ivf_list_scan_tc" if plan.tc else "pyrope_ivf_list_scan_promote"
+            if plan.promote else "pyrope_ivf_list_scan_bf16")
     assert [c[0] for c in stand_in.calls] == [name] * len(stand_in.calls)
     first = fs.list_prefloor_plan(k, 20, plan.kw, plan.seg, 6000 / kc, plan.tc)
     assert len(stand_in.calls) == 1 + (first is not None)
@@ -203,13 +213,16 @@ def test_list_partials_reaches_the_kernel_its_plan_names(stand_in, promote, k):
     if plan.tc:
         assert args[0] == q.data_ptr() and args[4] == x.shape[0]   # N, for the tensor map
         tables = args[5:]
+    elif plan.promote:
+        assert args[0] == q.data_ptr() and args[4] == plan.blocks == 2 * SMS
+        tables = args[5:]
     else:   # q rounded to bf16 (an fp32 tensor) and its |q|^2 without promote
         assert (args[0] == q.data_ptr()) == promote and (args[2] is None) == promote
         tables = args[5:]
     # k, kw, seg, sample of the main launch, and vec: the tensor maps take
     # D % 8 == 0 and a 16-byte aligned slab; the CUDA-core copies D % 4 == 0
     assert tables[13:15] == (k, plan.kw) and tables[16:18] == (plan.seg, plan.seg)
-    aligned = x.data_ptr() % 16 == 0 and (plan.tc or args[0] % 16 == 0)
+    aligned = x.data_ptr() % 16 == 0 and (plan.tc or plan.promote or args[0] % 16 == 0)
     assert tables[19] == int(aligned)
     assert part_v.shape == (tables[18], plan.kw) and slot_end.shape == (40, 20)
     assert fs.LAUNCHES[plan.key] == before[plan.key] + 1
@@ -239,7 +252,7 @@ def test_list_job_caches_change_no_result(stand_in):
     fs._ListJob(q, x, sq, alive, offs, lens, probe, kc, 128, False, ml, None, False)
     fs._ListJob(q, x, sq, alive, offs, lens, probe, kc, 64, False, ml, None, True)
     fs._ListJob(q, x, sq, alive, offs, lens, probe, kc, 300, False, ml, None, False)
-    assert stand_in.smem == [("tc", 64, 24), ("tc", 128, 24), ("list", 64, fs.LIST_BF16),
+    assert stand_in.smem == [("tc", 64, 24), ("tc", 128, 24), ("promote", 64, 24),
                              ("list", 300, fs.LIST_BF16)]
     assert fs.device_sms(torch.device("cpu")) == SMS
     stand_in.skew = 16

@@ -173,6 +173,9 @@ class _Lib:
     def pyrope_list_scan_smem_bytes(self, k, mode):
         return fs.list_scan_smem_bytes(k, mode)
 
+    def pyrope_list_promote_smem_bytes(self, k, d):
+        return fs.list_promote_smem_bytes(k, d)
+
     def __getattr__(self, name):
         if not name.startswith("pyrope_ivf_list_scan"):
             raise AttributeError(name)

@@ -4,7 +4,8 @@ kept.
 The wide fp32 flat scan and the wide list scan (csrc/fused_scan.cu,
 csrc/ivf_list_scan.cu) may first run a narrow launch of the same kernel at
 k = c over a sample of each split or segment, take each query's g-th
-largest published c-th entry (csrc/prefloor.cu, floor_select_kernel) and
+largest published c-th entry (the flat scan's in its own launch,
+csrc/floor_tail.cuh; the list scans' with csrc/prefloor.cu's kernel) and
 start the wide pass there, keeping rows at or above it. A CUDA kernel has
 no CPU mode, so here the two passes are emulated (_torch_parity:
 ``flat_scan_emulated(floor0=)``, ``list_partials_emulated(prefloor=)``) and
