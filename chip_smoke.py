@@ -4,8 +4,9 @@
     python3 chip_smoke.py          # from the repo root, on a host with a GPU
 
 Builds the CUDA kernels from pyrope_tpu_torch/csrc at first use, then runs
-twenty-two phases, one line each (phases 8, 15 and 19 two, phase 18 one a
-cell, phase 21 three, phase 22 one a family and layout);
+twenty-four phases, one line each (phases 8, 15 and 19 two, phase 18 one a
+cell, phase 21 three, phase 22 one a family and layout, phase 23 one a
+cell, phase 24 one a tool);
 any failed check exits non-zero. Each serving path's wall time and the
 total are printed:
 
@@ -144,8 +145,10 @@ total are printed:
                (hnsw100k_clustered) and synthetic(10k, 128) (hnsw10k): the
                beam at b64, recall@10 of 256 queries >= 0.9838 / 0.7244 (the
                records less 0.01), recall_ref (the copied oracle's
-               sequential search over the same graph, 64 queries), build_s,
-               QPS, p50/p99; hnsw100k_clustered's graph hash equal to the
+               sequential search over the same graph, 64 queries), build_s
+               (the host build, run on a thread of its own beside phases
+               3-14) and the upload's seconds, QPS, p50/p99;
+               hnsw100k_clustered's graph hash equal to the
                CPU build's in both packages (HNSW100K_GRAPH_SHA256), and a
                bf16 beam over it: recall@10 within 0.005 of the JAX
                package's bf16 beam on the CPU, its gap under the fp32 beam
@@ -178,7 +181,8 @@ total are printed:
                corpus (IVF_FLAT, nlist 100, dense-pallas) at nprobe 3 and 96,
                concurrency 4 and 64, 2,000 VEC.SEARCH top-10 a cell; phase
                4's 1M clustered rows (nlist 1000, nprobe 3, dense-pallas-win)
-               at concurrency 64; 4 writers x 2,500 VEC.UPSERT; one query
+               at concurrency 64 (1,024 requests); 4 writers x 1,000
+               VEC.UPSERT; one query
                repeated 500 times with the cache on. Checks: the list scan
                (scan and merge) against its plain version on each index's
                own tensors and probes at the server's micro-batch sizes, b1
@@ -211,13 +215,13 @@ total are printed:
                1000, nprobe 3, dense) in an engine of its own and writes its
                snapshot; over HTTP: PUT /v1/cache/policies (cache off),
                POST /v1/tenants (a high-priority tenant), POST /v1/indexes,
-               POST .../load. Over RESP (AUTH as the tenant): 2,000
+               POST .../load. Over RESP (AUTH as the tenant): 1,024
                VEC.SEARCH top-10 at concurrency 64, every reply equal to the
                smoke's own search_batch, recall@10 >= 0.995; QPS, p50/p99,
                avg_batch beside phase 18's for the same cell; 6,000 TRACE
                requests while POST /v1/debug/trace records the server for
                3 s: the Chrome trace must name ivf_list_scan_kernel and
-               merge_partials_kernel (counts, idle share); 10,000 VEC.ADD of
+               merge_partials_kernel (counts, idle share); 4,000 VEC.ADD of
                new ids, POST .../build, each id its own vector's top-1 and
                GET .../stats counting them; SemanticModelTrainer (k 256 on
                65,536 rows, on the card here) pushes centroids (200, the
@@ -261,11 +265,39 @@ total are printed:
                >= 0.9, as its CPU twin test states). Per family: QPS,
                p50/p99, device ms split into scans and merges, the kernels
                one device_search launches
+ 23. zipf      bench.py's four skewed rows, the only corpora whose clusters
+               differ in size (synthetic_zipf: Zipf(1.0) cluster sizes, the
+               queries with the same popularity), through the indexes' own
+               entry points: ivf100k_zipf (IvfFlatIndex nlist 100, nprobe 3,
+               b64, dense-pallas; recall@10 of 256 queries within 0.005 of
+               the JAX package's on the CPU, ZIPF_RECALL_JAX);
+               ivf1m_zipf_b1024 (1M x 128, 1000 clusters, nlist 1000, bf16
+               training, dense-pallas-win; recall >= 0.9417, the TPU record
+               less 0.01; hits held against the plain list scan on the
+               card); ivf1m_zipf_probe (the same build, scan_mode probe,
+               b256; recall >= 0.9349, hits equal to the list scan's on the
+               same queries but for k-th place ties); ivfpq1m_zipf_b256
+               (IvfPqIndex nlist 1000, pq_m 16, bf16 training,
+               dense-exact-pallas-win; recall >= 0.8935). Each row: QPS,
+               p50/p99, build_s, device bytes, the route, the partition
+               (empty lists, the longest five, l_pad); for the list-scan
+               rows the grid launched against the items that hold rows, the
+               segments a chunk, the slots a query, the device ms split
+               into scan and merge; at b1024 the list scan's ms, plain,
+               composition, bare product and bytes bound; for the probe row
+               its gather's query block and the peak device bytes
+ 24. tools     three twins of the JAX package's tools (pyrope_tpu_torch/
+               scripts/), in this process on the card: soak_test for 15 s
+               (8 client threads, rebuilds every 3 s; 0 errors, the known row
+               found, the count never below the base rows), phase6_eval (its
+               three scenarios' checks, the prefetch served from the cache),
+               quickstart (its top hits the JAX quickstart's on the CPU,
+               QUICKSTART_HITS_JAX, up to fp32 ties)
 
 Every list-scan call inverts its probes with the inversion kernel once
 (``invert_probes``): on every path its launches equal the list scan's.
 The kernels' launch counters are zeroed before each serving path (phases
-4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-22, one path
+4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-24, one path
 each) and read after it: every kernel of a path must have run on it, the
 wide modes (the ``_wide`` counters) on the paths that ask for k > 128 or
 R > 128, and the wide modes' first pass and the list scans' floor select
@@ -280,7 +312,9 @@ server is a process of its own, so its kernels are read from its own trace
 (the path counts nothing in this process); phase 20 (Flat sq8) runs no
 kernel, as the JAX package's sq8 scan reaches no Pallas kernel; phase 21
 launches K1 and K1 bf16 (and the merge), phase 22 K1, the list scan and
-the merge, once a shard. The last three
+the merge, once a shard; phases 23 and 24 the list scan, the merge and the
+inversion. The 1M corpora's ground truth is float64 on the card. The last
+three
 lines are the
 kernels' JSON record, the card as nvidia-smi names it, and
 {"ok": true, "device": {...}}.
@@ -318,6 +352,8 @@ from pyrope_tpu_torch.utils.datasets import (
     synthetic_clustered,
     synthetic_clustered_queries,
     synthetic_queries,
+    synthetic_zipf,
+    synthetic_zipf_queries,
 )
 from pyrope_tpu_torch.utils.stats import LatencySummary
 from pyrope_tpu_torch.bench import resp_load
@@ -330,6 +366,7 @@ from pyrope_tpu_torch.index.hnsw import (
     beam_schedule,
     beam_search_body,
 )
+from pyrope_tpu_torch.index.ivf_flat import DENSE_MAX_ELEMS as IVF_DENSE_MAX_ELEMS
 from pyrope_tpu_torch.index.ivf_flat import IvfFlatIndex, pick_scan_mode, rank_probes
 from pyrope_tpu_torch.index.ivf_pq import IvfPqIndex
 from pyrope_tpu_torch.kernels import build as kbuild
@@ -1272,10 +1309,10 @@ def phase_kpp(dev) -> None:
 
 def clustered_1m() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The 1M x 128 clustered corpus of phases 4 and 7 (1000 centers), 8192
-    queries, and the ground truth of the first 1024."""
+    queries, and the ground truth of the first 1024 (float64 on the card)."""
     base = synthetic_clustered(1_000_000, 128, n_clusters=1000)
     queries = synthetic_clustered_queries(8 * 1024, 128, n_clusters=1000)
-    return base, queries, ground_truth(base, queries[:1024], K, block=16384)
+    return base, queries, truth_on_card(base, queries[:1024], K, torch.device("cuda", 0))
 
 
 def phase_slice(dev, counts_before, data) -> dict:
@@ -1385,10 +1422,10 @@ def phase_narrow(dev) -> None:
 def uniform_1m() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The 1M x 128 uniform corpus of phases 6 and 9-11 (the reference's
     flat1m and ivf1m rows), 4096 queries, and the ground truth of the first
-    1024."""
+    1024 (float64 on the card)."""
     base = synthetic(1_000_000, 128)
     queries = synthetic_queries(4 * 1024, 128)
-    return base, queries, ground_truth(base, queries[:1024], K, block=16384)
+    return base, queries, truth_on_card(base, queries[:1024], K, torch.device("cuda", 0))
 
 
 def phase_flat(dev, data) -> None:
@@ -1814,18 +1851,47 @@ def hnsw_recall(ix, queries, truth, b, opts=None) -> float:
     return recall(results, truth)
 
 
-def phase_hnsw_native(dev, smi, keep: dict) -> None:
+HNSW_NATIVE_CELLS = (("hnsw100k_clustered", 0.9838), ("hnsw10k", 0.7244))
+
+
+def prebuild_hnsw_native(dev) -> dict:
+    """Phase 15's two graphs, built by the native builder on the host:
+    hnsw100k_clustered (bench.py:172-173) and hnsw10k (:147), HnswIndex(m
+    16, ef_construction 200, ef_search 50) through add_batch. The builder
+    is a ctypes call that runs without the interpreter's lock and touches
+    no card, so ``main`` starts this on a thread of its own before phase 3
+    and the host builds the graphs while the card runs phases 3-14; phase
+    15 uploads them. Returns {name: (index, build seconds, rows, queries)}."""
+    out = {}
+    for name, base, queries in (
+        ("hnsw100k_clustered", synthetic_clustered(100_000, 128, n_clusters=100),
+         synthetic_clustered_queries(256, 128, n_clusters=100)),
+        ("hnsw10k", synthetic(10_000, 128), synthetic_queries(256, 128)),
+    ):
+        ix = HnswIndex(base.shape[1], "L2", device=dev, m=16, ef_construction=200,
+                       ef_search=50)
+        t0 = time.perf_counter()
+        ix.add_batch([str(i) for i in range(len(base))], base)
+        out[name] = (ix, time.perf_counter() - t0, base, queries)
+    return out
+
+
+def phase_hnsw_native(dev, smi, keep: dict, built=None) -> None:
     """hnsw100k_clustered (bench.py:172-173) and hnsw10k (:147): the native
     incremental builder, the beam at b64, recall@10 of 256 queries against
     the record less 0.01, and the copied oracle's sequential search over the
-    same graph (recall_ref, 64 queries). ``keep`` takes the
-    hnsw100k_clustered graph, its queries and truth (phase 22)."""
-    for name, base, queries, gate in (
-        ("hnsw100k_clustered", synthetic_clustered(100_000, 128, n_clusters=100),
-         synthetic_clustered_queries(256, 128, n_clusters=100), 0.9838),
-        ("hnsw10k", synthetic(10_000, 128), synthetic_queries(256, 128), 0.7244),
-    ):
-        ix, build_s = hnsw_index(dev, base)
+    same graph (recall_ref, 64 queries). ``built``: the graphs of
+    ``prebuild_hnsw_native`` (a future of them, or None: built here; the
+    build seconds are the host build's, the upload apart). ``keep`` takes
+    the hnsw100k_clustered graph, its queries and truth (phase 22)."""
+    graphs = (built.result() if hasattr(built, "result") else built) or \
+        prebuild_hnsw_native(dev)
+    for name, gate in HNSW_NATIVE_CELLS:
+        ix, build_s, base, queries = graphs[name]
+        t0 = time.perf_counter()
+        ix._sync()
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
         truth = ground_truth(base, queries, K)
         rec = hnsw_recall(ix, queries, truth, 64)
         ref_rows = np.stack([ref_oracle.ref_hnsw_search(ix, qv, 50, K) for qv in queries[:64]])
@@ -1838,8 +1904,9 @@ def phase_hnsw_native(dev, smi, keep: dict) -> None:
             keep["hnsw100k"] = (ix, queries, truth)
             extra = hnsw_bf16_beam_vs_jax(dev, ix, queries, truth, rec)
         say("15 hnsw native", cell=name, n=len(base), build_s=round(build_s, 2),
-            recall=rec, gate=gate, recall_ref=rec_ref, top_level=ix._top_level,
-            batch_ms=round(64e3 / srv["qps"], 3), **srv, **extra, card=repr(smi))
+            upload_s=round(upload_s, 2), recall=rec, gate=gate, recall_ref=rec_ref,
+            top_level=ix._top_level, batch_ms=round(64e3 / srv["qps"], 3), **srv, **extra,
+            card=repr(smi))
 
 
 def graph_hash(ix) -> dict:
@@ -1938,7 +2005,7 @@ def phase_hnsw_1m(dev, smi) -> None:
     for b in (1, 8, 64, 256):
         q_dev = [torch.from_numpy(queries[i * b:(i + 1) * b]).to(dev)
                  for i in range(min(256 // b, 32))]
-        srv = serve(ix, q_dev, iters=max(20, 2048 // b) if b > 1 else 200)
+        srv = serve(ix, q_dev, iters=max(20, 512 // b) if b > 1 else 50)
         cells[f"b{b}"] = {"batch_ms": round(b * 1e3 / srv["qps"], 3), **srv}
     q256 = torch.from_numpy(queries).to(dev)
     srv = serve(ix, [q256], iters=20, options=SearchOptions(ef_search=200))
@@ -2256,7 +2323,7 @@ def phase_resp(dev, smi, data) -> dict:
 def _resp_cells(dev, smi, data, engine, srv) -> dict:
     t, card = RESP_TENANT, repr(smi)
     # serving_bench.py:255-257: the corpus and the query pool from one generator
-    n, d, pool, nreq, nwrites = 100_000, 128, 4096, 2000, 10_000
+    n, d, pool, nreq, nwrites = 100_000, 128, 4096, 2000, 4_000
     rng = np.random.default_rng(42)
     base = rng.standard_normal((n, d)).astype(np.float32)
     queries = rng.standard_normal((pool, d)).astype(np.float32)[:nreq]
@@ -2356,7 +2423,7 @@ def _resp_cells(dev, smi, data, engine, srv) -> dict:
             server_median_ms=repr({k: round(v, 3) for k, v in cell["server_ms"].items()}),
             trace=repr(tr), **per, card=card)
 
-    # 2. writes: 4 writers x 2,500 VEC.UPSERT of new ids, each read back
+    # 2. writes: 4 writers x 1,000 VEC.UPSERT of new ids, each read back
     writes = np.random.default_rng(7).standard_normal((nwrites, d)).astype(np.float32)
     up = resp_clients(srv.port, "upsert", writes, [[r, r] for r in range(len(writes))], 4,
                       index="idx", prefix="w")
@@ -2429,7 +2496,7 @@ def _resp_cells(dev, smi, data, engine, srv) -> dict:
         "auto", npad, 3, l_pad, batch=b, pallas_ok=True) == "dense"), None)
     with RespClient("127.0.0.1", srv.port) as c:
         c.vec_search(t, "c1m", encode_vector(q1m[0]), K)
-    cell = resp_search_cell(srv, "c1m", q1m, 2 * len(q1m), 64, 3)
+    cell = resp_search_cell(srv, "c1m", q1m, len(q1m), 64, 3)
     err = replies_match_search_batch(cell["replies"], state1m.index, q1m,
                                      SearchOptions(nprobe=3), "1M np3 c64")
     rec = reply_recall(cell["replies"], truth1m)
@@ -2664,7 +2731,7 @@ def _stack(dev, smi, data, in_thread: dict, tmp: str, children: list) -> None:
     with RespClient("127.0.0.1", resp_port) as c:
         require(c.auth(t, STACK_TENANT_KEY), "AUTH")
         c.vec_search(t, ix, encode_vector(q1m[0]), K)
-    cell = stack_cell(url, resp_port, q1m, 2000, 64)
+    cell = stack_cell(url, resp_port, q1m, len(q1m), 64)
     with uncounted():
         err = replies_match_search_batch(cell["replies"], state.index, q1m,
                                          SearchOptions(nprobe=3), "stack 1M np3 c64")
@@ -2699,7 +2766,7 @@ def _stack(dev, smi, data, in_thread: dict, tmp: str, children: list) -> None:
         snapshot_bytes=snap_bytes, times=repr(times), card=card)
 
     # 6. writes of new ids, then a rebuild on the card: each read back
-    nwrites = 10_000
+    nwrites = 4_000
     writes = np.random.default_rng(19).standard_normal((nwrites, base1m.shape[1])).astype(
         np.float32)
     added = resp_load.drive(resp_port, "add", writes, [[r, r] for r in range(nwrites)], 4,
@@ -3174,6 +3241,272 @@ def phase_sharded(dev, smi, clustered, uniform, hnsw100k) -> None:
         **sharded_cell(sh, hq_dev, 50), card=repr(smi))
 
 
+# recall@10 of ivf100k_zipf (IvfFlatIndex nlist 100, nprobe 3 on
+# synthetic_zipf(100k, 128, 100), the first 256 of 1024 Zipf queries) in the
+# JAX package on the CPU; tests/test_torch_zipf.py holds it
+ZIPF_RECALL_JAX = 0.98984375
+# the 1M Zipf rows' gates: bench.py's TPU record (BENCH_DETAIL.json) less 0.01
+ZIPF_GATES = {"ivf1m_zipf_b1024": (0.9517, 0.9417), "ivf1m_zipf_probe": (0.9449, 0.9349),
+              "ivfpq1m_zipf_b256": (0.9035, 0.8935)}
+
+
+def zipf_data(n: int, nc: int, dev) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """bench.py's Zipf corpus (``synthetic_zipf(n, 128, nc)``), its 1024
+    queries (``synthetic_zipf_queries``, the same popularity), and the exact
+    top-10 of all of them, float64 on the card."""
+    base = synthetic_zipf(n, 128, n_clusters=nc)
+    queries = synthetic_zipf_queries(1024, 128, n_clusters=nc)
+    return base, queries, truth_on_card(base, queries, K, dev)
+
+
+def zipf_lists(ix) -> dict:
+    """The partition an IVF build left (IvfFlatIndex or IvfPqIndex): lists,
+    empty ones, the longest five, the slab's l_pad (what the list scan's
+    max_len and the probe route's gather take)."""
+    lens = np.sort(ix._lens)
+    return {"lists": int(lens.size), "empty_lists": int((lens == 0).sum()),
+            "longest": lens[::-1][:5].tolist(), "l_pad": int(ix._sync()["l_pad"]),
+            "rows": int(lens.sum())}
+
+
+def list_scan_shape(dev, tdev, q, nprobe: int, slab="xperm", sqnorm="sqnorm") -> dict:
+    """One list-scan call at an index's own probes for ``q``: the grid it
+    launches against the items that hold rows, the segments a chunk, the
+    slots it allocates against those a query fills (mean, most), the
+    segment, its one buffer's bytes, its first pass (None: none runs), the
+    plans the process has cached (``fs.list_call``, keyed by shapes, max_len
+    among them), and its device ms split into scan and merge
+    (torch.profiler; empty where it records no device time). Its launches
+    are taken off the path's counts."""
+    kp, n = tdev["cents"].shape[0], tdev["alive"].shape[0]
+    b = q.shape[0]
+    probe = rank_probes(q, tdev["cents"], tdev["cvalid"], tdev["offsets"], tdev["lens"],
+                        nprobe, n, Metric.L2)[0]
+    call = fs.list_call(K, fs.LIST_IVF, False, b, nprobe, kp, tdev["l_pad"], q.shape[1], n,
+                        fs.device_sms(dev))
+    with uncounted():
+        work = fs.invert_probes(probe, tdev["lens"], kp, tdev["l_pad"], call.plan.seg, n)
+        items = int(work.item_end[-1])
+        per_q = work.slot_end[:, -1].diff(prepend=work.slot_end.new_zeros(1))
+        split = device_split(lambda: fs.fused_ivf_topk(
+            q, tdev[slab], tdev[sqnorm], tdev["alive"], tdev["crow"], tdev["offsets"],
+            tdev["lens"], probe, kp, K, max_len=tdev["l_pad"]))
+    return {"seg": call.plan.seg, "grid": call.grid, "items_with_rows": items,
+            "buffer_bytes": 4 * call.total, "first_pass": repr(call.prefloor),
+            "plans_cached": len(fs._CALLS),
+            "segs_a_chunk": call.segs, "slots_alloc_a_query": call.slots // b,
+            "slots_a_query_mean": round(float(per_q.float().mean()), 2),
+            "slots_a_query_max": int(per_q.max()), "slots_filled": int(per_q.sum()),
+            "device": {k: round(v, 4) for k, v in split.items()},
+            "merge_share": round(split["merge_ms"] / split["device_ms"], 4) if split else None}
+
+
+def zipf_list_scan_times(tdev, q, probe, slots: int) -> dict:
+    """The list scan (scan and merge) at an index's own tensors and probes,
+    timed as phase 3 times its rows: the wrapper (CUDA events, median of
+    10), its plain version, the composition (topk of the masked fp32
+    scores), the bare product q @ x.T, and the bytes bound: the probed
+    lists' rows (512 B of fp32, the squared norm, the alive flag) read
+    once, q, the probes, the ``slots`` partials the scan writes and the
+    hits."""
+    kp = tdev["cents"].shape[0]
+    args = (q, tdev["xperm"], tdev["sqnorm"], tdev["alive"], tdev["crow"])
+    with uncounted():
+        ms = cuda_ms(lambda: fs.fused_ivf_topk(*args, tdev["offsets"], tdev["lens"], probe, kp,
+                                               K, max_len=tdev["l_pad"]), 10)
+    plain_ms = cuda_ms(lambda: fs.fused_ivf_topk_plain(*args, probe, kp, K), 3)
+    comp_ms = cuda_ms(lambda: composition_topk(
+        l2_or_ip(q, q @ tdev["xperm"].T, tdev["sqnorm"], False),
+        fs.probe_table(probe, kp)[:, tdev["crow"].long()] & tdev["alive"][None, :], K), 3)
+    lib_ms = cuda_ms(lambda: q @ tdev["xperm"].T, 10)
+    bnd = list_bound(q.shape[1] * 4 + 5, q, probe, tdev["lens"], tdev["alive"], tdev["crow"],
+                     kp, K, extra=slots * K * 8)
+    return {"ms": round(ms, 4), "plain_ms": round(plain_ms, 3),
+            "composition_ms": round(comp_ms, 3), "library_ms": round(lib_ms, 3),
+            "bound_ms": round(bnd[0], 4), "bound_by": bnd[1]}
+
+
+def zipf_serve(ix, queries, b, dev, iters) -> dict:
+    q_dev = [torch.from_numpy(queries[i * b:(i + 1) * b]).to(dev)
+             for i in range(max(len(queries) // b, 1))]
+    return serve(ix, q_dev, iters=iters)
+
+
+def zipf_build(ix, base) -> tuple[float, int]:
+    """add_batch and build ``ix`` over ``base``: the build's seconds and the
+    device bytes it left allocated."""
+    ix.add_batch([str(i) for i in range(len(base))], base)
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ix.build()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, torch.cuda.memory_allocated() - alloc0
+
+
+def phase_zipf(dev, smi) -> None:
+    """Phase 23: bench.py's four Zipf rows through the indexes' own entry
+    points (add_batch, build, device_search / search_batch)."""
+    # ivf100k_zipf: nlist 100, nprobe 3, b64, recall of 256 queries
+    t0 = time.perf_counter()
+    base, queries, truth = zipf_data(100_000, 100, dev)
+    data_s = time.perf_counter() - t0
+    ix = IvfFlatIndex(128, "L2", device=dev, nlist=100)
+    build_s, index_bytes = zipf_build(ix, base)
+    route = ix.describe_scan(64)
+    require(route == "dense-pallas", f"ivf100k_zipf route is {route}")
+    launches = fs.LAUNCHES["ivf_scan"]
+    rec = recall(ix.search_batch(queries[:256], K), truth[:256])
+    require(fs.LAUNCHES["ivf_scan"] > launches, "ivf100k_zipf: the list scan never launched")
+    require(abs(rec - ZIPF_RECALL_JAX) <= 0.005,
+            f"ivf100k_zipf recall@10 {rec} not within 0.005 of the JAX package's "
+            f"{ZIPF_RECALL_JAX}")
+    tdev = ix._sync()
+    say("23 zipf", cell="ivf100k_zipf", route=route, batch=64, data_s=round(data_s, 2),
+        build_s=round(build_s, 2), index_device_bytes=index_bytes, recall=rec,
+        recall_jax_cpu=ZIPF_RECALL_JAX,
+        **zipf_serve(ix, queries, 64, dev, 200), lists=repr(zipf_lists(ix)),
+        list_scan_b64=repr(list_scan_shape(dev, tdev, torch.from_numpy(queries[:64]).to(dev),
+                                           3)),
+        card=repr(smi))
+    del ix, tdev
+
+    # the 1M rows: one IVF-Flat build serves ivf1m_zipf_b1024 and _probe
+    t0 = time.perf_counter()
+    base, queries, truth = zipf_data(1_000_000, 1000, dev)
+    data_s = time.perf_counter() - t0
+    ix = IvfFlatIndex(128, "L2", device=dev, nlist=1000, train_dtype="bfloat16")
+    build_s, index_bytes = zipf_build(ix, base)
+    lists = zipf_lists(ix)
+    tdev = ix._sync()
+    q1024 = torch.from_numpy(queries).to(dev)
+    route = ix.describe_scan(1024)
+    require(route == "dense-pallas-win", f"ivf1m_zipf_b1024 route is {route}")
+    launches = fs.LAUNCHES["ivf_scan"]
+    got = ix.device_search(q1024, K)
+    require(fs.LAUNCHES["ivf_scan"] > launches, "ivf1m_zipf_b1024: the list scan never launched")
+    rows = id_lists_to_rows(ix.resolve_rows(got[1].cpu().numpy()), K)
+    rec = recall_at_k(rows, truth, K)
+    ref, gate = ZIPF_GATES["ivf1m_zipf_b1024"]
+    require(rec >= gate, f"ivf1m_zipf_b1024 recall@10 {rec} < {gate}")
+    # the b1024 call's hits against the list scan's plain version on the card
+    probe = rank_probes(q1024, tdev["cents"], tdev["cvalid"], tdev["offsets"], tdev["lens"],
+                        3, tdev["alive"].shape[0], Metric.L2)[0]
+    plain = fs.fused_ivf_topk_plain(q1024, tdev["xperm"], tdev["sqnorm"], tdev["alive"],
+                                    tdev["crow"], probe, tdev["cents"].shape[0], K)
+    err, swaps = compare(got, plain, "ivf1m_zipf_b1024 vs the plain list scan")
+    del plain
+    shape = list_scan_shape(dev, tdev, q1024, 3)
+    shape.update(zipf_list_scan_times(tdev, q1024, probe, shape["slots_filled"]))
+    say("23 zipf", cell="ivf1m_zipf_b1024", route=route, batch=1024, data_s=round(data_s, 2),
+        build_s=round(build_s, 2), index_device_bytes=index_bytes, recall=rec,
+        reference=f"{ref} (TPU record), gate {gate}", vs_plain_err=err,
+        vs_plain_kth_ties=swaps, **zipf_serve(ix, queries, 1024, dev, 40),
+        lists=repr(lists), list_scan_b1024=repr(shape), card=repr(smi))
+
+    # ivf1m_zipf_probe: the same index, scan_mode "probe", b256
+    q256 = q1024[:256].contiguous()
+    listed = ix.device_search(q256, K)   # the list-scan route, the same queries
+    ix.scan_mode = "probe"
+    try:
+        route = ix.describe_scan(256)
+        require(route == "probe", f"ivf1m_zipf_probe route is {route}")
+        t0 = time.perf_counter()
+        probed = ix.device_search(q256, K)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        rec = recall_at_k(id_lists_to_rows(ix.resolve_rows(probed[1].cpu().numpy()), K),
+                          truth[:256], K)
+        ref, gate = ZIPF_GATES["ivf1m_zipf_probe"]
+        require(rec >= gate, f"ivf1m_zipf_probe recall@10 {rec} < {gate}")
+        err, swaps = compare(probed, listed, "ivf1m_zipf_probe: probe route vs list scan")
+        torch.cuda.reset_peak_memory_stats(dev)
+        srv = zipf_serve(ix, queries, 256, dev, 8)
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        ix.scan_mode = "auto"
+    step = max(1, IVF_DENSE_MAX_ELEMS // (lists["l_pad"] * 128))
+    say("23 zipf", cell="ivf1m_zipf_probe", route=route, batch=256, recall=rec,
+        reference=f"{ref} (TPU record), gate {gate}", vs_list_scan_err=err,
+        vs_list_scan_kth_ties=swaps, first_call_ms=round(first_ms, 1), **srv,
+        gather_block_queries=step, peak_device_bytes=peak, build="shared with b1024",
+        card=repr(smi))
+    del ix, tdev, q1024, q256, listed, probed, got
+
+    # ivfpq1m_zipf_b256: IVF-PQ nlist 1000, pq_m 16, ksub 256, bf16 training,
+    # the fp32 rerank slab scanned exactly by the list scan
+    pq = IvfPqIndex(128, "L2", device=dev, nlist=1000, pq_m=16, ksub=256,
+                    train_dtype="bfloat16")
+    build_s, index_bytes = zipf_build(pq, base)
+    route = pq.describe_scan(256)
+    require(route == "dense-exact-pallas-win", f"ivfpq1m_zipf_b256 route is {route}")
+    launches = fs.LAUNCHES["ivf_scan"]
+    q256 = torch.from_numpy(queries[:256]).to(dev)
+    _, rows = pq.device_search(q256, K)
+    require(fs.LAUNCHES["ivf_scan"] > launches, "ivfpq1m_zipf_b256: the list scan never launched")
+    rec = recall_at_k(id_lists_to_rows(pq.resolve_rows(rows.cpu().numpy()), K), truth[:256], K)
+    ref, gate = ZIPF_GATES["ivfpq1m_zipf_b256"]
+    require(rec >= gate, f"ivfpq1m_zipf_b256 recall@10 {rec} < {gate}")
+    pdev = pq._sync()
+    say("23 zipf", cell="ivfpq1m_zipf_b256", route=route, batch=256, build_s=round(build_s, 2),
+        index_device_bytes=index_bytes, recall=rec,
+        reference=f"{ref} (TPU record), gate {gate}", **zipf_serve(pq, queries, 256, dev, 100),
+        lists=repr(zipf_lists(pq)),
+        list_scan_b256=repr(list_scan_shape(dev, pdev, q256, 3, slab="xraw",
+                                            sqnorm="xsqnorm")),
+        card=repr(smi))
+    del pq, pdev
+
+
+# the top hits examples/quickstart.py prints, from the JAX package on the
+# CPU: the Flat scan's three, every other section's first, each with the ids
+# that tie it in fp32 (section 5's fresh document is the query itself);
+# tests/test_torch_scripts.py holds it
+QUICKSTART_HITS_JAX = {"flat_top3": ["doc123", "doc3346", "doc995"],
+                       "ivf_nprobe8_top": ["doc123"], "ivfpq_top": ["doc123"],
+                       "hnsw_top": ["doc123"],
+                       "delta_pre_compaction": ["doc123", "fresh-doc"],
+                       "delta_post_compaction": ["doc123", "fresh-doc"]}
+
+
+def quickstart_hits_match(hits: dict) -> bool:
+    """The twin's hits against QUICKSTART_HITS_JAX: the Flat scan's three in
+    order, every other section's first among the JAX hit's fp32 ties."""
+    return (hits["flat_top3"] == QUICKSTART_HITS_JAX["flat_top3"]
+            and all(hits[key] in ids for key, ids in QUICKSTART_HITS_JAX.items()
+                    if key != "flat_top3"))
+
+
+def phase_tools(dev, smi) -> None:
+    """Phase 24: three twins of the JAX package's tools, in this process on
+    the card, each held to its own success condition."""
+    from pyrope_tpu_torch.scripts import phase6_eval, quickstart, soak_test
+
+    t0 = time.perf_counter()
+    soak = soak_test.run(seconds=15, device=dev.type)
+    require(soak["ok"] and soak["errors"] == 0,
+            f"soak_test: {soak['errors']} errors {soak['error_sample'][:3]}, "
+            f"known row found {soak['known_row_found']}, count {soak['count']}")
+    say("24 tools", tool="soak_test", seconds=round(time.perf_counter() - t0, 1),
+        ops=repr(soak["ops"]), ops_per_s=soak["ops_per_s"], errors=soak["errors"],
+        count=soak["count"], card=repr(smi))
+    t0 = time.perf_counter()
+    report = phase6_eval.run(dev.type)
+    require(all(s["ok"] for s in report), f"phase6_eval: {report}")
+    say("24 tools", tool="phase6_eval", seconds=round(time.perf_counter() - t0, 1),
+        scenarios=repr(report), card=repr(smi))
+    t0 = time.perf_counter()
+    tour = quickstart.run(dev.type)
+    require(quickstart_hits_match(tour["hits"]),
+            f"quickstart hits {tour['hits']} are not the JAX quickstart's "
+            f"{QUICKSTART_HITS_JAX}")
+    require(tour["native_available"] and tour["restored_count"] == 20_000,
+            f"quickstart: native {tour['native_available']}, "
+            f"restored {tour['restored_count']}")
+    say("24 tools", tool="quickstart", seconds=round(time.perf_counter() - t0, 1),
+        hits=repr(tour["hits"]), engine=repr(tour["engine"]), card=repr(smi))
+
+
 def run_path(name: str, fn, kernels: tuple[str, ...]) -> dict:
     """One serving path: the launch counts zeroed before it and read after;
     each of ``kernels`` must have run on it. Prints its wall time."""
@@ -3200,6 +3533,10 @@ def main() -> int:
     torch.cuda.set_device(dev)
     smi = phase_device()
     phase_build()
+    # phase 15's graphs build on the host while the card runs phases 3-14
+    prebuild = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="hnsw-native")
+    hnsw_native = prebuild.submit(prebuild_hnsw_native, dev)
+    prebuild.shutdown(wait=False)
     t0 = time.perf_counter()
     rec = phase_kernels(dev)
     say("time", step="3_kernels", seconds=round(time.perf_counter() - t0, 1))
@@ -3237,7 +3574,7 @@ def main() -> int:
         ("flat hybrid k100", lambda: phase_flat_hybrid_k100(dev, uniform),
          ("flat_scan_bf16_wide", "merge_wide")),
         ("IVF-Flat d768", lambda: phase_ivf_d768(dev), ("ivf_scan", "merge", "invert_probes")),
-        ("HNSW native", lambda: phase_hnsw_native(dev, smi, keep), ()),
+        ("HNSW native", lambda: phase_hnsw_native(dev, smi, keep, hnsw_native), ()),
         ("HNSW 1M", lambda: phase_hnsw_1m(dev, smi), ()),
         ("Delta HNSW", lambda: phase_delta_hnsw(dev, smi),
          ("flat_scan", "merge", "invert_probes")),
@@ -3251,6 +3588,8 @@ def main() -> int:
          ("flat_scan", "flat_scan_bf16", "merge")),
         ("sharded", lambda: phase_sharded(dev, smi, data, uniform, keep.pop("hnsw100k")),
          ("flat_scan", "ivf_scan", "merge", "invert_probes")),
+        ("Zipf", lambda: phase_zipf(dev, smi), ("ivf_scan", "merge", "invert_probes")),
+        ("tools", lambda: phase_tools(dev, smi), ("ivf_scan", "merge", "invert_probes")),
     )}
     say("launches", **{name.replace(" ", "_"): repr(got) for name, got in paths.items()})
     # every list-scan call inverts its probes with the kernel, once

@@ -139,7 +139,30 @@ def scan_probed_lists(xperm, sqnorm, alive, q, offs_p, eff, *, k: int,
                       l_pad: int, metric: Metric, cdtype=None):
     """Scan every probed list slice with a running top-k merge: each probe
     gathers [B, l_pad] rows from the cluster-major slab and scores them
-    against its query (operands rounded to ``cdtype`` when given)."""
+    against its query (operands rounded to ``cdtype`` when given). Walked
+    in blocks of queries small enough that no gathered [block, l_pad, D]
+    slab holds more than DENSE_MAX_ELEMS elements (plus one query's share),
+    whatever the batch and the longest list (a skewed corpus has one list
+    of ~13% of its rows). A one-query tail joins the block before it: a
+    batched product of one query may take another kernel (a mat-vec) and
+    round otherwise, and no query's hits depend on the block it is in."""
+    step = max(1, DENSE_MAX_ELEMS // max(l_pad * xperm.shape[1], 1))
+    b = q.shape[0]
+    starts = list(range(0, b, step))
+    if len(starts) > 1 and b - starts[-1] == 1 and step > 1:
+        starts.pop()
+    if len(starts) <= 1:
+        return _scan_probed_block(xperm, sqnorm, alive, q, offs_p, eff, k=k,
+                                  l_pad=l_pad, metric=metric, cdtype=cdtype)
+    ends = starts[1:] + [b]
+    parts = [_scan_probed_block(xperm, sqnorm, alive, q[s:e], offs_p[s:e], eff[s:e],
+                                k=k, l_pad=l_pad, metric=metric, cdtype=cdtype)
+             for s, e in zip(starts, ends)]
+    return torch.cat([v for v, _ in parts]), torch.cat([i for _, i in parts])
+
+
+def _scan_probed_block(xperm, sqnorm, alive, q, offs_p, eff, *, k: int,
+                       l_pad: int, metric: Metric, cdtype=None):
     b = q.shape[0]
     qf = q.float()
     qd = rounded(qf, cdtype)

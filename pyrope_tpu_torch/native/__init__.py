@@ -9,7 +9,7 @@ compiler or a failed build raises with g++'s output: nothing falls back to
 per-row Python inserts.
 """
 
-from pyrope_tpu_torch.native.build import load_native
+from pyrope_tpu_torch.native.build import load_native, native_available
 from pyrope_tpu_torch.native.hnsw import hnsw_build_native
 
-__all__ = ["load_native", "hnsw_build_native"]
+__all__ = ["load_native", "native_available", "hnsw_build_native"]

@@ -76,3 +76,15 @@ def load_native() -> ctypes.CDLL:
             ]
             _lib = lib
         return _lib
+
+
+def native_available() -> bool:
+    """Whether the native library builds and loads here: the loader's
+    own answer (g++ present, the build succeeds). A False does not make the
+    HNSW builder fall back to anything: it raises, as ``load_native``
+    does."""
+    try:
+        load_native()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return False
+    return True

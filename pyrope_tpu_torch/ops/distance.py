@@ -20,6 +20,15 @@ import torch
 from pyrope_tpu_torch.types import Metric
 
 
+def score_convention(metric: Metric) -> str:
+    """Human-readable score semantics for a metric."""
+    return {
+        Metric.L2: "-l2_squared",
+        Metric.INNER_PRODUCT: "dot",
+        Metric.COSINE: "cosine_similarity",
+    }[Metric.parse(metric)]
+
+
 def check_fp32_exact(t: torch.Tensor) -> None:
     """Raise where a float32 matmul on ``t``'s device would run in TF32."""
     if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:

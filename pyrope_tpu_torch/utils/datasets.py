@@ -52,6 +52,57 @@ def synthetic_clustered_queries(
     return centers[assign] + noise
 
 
+def zipf_cluster_sizes(n: int, n_clusters: int, alpha: float = 1.0,
+                       seed: int = BASE_SEED) -> np.ndarray:
+    """Heavy-tailed cluster sizes: size_i ∝ 1/rank_i^alpha, summing to n
+    (every cluster gets >= 1 row). Real ANN corpora (SIFT/GloVe) have
+    skewed cluster populations that the balanced mixture above never
+    shows; this is the seeded stand-in for that skew."""
+    ranks = np.arange(1, n_clusters + 1, dtype=np.float64)
+    w = ranks ** (-alpha)
+    sizes = np.maximum((w / w.sum() * (n - n_clusters)).astype(np.int64), 0) + 1
+    # distribute the rounding remainder onto the largest clusters
+    rem = n - int(sizes.sum())
+    sizes[: abs(rem)] += np.sign(rem)
+    if sizes.sum() != n or not (sizes > 0).all():
+        raise ValueError(f"zipf sizes do not cover n={n} with {n_clusters} clusters")
+    # shuffle which center gets which size so cluster id != popularity rank
+    rng = np.random.default_rng(seed + 7)
+    rng.shuffle(sizes)
+    return sizes
+
+
+def synthetic_zipf(
+    n: int, dim: int, n_clusters: int = 100, alpha: float = 1.0,
+    seed: int = BASE_SEED, spread: float = 0.05,
+) -> np.ndarray:
+    """Mixture-of-Gaussians corpus with Zipf(alpha) cluster sizes: the
+    largest cluster holds ~n/H(K) rows (13% of 1M at K=1000, against 0.1%
+    balanced), so one IVF list is far longer than the rest."""
+    rng = np.random.default_rng(seed)
+    centers = rng.random((n_clusters, dim)).astype(np.float32)
+    sizes = zipf_cluster_sizes(n, n_clusters, alpha, seed)
+    assign = np.repeat(np.arange(n_clusters), sizes)
+    rng.shuffle(assign)  # insertion order must not leak cluster structure
+    noise = rng.normal(0.0, spread, (n, dim)).astype(np.float32)
+    return centers[assign] + noise
+
+
+def synthetic_zipf_queries(
+    n: int, dim: int, n_clusters: int = 100, alpha: float = 1.0,
+    seed: int = QUERY_SEED, base_seed: int = BASE_SEED, spread: float = 0.05,
+) -> np.ndarray:
+    """Queries drawn near the same centers with the same Zipf popularity:
+    hot clusters are queried proportionally more."""
+    rng = np.random.default_rng(seed)
+    centers_rng = np.random.default_rng(base_seed)
+    centers = centers_rng.random((n_clusters, dim)).astype(np.float32)
+    sizes = zipf_cluster_sizes(n_clusters * 64, n_clusters, alpha, base_seed)
+    assign = rng.choice(n_clusters, size=n, p=sizes / sizes.sum())
+    noise = rng.normal(0.0, spread, (n, dim)).astype(np.float32)
+    return centers[assign] + noise
+
+
 def read_fvecs(path: str | Path, limit: int | None = None) -> np.ndarray:
     """SIFT-style .fvecs: per record int32 dim + dim float32 LE
     (ref: Datasets/FvecsReader.cs:14-58)."""

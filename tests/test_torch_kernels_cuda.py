@@ -369,6 +369,75 @@ def test_merge_kernel_takes_per_query_slots(cuda_device):
     assert (mi[cnt == 0] == -1).all()
 
 
+def _zipf_layout(dev, n=60_000, d=32, nc=100, b=1024, nprobe=3):
+    """A list layout as an IVF index over a Zipf corpus makes it: rows of
+    ``synthetic_zipf`` sorted by their nearest generating center (the
+    largest of 100 lists ~19% of the rows), ``synthetic_zipf_queries`` probing their nearest
+    ``nprobe`` centers. Returns (q, x, sq, alive, crow, offs, lens, probe,
+    max_len) on ``dev``, max_len the longest list rounded up to 128."""
+    from pyrope_tpu_torch.utils.datasets import synthetic_zipf, synthetic_zipf_queries
+
+    x = synthetic_zipf(n, d, n_clusters=nc)
+    q = synthetic_zipf_queries(b, d, n_clusters=nc)
+    cents = np.random.default_rng(42).random((nc, d)).astype(np.float32)
+
+    def nearest(v, m):
+        d2 = (v * v).sum(1)[:, None] - 2.0 * v @ cents.T + (cents * cents).sum(1)[None]
+        return np.argsort(d2, axis=1, kind="stable")[:, :m]
+
+    assign = nearest(x, 1)[:, 0]
+    order = np.argsort(assign, kind="stable")
+    x = np.ascontiguousarray(x[order])
+    crow = assign[order].astype(np.int32)
+    probe = nearest(q, nprobe).astype(np.int32)
+    offs, lens = csr(crow, nc)
+    sq = np.einsum("nd,nd->n", x, x).astype(np.float32)
+    alive = np.ones(n, bool)
+    t = [as_tensor(a).to(dev) for a in (q, x, sq, alive, crow)]
+    return (*t, offs.to(dev), lens.to(dev), as_tensor(probe).to(dev),
+            -(-int(lens.max()) // 128) * 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nprobe,k", [(1024, 3, 10), (64, 3, 10), (256, 8, 128),
+                                        (256, 3, 200)])
+def test_list_scan_on_a_zipf_layout_vs_plain(cuda_device, b, nprobe, k):
+    """The list scan (narrow and wide) where one list holds a sixth of the
+    rows or more, as on the skewed corpora: the hits of its plain
+    version."""
+    q, x, sq, alive, crow, offs, lens, probe, ml = _zipf_layout(cuda_device, b=b,
+                                                                nprobe=nprobe)
+    assert int(lens.max()) > 0.13 * x.shape[0]
+    key = "ivf_scan_wide" if k > fs.NARROW_MAX_K else "ivf_scan"
+    before = fs.LAUNCHES[key]
+    kv, ki = fs.fused_ivf_topk(q, x, sq, alive, crow, offs, lens, probe, 100, k,
+                               max_len=ml)
+    assert fs.LAUNCHES[key] == before + 1
+    pv, pi = fs.fused_ivf_topk_plain(q, x, sq, alive, crow, probe, 100, k)
+    torch.cuda.synchronize()
+    assert_same_hits(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1024, 64])
+def test_merge_on_a_zipf_layout_vs_plain(cuda_device, b):
+    """The merge kernel on the list scan's own partials over a Zipf layout
+    (queries of the long list fill more slots than the others: 8 against
+    3 at 2,048-row segments): bit-equal to its plain version on the same
+    partials."""
+    q, x, sq, alive, crow, offs, lens, probe, ml = _zipf_layout(cuda_device, b=b)
+    part_v, part_i, slot_end = fs.list_partials(q, x, sq, alive, offs, lens, probe, 100, 10,
+                                                False, ml)
+    per_q = slot_end[:, -1].diff(prepend=slot_end.new_zeros(1))
+    assert int(per_q.max()) >= 2 * int(per_q.min())
+    before = fs.LAUNCHES["merge"]
+    kv, ki = fs.merge_partials(part_v, part_i, slot_end)
+    assert fs.LAUNCHES["merge"] == before + 1
+    mv, mi = fs.merge_partials_plain(part_v, part_i, slot_end)
+    np.testing.assert_array_equal(ki.cpu().numpy(), mi.cpu().numpy())
+    np.testing.assert_array_equal(kv.cpu().numpy(), mv.cpu().numpy())
+
+
 # ---- the flat scan's two tile instantiations and the merge's layouts ---------
 
 

@@ -46,7 +46,7 @@ print(json.dumps({
 # modules whose import must start nothing: the servers' entry points
 ENTRY_POINTS = ("pyrope_tpu_torch.server.__main__", "pyrope_tpu_torch.server.app",
                 "pyrope_tpu_torch.sidecar.server")
-MODULES = 97   # every module of the package, this PR's count
+MODULES = 110  # every module of the package, the tools' twins (scripts/) included
 # the modules that complete the port: Flat sq8 lives in index/flat.py
 COMPLETING = ("pyrope_tpu_torch.index.flat", "pyrope_tpu_torch.index.device_flat",
               "pyrope_tpu_torch.parallel", "pyrope_tpu_torch.parallel.mesh",
