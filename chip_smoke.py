@@ -4,9 +4,9 @@
     python3 chip_smoke.py          # from the repo root, on a host with a GPU
 
 Builds the CUDA kernels from pyrope_tpu_torch/csrc at first use, then runs
-twenty-four phases, one line each (phases 8, 15 and 19 two, phase 18 one a
+twenty-five phases, one line each (phases 8, 15 and 19 two, phase 18 one a
 cell, phase 21 three, phase 22 one a family and layout, phase 23 one a
-cell, phase 24 one a tool);
+cell, phase 24 one a tool, phase 25 one a row and one for its files);
 any failed check exits non-zero. Each serving path's wall time and the
 total are printed:
 
@@ -293,11 +293,34 @@ total are printed:
                three scenarios' checks, the prefetch served from the cache),
                quickstart (its top hits the JAX quickstart's on the CPU,
                QUICKSTART_HITS_JAX, up to fp32 ties)
+ 25. bench rows fifteen of bench.py's rows that no other phase runs, through
+               the bench twin's run_config (pyrope_tpu_torch/scripts/bench.py)
+               at bench.py's sizes and batches, a short pipelined section
+               (BENCH_DURATION_S) and 20 blocking samples: the nprobe sweep
+               ivf100k_np16/32/64, delta20k and delta20k_np96,
+               flat100k_cos_b1024 and flat100k_ip_b1024 (COSINE, IP),
+               flat10k_d1024_b1024 and flat100k_d1024_b1024 (D 1024), the
+               file-backed ivf100k_fvecs_file and ivf_glove_file (the files
+               the twin of scripts/make_dataset_files.py writes into a
+               temporary directory first; the GloVe text read through a
+               temporary fvecs file), and the 1M IVF-PQ rows ivfpq1m_adc
+               (pq_m 8, refine 0: probe-adc), ivfpq1m_probe
+               (probe-adc+rerank, b256), ivfpq1m_np8 and ivfpq1m_r128. Gates:
+               the exact rows no miss beyond fp32 ties against a float64
+               truth; the IVF and Delta rows within 0.01 of the JAX
+               package's CPU recall (BENCH_RECALL_JAX) and their eval batch's
+               hits the list scan's plain version's on the row's own build
+               (a k-th place tie apart); the 1M rows the TPU record less 0.01
+               (BENCH_TPU_GATES). Every route the JAX package's (BENCH_ROUTES).
+               Each row prints its route, QPS, ms a batch pipelined, p50/p99,
+               recall, gate, recall_ref (the numpy oracle up to 200k rows),
+               build_s, device bytes and a profiler trace of 5 of its
+               batches (idle share, kernels a batch)
 
 Every list-scan call inverts its probes with the inversion kernel once
 (``invert_probes``): on every path its launches equal the list scan's.
 The kernels' launch counters are zeroed before each serving path (phases
-4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-24, one path
+4-6, the IVF-Flat path; phases 7-8, the IVF-PQ path; phases 9-25, one path
 each) and read after it: every kernel of a path must have run on it, the
 wide modes (the ``_wide`` counters) on the paths that ask for k > 128 or
 R > 128, and the wide modes' first pass and the list scans' floor select
@@ -312,7 +335,7 @@ server is a process of its own, so its kernels are read from its own trace
 (the path counts nothing in this process); phase 20 (Flat sq8) runs no
 kernel, as the JAX package's sq8 scan reaches no Pallas kernel; phase 21
 launches K1 and K1 bf16 (and the merge), phase 22 K1, the list scan and
-the merge, once a shard; phases 23 and 24 the list scan, the merge and the
+the merge, once a shard; phases 23 to 25 the list scan, the merge and the
 inversion. The 1M corpora's ground truth is float64 on the card. The last
 three
 lines are the
@@ -322,6 +345,7 @@ kernels' JSON record, the card as nvidia-smi names it, and
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import glob
@@ -397,6 +421,7 @@ LIST_SCAN_KEYS = ("ivf_scan", "ivf_scan_bf16", "ivf_scan_bf16_promote", "ivf_sca
                   "sq8_scan",
                   "ivf_scan_wide", "ivf_scan_bf16_wide", "sq8_scan_wide")
 PALLAS = "pyrope_tpu/ops/pallas_scan.py"
+T_START = time.perf_counter()
 
 
 def require(cond: bool, what: str) -> None:
@@ -496,22 +521,59 @@ def exact_misses_are_ties(ix, base, queries, truth, batch=None, k=K) -> tuple[fl
     return rec, bad
 
 
+# sessions of cuda_trace that returned no CUDA event at first: what the
+# profiler's raw results held in it and in the two sessions taken again
+PROFILER_MISSES: list = []
+
+
+def _session(fn, calls: int, activities, pad_s: float):
+    from torch.profiler import profile
+
+    with profile(activities=activities) as prof:
+        time.sleep(pad_s)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    raw = collections.Counter(e.device_type().name for e in prof.profiler.kineto_results.events())
+    return events, {"events": len(prof.events()), "raw_by_device": dict(raw)}
+
+
+def cuda_trace(fn, calls: int, cpu: bool = False) -> list:
+    """The CUDA events (kernels, copies, memsets) of ``calls`` calls of
+    ``fn`` under torch.profiler, after one warm-up; ``cpu``: the CPU
+    activity traced too. In the whole smoke a few sessions returned no
+    CUDA event at all (PERF.md), so such a session is taken again
+    twice: with 50 ms of idle host time at both ends of the window, and
+    with the CPU activity on; PROFILER_MISSES records all three and the
+    first that recovered gives the events."""
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    events, first = _session(fn, calls, acts, 0.0)
+    if events:
+        return events
+    padded, pad_diag = _session(fn, calls, acts, 0.05)
+    with_cpu, cpu_diag = _session(fn, calls, [ProfilerActivity.CPU, ProfilerActivity.CUDA], 0.0)
+    free, _ = torch.cuda.mem_get_info()
+    PROFILER_MISSES.append({"caller": sys._getframe(2).f_code.co_name, "calls": calls,
+                            "cpu_activity": cpu, "first": first, "padded": pad_diag,
+                            "with_cpu": cpu_diag, "recovered": bool(padded or with_cpu),
+                            "free_bytes": free, "reserved_bytes": torch.cuda.memory_reserved(),
+                            "process_s": round(time.perf_counter() - T_START, 1)})
+    return padded or with_cpu
+
+
 def device_shares(fn, iters: int) -> dict:
     """A torch.profiler trace of ``iters`` pipelined calls: the device span
     (first kernel start to last kernel end), the kernels' busy time, the
     idle share of the span, the kernels launched a call (copies and
     memsets apart) and the largest kernels' shares of busy time.
     Where the profiler records no device time, the fields say so."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = cuda_trace(fn, iters, cpu=True)
     if not kernels:
         return {"device_time": "not measured"}
     span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
@@ -535,21 +597,11 @@ def device_split(fn, calls: int = 5) -> dict:
     its floors in the same launch) and the list scans' floor select
     (``select_ms``) is apart. Empty where the profiler records no device
     time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     split = {"device_ms": 0.0, "scan_ms": 0.0, "merge_ms": 0.0, "pass1_ms": 0.0,
              "select_ms": 0.0}
     narrow = 0.0
     wide = False
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for e in cuda_trace(fn, calls):
         ms = e.time_range.elapsed_us() / calls / 1e3
         split["device_ms"] += ms
         if "floor_select" in e.name:
@@ -3507,6 +3559,146 @@ def phase_tools(dev, smi) -> None:
         hits=repr(tour["hits"]), engine=repr(tour["engine"]), card=repr(smi))
 
 
+# Phase 25: fifteen of bench.py's rows that no other phase runs, through the
+# bench twin (pyrope_tpu_torch/scripts/bench.py) at bench.py's sizes and
+# batches: (name, the dataset files it reads)
+BENCH_ROWS = (("ivf100k_np16", None), ("ivf100k_np32", None), ("ivf100k_np64", None),
+              ("delta20k", None), ("delta20k_np96", None),
+              ("flat100k_cos_b1024", None), ("flat100k_ip_b1024", None),
+              ("flat10k_d1024_b1024", None), ("flat100k_d1024_b1024", None),
+              ("ivf100k_fvecs_file", "fvecs"), ("ivf_glove_file", "glove"),
+              ("ivfpq1m_adc", None), ("ivfpq1m_probe", None), ("ivfpq1m_np8", None),
+              ("ivfpq1m_r128", None))
+# recall@10 of the IVF and Delta rows in the JAX package on the CPU (256
+# queries at b64, 1024 at b1024); the card is held within BENCH_RECALL_TOL;
+# tests/test_torch_bench_rows.py holds both packages to them
+BENCH_RECALL_JAX = {"ivf100k_np16": 0.451171875, "ivf100k_np32": 0.666015625,
+                    "ivf100k_np64": 0.90078125, "delta20k": 0.14375, "delta20k_np96": 1.0,
+                    "ivf100k_fvecs_file": 0.999609375, "ivf_glove_file": 0.9998046875}
+BENCH_RECALL_TOL = 0.01
+# exact rows: no miss beyond an fp32 tie at the k-th place (float64 truth)
+BENCH_EXACT = ("flat100k_cos_b1024", "flat100k_ip_b1024", "flat10k_d1024_b1024",
+               "flat100k_d1024_b1024")
+# the 1M rows, which the CPU here cannot build: (BENCH_DETAIL.json's recall,
+# taken on a TPU, and the gate: that less 0.01)
+BENCH_TPU_GATES = {"ivfpq1m_adc": (0.1391, 0.1291), "ivfpq1m_probe": (0.9691, 0.9591),
+                   "ivfpq1m_np8": (1.0, 0.99), "ivfpq1m_r128": (1.0, 0.99)}
+# each row's route: the JAX index's describe_scan on the CPU up to 100k rows
+# (none for a Delta), BENCH_DETAIL.json's record at 1M
+BENCH_ROUTES = {"ivf100k_np16": "dense-pallas", "ivf100k_np32": "dense-pallas",
+                "ivf100k_np64": "dense-pallas", "delta20k": None, "delta20k_np96": None,
+                "flat100k_cos_b1024": "flat-exact", "flat100k_ip_b1024": "flat-exact",
+                "flat10k_d1024_b1024": "flat-exact", "flat100k_d1024_b1024": "flat-exact",
+                "ivf100k_fvecs_file": "dense-pallas", "ivf_glove_file": "dense-pallas",
+                "ivfpq1m_adc": "probe-adc", "ivfpq1m_probe": "probe-adc+rerank",
+                "ivfpq1m_np8": "dense-exact-pallas-win", "ivfpq1m_r128": "dense-exact-pallas-win"}
+BENCH_DURATION_S = 0.5      # bench.py's pipelined section: 5 s
+BENCH_LATENCY_SAMPLES = 20  # bench.py's blocking samples: 200
+
+
+def exact_misses(kept: dict, k: int = K) -> int:
+    """Hits of an exact row that are not in the float64 truth and not an fp32
+    tie at its k-th place (scores in float64 within RTOL / ATOL of the k-th
+    true score), in the row's metric."""
+    base, q, truth = kept["base"], kept["queries"], kept["truth"]
+    rows = id_lists_to_rows(kept["index"].resolve_rows(kept["out"][1].cpu().numpy()), k)
+    cosine = kept["metric"] == "COSINE"
+
+    def score(b, r):
+        x, y = base[r].astype(np.float64), q[b].astype(np.float64)
+        if kept["metric"] == "L2":
+            return -float(np.sum((x - y) ** 2))
+        dot = float(x @ y)
+        return dot / (np.linalg.norm(x) * np.linalg.norm(y)) if cosine else dot
+
+    bad = 0
+    for b in range(len(q)):
+        extra = set(rows[b]) - set(truth[b])
+        if extra:
+            kth = score(b, truth[b][k - 1])
+            bad += sum(not np.isclose(score(b, r), kth, rtol=RTOL, atol=ATOL) for r in extra)
+    return bad
+
+
+def list_scan_vs_plain(kept: dict) -> dict:
+    """The row's eval output against the list scan's plain version on the
+    index's own tensors and probes (a Delta: its IVF tail's)."""
+    ix = getattr(kept["index"], "tail", kept["index"])
+    tdev = ix._sync()
+    q = torch.from_numpy(kept["queries"]).to(tdev["xperm"].device)
+    nprobe = min(kept["options"].nprobe or ix.nprobe, tdev["k_actual"])
+    probe = rank_probes(q, tdev["cents"], tdev["cvalid"], tdev["offsets"], tdev["lens"],
+                        nprobe, tdev["alive"].shape[0], Metric.L2)[0]
+    plain = fs.fused_ivf_topk_plain(q, tdev["xperm"], tdev["sqnorm"], tdev["alive"],
+                                    tdev["crow"], probe, tdev["cents"].shape[0], K)
+    err, ties = compare(kept["out"], plain, f"{kept['name']}: list scan vs its plain version")
+    return {"route": ix.describe_scan(len(q), nprobe), "queries": len(q), "nprobe": nprobe,
+            "max_abs_err": err, "kth_ties": ties}
+
+
+def phase_bench_rows(dev, smi) -> None:
+    """Phase 25: BENCH_ROWS through the bench twin's run_config, each held to
+    its gate (BENCH_RECALL_JAX, BENCH_EXACT, BENCH_TPU_GATES) and its route
+    (BENCH_ROUTES); the file-backed rows read files the twin of
+    make_dataset_files writes at the phase's start."""
+    from pyrope_tpu_torch.scripts import bench, make_dataset_files
+
+    t0 = time.perf_counter()
+    cache: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        files = make_dataset_files.write_dataset_files(tmp)
+        glove = str(files["glove50k.txt"])
+        row_files = {
+            "fvecs": {"base_fvecs": str(files["clustered100k.fvecs"]),
+                      "query_fvecs": str(files["clustered100k_queries.fvecs"])},
+            "glove": {"base_fvecs": bench.glove_to_fvecs(glove, tmp_dir=tmp),
+                      "query_fvecs": str(files["glove50k_queries.fvecs"]), "glove_src": glove},
+        }
+        say("25 bench rows", dataset_files=repr({p.name: p.stat().st_size
+                                                  for p in files.values()}),
+            seconds=round(time.perf_counter() - t0, 1))
+        for name, kind in BENCH_ROWS:
+            t1 = time.perf_counter()
+            kept = {"name": name}
+            row = bench.run_config(name, 64, K, 1024, BENCH_DURATION_S, index_cache=cache,
+                                   device=dev.type, latency_samples=BENCH_LATENCY_SAMPLES,
+                                   keep=kept, **row_files.get(kind, {}))
+            route, rec = row.get("scan_path"), row["recall_at_k"]
+            require(route == BENCH_ROUTES[name],
+                    f"{name}: route {route}, the JAX package's {BENCH_ROUTES[name]}")
+            extra = {}
+            if name in BENCH_EXACT:
+                bad = exact_misses(kept)
+                require(bad == 0, f"{name}: {bad} misses beyond fp32 ties")
+                gate = "exact: no miss beyond fp32 ties (float64 truth)"
+                extra["misses_beyond_ties"] = bad
+            elif name in BENCH_RECALL_JAX:
+                want = BENCH_RECALL_JAX[name]
+                require(abs(rec - want) <= BENCH_RECALL_TOL,
+                        f"{name}: recall@10 {rec} not within {BENCH_RECALL_TOL} of the JAX "
+                        f"package's {want}")
+                gate = f"{want} (JAX, CPU) +- {BENCH_RECALL_TOL}"
+                with uncounted():
+                    extra["list_scan_vs_plain"] = repr(list_scan_vs_plain(kept))
+            else:
+                record, floor = BENCH_TPU_GATES[name]
+                require(rec >= floor, f"{name}: recall@10 {rec} < {floor}")
+                gate = f">= {floor} ({record}, the TPU record, less 0.01)"
+            lat = row["latency_batch_ms"]
+            say("25 bench rows", row=name, route=route, batch=row["batch"], n=row["n_base"],
+                d=row["dim"], qps=row["qps"], device_ms_per_batch=row["device_ms_per_batch"],
+                p50_ms=round(lat["p50_ms"], 3), p99_ms=round(lat["p99_ms"], 3), recall=rec,
+                gate=repr(gate), recall_ref=row["recall_ref"], n_oracle=row["n_oracle"],
+                build_s=row["build_s"], build_cached=row.get("build_cached", False),
+                memory_bytes=repr(row.get("memory_bytes")), device_bytes=row.get("device_bytes"),
+                **extra,
+                device_share=repr(device_shares(kept["search"], 5)),
+                seconds=round(time.perf_counter() - t1, 1), card=repr(smi))
+            del kept
+    del cache
+    torch.cuda.empty_cache()
+
+
 def run_path(name: str, fn, kernels: tuple[str, ...]) -> dict:
     """One serving path: the launch counts zeroed before it and read after;
     each of ``kernels`` must have run on it. Prints its wall time."""
@@ -3590,8 +3782,11 @@ def main() -> int:
          ("flat_scan", "ivf_scan", "merge", "invert_probes")),
         ("Zipf", lambda: phase_zipf(dev, smi), ("ivf_scan", "merge", "invert_probes")),
         ("tools", lambda: phase_tools(dev, smi), ("ivf_scan", "merge", "invert_probes")),
+        ("bench rows", lambda: phase_bench_rows(dev, smi), ("ivf_scan", "merge", "invert_probes")),
     )}
     say("launches", **{name.replace(" ", "_"): repr(got) for name, got in paths.items()})
+    say("profiler", sessions_without_cuda_events=len(PROFILER_MISSES),
+        recovered=sum(m["recovered"] for m in PROFILER_MISSES), misses=repr(PROFILER_MISSES))
     # every list-scan call inverts its probes with the kernel, once
     for name, got in paths.items():
         calls = sum(got[key] for key in LIST_SCAN_KEYS)
