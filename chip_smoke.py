@@ -6,7 +6,8 @@
 Builds the CUDA kernels from pyrope_tpu_torch/csrc at first use, then runs
 twenty-five phases, one line each (phases 8, 15 and 19 two, phase 18 one a
 cell, phase 21 three, phase 22 one a family and layout, phase 23 one a
-cell, phase 24 one a tool, phase 25 one a row and one for its files);
+cell, phase 24 one a tool (serving_bench one a cell), phase 25 one a row
+and one for its files);
 any failed check exits non-zero. Each serving path's wall time and the
 total are printed:
 
@@ -286,13 +287,21 @@ total are printed:
                into scan and merge; at b1024 the list scan's ms, plain,
                composition, bare product and bytes bound; for the probe row
                its gather's query block and the peak device bytes
- 24. tools     three twins of the JAX package's tools (pyrope_tpu_torch/
-               scripts/), in this process on the card: soak_test for 15 s
-               (8 client threads, rebuilds every 3 s; 0 errors, the known row
-               found, the count never below the base rows), phase6_eval (its
-               three scenarios' checks, the prefetch served from the cache),
-               quickstart (its top hits the JAX quickstart's on the CPU,
-               QUICKSTART_HITS_JAX, up to fp32 ties)
+ 24. tools     the twins of the JAX package's tools (pyrope_tpu_torch/
+               scripts/, examples/), in this process on the card: soak_test
+               for 15 s (8 client threads, rebuilds every 3 s; 0 errors, the
+               known row found, the count never below the base rows),
+               phase6_eval (its three scenarios' checks, the prefetch served
+               from the cache), quickstart (its top hits the JAX
+               quickstart's on the CPU, QUICKSTART_HITS_JAX, up to fp32
+               ties), the demo notebook's code cells (DEMO_NOTEBOOK; its
+               top hits DEMO_HITS_JAX's, the engine's repeat an L0 hit),
+               serving_bench on 20,000 rows (SERVING_TOOL_ARGS: upserts by
+               four thread writers and by four client processes, eight
+               commands in flight each, every one acknowledged; a 1.5 s
+               search cell at concurrency 128 under --max-batch 128
+               --linger-ms 0.2 --inflight 3, 0 errors, no batch above 128),
+               and check_quality.sh's import and native step
  25. bench rows fifteen of bench.py's rows that no other phase runs, through
                the bench twin's run_config (pyrope_tpu_torch/scripts/bench.py)
                at bench.py's sizes and batches, a short pipelined section
@@ -345,11 +354,13 @@ kernels' JSON record, the card as nvidia-smi names it, and
 
 from __future__ import annotations
 
+import ast
 import collections
 import concurrent.futures
 import contextlib
 import glob
 import hashlib
+import io
 import json
 import logging
 import os
@@ -3521,16 +3532,116 @@ QUICKSTART_HITS_JAX = {"flat_top3": ["doc123", "doc3346", "doc995"],
                        "delta_post_compaction": ["doc123", "fresh-doc"]}
 
 
-def quickstart_hits_match(hits: dict) -> bool:
-    """The twin's hits against QUICKSTART_HITS_JAX: the Flat scan's three in
-    order, every other section's first among the JAX hit's fp32 ties."""
-    return (hits["flat_top3"] == QUICKSTART_HITS_JAX["flat_top3"]
-            and all(hits[key] in ids for key, ids in QUICKSTART_HITS_JAX.items()
-                    if key != "flat_top3"))
+def quickstart_hits_match(hits: dict, want: dict = QUICKSTART_HITS_JAX) -> bool:
+    """The twin's hits against ``want`` (QUICKSTART_HITS_JAX): the Flat
+    scan's three in order, every other section's first among the JAX hit's
+    fp32 ties."""
+    return (hits["flat_top3"] == want["flat_top3"]
+            and all(hits[key] in ids for key, ids in want.items() if key != "flat_top3"))
+
+
+# the demo notebook: its sections are the quickstart's on the same rows and
+# calls, so its top hits are QUICKSTART_HITS_JAX's, and the engine's top hit
+# (tests/test_torch_tools_rest.py holds both against the JAX notebook's)
+DEMO_NOTEBOOK = "pyrope_tpu_torch/examples/pyrope_tpu_torch_demo.ipynb"
+DEMO_HITS_JAX = {**QUICKSTART_HITS_JAX, "engine_top": ["doc123"]}
+
+
+def notebook_code(path: str, drop: tuple[str, ...] = ()) -> list[str]:
+    """The code cells of the notebook at ``path`` in order, without the
+    lines equal to one of ``drop``."""
+    with open(path) as f:
+        nb = json.load(f)
+    return ["\n".join(line for line in "".join(c["source"]).splitlines()
+                      if line.strip() not in drop)
+            for c in nb["cells"] if c["cell_type"] == "code"]
+
+
+def run_cells(cells: list[str], ns: dict) -> list[tuple]:
+    """The cells run in order in one namespace ``ns``, as a notebook runs
+    them: for each, its last expression's value (None where it ends in a
+    statement) and what it printed."""
+    outs = []
+    for i, src in enumerate(cells):
+        tree = ast.parse(src)
+        last = tree.body.pop() if tree.body and isinstance(tree.body[-1], ast.Expr) else None
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            exec(compile(tree, f"<cell {i}>", "exec"), ns)
+            value = (eval(compile(ast.Expression(last.value), f"<cell {i}>", "eval"), ns)
+                     if last else None)
+        outs.append((value, printed.getvalue()))
+    return outs
+
+
+def run_demo(device: str) -> tuple[list[tuple], dict]:
+    """The port's demo notebook on ``device``: its first cell, ``DEVICE =
+    "cuda"``, set to ``device``."""
+    cells = notebook_code(DEMO_NOTEBOOK)
+    require(cells[0].startswith("DEVICE = "), f"the demo's first cell is {cells[0]!r}")
+    ns: dict = {}
+    return run_cells([f"DEVICE = {device!r}", *cells[1:]], ns), ns
+
+
+def demo_hits(outs: list[tuple], ns: dict) -> dict:
+    """The top hits of the demo's last six code cells (Flat, IVF-Flat,
+    IVF-PQ, HNSW, Delta, engine), keyed as DEMO_HITS_JAX (held to it by
+    quickstart_hits_match), and the engine's cache level on the repeated
+    query; for either package's notebook."""
+    flat, ivf, pq, hnsw, delta, _ = outs[-6:]
+    pre, post = re.findall(r"id='([^']*)'", delta[1])
+    return {"flat_top3": [h.id for h in flat[0]], "ivf_nprobe8_top": ivf[0][0].id,
+            "ivfpq_top": pq[0][0].id, "hnsw_top": hnsw[0][0].id,
+            "delta_pre_compaction": pre, "delta_post_compaction": post,
+            "engine_top": ns["r_miss"].hits[0].id,
+            "engine_hit_level": ns["r_hit"].trace.cache_level}
+
+
+# phase 24's serving_bench cells: a 20,000-row corpus, 1.5 s a search cell
+SERVING_TOOL_ARGS = ("--n", "20000", "--dim", "128", "--nprobe", "3", "--duration", "1.5",
+                     "--writers", "4", "--pipeline", "8")
+SERVING_TOOL_BATCHER = {"max_batch": 128, "linger_ms": 0.2, "max_inflight": 3}
+
+
+def serving_bench_cells(dev) -> list[dict]:
+    """The serving_bench twin at a small size: upserts with thread writers
+    and the search cell under the micro-batcher flags, then upserts with
+    process writers; each upsert cell every row acknowledged, 0 errors."""
+    from pyrope_tpu_torch.scripts import serving_bench
+
+    b = SERVING_TOOL_BATCHER
+    runs = (
+        ("threads", ["--cells", "upsert", "search", "--concurrency", "128",
+                     "--max-batch", str(b["max_batch"]), "--linger-ms", str(b["linger_ms"]),
+                     "--inflight", str(b["max_inflight"])]),
+        ("procs", ["--cells", "upsert", "--writer-procs"]),
+    )
+    cells = []
+    for writers, extra in runs:   # writers: threads, or client processes
+        t0 = time.perf_counter()
+        out = serving_bench.run(serving_bench.parse_args(
+            ["--device", dev.type, *SERVING_TOOL_ARGS, *extra]))
+        for cell in out["cells"]:
+            require(cell["errors"] == 0, f"serving_bench {writers} {cell['cell']}: "
+                    f"{cell['errors']} errors {cell['error_sample']}")
+            if cell["cell"] == "upsert":
+                require(cell["requests"] == cell["n"] == 20_000,
+                        f"serving_bench {writers}: {cell['requests']} of {cell['n']} "
+                        "upserts acknowledged")
+                require(cell.get("writer_procs", False) == (writers == "procs"),
+                        f"serving_bench {writers}: writer_procs {cell.get('writer_procs')}")
+            else:
+                require({k: out["microbatcher"][k] for k in b} == b
+                        and cell["microbatch"]["max_batch_seen_cum"] <= b["max_batch"],
+                        f"serving_bench micro-batcher {out['microbatcher']}, "
+                        f"{cell['microbatch']}")
+        seconds = round(time.perf_counter() - t0, 1)
+        cells += [{"run": writers, "run_seconds": seconds, **cell} for cell in out["cells"]]
+    return cells
 
 
 def phase_tools(dev, smi) -> None:
-    """Phase 24: three twins of the JAX package's tools, in this process on
+    """Phase 24: the twins of the JAX package's tools, in this process on
     the card, each held to its own success condition."""
     from pyrope_tpu_torch.scripts import phase6_eval, quickstart, soak_test
 
@@ -3557,6 +3668,29 @@ def phase_tools(dev, smi) -> None:
             f"restored {tour['restored_count']}")
     say("24 tools", tool="quickstart", seconds=round(time.perf_counter() - t0, 1),
         hits=repr(tour["hits"]), engine=repr(tour["engine"]), card=repr(smi))
+    t0 = time.perf_counter()
+    outs, ns = run_demo(dev.type)
+    hits = demo_hits(outs, ns)
+    require(quickstart_hits_match(hits, DEMO_HITS_JAX) and hits["engine_hit_level"] == "L0",
+            f"demo notebook hits {hits} are not the JAX notebook's {DEMO_HITS_JAX} "
+            "(engine hit level L0)")
+    say("24 tools", tool="demo_notebook", seconds=round(time.perf_counter() - t0, 1),
+        cells=len(outs), hits=repr(hits), routes=repr({
+            "ivf": ns["ivf"].describe_scan(1, 8, top_k=3),
+            "ivfpq": ns["pq"].describe_scan(1, top_k=3)}),
+        card=repr(smi))
+    del outs, ns
+    for cell in serving_bench_cells(dev):
+        say("24 tools", tool="serving_bench", **{k: repr(v) if isinstance(v, dict) else v
+                                                  for k, v in cell.items()}, card=repr(smi))
+    t0 = time.perf_counter()
+    step = subprocess.run(["bash", "pyrope_tpu_torch/scripts/check_quality.sh", "2"],
+                          capture_output=True, text=True, timeout=600)
+    require(step.returncode == 0 and "native builder: available" in step.stdout,
+            f"check_quality.sh 2: rc {step.returncode} {step.stdout[-400:]} "
+            f"{step.stderr[-400:]}")
+    say("24 tools", tool="check_quality_step2", seconds=round(time.perf_counter() - t0, 1),
+        output=repr(step.stdout.strip().splitlines()[-2]), card=repr(smi))
 
 
 # Phase 25: fifteen of bench.py's rows that no other phase runs, through the

@@ -44,6 +44,8 @@ __all__ = [
     "IndexStats",
     "IndexConfig",
     "IndexParams",
+    "VectorIndex",
+    "CentroidsProvider",
     "FlatIndex",
     "DeviceFlatIndex",
     "IvfFlatIndex",
@@ -57,6 +59,8 @@ __all__ = [
 _LAZY = {
     "FlatIndex": "pyrope_tpu_torch.index.flat",
     "DeviceFlatIndex": "pyrope_tpu_torch.index.device_flat",
+    "VectorIndex": "pyrope_tpu_torch.index.base",
+    "CentroidsProvider": "pyrope_tpu_torch.index.base",
     "IvfFlatIndex": "pyrope_tpu_torch.index.ivf_flat",
     "IvfPqIndex": "pyrope_tpu_torch.index.ivf_pq",
     "HnswIndex": "pyrope_tpu_torch.index.hnsw",

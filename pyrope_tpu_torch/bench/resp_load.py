@@ -10,6 +10,9 @@ each, taking the process's requests round-robin) is open (and has sent
 byte from stdin and writes its replies, latencies and span to stdout as
 JSON. Spans are ``time.perf_counter`` (CLOCK_MONOTONIC: one clock for every
 process of the host), so QPS runs from the first send to the last reply.
+With ``pipeline`` above 1 (writes only) a connection encodes its commands
+before "ready" and keeps up to ``pipeline`` of them in flight (RESP
+pipelining), each latency from its command's send to its reply.
 """
 
 from __future__ import annotations
@@ -25,20 +28,23 @@ from pathlib import Path
 
 import numpy as np
 
-from pyrope_tpu_torch.server.resp_client import RespClient
+from pyrope_tpu_torch.server.resp_client import RespClient, RespError
 from pyrope_tpu_torch.utils.stats import LatencySummary
 
 
 def drive(port: int, op: str, vectors: np.ndarray, requests: list, conc: int, *,
           tenant: str, index: str, top_k: int = 10, extra=(), prefix: str = "",
-          procs: int = 4, api_key: str | None = None) -> dict:
+          procs: int = 4, api_key: str | None = None, pipeline: int = 1) -> dict:
     """``requests`` ([request id, row of ``vectors``]) sent as ``op``
     ("search": VEC.SEARCH top ``top_k`` with ``extra`` arguments;
     "upsert" / "add": VEC.UPSERT / VEC.ADD of id ``prefix`` + request id)
     over ``conc`` connections spread across at most ``procs`` client
-    processes, each connection one request at a time, authenticated as
+    processes, each connection ``pipeline`` requests at a time (one for a
+    search), authenticated as
     ``tenant`` with ``api_key`` where one is given. Returns the replies by request id,
     QPS, and p50 / p99 latency in ms; raises if a client or request failed."""
+    if pipeline > 1 and op == "search":
+        raise ValueError("pipelined requests are writes: upsert or add")
     root = Path(__file__).resolve().parents[2]
     env = {**os.environ, "PYTHONPATH": str(root)}
     raw = np.ascontiguousarray(vectors, "<f4").tobytes()
@@ -49,6 +55,7 @@ def drive(port: int, op: str, vectors: np.ndarray, requests: list, conc: int, *,
             job = json.dumps({
                 "port": port, "op": op, "tenant": tenant, "index": index,
                 "top_k": top_k, "extra": list(extra), "prefix": prefix, "api_key": api_key,
+                "pipeline": pipeline,
                 "dim": vectors.shape[1], "requests": requests[p::nprocs],
                 "threads": conc // nprocs + (p < conc % nprocs)}).encode()
             proc = subprocess.Popen(
@@ -98,6 +105,33 @@ def _client() -> None:
             if not c.auth(job["tenant"], job["api_key"]):
                 raise RuntimeError("AUTH refused")
     out = {"replies": {}, "lat_ms": {}, "errors": []}
+    command = "VEC.UPSERT" if job["op"] == "upsert" else "VEC.ADD"
+
+    def encoded(t, c):
+        return [c._encode(command, job["tenant"], job["index"], job["prefix"] + str(r),
+                          "VECTOR", raw[v * width:(v + 1) * width])
+                for r, v in job["requests"][t::len(conns)]]
+
+    def run_window(t, c, cmds):
+        """Up to ``pipeline`` of the connection's pre-encoded commands in
+        flight; replies read in order."""
+        reqs = job["requests"][t::len(conns)]
+        sent: list[float] = []
+        i_send = 0
+        for i_read, (r, _) in enumerate(reqs):
+            j = min(i_read + job["pipeline"], len(cmds))
+            if j > i_send:
+                now = time.perf_counter()
+                c._sock.sendall(b"".join(cmds[i_send:j]))
+                sent.extend([now] * (j - i_send))
+                i_send = j
+            try:
+                reply = c._read_reply()
+            except RespError as e:
+                out["errors"].append(f"request {r}: RespError: {e}")
+                continue
+            out["lat_ms"][r] = (time.perf_counter() - sent[i_read]) * 1e3
+            out["replies"][r] = reply
 
     def run(t, c):
         for r, v in job["requests"][t::len(conns)]:
@@ -117,10 +151,14 @@ def _client() -> None:
             out["lat_ms"][r] = (time.perf_counter() - t0) * 1e3
             out["replies"][r] = reply
 
+    if job["pipeline"] > 1:
+        work = [(run_window, (t, c, encoded(t, c))) for t, c in enumerate(conns)]
+    else:
+        work = [(run, (t, c)) for t, c in enumerate(conns)]
     sys.stdout.write("ready\n")
     sys.stdout.flush()
     inp.read(1)
-    threads = [threading.Thread(target=run, args=(t, c)) for t, c in enumerate(conns)]
+    threads = [threading.Thread(target=fn, args=args) for fn, args in work]
     out["start"] = time.perf_counter()
     for th in threads:
         th.start()

@@ -46,7 +46,7 @@ print(json.dumps({
 # modules whose import must start nothing: the servers' entry points
 ENTRY_POINTS = ("pyrope_tpu_torch.server.__main__", "pyrope_tpu_torch.server.app",
                 "pyrope_tpu_torch.sidecar.server")
-MODULES = 114  # every module of the package, the tools' twins (scripts/) included
+MODULES = 116  # every module of the package, the tools' twins (scripts/) included
 # the modules that complete the port: Flat sq8 lives in index/flat.py
 COMPLETING = ("pyrope_tpu_torch.index.flat", "pyrope_tpu_torch.index.device_flat",
               "pyrope_tpu_torch.parallel", "pyrope_tpu_torch.parallel.mesh",
@@ -120,6 +120,28 @@ def test_sources_import_only_framework_free_pyrope_tpu_modules():
         for mod in pat.findall(path.read_text()):
             assert mod != "jax", path
             assert ALLOWED and mod.startswith(ALLOWED), (path, mod)
+
+
+def test_the_examples_and_shell_twins_stand_apart():
+    """The demo notebook's code cells (examples/, no Python package: the
+    probe does not walk it) and the shell twins (scripts/*.sh) import
+    neither jax nor the JAX package, and the tools' twins are modules the
+    probe imported."""
+    pat = re.compile(r"^\s*(?:from|import)\s+(jax\b|pyrope_tpu\b(?!_torch))", re.M)
+    notebooks = sorted((PKG / "examples").glob("*.ipynb"))
+    assert notebooks
+    for path in notebooks:
+        cells = json.loads(path.read_text())["cells"]
+        code = "\n".join("".join(c["source"]) for c in cells if c["cell_type"] == "code")
+        assert "import pyrope_tpu_torch" in code and not pat.findall(code), path
+    shells = sorted((PKG / "scripts").glob("*.sh"))
+    assert shells
+    for path in shells:
+        assert not re.findall(r"\bpyrope_tpu(?!_torch)", path.read_text()), path
+    names = set(_probe()["names"])
+    for path in (PKG / "scripts").glob("*.py"):
+        if path.stem != "__init__":
+            assert f"pyrope_tpu_torch.scripts.{path.stem}" in names, path
 
 
 def test_cuda_without_a_gpu_raises():
