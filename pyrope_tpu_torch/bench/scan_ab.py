@@ -60,7 +60,7 @@ select), and each list-scan and wide flat case reports ``slot_entries``:
 the mean real entries a query's partial slots (or the wide flat scan's
 splits) hold after the scan (read off one more call).
 
-``--sweep SPEC`` (trees with the first pass) adds, for each wide fp32 flat
+``--sweep SPEC`` (trees with the first pass) adds, for each wide flat
 and wide list case (or each case ``--sweep-cases`` matches), one run a
 variant of SPEC: variants are separated by ``;``, each ``off`` (the first
 pass off) or settings of ``ops/fused_scan`` constants joined by ``+``
@@ -92,9 +92,9 @@ def _kind(name: str) -> str:
     """A kernel's kind for the device split: the scans' narrow and wide
     launches apart (a wide scan's narrow launch is its first pass), the
     floor select, the merges, the rest."""
-    m = re.search(r"(ivf_list_scan(?:_tc)?|fused_scan)_kernel<([^>]*)>", name)
-    if m:   # <MODE, WIDE>, <IP, WIDE[, SPLIT]> and <BT, IP, WIDE[, CAP]>
-        base = "list_scan" if m.group(1).startswith("ivf_list_scan") else "fused_scan"
+    m = re.search(r"(ivf_list_scan(?:_tc)?|fused_scan|flat_scan_tc)_kernel<([^>]*)>", name)
+    if m:   # <MODE, WIDE>, <IP, WIDE[, SPLIT]>, <BT, IP, WIDE[, CAP]>, <NC, IP, WIDE[, CAP]>
+        base = "list_scan" if m.group(1).startswith("ivf_list_scan") else m.group(1)
         wide = m.group(2).replace(" ", "").split(",")[1 if base == "list_scan" else 2]
         return f"{base}_{'wide' if wide == 'true' else 'narrow'}"
     for kind in ("floor_select", "merge", "list_scan", "fused_scan"):
@@ -211,8 +211,7 @@ def _worker(reps: int, trace: bool, cases: str, sweep: str = "",
         if not re.search(cases, name):
             return
         run(name, fn)
-        if not (sweep and prefloor and re.search(sweep_cases, name)
-                and not name.startswith("flat_bf16")):
+        if not (sweep and prefloor and re.search(sweep_cases, name)):
             return
         for var, sets in _variants(sweep):
             names = ["flat_prefloor_plan", "list_prefloor_plan"] if sets is None else sets

@@ -1,8 +1,9 @@
 // The wide scans' first-pass floor select: a query's g-th largest published
-// entry, by one warp. Shared by the flat scan's first pass
-// (fused_scan_kernel<BT, IP, false>), which takes its floors in its own
-// launch (flat_pass_floors below), and the list scans' floor select kernel
-// (prefloor.cu), which runs after their first passes.
+// entry, by one warp. Shared by the flat scans' first passes
+// (fused_scan_kernel<BT, IP, false>, flat_scan_tc_kernel<NC, IP, false>),
+// which take their floors in their own launch (flat_pass_floors below), and
+// the list scans' floor select kernel (prefloor.cu), which runs after their
+// first passes.
 //
 // What it computes is the plain version's, ops/fused_scan.floor_select_plain:
 // over the first FS_CAP entries a query has published, the g-th largest real
@@ -122,7 +123,7 @@ __device__ __forceinline__ unsigned long long warp_gth_loaded(Load load, int m, 
       g);
 }
 
-// The flat scan's first pass (nthreads a block; pub [B, S], the block's
+// The flat scans' first pass (nthreads a block; pub [B, S], the block's
 // query tile q0 .. q0 + nq): one arrival on the tile's count, whose bits
 // start as -inf's (the fill of pub); the split that completes it takes
 // each query's g-th largest score into fout, a warp a query, the scores
@@ -131,17 +132,18 @@ __device__ __forceinline__ unsigned long long warp_gth_loaded(Load load, int m, 
 __device__ __noinline__ void flat_pass_floors(const float* pub, int S, int q0, int nq,
                                               unsigned* cnt, float* fout, int g,
                                               unsigned long long* buf, int cap, int nthreads) {
-  __shared__ bool last;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   __syncthreads();   // every publication of the split, before its arrival
+  bool last = false;
   if (tid == 0) {
     unsigned old;
     asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
                  : "=r"(old) : "l"(cnt) : "memory");
     last = old - __float_as_uint(-INFINITY) + 1 == (unsigned)S;
   }
-  __syncthreads();
-  if (!last) return;
+  // thread 0's answer to the block by the barrier itself: no static shared
+  // memory beside the kernels' dynamic layouts
+  if (!__syncthreads_or(last)) return;
   const int m = min(S, FS_CAP);
   unsigned long long* wbuf = buf + (size_t)warp * cap;
   for (int i = warp; i < nq; i += nthreads / 32) {

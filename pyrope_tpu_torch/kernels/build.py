@@ -41,8 +41,8 @@ _LIST_TABLES = [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
 _SIGNATURES = {
     # k, query tile
     "pyrope_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
-    # k, query tile, D
-    "pyrope_flat_tc_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    # k, query tile, D, the wide candidate buffer's entries
+    "pyrope_flat_tc_smem_bytes": (ctypes.c_longlong, [_I, _I, _I, _I]),
     # k, mode (1 IVF, 2 SQ8, 3 BF16)
     "pyrope_list_scan_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     # k, D: the tensor-core list scan's
@@ -62,8 +62,8 @@ _SIGNATURES = {
     "pyrope_scan_wide_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     # q (bf16), x (bf16), qsq, sqnorm, alive, then as pyrope_fused_scan
     "pyrope_flat_scan_tc": (
-        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-             _P, _P, _P, _I, _I, _P],
+        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+             _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _P],
     ),
     # q, x, sqnorm, alive, then the tables: pairs, P, cstart, ccnt, item_end,
     # item_c, slot_end, offsets, lens, nclus, grid, B, D, k, slot width kw,

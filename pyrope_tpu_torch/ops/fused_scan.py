@@ -46,18 +46,18 @@ entries, the flat scan's wide splits min(k, rows a split). Above the rows
 present, the answer is padded with -inf/-1, as ``_finish_topk`` pads.
 ``LAUNCHES`` counts the wide modes under their own ``_wide`` keys.
 
-The wide fp32 flat scan and the wide list scan (every mode) may run a first
-pass that forms each query's floor before the wide pass keeps any row
-(``flat_prefloor_plan``, ``list_prefloor_plan``: decided on the host from
-shapes alone): a narrow launch of the same kernel at k = c <= NARROW_MAX_K
-over a sample of each split or segment publishes each split's or slot's
-c-th entry, and each query's g-th largest, g = ceil(k / c), is its floor
-(``floor_select_plain`` is the plain version): the flat first pass takes it
-in its own launch (the split that completes a query tile, csrc/
+The wide flat scans (fp32 and bf16) and the wide list scan (every mode) may
+run a first pass that forms each query's floor before the wide pass keeps
+any row (``flat_prefloor_plan``, ``list_prefloor_plan``: decided on the host
+from shapes alone): a narrow launch of the same kernel at k = c <=
+NARROW_MAX_K over a sample of each split or segment publishes each split's
+or slot's c-th entry, and each query's g-th largest, g = ceil(k / c), is its
+floor (``floor_select_plain`` is the plain version): the flat first passes
+take it in their own launch (the split that completes a query tile, csrc/
 floor_tail.cuh), the list scans' with the floor select kernel (csrc/
 prefloor.cu); the wide pass keeps rows at or above it. ``LAUNCHES`` counts
-them under ``flat_scan_prefloor``, ``list_scan_prefloor`` (``_tc``) and
-``floor_select``.
+them under ``flat_scan_prefloor`` (``_bf16``: the tensor-core pass),
+``list_scan_prefloor`` (``_tc``) and ``floor_select``.
 
 What bounds each kernel on an H100, and what its design does about it, is
 in the header of its CUDA source.
@@ -153,6 +153,14 @@ LIST_PREFLOOR_SHARE = 3 / 4
 LIST_PREFLOOR_MIN_PROBES = 16
 FLAT_PREFLOOR_RATIO = 20.0
 LIST_PREFLOOR_RATIO = 5.0
+# the bf16 flat scan's first pass (flat_prefloor_plan(..., elem=2)) runs
+# one wave of the narrow tensor-core grid (flat_blocks_per_sm), with its own
+# sample ratio: on the tensor cores a sampled row costs a vote and no
+# insertion, and every row the floor lets through costs an offer, so the
+# sample is whole splits at the main shapes (on an H100 at 1M x 128,
+# bench/scan_ab.py --sweep: b256 k512 device 2.088 / 1.435 / 1.266 / 1.233
+# ms at ratios 80 / 320 / 1280 / 5120)
+FLAT_TC_PREFLOOR_RATIO = 5120.0
 
 # launches of each kernel since the last reset_launches(); the ``_wide``
 # keys count the wide mode (k > NARROW_MAX_K) of the same kernel. Servers
@@ -164,13 +172,14 @@ LIST_PREFLOOR_RATIO = 5.0
 # <= NARROW_MAX_K and D <= PROMOTE_MAX_D; ``ivf_scan_bf16_tc``: the
 # tensor-core list scan, without promote at k <= NARROW_MAX_K, and
 # ``list_scan_prefloor_tc`` its first pass; ``floor_select``: the list
-# scans' first-pass floor select, the flat first pass taking its own)
+# scans' first-pass floor select, the flat first passes taking their own;
+# ``flat_scan_bf16_prefloor``: the bf16 flat scan's first pass)
 LAUNCHES = {"flat_scan": 0, "flat_scan_bf16": 0, "ivf_scan": 0, "ivf_scan_bf16": 0,
             "ivf_scan_bf16_promote": 0, "ivf_scan_bf16_tc": 0, "sq8_scan": 0, "merge": 0,
             "flat_scan_wide": 0, "flat_scan_bf16_wide": 0, "ivf_scan_wide": 0,
             "ivf_scan_bf16_wide": 0, "sq8_scan_wide": 0, "merge_wide": 0,
-            "flat_scan_prefloor": 0, "list_scan_prefloor": 0, "list_scan_prefloor_tc": 0,
-            "floor_select": 0, "invert_probes": 0}
+            "flat_scan_prefloor": 0, "flat_scan_bf16_prefloor": 0, "list_scan_prefloor": 0,
+            "list_scan_prefloor_tc": 0, "floor_select": 0, "invert_probes": 0}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -484,42 +493,44 @@ def flat_scan_smem_bytes(k: int, query_tile: int, elem: int = 4, d: int = 0,
     query (the wide mode: the lists lie in the partials); it does not
     depend on D, q is streamed. bf16 rows (``elem`` 2), as
     ``pyrope_flat_tc_smem_bytes`` of flat_scan_tc.cu computes it at depth
-    ``d``, with ``tc_stages`` stages. ``cap``: the fp32 wide mode's buffer
-    (``pyrope_scan_wide_smem_bytes``)."""
+    ``d``, with ``tc_stages`` stages. ``cap``: the wide mode's buffer
+    (fp32: ``pyrope_scan_wide_smem_bytes``)."""
     if elem == 2:
-        return _tc_smem_bytes(k, query_tile, d, tc_stages(k, query_tile, d))
+        return _tc_smem_bytes(k, query_tile, d, tc_stages(k, query_tile, d, cap), cap)
     stage = ROW_TILE * FLAT_DEPTH_CHUNK + query_tile * FLAT_DEPTH_CHUNK
     lists = (query_tile * (2 * cap + 2) if k > NARROW_MAX_K
              else 2 * query_tile * k)
     return 4 * (FLAT_STAGES * (stage + ROW_TILE) + 4 * query_tile + lists)
 
 
-def _tc_smem_bytes(k: int, bt: int, d: int, stages: int) -> int:
-    """``tc_layout(k, bt, d, stages).total`` of flat_scan_tc.cu: the ring
-    (a 128-row x 128-byte tile of the slab a stage, and the queries' chunk
-    where q streams), resident q (ceil(d / 64) chunks of bt x 128 bytes up
-    to TC_QRES_MAX_D), the row table a stage, the mbarriers, four words a
-    query, a warp's staged scores, the lists or the wide buffers and their
-    states, and 1024 bytes to align the base for the swizzle."""
+def _tc_smem_bytes(k: int, bt: int, d: int, stages: int, cap: int = FLAT_WIDE_CAP) -> int:
+    """``tc_layout(k, bt, d, stages, cap).total`` of flat_scan_tc.cu: the
+    ring (a 128-row x 128-byte tile of the slab a stage, and the queries'
+    chunk where q streams), resident q (ceil(d / 64) chunks of bt x 128
+    bytes up to TC_QRES_MAX_D), the row table a stage, the mbarriers, four
+    words a query, a warp's staged scores, the lists or the wide buffers
+    (``cap`` entries a query) and their states, and 1024 bytes to align the
+    base for the swizzle."""
     if d < 1:
         raise ValueError(f"the bf16 flat scan's shared memory depends on D, got {d}")
     stream = d > TC_QRES_MAX_D
     stage = ROW_TILE * 128 + (bt * 128 if stream else 0)
     resident = 0 if stream else -(-d // TC_DEPTH_CHUNK) * bt * 128
-    lists = (bt * (8 * FLAT_WIDE_CAP + 8) if k > NARROW_MAX_K else 8 * bt * k)
+    lists = (bt * (8 * cap + 8) if k > NARROW_MAX_K else 8 * bt * k)
     return (stages * (stage + 4 * ROW_TILE) + resident + 8 * (2 * stages + 1)
             + 16 * bt + 4 * ROW_TILE * (bt // 16) + lists + 1024)
 
 
-def tc_stages(k: int, bt: int, d: int) -> int:
+def tc_stages(k: int, bt: int, d: int, cap: int = FLAT_WIDE_CAP) -> int:
     """Stages of the bf16 flat scan's ring, as ``tc_stages`` of
-    flat_scan_tc.cu picks them: the most (4, 3, 2) with which the block
-    fits its target, two blocks an SM for the narrow 64-query tile and one
-    otherwise; failing that, the most that fit one block an SM."""
+    flat_scan_tc.cu picks them (wide buffers of ``cap`` entries): the most
+    (4, 3, 2) with which the block fits its target, two blocks an SM for
+    the narrow 64-query tile and one otherwise; failing that, the most that
+    fit one block an SM."""
     target = SMEM_TWO_BLOCKS if bt == QUERY_TILE and k <= NARROW_MAX_K else SMEM_LIMIT
     for limit in (target, SMEM_LIMIT):
         for n in TC_STAGES:
-            if _tc_smem_bytes(k, bt, d, n) <= limit:
+            if _tc_smem_bytes(k, bt, d, n, cap) <= limit:
                 return n
     return TC_STAGES[-1]
 
@@ -527,8 +538,10 @@ def tc_stages(k: int, bt: int, d: int) -> int:
 def flat_blocks_per_sm(tile: int, smem: int, k: int, elem: int = 4) -> int | None:
     """Blocks of the flat scan an SM holds, for its grid (``_splits``):
     the bf16 scan's 128-query block (three warpgroups at 168 registers) and
-    its wide block hold one, its narrow 64-query block two where shared
-    memory allows. None for the fp32 scan, whose grid keeps its own target."""
+    its wide block hold one (two wide blocks an SM, at 128 registers a
+    thread, spilled 320-576 bytes), its narrow 64-query block two where
+    shared memory allows. None for the fp32 scan, whose grid keeps its own
+    target."""
     if elem != 2:
         return None
     return 2 if tile == QUERY_TILE and k <= NARROW_MAX_K and smem <= SMEM_TWO_BLOCKS else 1
@@ -557,6 +570,18 @@ def flat_tile(d: int, k: int, b: int, elem: int = 4) -> tuple[int, int]:
     raise ValueError(
         f"flat scan needs {min(smem for _, smem in fits)} B of shared memory "
         f"(D={d}, k={k}), over the {SMEM_LIMIT} B a block may use")
+
+
+def flat_wide_tile(b: int, elem: int = 4, cap: int = FLAT_WIDE_CAP) -> int:
+    """The query tile of the wide flat scan (k > NARROW_MAX_K): FLAT_WIDE_TILE,
+    but for the bf16 scan behind a first pass's floor (``cap``
+    FLAT_WIDE_SMALL_CAP) at B > 64, whose 128-query block (two consumer
+    warpgroups that overlap each other's epilogue) holds its small buffers:
+    at b256 k512 the 64-query block left the tensor cores idle through its
+    one warpgroup's offers."""
+    if elem == 2 and cap == FLAT_WIDE_SMALL_CAP and b > QUERY_TILE:
+        return FLAT_QUERY_TILES[0]
+    return FLAT_WIDE_TILE
 
 
 def flat_floor(k: int, n_splits: int, width: int | None = None) -> tuple[int, int]:
@@ -646,8 +671,11 @@ def _splits(b: int, n_rows: int, sms: int, query_tile: int,
 class FlatPrefloor:
     """The wide flat scan's first pass: a narrow launch (query tile
     ``tile``) over ``splits`` splits of ``per`` rows, each scanning its first
-    ``rows``; each split publishes its c-th score, and a query's floor is the
-    g-th largest of those."""
+    ``rows``; each split publishes the c-th best of its units' best scores
+    (``unit`` rows a unit: 1, the fp32 pass's rows; ROW_TILE, the bf16
+    pass's tiles, whose maxima its vote already takes), and a query's floor
+    is the g-th largest of those. Each unit's best is a distinct row, so g·c
+    rows score at or above the floor."""
 
     tile: int
     per: int
@@ -655,6 +683,7 @@ class FlatPrefloor:
     rows: int
     c: int
     g: int
+    unit: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -674,31 +703,52 @@ def _sample_share(ratio: float, k: int, rows: float) -> float:
     return min(1.0, math.sqrt(ratio * k / max(rows, 1.0)))
 
 
-def flat_prefloor_plan(k: int, b: int, d: int, n_rows: int,
-                       sms: int) -> FlatPrefloor | None:
-    """Whether the wide fp32 flat scan (k > NARROW_MAX_K) runs its first
-    pass, from shapes alone, and its shape: the narrow grid of ``_splits``
-    (FLAT_PREFLOOR_WAVES waves of two blocks an SM) at k = c, c = ceil(k /
-    (FLAT_PREFLOOR_SHARE of the splits)), so the floor needs the c-th scores
-    of that share of a query's splits; a sample of each split
-    (``_sample_share`` of its tiles, at least 2c rows). None where k is
-    narrow or no c <= NARROW_MAX_K gives a g within the splits."""
+def _prefloor_grid(b: int, n_rows: int, d: int, sms: int, tile: int, c: int,
+                   elem: int) -> tuple[int, int]:
+    """(per, splits) of a flat first pass at k = c: fp32, FLAT_PREFLOOR_WAVES
+    waves of the narrow grid's two blocks an SM; bf16, one wave of the
+    tensor-core blocks an SM holds (``flat_blocks_per_sm``)."""
+    if elem == 2:
+        per_sm = flat_blocks_per_sm(tile, flat_scan_smem_bytes(c, tile, 2, d), c, 2)
+        return _splits(b, n_rows, sms, tile, c, per_sm)
+    return _splits(b, n_rows, sms * FLAT_PREFLOOR_WAVES, tile)
+
+
+def flat_prefloor_plan(k: int, b: int, d: int, n_rows: int, sms: int,
+                       elem: int = 4) -> FlatPrefloor | None:
+    """Whether the wide flat scan (k > NARROW_MAX_K) over rows of ``elem``
+    bytes an element (4 fp32, 2 bf16) runs its first pass, from shapes
+    alone, and its shape: the narrow grid (``_prefloor_grid``) at k = c, c =
+    ceil(k / (FLAT_PREFLOOR_SHARE of the splits)), so the floor needs the
+    c-th scores of that share of a query's splits; a sample of each split
+    (``_sample_share`` of its tiles at FLAT_PREFLOOR_RATIO, bf16
+    FLAT_TC_PREFLOOR_RATIO; at least 2c rows). None where k is narrow or no
+    c <= NARROW_MAX_K gives a g within the splits. The bf16 pass takes each
+    split's c-th best tile maximum (``unit`` ROW_TILE): its sample holds at
+    least c tiles, and it inserts one score a tile and query, where the
+    fp32 pass offers every row that beats its list."""
     if k <= NARROW_MAX_K or b < 1 or n_rows < 1:
         return None
-    tile = flat_tile(d, 1, b)[0]
-    for _ in range(2):   # the tile depends on c, and the splits on the tile
-        per, splits = _splits(b, n_rows, sms * FLAT_PREFLOOR_WAVES, tile)
+    tile, c = flat_tile(d, 1, b, elem)[0], 1
+    for _ in range(3):   # the tile depends on c, and the splits on the tile
+        per, splits = _prefloor_grid(b, n_rows, d, sms, tile, c, elem)
         c = -(-k // max(1, int(splits * FLAT_PREFLOOR_SHARE)))
         if c > NARROW_MAX_K:
             return None
-        fit = flat_tile(d, c, b)[0]
-        if fit == tile:
+        fit = flat_tile(d, c, b, elem)[0]
+        if (fit, _prefloor_grid(b, n_rows, d, sms, fit, c, elem)) == (tile, (per, splits)):
             break
         tile = fit
     else:
         return None
     g = -(-k // c)
     tiles = per // ROW_TILE
+    if elem == 2:
+        f = _sample_share(FLAT_TC_PREFLOOR_RATIO, k, n_rows)
+        t = min(tiles, max(math.ceil(f * tiles), c))
+        if t < c:   # a split of fewer than c tiles publishes nothing
+            return None
+        return FlatPrefloor(tile, per, splits, t * ROW_TILE, c, g, ROW_TILE)
     f = _sample_share(FLAT_PREFLOOR_RATIO, k, n_rows)
     t = min(tiles, max(math.ceil(f * tiles), -(-2 * c // ROW_TILE)))
     return FlatPrefloor(tile, per, splits, t * ROW_TILE, c, g)
@@ -832,14 +882,22 @@ def _floor_select_list_launch(lib, keys, nslots, qend, b, p, g, base, out, strea
 
 def split_floor_plain(scores, ok, plan: FlatPrefloor):
     """The first pass's floor from [B, n] scores and [n] bool ``ok`` (alive
-    and under max_scans): split s's rows s·per .. s·per + rows, its c-th
-    best score (-inf under c rows), then each query's g-th largest."""
+    and under max_scans): split s's rows s·per .. s·per + rows in units of
+    ``plan.unit`` rows (the last one cut by n), each unit's best score, the
+    split's c-th best of those (-inf under c units), then each query's g-th
+    largest."""
     b, n = scores.shape
     pub = torch.full((b, plan.splits), float("-inf"), device=scores.device)
     for s in range(plan.splits):
         lo, hi = s * plan.per, min(s * plan.per + plan.rows, n)
-        if hi - lo >= plan.c:
-            sc = torch.where(ok[None, lo:hi], scores[:, lo:hi], float("-inf"))
+        if hi <= lo:
+            continue
+        sc = torch.where(ok[None, lo:hi], scores[:, lo:hi], float("-inf"))
+        if plan.unit > 1:
+            pad = -(hi - lo) % plan.unit
+            sc = torch.nn.functional.pad(sc, (0, pad), value=float("-inf"))
+            sc = sc.view(b, -1, plan.unit).amax(dim=2)
+        if sc.shape[1] >= plan.c:
             pub[:, s] = sc.topk(plan.c, dim=1).values[:, -1]
     return floor_select_plain(pub, plan.g)
 
@@ -847,7 +905,8 @@ def split_floor_plain(scores, ok, plan: FlatPrefloor):
 def flat_prefloor_plain(q, x, sqnorm, alive, max_scans: int, plan: FlatPrefloor,
                         metric=Metric.L2):
     """Plain version of ``flat_prefloor``: the same floors (to the scores'
-    rounding), from the plain scores."""
+    rounding), from the plain scores (over a bf16 ``x``, bf16(q)·x summed
+    in fp32, as ``_tile_scores``)."""
     ms = max(min(int(max_scans), x.shape[0]), 0)
     sc = _tile_scores(q, x, sqnorm, _metric_ip(metric))(0, ms)
     return split_floor_plain(sc, alive[:ms], plan)
@@ -855,11 +914,12 @@ def flat_prefloor_plain(q, x, sqnorm, alive, max_scans: int, plan: FlatPrefloor,
 
 def flat_prefloor(q, x, sqnorm, alive, max_scans: int, plan: FlatPrefloor,
                   metric=Metric.L2, *, published: bool = False):
-    """The wide fp32 flat scan's first pass alone: [B] floors (-inf: none),
-    the scores each query's hits reach. On CUDA tensors the narrow scan
-    kernel (the plan's sample, no partials), which takes the floors in its
-    own launch; on CPU ones the plain version. ``published`` (CUDA): also
-    the [B, splits] scores the splits published, the floors' inputs."""
+    """The wide flat scan's first pass alone (fp32 or bf16 ``x``): [B]
+    floors (-inf: none), the scores each query's hits reach. On CUDA tensors
+    the narrow scan kernel (the plan's sample, no partials; over a bf16 slab
+    the tensor-core kernel), which takes the floors in its own launch; on
+    CPU ones the plain version. ``published`` (CUDA): also the [B, splits]
+    scores the splits published, the floors' inputs."""
     if q.device.type == "cpu":
         return flat_prefloor_plain(q, x, sqnorm, alive, max_scans, plan, metric)
     ms = max(min(int(max_scans), x.shape[0]), 0)
@@ -867,11 +927,14 @@ def flat_prefloor(q, x, sqnorm, alive, max_scans: int, plan: FlatPrefloor,
     return (floors, pub) if published else floors
 
 
-def _flat_first_pass(q, x, sqnorm, alive, metric_ip, max_scans, plan: FlatPrefloor):
+def _flat_first_pass(q, x, sqnorm, alive, metric_ip, max_scans, plan: FlatPrefloor,
+                     q16=None, qsq=None):
     """One launch: (floors [B], the published scores [B, splits]). The
     splits publish into ``pub``; after it in the same -inf fill, one count a
     query tile (its bits start as -inf's), which the split that completes it
-    reads as its cue to take the tile's floors."""
+    reads as its cue to take the tile's floors. Over a bf16 ``x`` the
+    tensor-core kernel, on bf16(q) and ‖q‖² of the fp32 q (``q16``, ``qsq``:
+    the caller's, where it has them)."""
     from pyrope_tpu_torch.kernels.build import check, load
 
     b, d = q.shape
@@ -879,15 +942,25 @@ def _flat_first_pass(q, x, sqnorm, alive, metric_ip, max_scans, plan: FlatPreflo
     fill = torch.full((b * plan.splits + tiles,), float("-inf"), device=q.device)
     pub = fill[:b * plan.splits].view(b, plan.splits)
     floors = torch.empty(b, dtype=torch.float32, device=q.device)
-    vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    check(load().pyrope_fused_scan(
-        q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), b, x.shape[0],
-        d, plan.c, plan.c, int(metric_ip), max_scans, plan.per, plan.rows, plan.splits,
-        plan.tile, vec, None, None, pub.data_ptr(), plan.c, plan.g, None, FLAT_WIDE_CAP,
-        None, fill.data_ptr() + 4 * b * plan.splits, floors.data_ptr(), plan.g, stream),
-        "fused scan kernel (first pass)")
-    count_launch("flat_scan_prefloor")
+    shape = (b, x.shape[0], d, plan.c, plan.c, int(metric_ip), max_scans, plan.per,
+             plan.rows, plan.splits, plan.tile)
+    floor_args = (None, None, pub.data_ptr(), plan.c, plan.g, None, FLAT_WIDE_CAP, None,
+                  fill.data_ptr() + 4 * b * plan.splits, floors.data_ptr(), plan.g, stream)
+    if x.dtype == torch.bfloat16:
+        if q16 is None:
+            q16, qsq = q.bfloat16(), (q * q).sum(dim=1)
+        vec = int(d % 8 == 0 and q16.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+        check(load().pyrope_flat_scan_tc(
+            q16.data_ptr(), x.data_ptr(), qsq.data_ptr(), sqnorm.data_ptr(),
+            alive.data_ptr(), *shape, vec, *floor_args), "bf16 flat scan kernel (first pass)")
+        count_launch("flat_scan_bf16_prefloor")
+    else:
+        vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
+        check(load().pyrope_fused_scan(
+            q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), *shape, vec,
+            *floor_args), "fused scan kernel (first pass)")
+        count_launch("flat_scan_prefloor")
     return floors, pub
 
 
@@ -999,47 +1072,57 @@ def _bf16_query(q):
 def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
     """The flat scan kernel into [B, splits, k] partials, then the merge;
     over a bf16 ``x`` the tensor-core kernel, on bf16(q) and ‖q‖² of the
-    fp32 q. The wide fp32 scan starts from its first pass's floors where
-    ``flat_prefloor_plan`` runs one."""
+    fp32 q. The wide scan (fp32 or bf16) starts from its first pass's floors
+    where ``flat_prefloor_plan`` runs one."""
     from pyrope_tpu_torch.kernels.build import check, load
 
     lib = load()
     b, d = q.shape
     elem = x.element_size()
     tile, smem = flat_tile(d, k, b, elem)
-    lib_smem = (lib.pyrope_flat_tc_smem_bytes(k, tile, d) if elem == 2
+    lib_smem = (lib.pyrope_flat_tc_smem_bytes(k, tile, d, FLAT_WIDE_CAP) if elem == 2
                 else lib.pyrope_scan_smem_bytes(k, tile))
     if lib_smem != smem:
         raise RuntimeError("flat_tile and the flat scan's source disagree on shared memory")
     if b == 0:  # an empty grid is not a valid launch
         return _empty_hits(0, k, q.device)
+    q16 = qsq = None
+    if elem == 2:
+        q16, qsq = q.bfloat16(), (q * q).sum(dim=1)   # bf16(q) is exact in bf16
     per_sm = flat_blocks_per_sm(tile, smem, k, elem)
     floor0, cap = None, FLAT_WIDE_CAP
-    if elem == 4 and k > NARROW_MAX_K:
-        plan = flat_prefloor_plan(k, b, d, max_scans, device_sms(q.device))
+    if k > NARROW_MAX_K:
+        plan = flat_prefloor_plan(k, b, d, max_scans, device_sms(q.device), elem)
         if plan is not None:
-            floor0 = _flat_first_pass(q, x, sqnorm, alive, metric_ip, max_scans, plan)[0]
-            # behind the floor a split keeps few rows: small buffers, two
-            # blocks an SM, a grid of two waves' splits
+            floor0 = _flat_first_pass(q, x, sqnorm, alive, metric_ip, max_scans, plan,
+                                      q16, qsq)[0]
+            # behind the floor a split keeps few rows: small buffers; the
+            # fp32 scan's blocks then fit two an SM, a grid of two waves'
+            # splits; the bf16 scan's take the 128-query tile above 64
+            # queries (two consumer warpgroups, one block an SM)
             cap = FLAT_WIDE_SMALL_CAP
-            small = flat_scan_smem_bytes(k, tile, cap=cap)
-            if lib.pyrope_scan_wide_smem_bytes(k, cap) != small:
-                raise RuntimeError("flat_scan_smem_bytes and fused_scan.cu disagree")
-            per_sm = 2
+            tile = flat_wide_tile(b, elem, cap)
+            small = flat_scan_smem_bytes(k, tile, elem, d, cap)
+            lib_small = (lib.pyrope_flat_tc_smem_bytes(k, tile, d, cap) if elem == 2
+                         else lib.pyrope_scan_wide_smem_bytes(k, cap))
+            if lib_small != small:
+                raise RuntimeError("flat_scan_smem_bytes and the flat scan's source disagree")
+            per_sm = 1 if elem == 2 else 2
     per, n_splits = scan_splits(b, max_scans, q.device, tile, k, per_sm)
     kw = k if k <= NARROW_MAX_K else min(k, per)   # a split gives at most per rows
     part_v = torch.empty((b, n_splits, kw), dtype=torch.float32, device=q.device)
     part_i = torch.empty((b, n_splits, kw), dtype=torch.int32, device=q.device)
     pub_c, pub_g = flat_floor(k, n_splits, kw)
     pub = torch.full((b, n_splits), float("-inf"), device=q.device)
-    # the fp32 wide lists' real entries, written in place of their pads
+    # the wide lists' real entries, written in place of their pads
     fills = (torch.empty((b, n_splits), dtype=torch.int32, device=q.device)
-             if elem == 4 and k > NARROW_MAX_K else None)
+             if k > NARROW_MAX_K else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tail = (b, x.shape[0], d, k, kw, int(metric_ip), max_scans, per, n_splits, tile)
-    outs = (part_v.data_ptr(), part_i.data_ptr(), pub.data_ptr(), pub_c, pub_g, stream)
+    tail = (b, x.shape[0], d, k, kw, int(metric_ip), max_scans, per, per, n_splits, tile)
+    outs = (part_v.data_ptr(), part_i.data_ptr(), pub.data_ptr(), pub_c, pub_g,
+            None if floor0 is None else floor0.data_ptr(), cap,
+            None if fills is None else fills.data_ptr(), None, None, 0, stream)
     if elem == 2:
-        q16, qsq = q.bfloat16(), (q * q).sum(dim=1)   # bf16(q) is exact in bf16
         vec = int(d % 8 == 0 and q16.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
         check(lib.pyrope_flat_scan_tc(
             q16.data_ptr(), x.data_ptr(), qsq.data_ptr(), sqnorm.data_ptr(),
@@ -1047,10 +1130,8 @@ def _launch(q, x, sqnorm, alive, k, metric_ip, max_scans):
     else:
         vec = int(d % 4 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0)
         check(lib.pyrope_fused_scan(
-            q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), *tail[:8],
-            per, *tail[8:], vec, *outs[:5], None if floor0 is None else floor0.data_ptr(),
-            cap, None if fills is None else fills.data_ptr(), None, None, 0, stream),
-            "fused scan kernel")
+            q.data_ptr(), x.data_ptr(), sqnorm.data_ptr(), alive.data_ptr(), *tail, vec,
+            *outs), "fused scan kernel")
     count_launch(("flat_scan_bf16" if elem == 2 else "flat_scan")
                  + ("_wide" if k > NARROW_MAX_K else ""))
     return _merge_launch(part_v, part_i, n_splits, b, k, None, 0, n_splits * kw, kw, kw,

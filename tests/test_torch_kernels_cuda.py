@@ -18,6 +18,7 @@ with fp32 accumulation); scores rounded to bf16 tie more often, so a hit
 may differ there only as a k-th place tie.
 """
 
+import dataclasses
 import re
 import shutil
 import subprocess
@@ -644,8 +645,14 @@ def test_smem_formulas_match_the_library(cuda_device):
             assert (lib.pyrope_scan_smem_bytes(k, tile)
                     == fs.flat_scan_smem_bytes(k, tile)), (k, tile)
             for d in (8, 24, 72, 128, 136, 256, 384, 768):   # the bf16 scan's: by D
-                assert (lib.pyrope_flat_tc_smem_bytes(k, tile, d)
+                assert (lib.pyrope_flat_tc_smem_bytes(k, tile, d, fs.FLAT_WIDE_CAP)
                         == fs.flat_scan_smem_bytes(k, tile, 2, d)), (k, tile, d)
+                if k > fs.NARROW_MAX_K:   # behind a first pass's floor: small
+                    small = fs.FLAT_WIDE_SMALL_CAP   # buffers, both tiles
+                    for bt in fs.FLAT_QUERY_TILES:
+                        assert (lib.pyrope_flat_tc_smem_bytes(k, bt, d, small)
+                                == fs.flat_scan_smem_bytes(k, bt, 2, d, small)
+                                <= fs.SMEM_LIMIT), (k, bt, d)
     for k in (1, 10, 32, 33, 64, 100, 128):   # the tensor-core list scan's: by D
         for d in (8, 30, 64, 128, 200, 256, 384, 768):
             assert (lib.pyrope_list_tc_smem_bytes(k, d)
@@ -1131,8 +1138,10 @@ def test_flat_tc_unaligned_base_and_bit_equal_launches(cuda_device, d, k):
 @pytest.mark.cuda
 def test_bf16_flat_scan_runs_on_wgmma(cuda_device):
     """The built library's SASS: every instantiation of the bf16 flat scan
-    issues HGMMA, and the fp32 scan's fused_scan_kernel has no bf16 (or any
-    type-parameterised) instantiation left."""
+    (<1|2, IP, false>, its first pass <1|2, IP, false, 256, true>, the wide
+    <1, IP, true> and the wide behind a first pass's floor <1|2, IP, true,
+    64>) issues HGMMA, and the fp32 scan's fused_scan_kernel has no bf16 (or
+    any type-parameterised) instantiation left."""
     from pyrope_tpu_torch.kernels.build import library_path, load
 
     load()
@@ -1141,7 +1150,7 @@ def test_bf16_flat_scan_runs_on_wgmma(cuda_device):
                           text=True, check=True).stdout
     funcs = {part.split()[0]: part for part in re.split(r"Function : ", sass)[1:]}
     tc = [body for name, body in funcs.items() if "flat_scan_tc_kernel" in name]
-    assert len(tc) == 6 and all("HGMMA.64x128x16.F32.BF16" in body for body in tc)
+    assert len(tc) == 14 and all("HGMMA.64x128x16.F32.BF16" in body for body in tc)
     fused = [name for name in funcs if "fused_scan_kernel" in name]
     # <64|128, IP>, the wide <64, IP> and the wide behind a first pass's
     # floor <64, IP, true, 64>, fp32 only
@@ -1229,6 +1238,113 @@ def _list_work(dev, case, kc, k, mode):
     elif mode.startswith("bf16"):
         x = x.bfloat16()
     return q, x, sq, alive, offs, lens, probe, ml, sq8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT])
+@pytest.mark.parametrize("case", ["spread", "one_split", "dups", "d37", "unaligned", "cut"])
+@pytest.mark.parametrize("b,k,n", [(1, 300, 200_000), (70, 1000, 200_000),
+                                   (256, 512, 200_000), (64, 4096, 20_000)])
+def test_bf16_flat_prefloor_two_pass_vs_plain(cuda_device, b, k, n, case, metric):
+    """The wide bf16 flat scan with its first pass on the tensor cores (the
+    host rule runs it at the 200k-row shapes) against the plain version, on
+    rows of a grid of 1/8 (exact in bf16, every sum exact in any order: the
+    plain hits bit for bit, ties by row included) with 5% dead rows: hits
+    spread over the splits; every hit in one split; duplicate rows across
+    splits; D 37 (plain-load staging); a slab base not 16-byte aligned
+    (plain loads); max_scans inside a split. B 1 and 70 are no multiple of
+    64. Every query's first-pass floor lies at or under its k-th score. At
+    b64 k4096 over 20k rows k is above the rows a split holds, and a split
+    of the first pass would hold fewer tiles than c: the host rule runs no
+    first pass there, and the wide pass alone is held to the same hits."""
+    d = 37 if case == "d37" else 24
+    q, x, sq, alive = _grid_flat(cuda_device, 197, n, b, d)
+    if case == "one_split":
+        near = q[torch.arange(min(k, 3000), device=cuda_device) % b]
+        x[:near.shape[0]] = near + 0.125
+    elif case == "dups":
+        x[n // 2:n // 2 + 2000] = x[:2000]
+    sq = (x * x).sum(1)
+    x16 = x.bfloat16()
+    if case == "unaligned":
+        xo = torch.empty(x16.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:]
+        x16 = xo.view_as(x16).copy_(x16)
+        assert x16.data_ptr() % 16 != 0
+    ms = n - 3001 if case == "cut" else n
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = fs.flat_prefloor_plan(k, b, d, ms, sms, 2)
+    assert (plan is None) == (n == 20_000)
+    before = dict(fs.LAUNCHES)
+    kv, ki = fs.fused_flat_topk(q, x16, sq, alive, ms, k, metric)
+    ran = int(plan is not None)
+    assert fs.LAUNCHES["flat_scan_bf16_prefloor"] == before["flat_scan_bf16_prefloor"] + ran
+    for key in ("flat_scan_bf16_wide", "merge_wide"):
+        assert fs.LAUNCHES[key] == before[key] + 1, key
+    assert fs.LAUNCHES["floor_select"] == before["floor_select"]   # in the pass's launch
+    pv, pi = fs.fused_flat_topk_plain(q, x16, sq, alive, ms, k, metric)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(ki.cpu().numpy(), pi.cpu().numpy())
+    np.testing.assert_array_equal(kv.cpu().numpy(), pv.cpu().numpy())
+    if plan is not None:
+        floors = fs.flat_prefloor(q, x16, sq, alive, ms, plan, metric)
+        assert plan.g * plan.c >= k and bool(torch.isfinite(kv[:, k - 1]).all())
+        assert bool((floors <= kv[:, k - 1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT])
+@pytest.mark.parametrize("d", [37, 128])   # plain-load staging; TMA
+def test_bf16_flat_first_pass_bit_equal_second_pass_scores(cuda_device, d, metric):
+    """The bf16 first pass (B 70: the 128-query tile, two consumer
+    warpgroups) against the wide pass's own scores (the 64-query tile): a
+    wide launch at k = n returns every alive row's score, and the split
+    floors computed from those (the plain rule) equal the first pass's
+    floors bit for bit. Random rows, so an fp32 sum in another order would
+    show: both passes take the same wgmma chunks over the same depths."""
+    n, b = 40_000, 70
+    q, x16, sq, alive = _bf16_flat_inputs(cuda_device, 198, n, b, d, dead=0.05)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = fs.flat_prefloor_plan(200, b, d, n, sms, 2)
+    assert plan is not None and plan.tile == 128
+    plan = dataclasses.replace(plan, rows=plan.per)
+    got = fs.flat_prefloor(q, x16, sq, alive, n, plan, metric)
+    kv, ki = fs.fused_flat_topk(q, x16, sq, alive, n, n, metric)   # every alive row
+    scores = torch.full((b, n), float("-inf"), device=cuda_device)
+    ok = ki >= 0
+    scores[torch.nonzero(ok)[:, 0], ki[ok].long()] = kv[ok]
+    want = fs.split_floor_plain(scores, alive, plan)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    pv = fs.flat_prefloor_plain(q, x16, sq, alive, n, plan, metric)
+    np.testing.assert_allclose(got.cpu().numpy(), pv.cpu().numpy(), rtol=RTOL, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.INNER_PRODUCT])
+@pytest.mark.parametrize("b,k", [(70, 1000), (1, 300), (256, 512)])
+def test_bf16_flat_first_pass_floors_equal_the_plain_select(cuda_device, b, k, metric):
+    """The bf16 first pass takes its floors in its own launch: bit-equal to
+    floor_select_plain over what its splits published, at the plan's g, at
+    1, at every split and above (none), over three launches; and the host
+    rule's choice is what runs (k 100 and a 300-row slab run none)."""
+    n, d = 200_000, 24
+    q, x16, sq, alive = _bf16_flat_inputs(cuda_device, 199, n, b, d, dead=0.05)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = fs.flat_prefloor_plan(k, b, d, n, sms, 2)
+    assert plan is not None
+    for g in (plan.g, 1, plan.splits, plan.splits + 1):
+        plan_g = dataclasses.replace(plan, g=g)
+        for _ in range(3):
+            floors, pub = fs.flat_prefloor(q, x16, sq, alive, n, plan_g, metric, published=True)
+            torch.cuda.synchronize()
+            assert torch.equal(floors, fs.floor_select_plain(pub, g)), g
+    for rows, bq, kq in ((n, b, k), (n, b, 100), (300, 5, 200)):
+        before = fs.LAUNCHES["flat_scan_bf16_prefloor"]
+        fs.fused_flat_topk(q[:bq].contiguous(), x16[:rows].contiguous(), sq[:rows].contiguous(),
+                           alive[:rows].contiguous(), rows, kq, metric)
+        ran = fs.LAUNCHES["flat_scan_bf16_prefloor"] - before
+        assert ran == (fs.flat_prefloor_plan(kq, bq, d, rows, sms, 2) is not None)
 
 
 @pytest.mark.cuda
