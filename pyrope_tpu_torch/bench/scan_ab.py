@@ -18,7 +18,9 @@ shapes, the flat scan's other batch sizes and widths, and the merge alone
 beside ``torch.topk`` over the same candidates (a ``topk_`` twin per merge
 case: the library call, which keeps no row order at ties):
 
-  ivf_1M_nlist1000_np3_b1024, ivf_100k_nlist100_np96_b4096,
+  ivf_1M_nlist1000_np3_b1024, ivf_1M_nlist1000_np32_b1024,
+  ivf_zipf_1M_nlist1000_np3_b1024 (the Zipf corpora's list lengths and
+  probe popularity), ivf_100k_nlist100_np96_b4096,
   sq8_1000k_nlist1000_np3_b1024_{L2,IP}, sq8_100k_nlist100_np3_b1024_{L2,IP},
   flat_1M_b1024_k10, flat_1M_b1024_k100, flat_1M_b64_k10, flat_1M_b1_k10,
   flat_8k_b1024_k10, matmul_1M_b1024 (q @ x.T alone, fp32, TF32 off),
@@ -263,6 +265,21 @@ def _worker(reps: int, trace: bool, cases: str, sweep: str = "",
     crow = torch.sort(torch.randint(0, 1000, (n,), generator=g, device=dev)).values.int()
     probe = torch.rand((b, 1000), generator=g, device=dev).argsort(1)[:, :3]
     case("ivf_1M_nlist1000_np3_b1024", ivf(q, x, sq, alive, crow, probe, 1000))
+    # np32 and Zipf draw from a generator of their own, so that the cases
+    # after them see the same data whichever cases run
+    g2 = torch.Generator(device=dev)
+    g2.manual_seed(4321)
+    probe32 = torch.rand((b, 1000), generator=g2, device=dev).argsort(1)[:, :32]
+    case("ivf_1M_nlist1000_np32_b1024", ivf(q, x, sq, alive, crow, probe32, 1000))
+    if re.search(cases, "ivf_zipf_1M_nlist1000_np3_b1024"):
+        # the Zipf corpora's lists (utils/datasets.zipf_cluster_sizes: the
+        # largest 13% of the rows) probed with the same popularity
+        from pyrope_tpu_torch.utils.datasets import zipf_cluster_sizes
+
+        sizes = torch.from_numpy(zipf_cluster_sizes(n, 1000)).to(dev)
+        crowz = torch.repeat_interleave(torch.arange(1000, device=dev), sizes).int()
+        probez = torch.multinomial(sizes.float().expand(b, 1000), 3, generator=g2)
+        case("ivf_zipf_1M_nlist1000_np3_b1024", ivf(q, x, sq, alive, crowz, probez, 1000))
     n2, b2 = 100_000, 4096
     q2 = torch.rand((b2, d), generator=g, device=dev)
     crow2 = torch.sort(torch.randint(0, 100, (n2,), generator=g, device=dev)).values.int()

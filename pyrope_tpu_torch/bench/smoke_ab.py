@@ -12,7 +12,10 @@ inputs: phase 3 (``phase_kernels``: every kernel against its plain version
 at the main paths' shapes, with its wrapper, device, plain, composition and
 library times), phase 4 (``phase_slice``: the 1M clustered IVF-Flat
 slice, its per-layer times and the trace of 40 b1024 batches, idle share
-included), phase 18 (``phase_resp``: the RESP cells, with the list scan's
+included), phases 5, 7, 8 and 23 (``phase_narrow``, ``phase_pq``,
+``phase_pq_narrow``, ``phase_zipf``: the 100k IVF-Flat cell at nprobe 96,
+the IVF-PQ cells at 1M and 100k, the Zipf rows; each a batch's time and its
+recall), phase 18 (``phase_resp``: the RESP cells, with the list scan's
 host time at b1), both on phase 4's corpus (``clustered_1m``, made once a
 turn), phase 11 (``phase_ivf_hybrid``: the IVF hybrid cells'
 b256 batches, on phase 11's uniform 1M rows), phase 12 (``phase_pq_bf16``:
@@ -25,7 +28,7 @@ wrappers differ, where ``scan_ab`` needs the same ones.
 Prints each turn's phase lines as they come and writes, per turn, the card
 and its power limit, the phase lines, phase 3's cells (name -> the fields of
 its ``ms/plain/err/...`` record), phase 11's, 12's and 16's fields and
-phase 4's and 18's lines to ``--out``.
+phases 4's, 5's, 7's, 8's, 18's and 23's lines to ``--out``.
 """
 
 from __future__ import annotations
@@ -51,13 +54,21 @@ cs.kbuild.build()
 cs.kbuild.load()
 data = None
 for phase in sys.argv[1].split(","):
-    if phase in ("4", "12", "18") and data is None:
+    if phase in ("4", "7", "12", "18") and data is None:
         data = cs.clustered_1m()
     t0 = time.perf_counter()
     if phase == "3":
         cs.phase_kernels(dev)
     elif phase == "4":
         cs.phase_slice(dev, dict(cs.fs.LAUNCHES), data)
+    elif phase == "5":
+        cs.phase_narrow(dev)
+    elif phase == "7":
+        cs.phase_pq(dev, data)
+    elif phase == "8":
+        cs.phase_pq_narrow(dev)
+    elif phase == "23":
+        cs.phase_zipf(dev, smi)
     elif phase == "18":
         cs.phase_resp(dev, smi, data)
     elif phase == "11":
@@ -67,7 +78,8 @@ for phase in sys.argv[1].split(","):
     elif phase == "16":
         cs.phase_hnsw_1m(dev, smi)
     else:
-        raise SystemExit(f"smoke_ab runs phases 3, 4, 11, 12, 16 and 18, not {phase}")
+        raise SystemExit(f"smoke_ab runs phases 3, 4, 5, 7, 8, 11, 12, 16, 18 and 23, "
+                         f"not {phase}")
     cs.say("time", step=f"phase_{phase}", seconds=round(time.perf_counter() - t0, 1))
 """
 
@@ -136,7 +148,7 @@ def main() -> int:
                 rec["pq_bf16"] = _fields(ln)
             elif ln.startswith("[16 hnsw 1m]"):
                 rec["hnsw"] = _fields(ln)
-            elif ln.startswith(("[4 slice]", "[18 resp]")):
+            elif ln.startswith(("[4 slice]", "[5 ", "[7 ", "[8 ", "[18 resp]", "[23 ")):
                 rec.setdefault("phase_lines", []).append(ln)
         records.append(rec)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

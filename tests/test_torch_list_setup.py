@@ -10,10 +10,10 @@ shapes), carves its partials, keys and work tables out of one allocation
 (tests/test_torch_kernels_cuda.py); here its two passes are emulated in
 numpy (``_torch_parity.invert_probes_emulated``) and held bit-equal to the
 plain version at the main paths' shapes and the edges. The cache is held
-to a fresh computation of every plan it keeps, the carve to disjoint,
-aligned views of the sizes the tables need, and the IVF routes' hits,
-with the probes' extents computed only where a route reads them, to the
-JAX package's.
+to a fresh computation of every plan it keeps, the plan to the kernel
+each mode, k and D takes, the carve to disjoint, aligned views of the
+sizes the tables need, and the IVF routes' hits, with the probes' extents
+computed only where a route reads them, to the JAX package's.
 """
 
 import threading
@@ -111,6 +111,51 @@ def test_cached_plan_equals_a_fresh_one(shape, mode, promote, k):
     # another SM count is another plan
     other = fs.list_call(k, mode, promote, b, nprobe, kp, max_len, d, n, 16)
     assert other.plan == fs.list_plan(k, mode, promote, b, nprobe, kp, max_len, d, 16)
+
+
+@pytest.mark.parametrize("k", [1, 10, 64, 128, 129, 1000])
+@pytest.mark.parametrize("d", [8, 24, 30, 96, 128, 129, 256, 257, 768])
+@pytest.mark.parametrize("mode,promote", [(fs.LIST_IVF, False), (fs.LIST_IVF, True),
+                                          (fs.LIST_SQ8, False), (fs.LIST_BF16, True),
+                                          (fs.LIST_BF16, False)])
+def test_main_path_keeps_fp32_and_sq8_on_the_cuda_core_kernel(mode, promote, d, k):
+    """Which kernel ``list_plan`` gives a call: fp32 and SQ8 rows the
+    CUDA-core one at every k and D (promote means nothing to them); a bf16
+    slab at k <= NARROW_MAX_K the bulk-copy kernel with promote up to
+    PROMOTE_MAX_D and the tensor-core one without; every other bf16 call the
+    CUDA-core kernel's BF16 mode. Each key is a ``LAUNCHES`` key."""
+    plan = fs.list_plan(k, mode, promote, 1024, 3, 1000, 1100, d, SMS)
+    wide = "_wide" if k > fs.NARROW_MAX_K else ""
+    assert plan.key in fs.LAUNCHES
+    if mode != fs.LIST_BF16:
+        assert plan.key == ("sq8_scan" if mode == fs.LIST_SQ8 else "ivf_scan") + wide
+        assert not plan.tc and not plan.promote
+        assert plan.seg == fs.list_seg(1024, 3, 1000, 1100, SMS)
+        assert plan.smem == fs.list_scan_smem_bytes(k, mode)
+    elif promote and k <= fs.NARROW_MAX_K and d <= fs.PROMOTE_MAX_D:
+        assert plan.key == "ivf_scan_bf16_promote" and plan.promote and not plan.tc
+        assert plan.smem == fs.list_promote_smem_bytes(k, d) and plan.blocks >= SMS
+    elif not promote and k <= fs.NARROW_MAX_K:
+        assert plan.key == "ivf_scan_bf16_tc" and plan.tc and not plan.promote
+        assert plan.smem == fs.list_tc_smem_bytes(k, d)
+    else:
+        assert plan.key == "ivf_scan_bf16" + wide and not plan.tc and not plan.promote
+        assert plan.smem == fs.list_scan_smem_bytes(k, mode)
+
+
+@pytest.mark.parametrize("mode", [fs.LIST_IVF, fs.LIST_SQ8])
+@pytest.mark.parametrize("k", [200, 1000])
+def test_wide_first_pass_stays_on_the_cuda_core_kernel(mode, k):
+    """A wide call at nprobe 96 runs a first pass: ``_ListJob.first_pass``
+    launches the wide call's own plan narrow at k = c, the CUDA-core kernel
+    (``<MODE, false>``), whose scores are the wide pass's bit for bit; a
+    narrow call runs none."""
+    call = fs.list_call(k, mode, False, 1024, 96, 100, 1100, 128, 100_000, SMS)
+    assert call.prefloor is not None and not call.plan.tc and not call.plan.promote
+    assert call.plan.key == ("sq8_scan" if mode == fs.LIST_SQ8 else "ivf_scan") + "_wide"
+    assert fs.list_prefloor_plan(10, 96, 10, 2048, 1000.0) is None
+    narrow = fs.list_call(10, mode, False, 1024, 96, 100, 1100, 128, 100_000, SMS)
+    assert not narrow.plan.key.endswith("_wide") and narrow.prefloor is None
 
 
 def test_plan_cache_is_safe_from_several_threads(monkeypatch):
